@@ -1,5 +1,5 @@
-"""ep_tpu_torch — the probe-training path of ``ep_tpu`` in PyTorch, with
-hand-written CUDA kernels for Hopper (sm_90a).
+"""ep_tpu_torch — the probe-training and fine-tuning paths of ``ep_tpu`` in
+PyTorch, with hand-written CUDA kernels for Hopper (sm_90a).
 
 A second package beside ``ep_tpu``, which stays the reference. Modules keep
 their ``ep_tpu`` counterparts' names:

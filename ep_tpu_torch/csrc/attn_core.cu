@@ -2,8 +2,11 @@
 // fused qkv tensor, (B, T, 3D) with columns [q heads | k heads | v heads], to
 // (B, T, D) with each head written at its own column slice.
 //
-// Replaces: ep_tpu/ops/attn_fused_pallas.py::_kernel (attention_qkv_fused),
-//   which is also the core of the attention supercell in this port.
+// Replaces: ep_tpu/ops/attn_fused_pallas.py::_kernel (attention_qkv_fused,
+//   head width 64), which is also the core of the attention supercell in this
+//   port, and ::_kernel_head_group (head width 80, ViT-H's 16 heads at T=257),
+//   which the TPU needs only because 80 does not divide its 128 lanes; here
+//   both head widths are one template.
 //
 // Bound on this card: at ViT-B (T=197, Dh=64) the two products are 61 GFLOP
 //   per block at bs512 against 465 MB of qkv read, ~130 FLOP/byte, below the
@@ -22,7 +25,10 @@
 //   logits' registers into the A operand of P @ V (the accumulator layout of
 //   one m16n8 pair is the A layout of one k16 slice); PV accumulates in f32
 //   and is rounded once to bf16. NT, the number of 8-key tiles held in
-//   registers, is a template parameter (built for T <= 256), as is Dh (64).
+//   registers, is a template parameter (built for T <= 272), as is Dh (64 or
+//   80). At ViT-H (Dh=80, T=257 -> NT=34) the logits take 136 registers a
+//   thread and the PV accumulators 40; the build log's ptxas lines show
+//   whether that spills.
 #include "common.cuh"
 
 namespace ep {
@@ -30,16 +36,12 @@ namespace {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int MAX_T = 256;
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
+constexpr int MAX_T = 272;
 
 // 8-key tiles held in registers for T keys: T padded to 16, in a few bins.
 __host__ __device__ inline int key_tiles(int T) {
-  return T <= 32 ? 4 : T <= 64 ? 8 : T <= 128 ? 16 : T <= 208 ? 26 : 32;
+  return T <= 32 ? 4 : T <= 64 ? 8 : T <= 128 ? 16 : T <= 208 ? 26
+       : T <= 256 ? 32 : 34;
 }
 
 template <int DH>
@@ -210,7 +212,8 @@ int dispatch(const void* qkv, void* out, int B, int T, int H, float coef,
     case 8: return launch<DH, 8>(qkv, out, B, T, H, coef, s);
     case 16: return launch<DH, 16>(qkv, out, B, T, H, coef, s);
     case 26: return launch<DH, 26>(qkv, out, B, T, H, coef, s);
-    default: return launch<DH, 32>(qkv, out, B, T, H, coef, s);
+    case 32: return launch<DH, 32>(qkv, out, B, T, H, coef, s);
+    default: return launch<DH, 34>(qkv, out, B, T, H, coef, s);
   }
 }
 
@@ -218,10 +221,13 @@ int dispatch(const void* qkv, void* out, int B, int T, int H, float coef,
 }  // namespace ep
 
 // Dynamic shared memory the kernel needs at this T and head width; 0 when
-// there is no instantiation for them (head width other than 64, T > 256).
+// there is no instantiation for them (head width other than 64 or 80,
+// T > 272).
 EP_EXPORT int ep_attn_core_smem_bytes(int T, int head_dim) {
-  if (head_dim != 64 || T < 1 || T > ep::MAX_T) return 0;
-  return ep::smem_bytes<64>(T);
+  if (T < 1 || T > ep::MAX_T) return 0;
+  if (head_dim == 64) return ep::smem_bytes<64>(T);
+  if (head_dim == 80) return ep::smem_bytes<80>(T);
+  return 0;
 }
 
 // qkv (B, T, 3*H*Dh) bf16 -> out (B, T, H*Dh) bf16; coef = scale/temperature.
@@ -229,6 +235,7 @@ EP_EXPORT int ep_attn_core(const void* qkv, void* out, int B, int T, int H,
                            int head_dim, float coef, void* stream) {
   if (ep_attn_core_smem_bytes(T, head_dim) == 0)
     return (int)cudaErrorInvalidValue;
-  return ep::dispatch<64>(qkv, out, B, T, H, coef,
-                          static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return head_dim == 64 ? ep::dispatch<64>(qkv, out, B, T, H, coef, s)
+                        : ep::dispatch<80>(qkv, out, B, T, H, coef, s);
 }

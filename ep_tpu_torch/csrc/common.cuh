@@ -43,6 +43,13 @@ union Pack8 {
 
 __device__ __forceinline__ uint4 zero_pack() { return make_uint4(0u, 0u, 0u, 0u); }
 
+// Two f32 values rounded to bf16 and packed into one 32-bit mma operand
+// register (lo in the low half).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }

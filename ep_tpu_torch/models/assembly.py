@@ -3,7 +3,8 @@
 Counterpart of ``ep_tpu/models/assembly.py``. In probing mode the backbone
 runs under ``torch.no_grad()``, the counterpart of the JAX package's
 ``stop_gradient`` on the features: the encoder is an inference subgraph that
-autograd never records. Fine-tuning is ROADMAP module item 10.
+autograd never records. With ``--finetuning`` it runs under autograd and
+trains with the head.
 """
 from __future__ import annotations
 
@@ -33,8 +34,10 @@ def build_backbone_config(cfg: TrainConfig) -> ViTConfig:
     extra = {}
     if "huge" in name:
         extra["class_token"] = not cfg.no_cls_token
-    return VIT_CONFIGS[name](**extra).replace(img_size=cfg.image_size,
-                                              dtype=_DTYPES[cfg.amp])
+    return VIT_CONFIGS[name](**extra).replace(
+        img_size=cfg.image_size, dtype=_DTYPES[cfg.amp],
+        scan_blocks=cfg.scan_blocks, remat_blocks=cfg.remat_blocks,
+        remat_policy=cfg.remat_policy)
 
 
 class ProbeModel(nn.Module):
@@ -43,18 +46,18 @@ class ProbeModel(nn.Module):
 
     def __init__(self, backbone_cfg: ViTConfig, cfg: TrainConfig):
         super().__init__()
-        if cfg.finetuning:
-            raise NotImplementedError(
-                "--finetuning is not ported yet (ROADMAP module item 10)")
         if cfg.return_block is not None:
             raise NotImplementedError(
                 "return_block is not ported yet (ROADMAP module item 12)")
+        self.finetuning = cfg.finetuning
         self.mode = remap_features(cfg.cls_features)
         self.backbone = VisionTransformer(backbone_cfg)
         self.head = ProbeHead(cfg, backbone_cfg.embed_dim, backbone_cfg.dtype)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images (B, H, W, 3) NHWC -> f32 logits (B, nb_classes)."""
+        if self.finetuning:
+            return self.head(self.backbone(images, self.mode))
         with torch.no_grad():
             feats = self.backbone(images, self.mode)
         return self.head(feats)

@@ -1,10 +1,21 @@
-"""The plain Vision Transformer of the probing path, in PyTorch.
+"""The plain Vision Transformer of the probing and fine-tuning paths, in
+PyTorch.
 
-Counterpart of ``ep_tpu/models/vit.py`` for the slice the main path runs:
+Counterpart of ``ep_tpu/models/vit.py`` for the slice the main paths run:
 patch embedding, [CLS] token and absolute position embedding, blocks whose
 attention half is the attention supercell (``ops/attn_block.py``: kernels A, B
-and C on the card) and whose MLP half is plain torch (LN2, fc1, GELU, fc2,
-residual), no final norm, and the feature modes ``cls``, ``pos`` and ``gap``.
+and C on the card, E in its backward) and whose MLP half is plain torch (LN2,
+fc1, GELU, fc2, residual), no final norm, and the feature modes ``cls``,
+``pos`` and ``gap``.
+
+Block rematerialisation for fine-tuning (``remat_blocks``) is
+``torch.utils.checkpoint`` with the JAX package's four policies
+(``_remat_policy``): ``none`` recomputes the whole block; ``attn_out`` keeps
+the supercell's output and recomputes the MLP half; ``attn_fc1`` also keeps
+fc1's output; ``dots`` recomputes the whole block but keeps every matrix
+product's output (fc1's and fc2's; the supercell's products are kernels).
+``scan_blocks`` is accepted for the same flag surface (``remat_blocks`` needs
+it, as in the JAX package) but the port always loops over the blocks.
 
 Parameter names follow timm/MAE (``patch_embed.proj``, ``blocks.{i}.attn.qkv``,
 ...) and every weight is in the ``nn.Linear``/``nn.Conv2d`` layout.
@@ -18,12 +29,14 @@ and attention capture; each raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ep_tpu_torch.ops.attn_block import attn_supercell
 from ep_tpu_torch.poolings.common import Dense
@@ -69,6 +82,9 @@ class ViTConfig:
     pre_norm: bool = False
     proj_dim: Optional[int] = None
     dtype: torch.dtype = torch.bfloat16  # compute dtype; parameters are f32
+    scan_blocks: bool = False  # flag surface only: the port loops
+    remat_blocks: bool = False  # recompute blocks in the backward
+    remat_policy: str = "none"  # none | attn_out | attn_fc1 | dots
 
     @property
     def grid_size(self) -> int:
@@ -97,6 +113,40 @@ class ViTConfig:
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(f"{', '.join(bad)} {_TODO_BACKBONE}")
+
+
+REMAT_POLICIES = ("none", "attn_out", "attn_fc1", "dots")
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default)
+
+
+def _keep_matmuls(width: Optional[int]) -> Callable:
+    """``context_fn`` for ``checkpoint`` that keeps the outputs of the matrix
+    products (of those ``width`` columns wide, if given) and recomputes the
+    rest: the counterpart of a ``jax.checkpoint`` policy that saves dots."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in _MATMULS and width in (None, args[-1].shape[-1]):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _remat_policy(name: str, hidden: int):
+    """``remat_policy`` -> (whether the checkpoint covers the whole block and
+    not just the MLP half, its ``context_fn``)."""
+    if name in ("none", ""):
+        return True, noop_context_fn
+    if name == "attn_out":
+        return False, noop_context_fn
+    if name == "attn_fc1":
+        return False, _keep_matmuls(hidden)
+    if name == "dots":
+        return True, _keep_matmuls(None)
+    raise ValueError(f"unknown remat_policy {name!r} "
+                     f"({' | '.join(REMAT_POLICIES)})")
 
 
 class PatchEmbed(nn.Module):
@@ -149,23 +199,43 @@ class Block(nn.Module):
         self.norm1 = nn.LayerNorm(D, eps=cfg.norm_eps)
         self.attn = Attention(D)
         self.norm2 = nn.LayerNorm(D, eps=cfg.norm_eps)
-        self.mlp = Mlp(D, int(D * cfg.mlp_ratio), cfg.dtype)
+        hidden = int(D * cfg.mlp_ratio)
+        self.mlp = Mlp(D, hidden, cfg.dtype)
+        self.remat = (_remat_policy(cfg.remat_policy, hidden)
+                      if cfg.remat_blocks else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def attn_half(self, x: torch.Tensor) -> torch.Tensor:
         a = self.attn
-        x = attn_supercell(x, a.qkv.weight, a.qkv.bias, self.norm1.weight,
-                           self.norm1.bias, a.proj.weight, a.proj.bias,
-                           self.num_heads, self.scale, 1.0, self.eps)
+        return attn_supercell(x, a.qkv.weight, a.qkv.bias, self.norm1.weight,
+                              self.norm1.bias, a.proj.weight, a.proj.bias,
+                              self.num_heads, self.scale, 1.0, self.eps)
+
+    def mlp_half(self, x: torch.Tensor) -> torch.Tensor:
         n2 = self.norm2
         h = F.layer_norm(x, n2.normalized_shape, n2.weight.to(x.dtype),
                          n2.bias.to(x.dtype), self.eps)
         return x + self.mlp(h)
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp_half(self.attn_half(x))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat is None or not torch.is_grad_enabled():
+            return self.whole(x)
+        whole_block, context_fn = self.remat
+        if whole_block:
+            return checkpoint(self.whole, x, use_reentrant=False,
+                              context_fn=context_fn)
+        return checkpoint(self.mlp_half, self.attn_half(x), use_reentrant=False,
+                          context_fn=context_fn)
 
 
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         cfg.check_ported()
+        if cfg.remat_blocks and not cfg.scan_blocks:
+            raise ValueError("remat_blocks=True requires scan_blocks=True")
         self.cfg = cfg
         D = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, D)

@@ -16,12 +16,15 @@ from __future__ import annotations
 
 import torch
 
+MAX_SMEM = 232448  # shared memory one block may use on Hopper (227 KB)
+
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {
     "ln_qkv_gemm": 0,
     "attn_core": 0,
     "proj_residual_gemm": 0,
     "ep_pool": 0,
+    "attn_core_bwd": 0,
 }
 
 

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of ``ep_tpu_torch/csrc``.
 
-nvcc compiles every ``csrc/*.cu`` into one shared library with a plain C
+nvcc compiles every ``csrc/*.cu`` to an object file, one process per source,
+all started together, and links them into one shared library with a plain C
 interface, which is loaded with ``ctypes``. The library lands in
 ``ep_tpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed by a
 hash of the sources and flags, so an unchanged tree reuses it and a changed
@@ -23,8 +24,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types (all return int, a cudaError_t)
@@ -33,6 +34,8 @@ SIGNATURES = {
     "ep_proj_residual_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ep_attn_core": [_P, _P, _I, _I, _I, _I, _F, _P],
     "ep_attn_core_smem_bytes": [_I, _I],
+    "ep_attn_core_bwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "ep_attn_core_bwd_smem_bytes": [_I, _I],
     "ep_pool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ep_pool_smem_bytes": [_I, _I, _I],
 }
@@ -72,16 +75,27 @@ def build() -> tuple[Path, float, bool]:
     if lib.exists():
         return lib, time.perf_counter() - t0, False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    lib.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(sources(), objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(" ".join(c) + "\n" + out for c, out in zip(cmds, outs))
+        failed = any(p.returncode for p in procs)
+        if not failed:
+            tmp = Path(tmpdir) / lib.name
+            link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+            failed = proc.returncode != 0
+        lib.with_suffix(".log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        os.replace(tmp, lib)
     return lib, time.perf_counter() - t0, True
 
 

@@ -12,8 +12,10 @@ device memory):
 * C ``proj_residual`` (``csrc/attn_block_gemm.cu``): bf16(f32(x) + o @ W_projᵀ + b).
 
 Weights are in the ``nn.Linear`` layout, (out, in), like every weight of the
-port. Forward only: fine-tuning through the encoder is ROADMAP
-module item 10.
+port. The backward (``attn_block_pallas.py::_bwd``) keeps only the inputs,
+recomputes qkv (A) and the attention output (B), takes the projection's and
+LN1's gradients in plain torch (as the JAX package leaves them to XLA) and
+the attention core's from kernel E (``attention_qkv_fused_bwd``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ import torch
 
 from . import LAUNCHES, check, use_kernel
 from ._build import call, stream_ptr
-from .attn_fused import attention_qkv_fused, attention_qkv_fused_ref
+from .attn_fused import (attention_core, attention_qkv_fused_bwd,
+                         attention_qkv_fused_ref)
+
 
 def _check_gemm(name: str, N: int, K: int) -> None:
     # csrc/attn_block_gemm.cu streams K in slices of 64 and stores columns
@@ -56,14 +60,20 @@ def ln_qkv(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out
 
 
-def ln_qkv_ref(x, gamma, beta, w_qkv, b_qkv, eps):
-    """Plain version of kernel A, with the TPU kernel's cast points
-    (``attn_block_pallas.py:34-46``)."""
+def layer_norm_ref(x, gamma, beta, eps):
+    """LN1 with f32 statistics, rounded to x.dtype (``attn_block_pallas.py:
+    35-39``)."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-    xn = ((xf - mu) * torch.rsqrt(var + eps) * gamma.float()
-          + beta.float()).to(x.dtype)
+    return ((xf - mu) * torch.rsqrt(var + eps) * gamma.float()
+            + beta.float()).to(x.dtype)
+
+
+def ln_qkv_ref(x, gamma, beta, w_qkv, b_qkv, eps):
+    """Plain version of kernel A, with the TPU kernel's cast points
+    (``attn_block_pallas.py:34-46``)."""
+    xn = layer_norm_ref(x, gamma, beta, eps)
     qkv = xn.float() @ w_qkv.to(x.dtype).float().t() + b_qkv.float()
     return qkv.to(x.dtype)
 
@@ -95,21 +105,61 @@ def proj_residual_ref(o, w_proj, b_proj, x):
     return (x.float() + proj).to(x.dtype)
 
 
+def _weight_grad(g: torch.Tensor, a: torch.Tensor, like: torch.Tensor):
+    """(g^T a) over all tokens in the compute dtype, then in ``like``'s dtype:
+    the VJP of ``a @ w.to(dtype)^T`` for a master weight ``w``."""
+    return (g.reshape(-1, g.shape[-1]).t() @ a.reshape(-1, a.shape[-1])).to(
+        like.dtype)
+
+
+class _AttnSupercell(torch.autograd.Function):
+    """Residuals are the inputs alone, as in ``attn_block_pallas.py:194-235``."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, b_qkv, gamma, beta, w_proj, b_proj, num_heads,
+                scale, temperature, eps):
+        ctx.save_for_backward(x, w_qkv, b_qkv, gamma, beta, w_proj, b_proj)
+        ctx.args = (num_heads, scale, temperature, eps)
+        qkv = ln_qkv(x, gamma, beta, w_qkv, b_qkv, eps)
+        o = attention_core(qkv, num_heads, scale, temperature)
+        return proj_residual(o, w_proj, b_proj, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_qkv, b_qkv, gamma, beta, w_proj, b_proj = ctx.saved_tensors
+        num_heads, scale, temperature, eps = ctx.args
+        dt = x.dtype
+        g = g.contiguous()
+        # recompute the forward's intermediates: A and B on the card
+        qkv = ln_qkv(x, gamma, beta, w_qkv, b_qkv, eps)
+        o = attention_core(qkv, num_heads, scale, temperature)
+        # out = dt(f32(x) + o @ W_proj^T + b_proj): g passes to x unchanged
+        do = g @ w_proj.to(dt)
+        dwp = _weight_grad(g, o, w_proj)
+        dbp = g.float().sum((0, 1)).to(b_proj.dtype)
+        dqkv = attention_qkv_fused_bwd(qkv, do, num_heads, scale, temperature)
+        # qkv = dt(f32(LN1(x) @ W_qkv^T) + b_qkv), LN1 differentiated by autograd
+        with torch.enable_grad():
+            ln_in = [t.detach().requires_grad_() for t in (x, gamma, beta)]
+            xn = layer_norm_ref(*ln_in, eps)
+        dwq = _weight_grad(dqkv, xn, w_qkv)
+        dbq = dqkv.float().sum((0, 1)).to(b_qkv.dtype)
+        dx_ln, dgamma, dbeta = torch.autograd.grad(xn, ln_in,
+                                                   dqkv @ w_qkv.to(dt))
+        return (g + dx_ln, dwq, dbq, dgamma, dbeta, dwp, dbp,
+                None, None, None, None)
+
+
 def attn_supercell(x, w_qkv, b_qkv, gamma, beta, w_proj, b_proj,
                    num_heads: int, scale: float, temperature: float = 1.0,
                    eps: float = 1e-6) -> torch.Tensor:
-    """x + proj(attn(qkv(LN(x)))) through kernels A, B and C.
+    """x + proj(attn(qkv(LN(x)))) through kernels A, B and C, differentiable
+    through E.
 
     x (B,T,D); w_qkv (3D,D); b_qkv (3D,); gamma/beta (D,); w_proj (D,D);
     b_proj (D,). Returns (B,T,D) in x.dtype."""
-    args = (x, w_qkv, b_qkv, gamma, beta, w_proj, b_proj)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise NotImplementedError(
-            "attn_supercell is forward-only; gradients through the encoder "
-            "(fine-tuning) are ROADMAP module item 10")
-    qkv = ln_qkv(x, gamma, beta, w_qkv, b_qkv, eps)
-    o = attention_qkv_fused(qkv, num_heads, scale, temperature)
-    return proj_residual(o, w_proj, b_proj, x)
+    return _AttnSupercell.apply(x, w_qkv, b_qkv, gamma, beta, w_proj, b_proj,
+                                num_heads, scale, temperature, eps)
 
 
 def attn_supercell_ref(x, w_qkv, b_qkv, gamma, beta, w_proj, b_proj,

@@ -1,41 +1,97 @@
 """Natural-layout fused attention: the (B, T, 3D) qkv tensor in, (B, T, D) out.
 
-Counterpart of ``ep_tpu/ops/attn_fused_pallas.py::attention_qkv_fused``. On a
-CUDA tensor it launches kernel B (``csrc/attn_core.cu``), which reads q, k
-and v of each head straight out of the qkv rows and writes each head at its
-column slice: no head-split transpose and no (B,H,T,T) tensor in device
-memory. On a CPU tensor it runs :func:`attention_qkv_fused_ref`.
-
-Forward only: the attention backward kernels belong to fine-tuning (ROADMAP
-kernel queue rows 5-6).
+Counterpart of ``ep_tpu/ops/attn_fused_pallas.py::attention_qkv_fused`` and
+its custom VJP. On CUDA tensors the forward is kernel B (``csrc/attn_core.cu``)
+and the backward kernel E (``csrc/attn_core_bwd.cu``); both read each head
+straight out of the qkv rows and write it at its column slice: no head-split
+transpose and no (B,H,T,T) tensor in device memory. On CPU tensors they are
+:func:`attention_qkv_fused_ref` and :func:`attention_qkv_fused_bwd_ref`.
+Head widths 64 and 80 (ViT-H) are built; the long sequences of 448 px
+probing (T=1025) are the TPU's flash kernel, ROADMAP kernel queue row 7.
 """
 from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, check, use_kernel
+from . import LAUNCHES, MAX_SMEM, check, use_kernel
 from ._build import call, query, stream_ptr
+
+
+def _split(t: torch.Tensor, parts: int, num_heads: int):
+    """(B, T, parts*H*Dh) -> ``parts`` tensors of (B, H, T, Dh)."""
+    B, T, W = t.shape
+    return t.reshape(B, T, parts, num_heads, W // (parts * num_heads)).permute(
+        2, 0, 3, 1, 4)
+
+
+def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
+    return qkv.shape[-1] // (3 * num_heads)
+
+
+def attention_core(qkv: torch.Tensor, num_heads: int, scale: float,
+                   temperature: float = 1.0) -> torch.Tensor:
+    """The forward alone, outside autograd: kernel B or the plain version."""
+    if not use_kernel(qkv):
+        return attention_qkv_fused_ref(qkv, num_heads, scale, temperature)
+    B, T, _ = qkv.shape
+    Dh = _head_dim(qkv, num_heads)
+    check(qkv, "qkv", (B, T, 3 * num_heads * Dh), torch.bfloat16)
+    if query("ep_attn_core_smem_bytes", T, Dh) == 0:
+        raise NotImplementedError(
+            f"attn_core is built for head widths 64 and 80 and T <= 272 (a "
+            f"warp holds its logits rows in registers); got head width {Dh}, "
+            f"T={T}. Long sequences are ROADMAP kernel queue row 7")
+    out = torch.empty(B, T, num_heads * Dh, device=qkv.device, dtype=qkv.dtype)
+    call("ep_attn_core", qkv.data_ptr(), out.data_ptr(), B, T, num_heads, Dh,
+         scale / temperature, stream_ptr(qkv))
+    LAUNCHES["attn_core"] += 1
+    return out
+
+
+def attention_qkv_fused_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
+                            scale: float, temperature: float = 1.0) -> torch.Tensor:
+    """(qkv (B,T,3D), dO (B,T,D)) -> dqkv (B,T,3D): kernel E or the plain
+    version."""
+    if not use_kernel(qkv, g):
+        return attention_qkv_fused_bwd_ref(qkv, g, num_heads, scale, temperature)
+    B, T, _ = qkv.shape
+    Dh = _head_dim(qkv, num_heads)
+    check(qkv, "qkv", (B, T, 3 * num_heads * Dh), torch.bfloat16)
+    check(g, "g", (B, T, num_heads * Dh), torch.bfloat16)
+    smem = query("ep_attn_core_bwd_smem_bytes", T, Dh)
+    if smem == 0 or smem > MAX_SMEM:
+        raise NotImplementedError(
+            f"attn_core_bwd is built for head widths 64 and 80 and keeps q, k, "
+            f"v and dO of one head in shared memory; got head width {Dh}, "
+            f"T={T}. Long sequences are ROADMAP kernel queue row 7")
+    dqkv = torch.empty_like(qkv)
+    call("ep_attn_core_bwd", qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B,
+         T, num_heads, Dh, scale / temperature, stream_ptr(qkv))
+    LAUNCHES["attn_core_bwd"] += 1
+    return dqkv
+
+
+class _AttentionQKVFused(torch.autograd.Function):
+    """Saves qkv and recomputes the softmax in the backward, as the JAX
+    package's ``_fwd``/``_bwd`` pair does."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale, temperature):
+        ctx.save_for_backward(qkv)
+        ctx.args = (num_heads, scale, temperature)
+        return attention_core(qkv, num_heads, scale, temperature)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return (attention_qkv_fused_bwd(qkv, g.contiguous(), *ctx.args),
+                None, None, None)
 
 
 def attention_qkv_fused(qkv: torch.Tensor, num_heads: int, scale: float,
                         temperature: float = 1.0) -> torch.Tensor:
     """(B, T, 3*H*Dh) fused-qkv tensor -> (B, T, H*Dh) attention output."""
-    if not use_kernel(qkv):
-        return attention_qkv_fused_ref(qkv, num_heads, scale, temperature)
-    B, T, D3 = qkv.shape
-    D = D3 // 3
-    Dh = D // num_heads
-    check(qkv, "qkv", (B, T, 3 * num_heads * Dh), torch.bfloat16)
-    if query("ep_attn_core_smem_bytes", T, Dh) == 0:
-        raise NotImplementedError(
-            f"attn_core is built for head width 64 and T <= 256 (a warp holds "
-            f"its logits rows in registers); got head width {Dh}, T={T}. Head "
-            "width 80 is ROADMAP kernel queue row 3, long sequences row 7")
-    out = torch.empty(B, T, D, device=qkv.device, dtype=qkv.dtype)
-    call("ep_attn_core", qkv.data_ptr(), out.data_ptr(), B, T, num_heads, Dh,
-         scale / temperature, stream_ptr(qkv))
-    LAUNCHES["attn_core"] += 1
-    return out
+    return _AttentionQKVFused.apply(qkv, num_heads, scale, temperature)
 
 
 def attention_qkv_fused_ref(qkv: torch.Tensor, num_heads: int, scale: float,
@@ -43,12 +99,32 @@ def attention_qkv_fused_ref(qkv: torch.Tensor, num_heads: int, scale: float,
     """Plain version (``attn_fused_pallas.py::_fwd_xla``): f32 logits scaled
     by scale/temperature, f32 softmax normalised before PV, probabilities cast
     to the input dtype, PV accumulated in f32 and cast once."""
-    B, T, D3 = qkv.shape
-    D = D3 // 3
-    Dh = D // num_heads
-    q, k, v = qkv.reshape(B, T, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
+    B, T, _ = qkv.shape
+    q, k, v = _split(qkv, 3, num_heads)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (
         scale / temperature)
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
-    return o.to(v.dtype).transpose(1, 2).reshape(B, T, D)
+    return o.to(v.dtype).transpose(1, 2).reshape(B, T, -1)
+
+
+def attention_qkv_fused_bwd_ref(qkv: torch.Tensor, g: torch.Tensor,
+                                num_heads: int, scale: float,
+                                temperature: float = 1.0) -> torch.Tensor:
+    """Plain backward with the cast points of ``attn_fused_pallas.py::
+    _bwd_kernel`` (not ``_bwd_xla``'s, which scales after the products): f32
+    softmax A, dV = bf16(A)^T dO and dA = dO V^T in f32, dL = bf16(A * (dA -
+    rowsum(A * dA)) * coef), dQ = dL K and dK = dL^T Q in f32, each cast once."""
+    B, T, _ = qkv.shape
+    dt = qkv.dtype
+    coef = scale / temperature
+    q, k, v = (t.float() for t in _split(qkv, 3, num_heads))
+    (gh,) = (t.float() for t in _split(g, 1, num_heads))
+    a = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q, k) * coef, dim=-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", a.to(dt).float(), gh)
+    da = torch.einsum("bhqd,bhkd->bhqk", gh, v)
+    dl = (a * (da - (a * da).sum(-1, keepdim=True)) * coef).to(dt).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", dl, k)
+    dk = torch.einsum("bhqk,bhqd->bhkd", dl, q)
+    dqkv = torch.stack([dq, dk, dv]).to(dt)  # (3, B, H, T, Dh)
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(B, T, -1)

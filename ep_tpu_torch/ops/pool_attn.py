@@ -15,10 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, check, use_kernel
+from . import LAUNCHES, MAX_SMEM, check, use_kernel
 from ._build import call, query, stream_ptr
-
-MAX_SMEM = 232448  # shared memory one block may use on Hopper (227 KB)
 
 
 def block_mask(Q: int, cq: int, device=None) -> torch.Tensor:

@@ -11,7 +11,9 @@ parameters with ndim <= 1 get neither weight decay nor trust scaling (the
 rule is by rank, not by name). Then heavy-ball momentum, mu = momentum*mu + dp.
 :meth:`LARS.raw_updates` returns that raw momentum buffer; :meth:`LARS.step`
 applies ``p += -lr(step) * mu`` in float32, the train step's per-iteration
-warmup-cosine LR.
+warmup-cosine LR. ``mu_dtype=torch.bfloat16`` (``--mu_bf16``) stores the
+carried buffer in bf16: this step's update still uses the f32 momentum, and
+only what is kept for the next step is rounded.
 """
 from __future__ import annotations
 
@@ -20,14 +22,17 @@ import torch
 
 class LARS(torch.optim.Optimizer):
     def __init__(self, params, weight_decay: float = 0.0, momentum: float = 0.9,
-                 trust_coefficient: float = 0.001):
+                 trust_coefficient: float = 0.001,
+                 mu_dtype: torch.dtype = torch.float32):
         super().__init__(params, dict(weight_decay=weight_decay,
                                       momentum=momentum,
                                       trust_coefficient=trust_coefficient))
+        self.mu_dtype = mu_dtype
 
     @torch.no_grad()
     def raw_updates(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
-        """Advance the momentum buffers; return (param, mu) per updated param."""
+        """Advance the momentum buffers; return (param, f32 mu) per updated
+        param."""
         out = []
         for group in self.param_groups:
             wd, tc = group["weight_decay"], group["trust_coefficient"]
@@ -45,8 +50,8 @@ class LARS(torch.optim.Optimizer):
                     dp = dp * q
                 state = self.state[p]
                 mu = state.get("mu")
-                mu = dp if mu is None else group["momentum"] * mu + dp
-                state["mu"] = mu
+                mu = dp if mu is None else group["momentum"] * mu.float() + dp
+                state["mu"] = mu.to(self.mu_dtype)
                 out.append((p, mu))
         return out
 

@@ -1,8 +1,9 @@
 """Train and eval steps.
 
-Counterpart of ``ep_tpu/train/steps.py``: frozen-backbone feature extraction
-(bf16, never differentiated), head forward and backward, the LARS update with
-the per-iteration warmup-cosine LR, and the same metrics. PyTorch runs
+Counterpart of ``ep_tpu/train/steps.py``: the model's forward (a frozen
+backbone is never differentiated; under ``--finetuning`` it trains with the
+head), the backward, the LARS update with the per-iteration warmup-cosine LR,
+and the same metrics. PyTorch runs
 eagerly, so a step is a plain function over the module; metrics stay on the
 device until the caller reads them.
 """

@@ -139,7 +139,7 @@ def test_unported_backbone_variants_raise(kw):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(finetuning=True), "item 10"), (dict(cls_features="aim"), "item 11"),
+    (dict(return_block=5), "item 12"), (dict(cls_features="aim"), "item 11"),
     (dict(model="dinov2_vitb14"), "item 12"),
 ])
 def test_unported_configs_raise(kw, item):

@@ -18,7 +18,7 @@ import torch
 from ep_tpu.ops.attn_block_pallas import attn_supercell as jax_supercell
 from ep_tpu.ops.attn_fused_pallas import attention_qkv_fused as jax_attn
 from ep_tpu.ops.pool_attn_pallas import ep_pool_attend as jax_ep
-from ep_tpu_torch.ops import check, use_kernel
+from ep_tpu_torch.ops import LAUNCHES, check, reset_launches, use_kernel
 from ep_tpu_torch.ops.attn_block import attn_supercell, attn_supercell_ref
 from ep_tpu_torch.ops.attn_fused import attention_qkv_fused
 from ep_tpu_torch.ops.pool_attn import ep_pool_attend, ep_pool_attend_ref
@@ -144,12 +144,22 @@ def test_kernel_input_checks(bad, err):
 
 
 def test_supercell_is_forward_only():
-    D = 64
-    x = torch.zeros(1, 5, D, requires_grad=True)
-    w = torch.zeros(3 * D, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 10"):
-        attn_supercell(x, w, torch.zeros(3 * D), torch.ones(D), torch.zeros(D),
-                       torch.zeros(D, D), torch.zeros(D), 2, 0.125)
+    """The supercell differentiates on the CPU through the plain versions
+    (kernels A, B and E are never launched there), and every input gets a
+    finite gradient of its own dtype."""
+    D, H = 64, 2
+    rng = np.random.default_rng(5)
+    ins = [torch.from_numpy(rng.standard_normal(s, np.float32))
+           for s in ((1, 5, D), (3 * D, D), (3 * D,), (D,), (D,), (D, D), (D,))]
+    ins[0] = ins[0].bfloat16()
+    ins = [t.requires_grad_(True) for t in ins]
+    reset_launches()
+    out = attn_supercell(*ins, H, (D // H) ** -0.5)
+    out.float().sum().backward()
+    assert out.dtype == torch.bfloat16 and not any(LAUNCHES.values())
+    for t in ins:
+        assert t.grad is not None and t.grad.dtype == t.dtype
+        assert t.grad.shape == t.shape and torch.isfinite(t.grad.float()).all()
 
 
 def test_port_never_imports_jax():
