@@ -9,12 +9,18 @@ Phases, each of which must pass (any failure exits non-zero):
 2. build   — compile ep_tpu_torch/csrc/*.cu with nvcc, one process per source
              (or reuse the library already built from the same sources);
              print the seconds and ptxas' register and spill lines.
-3. kernels — every kernel against its plain PyTorch version on the same bf16
+3. kernels — every kernel against its plain PyTorch version on the same
              inputs on the card: max abs / rel error beside the stated
-             tolerance, and kernel time beside plain time at the main paths'
-             shapes: A, B, C and D at ViT-B; B at ViT-H (head width 80,
-             T=257); E, the attention backward, at ViT-B and ViT-H; the
-             supercell's gradients (forward and backward) at both.
+             tolerance, and kernel time beside plain time, the card's bound
+             for the same work and, where one PyTorch call computes the same
+             function, that call's time, at the main paths' shapes: A, B, C
+             and D at ViT-B; B at ViT-H (head width 80, T=257); E, the
+             attention backward, at ViT-B and ViT-H; the supercell's gradients
+             (forward and backward) at both; the int8 MLP half's three
+             kernels (ln_quant, fc1, fc2) at ViT-B (1 stripe), ViT-L (8
+             stripes) and ViT-H (8 stripes, the JAX package's two-kernel
+             tier), with the share of int8 codes that differ, the distance to
+             the bf16 half, and the bf16 half's and torch._int_mm's times.
 4. train   — the probe-training main path as bench.py builds it: frozen
              ViT-B/16 (random weights from seed 0) + EP-32 head, BN, fc, LARS
              with the warmup-cosine LR; a few steps at --batch. Checks a finite
@@ -22,6 +28,12 @@ Phases, each of which must pass (any failure exits non-zero):
              launch counters: kernels A, B, C 12x per forward, D once.
 5. model   — logits of 4 images from the card's kernel path against the
              port's plain path on the CPU with the same weights.
+   int8-b  — phase 4 with int8_mlp=True (bench.py with EP_TPU_BENCH_INT8=1):
+             the same checks, the int8 kernels 12x per forward and no call of
+             the bf16 MLP half; then phase 5's logits check on the int8 model.
+   probe-h, int8-h — the same pair for a frozen ViT-H/14 (D=1280, depth 32,
+             T=257) at batch 128: the bf16 step, then the int8 step (the int8
+             kernels 32x per forward, 8 stripes).
 6. finetune-b — full fine-tuning as bench.py's ft_b row builds it: ViT-B/16 +
              EP-32, batch 512, --finetuning --remat_blocks --remat_policy
              attn_out, LARS and the warmup-cosine LR (at its peak, the end of
@@ -35,8 +47,9 @@ Phases, each of which must pass (any failure exits non-zero):
 8. finetune-grads — every parameter's gradient for 4 images at ViT-B, the
              card's kernel path against the port's plain path on the CPU.
 
-The last two lines are a JSON summary of the kernels and the device line
-{"ok": true, "device": {...}}. It imports nothing of JAX.
+Before the last line come the card's name and power limit and a JSON summary
+of the kernels; the last line is {"ok": true, "device": {...}}. It imports
+nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -50,6 +63,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # Pass when |kernel - plain| <= ATOL + RTOL*|plain| elementwise: about two
 # bf16 rounding steps at unit magnitude. Both sides round to bf16 at the same
@@ -75,6 +89,29 @@ MODEL_ATOL, MODEL_RTOL = 5e-2, 5e-2
 # other gradient 3.8e-3.
 BWD_TOL, CELL_TOL = 1e-2, 2e-2
 GRAD_TOL, GRAD_COS, GRAD_FLOOR = 0.25, 0.99, 2e-3
+# The int8 MLP half. Its s32 products are exact, so on the same int8 codes fc1
+# and fc2 repeat their plain versions' f32 arithmetic step for step: fc1's
+# codes may differ in at most CODE_SHARE_SAME of the elements (room for a tanh
+# that rounds differently, none measured) and fc2 is held to ATOL, RTOL.
+# ln_quant sums its f32 row statistics in another order than torch, which
+# carries single values of LN2's output across a rounding boundary: one code
+# step, in at most CODE_SHARE_LN of the elements. Through the whole half such
+# a code moves hidden values by a bf16 step before the GELU, so the hidden
+# codes of the chain may differ in CODE_SHARE_CHAIN of the elements. The
+# whole half's output is held to ATOL, RTOL on the tokens whose LN codes and
+# scale agree (measured: equal), and on the others, where a moved code shifts
+# the token's hidden codes, to MOVED_TOL of the largest output plus RTOL
+# (measured: one bf16 step, 0.5% of the largest). Against the bf16 half the int8 half is
+# approximate by design; INT8_MEAN_REL and INT8_MAX_REL are the bounds of the
+# JAX package's kernel gate (mean |d| / mean |ref|, max |d| / max |ref|).
+CODE_SHARE_SAME, CODE_SHARE_LN, CODE_SHARE_CHAIN = 1e-6, 1e-3, 1e-2
+MOVED_TOL = 1e-2
+INT8_MEAN_REL, INT8_MAX_REL = 3e-2, 0.6
+
+# Published dense peaks of an H100 SXM (operations a second) and its memory
+# rate (bytes a second), for the bound of each kernel.
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM_RATE = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -105,6 +142,26 @@ def time_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops: float, kind: str, moved: int) -> dict:
+    """The least time the card could take: the operations on these inputs
+    over the peak rate of their type, or the bytes of each input read once and
+    each output written once over the memory rate, whichever is larger."""
+    t_ops, t_bytes = ops / PEAK[kind] * 1e3, moved / HBM_RATE * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def split_heads(qkv: torch.Tensor, h: int):
+    """(B,T,3*H*Dh) -> contiguous q, k, v of (B,H,T,Dh), as
+    scaled_dot_product_attention takes them."""
+    b, t, _ = qkv.shape
+    return qkv.view(b, t, 3, h, -1).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
 
 
 def compare(name: str, out: torch.Tensor, ref: torch.Tensor,
@@ -153,8 +210,14 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
                     attention_qkv_fused(qkv, h, scale),
                     attention_qkv_fused_ref(qkv, h, scale))
         err["attn_core"] = max(err.get("attn_core", 0.0), e)
+    sdpa = F.scaled_dot_product_attention
+    q, k, v = split_heads(qkv, H)
     times = {"attn_core": (time_ms(lambda: attention_qkv_fused(qkv, H, scale)),
                            time_ms(lambda: attention_qkv_fused_ref(qkv, H, scale), 3))}
+    lib = {"attn_core": time_ms(lambda: sdpa(q, k, v, scale=scale))}
+    bounds = {"attn_core": bound(4 * B * H * T * T * Dh, "bf16",
+                                 nbytes(qkv) + nbytes(qkv) // 3)}
+    del q, k, v
 
     log("[kernels] A, C and the supercell (attn_supercell)")
     w = block_weights(D)
@@ -176,6 +239,19 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
                             time_ms(lambda: ln_qkv_ref(*a_args), 3))
     times["proj_residual_gemm"] = (time_ms(lambda: proj_residual(*c_args)),
                                    time_ms(lambda: proj_residual_ref(*c_args), 3))
+    g16, be16, bq16, bp16 = (w[k].bfloat16() for k in ("gamma", "beta", "b_qkv",
+                                                       "b_proj"))
+    lib["ln_qkv_gemm"] = time_ms(lambda: F.linear(
+        F.layer_norm(x, (D,), g16, be16, 1e-6), w["w_qkv"], bq16))
+    lib["proj_residual_gemm"] = time_ms(
+        lambda: x + F.linear(c_args[0], w["w_proj"], bp16))
+    M = B * T
+    bounds["ln_qkv_gemm"] = bound(
+        2 * M * 3 * D * D, "bf16",
+        nbytes(x, w["w_qkv"], w["b_qkv"], w["gamma"], w["beta"]) + 3 * nbytes(x))
+    bounds["proj_residual_gemm"] = bound(
+        2 * M * D * D, "bf16",
+        nbytes(c_args[0], w["w_proj"], w["b_proj"], x) + nbytes(x))
     t_cell = (time_ms(lambda: attn_supercell(*args)),
               time_ms(lambda: attn_supercell_ref(*args), 3))
     log(f"  attn_supercell B={B}: kernels {t_cell[0]:.3f} ms, plain {t_cell[1]:.3f} ms")
@@ -204,6 +280,10 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
                         atol=ATOL * scale_g, rtol=RTOL)
     times["ep_pool"] = (time_ms(lambda: ep_pool_attend(qs, tok, v)),
                         time_ms(lambda: ep_pool_attend_ref(qs, tok, v), 3))
+    lib["ep_pool"] = None  # no one PyTorch call pools per-query value slices
+    # logits q.x^T (Q*C a token) and the per-query slices (C a token)
+    bounds["ep_pool"] = bound(2 * b * n * (q * c + c), "bf16",
+                              nbytes(qs, v) + b * n * c * 2 + b * c * 2)
 
     log("[kernels] B at ViT-H: attn_core, head width 80")
     TH, DH, HH = 257, 1280, 16
@@ -217,6 +297,11 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
     times["attn_core_dh80"] = (
         time_ms(lambda: attention_qkv_fused(qkv, HH, scale_h)),
         time_ms(lambda: attention_qkv_fused_ref(qkv, HH, scale_h), 3))
+    q, k, v = split_heads(qkv, HH)
+    lib["attn_core_dh80"] = time_ms(lambda: sdpa(q, k, v, scale=scale_h))
+    bounds["attn_core_dh80"] = bound(4 * BH * HH * TH * TH * 80, "bf16",
+                                     nbytes(qkv) + nbytes(qkv) // 3)
+    del q, k, v
 
     log("[kernels] E: attn_core_bwd (attention_qkv_fused_bwd)")
     for name, cases in (
@@ -236,6 +321,16 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
         times[name] = (
             time_ms(lambda: attention_qkv_fused_bwd(qkv, g, h, dh ** -0.5)),
             time_ms(lambda: attention_qkv_fused_bwd_ref(qkv, g, h, dh ** -0.5), 3))
+        # the library's backward alone, of a forward run once before the clock
+        qkv_l = [a.detach().requires_grad_(True) for a in split_heads(qkv, h)]
+        out_l = sdpa(*qkv_l, scale=dh ** -0.5)
+        g_l = g.view(b, t, h, dh).transpose(1, 2)
+        lib[name] = time_ms(lambda: torch.autograd.grad(out_l, qkv_l, g_l,
+                                                        retain_graph=True))
+        del qkv_l, out_l, g_l
+        # the logits again and the four products of the gradients
+        bounds[name] = bound(10 * b * h * t * t * dh, "bf16",
+                             2 * nbytes(qkv) + nbytes(g))
 
     log("[kernels] supercell gradients (A, B recomputed, E), f32 master weights")
     for b, t, d, h, tag in ((8, T, D, H, "ViT-B"), (B, T, D, H, "ViT-B"),
@@ -264,15 +359,182 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
                 time_ms(lambda: fwd_bwd(attn_supercell_ref), 2))
 
     for k, (t_k, t_p) in times.items():
-        log(f"  time {k}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
+        log(f"  time {k}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms" + (
+            f", bound {bounds[k]['bound_ms']:.3f} ms by {bounds[k]['bound_by']}"
+            f", library {lib[k] if lib[k] is None else round(lib[k], 3)} ms"
+            if k in bounds else ""))
     names = ("ln_qkv_gemm", "attn_core", "attn_core_dh80", "proj_residual_gemm",
              "ep_pool", "attn_core_bwd", "attn_core_bwd_dh80")
-    return [dict(name=k, err=err[k], ms=times[k][0], plain_ms=times[k][1])
-            for k in names]
+    return [dict(name=k, err=err[k], ms=times[k][0], plain_ms=times[k][1],
+                 library_ms=lib[k], **bounds[k]) for k in names]
 
 
-def train(B: int, steps: int, card: str):
-    from ep_tpu.configs import TrainConfig
+def code_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[float, int]:
+    """(share of int8 codes that differ, the largest difference)."""
+    d = (a.int() - b.int()).abs()
+    return float((d != 0).float().mean()), int(d.max())
+
+
+def check_int8_kernels(B: int, BH: int, rng) -> tuple[list[dict], list[dict]]:
+    """The int8 MLP half's kernels at ViT-B, ViT-L and ViT-H: each against its
+    plain version on the same inputs, the whole half against the plain int8
+    half and the bf16 half, and the times. Returns the kernels' entries (ViT-B
+    and ViT-H, the shapes of the int8-b and int8-h paths) and one summary of
+    the whole half per shape."""
+    from ep_tpu_torch.ops import mlp_int8 as m
+
+    eps = 1e-6
+    kernels, halves = [], []
+    for tag, suffix, b, T, D, tier in (
+            ("ViT-B", "", B, 197, 768, ("resident", 1)),
+            ("ViT-L", None, 128, 197, 1024, ("resident", 8)),
+            ("ViT-H", "_two_kernel", BH, 257, 1280, ("two_kernel", 8))):
+        DH, S, M = 4 * D, tier[1], b * T
+        if m.plan(T, D, DH) != tier:
+            raise RuntimeError(f"plan({T}, {D}, {DH}) = {m.plan(T, D, DH)}, "
+                               f"expected {tier}")
+        log(f"[kernels] int8 MLP half at {tag}: x ({b},{T},{D}), hidden {DH}, "
+            f"{S} stripe(s) of {DH // S} (the JAX package's {tier[0]} tier)")
+        # the frozen encoder's parameters are stored in bf16 when probing
+        x = rand(rng, (b, T, D))
+        x[0, T // 2] = 0.0  # one all-zero token row
+        w1, b1 = rand(rng, (DH, D), D ** -0.5), rand(rng, (DH,), 0.1)
+        w2, b2 = rand(rng, (D, DH), DH ** -0.5), rand(rng, (D,), 0.1)
+        gamma, beta = 1 + rand(rng, (D,), 0.1), rand(rng, (D,), 0.1)
+        w1q, s1 = m.quantize_weight(w1)
+        w2q, s2 = m.quantize_weight(w2)
+
+        hq, sx = m.ln_quant(x, gamma, beta, eps)
+        hq_r, sx_r = m.ln_quant_ref(x, gamma, beta, eps)
+        share, worst = code_diff(hq, hq_r)
+        e_ln = float((hq.float() * sx - hq_r.float() * sx_r).abs().max())
+        ok = worst <= 1 and share <= CODE_SHARE_LN and bool(torch.isfinite(sx).all())
+        log(f"  ln_quant: codes differing {share:.3e} (tol {CODE_SHARE_LN:g}), "
+            f"largest difference {worst} (tol 1), dequantised max_abs_err "
+            f"{e_ln:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("ln_quant disagrees with its plain version")
+
+        aq, sa = m.fc1(hq, sx, w1q, s1, b1, S)
+        aq_r, sa_r = m.fc1_ref(hq, sx, w1q, s1, b1, S)
+        share, worst = code_diff(aq, aq_r)
+        e_fc1 = float((aq.float() * sa.repeat_interleave(DH // S, -1)
+                       - aq_r.float() * sa_r.repeat_interleave(DH // S, -1)
+                       ).abs().max())
+        ok = worst <= 1 and share <= CODE_SHARE_SAME and bool(
+            torch.isfinite(sa).all())
+        log(f"  fc1 on the same codes: codes differing {share:.3e} (tol "
+            f"{CODE_SHARE_SAME:g}), largest difference {worst} (tol 1), "
+            f"dequantised max_abs_err {e_fc1:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("fc1 disagrees with its plain version")
+        del aq_r, sa_r
+
+        out = m.fc2(aq, sa, x, w2q, s2, b2, S)
+        e_fc2 = compare("fc2 on the same codes", out,
+                        m.fc2_ref(aq, sa, x, w2q, s2, b2, S))
+
+        args = (x, w1, b1, w2, b2, gamma, beta, eps)
+        ref = m.mlp_int8_ref(*args, S)
+        half_out = m.mlp_int8_forward(*args, S)
+        same = ((hq == hq_r).all(-1) & (sx == sx_r).all(-1))
+        e_half = compare(f"the whole half against the plain int8 half, the "
+                         f"{int(same.sum())} of {M} tokens whose LN codes and "
+                         f"scale agree", half_out[same], ref[same])
+        if not bool(same.all()):
+            e_half = max(e_half, compare(
+                "the whole half, the other tokens", half_out[~same], ref[~same],
+                atol=MOVED_TOL * float(ref.float().abs().max())))
+        del half_out, same
+        share, worst = code_diff(aq, m.fc1_ref(hq_r, sx_r, w1q, s1, b1, S)[0])
+        ok = share <= CODE_SHARE_CHAIN
+        log(f"  hidden codes through the whole half: differing {share:.3e} "
+            f"(tol {CODE_SHARE_CHAIN:g}), largest difference {worst} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the int8 half's hidden codes disagree")
+        ref16 = m.mlp_bf16_ref(*args).float()
+        d = (out.float() - ref16).abs()
+        mean_rel = float(d.mean() / ref16.abs().mean())
+        max_rel = float(d.max() / ref16.abs().max())
+        ok = mean_rel <= INT8_MEAN_REL and max_rel <= INT8_MAX_REL
+        log(f"  against the bf16 half: mean rel {mean_rel:.3e} (tol "
+            f"{INT8_MEAN_REL:g}), max rel {max_rel:.3e} (tol {INT8_MAX_REL:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok or not bool(torch.isfinite(out[0, T // 2]).all()):
+            raise RuntimeError("the int8 half is too far from the bf16 half")
+        del ref, ref16, d, hq_r, sx_r
+
+        def bf16_half():  # the port's bf16 MLP half (models/vit.py::Block)
+            h = F.layer_norm(x, (D,), gamma, beta, eps)
+            return x + F.linear(F.gelu(F.linear(h, w1, b1), approximate="tanh"),
+                                w2, b2)
+
+        hq2, aq2 = hq.view(M, D), aq.view(M, DH)
+        t = {
+            "ln_quant": (time_ms(lambda: m.ln_quant(x, gamma, beta, eps)),
+                         time_ms(lambda: m.ln_quant_ref(x, gamma, beta, eps), 3)),
+            "fc1": (time_ms(lambda: m.fc1(hq, sx, w1q, s1, b1, S)),
+                    time_ms(lambda: m.fc1_ref(hq, sx, w1q, s1, b1, S), 3)),
+            "fc2": (time_ms(lambda: m.fc2(aq, sa, x, w2q, s2, b2, S)),
+                    time_ms(lambda: m.fc2_ref(aq, sa, x, w2q, s2, b2, S), 3)),
+        }
+        lib = {"ln_quant": None,  # no one call normalises and quantises
+               "fc1": time_ms(lambda: torch._int_mm(hq2, w1q.t())),
+               "fc2": time_ms(lambda: torch._int_mm(aq2, w2q.t()))}
+        bounds = {
+            # a handful of f32 operations an element: bound by its bytes
+            "ln_quant": bound(10 * M * D, "f32", nbytes(x, gamma, beta, hq, sx)),
+            "fc1": bound(2 * M * D * DH, "int8",
+                         nbytes(hq, sx, w1q, s1, b1, aq, sa)),
+            "fc2": bound(2 * M * DH * D, "int8",
+                         nbytes(aq, sa, w2q, s2, b2, x, out)),
+        }
+        half = dict(
+            shape=tag, stripes=S, max_abs_err=e_half, mean_rel_vs_bf16=mean_rel,
+            ms=time_ms(lambda: m.mlp_int8_forward(*args, S)),
+            kernels_ms=sum(v[0] for v in t.values()),
+            weight_quant_ms=time_ms(lambda: (m.quantize_weight(w1),
+                                             m.quantize_weight(w2))),
+            plain_ms=time_ms(lambda: m.mlp_int8_ref(*args, S), 3),
+            bf16_half_ms=time_ms(bf16_half),
+            int_mm_ms=lib["fc1"] + lib["fc2"],
+            bound_ms=sum(v["bound_ms"] for v in bounds.values()))
+        halves.append(half)
+        for k, (t_k, t_p) in t.items():
+            log(f"  time {k}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
+                f"{bounds[k]['bound_ms']:.3f} ms by {bounds[k]['bound_by']}, "
+                f"library {lib[k] if lib[k] is None else round(lib[k], 3)} ms")
+        log(f"  time the whole half: {half['ms']:.3f} ms (kernels "
+            f"{half['kernels_ms']:.3f}, weight quantisation "
+            f"{half['weight_quant_ms']:.3f}), plain int8 {half['plain_ms']:.3f} "
+            f"ms, the bf16 half (LN2, cuBLAS fc1, GELU, cuBLAS fc2, residual) "
+            f"{half['bf16_half_ms']:.3f} ms, torch._int_mm on the two products "
+            f"alone {half['int_mm_ms']:.3f} ms, bound {half['bound_ms']:.3f} ms")
+        if suffix is not None:
+            errs = {"ln_quant": e_ln, "fc1": e_fc1, "fc2": e_fc2}
+            kernels += [dict(name=f"mlp_int8_{k}{suffix}", err=errs[k],
+                             ms=t[k][0], plain_ms=t[k][1], library_ms=lib[k],
+                             **bounds[k]) for k in t]
+        del x, w1, w2, w1q, w2q, hq, aq, sa, out, hq2, aq2, args
+        torch.cuda.empty_cache()
+    return kernels, halves
+
+
+# bench.py:100-128: frozen backbone + EP-32; batch (None: --batch), flags
+PROBE_CONFIGS = {
+    "train": (None, dict(model="vit_base_patch16")),
+    "int8-b": (None, dict(model="vit_base_patch16", int8_mlp=True)),
+    "probe-h": (128, dict(model="vit_huge_patch14")),
+    "int8-h": (128, dict(model="vit_huge_patch14", int8_mlp=True)),
+}
+INT8_KERNELS = ("mlp_int8_ln_quant", "mlp_int8_fc1", "mlp_int8_fc2")
+
+
+def train(kind: str, B: int, steps: int, card: str):
+    """The probe-training path; returns (model, images, launch counts, median
+    step seconds)."""
+    from ep_tpu_torch.configs import TrainConfig
     from ep_tpu_torch.models.assembly import build_backbone_config, init_probe_model
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.train.lars import LARS
@@ -280,27 +542,37 @@ def train(B: int, steps: int, card: str):
     from ep_tpu_torch.train.state import cast_frozen, freeze, split_params
     from ep_tpu_torch.train.steps import make_train_step
 
-    cfg = TrainConfig(model="vit_base_patch16", cls_features="ep", ep_queries=32,
-                      d_out=1, nb_classes=1000, amp="bfloat16", pallas_pool=True,
+    cfg = TrainConfig(cls_features="ep", ep_queries=32, d_out=1,
+                      nb_classes=1000, amp="bfloat16", pallas_pool=True,
                       epochs=90, warmup_epochs=10, blr=0.1, batch_size=B,
-                      eff_batch_size=B)
+                      eff_batch_size=B, **PROBE_CONFIGS[kind][1])
     bcfg = build_backbone_config(cfg)
-    model = init_probe_model(cfg, seed=0, backbone_cfg=bcfg)
+    model = init_probe_model(cfg, seed=0, backbone_cfg=bcfg)  # on the card
     trainable = freeze(model, cfg.finetuning)
     cast_frozen(model, torch.bfloat16)
-    model.cuda()
     opt = LARS(trainable, weight_decay=0.0)
     step_fn = make_train_step(model, opt, make_lr_fn(cfg, 1000))
+    # calls of the bf16 MLP half (models/vit.py::Mlp), which the int8 half
+    # must never reach
+    bf16_mlp_calls = [0]
+
+    def count_call(*_):
+        bf16_mlp_calls[0] += 1
+
+    for blk in model.backbone.blocks:
+        blk.mlp.register_forward_hook(count_call)
 
     rng = np.random.default_rng(0)
-    images = torch.from_numpy(
-        rng.standard_normal((B, 224, 224, 3), dtype=np.float32)).cuda()
+    images = torch.from_numpy(rng.standard_normal(
+        (B, bcfg.img_size, bcfg.img_size, 3), dtype=np.float32)).cuda()
     labels = torch.from_numpy(rng.integers(0, 1000, size=(B,))).cuda()
 
     train_p, frozen_p = split_params(model, cfg.finetuning)
     before_t = {k: p.detach().clone() for k, p in train_p.items()}
     before_f = {k: p.detach().clone() for k, p in frozen_p.items()}
-    log(f"[train] ViT-B/16 + EP32, batch {B}, {steps} steps, "
+    log(f"[{kind}] {cfg.model} (D={bcfg.embed_dim}, depth {bcfg.depth}, "
+        f"T={bcfg.num_patches + bcfg.num_prefix_tokens}) + EP32, "
+        f"int8_mlp={bcfg.int8_mlp}, batch {B}, {steps} steps, "
         f"{sum(p.numel() for p in trainable)} trainable / "
         f"{sum(p.numel() for p in frozen_p.values())} frozen parameters")
 
@@ -326,26 +598,34 @@ def train(B: int, steps: int, card: str):
     moved = [k for k, p in frozen_p.items() if not torch.equal(p, before_f[k])]
     if moved:
         raise RuntimeError(f"frozen parameters changed: {moved[:5]}")
-    expect = {"ln_qkv_gemm": 12 * steps, "attn_core": 12 * steps,
-              "proj_residual_gemm": 12 * steps, "ep_pool": steps,
-              "attn_core_bwd": 0}
-    log(f"  launches over {steps} forwards: {counts} (expected {expect})")
-    if counts != expect:
+    d = bcfg.depth
+    expect = dict.fromkeys(LAUNCHES, 0)
+    expect.update(ln_qkv_gemm=d * steps, attn_core=d * steps,
+                  proj_residual_gemm=d * steps, ep_pool=steps)
+    if bcfg.int8_mlp:
+        expect.update(dict.fromkeys(INT8_KERNELS, d * steps))
+    expect_bf16 = 0 if bcfg.int8_mlp else d * steps
+    log(f"  launches over {steps} forwards: {counts} (expected {expect}); "
+        f"calls of the bf16 MLP half: {bf16_mlp_calls[0]} (expected "
+        f"{expect_bf16})")
+    if counts != expect or bf16_mlp_calls[0] != expect_bf16:
         raise RuntimeError("the main path did not go through every kernel as expected")
     log(f"  trainable parameters changed: {changed}")
     med = statistics.median(times[1:]) if steps > 1 else times[0]
     log(f"  median step {med * 1e3:.2f} ms (steps 1..{steps - 1}), "
         f"{B / med:.1f} img/s at batch {B} on {card}")
-    return model, images, counts
+    if kind != "train":
+        device_time(lambda: step_fn(steps, images, labels), card)
+    return model, images, counts, med
 
 
-def cross_check(model, images) -> None:
+def cross_check(model, images, what: str) -> None:
     model.eval()
     x = images[:4]
     with torch.no_grad():
         out = model(x)
         ref = copy.deepcopy(model).cpu()(x.cpu())
-    log("[model] logits of 4 images, card kernel path vs CPU plain path")
+    log(f"[model] {what}: logits of 4 images, card kernel path vs CPU plain path")
     compare("logits", out.cpu(), ref, MODEL_ATOL, MODEL_RTOL)
 
 
@@ -358,7 +638,7 @@ FT_STEPS = 4
 
 
 def finetune_config(kind: str, B: int):
-    from ep_tpu.configs import TrainConfig
+    from ep_tpu_torch.configs import TrainConfig
     return TrainConfig(cls_features="ep", ep_queries=32, d_out=1,
                        nb_classes=1000, amp="bfloat16", pallas_pool=True,
                        epochs=90, warmup_epochs=10, blr=0.1, batch_size=B,
@@ -422,9 +702,8 @@ def finetune(kind: str, B: int, steps: int, card: str):
     cfg = finetune_config(kind, B)
     bcfg = build_backbone_config(cfg)
     t0 = time.perf_counter()
-    model = init_probe_model(cfg, seed=0, backbone_cfg=bcfg)
+    model = init_probe_model(cfg, seed=0, backbone_cfg=bcfg)  # on the card
     params = freeze(model, cfg.finetuning)
-    model.cuda()
     opt = LARS(params, weight_decay=0.0,
                mu_dtype=torch.bfloat16 if cfg.mu_bf16 else torch.float32)
     step_fn = make_train_step(model, opt, make_lr_fn(cfg, 1000))
@@ -464,9 +743,10 @@ def finetune(kind: str, B: int, steps: int, card: str):
     if same:
         raise RuntimeError(f"parameters that did not change: {same[:8]}")
     d = bcfg.depth
-    expect = {"ln_qkv_gemm": 2 * d * steps, "attn_core": 2 * d * steps,
-              "proj_residual_gemm": d * steps, "ep_pool": steps,
-              "attn_core_bwd": d * steps}
+    expect = dict.fromkeys(LAUNCHES, 0)
+    expect.update(ln_qkv_gemm=2 * d * steps, attn_core=2 * d * steps,
+                  proj_residual_gemm=d * steps, ep_pool=steps,
+                  attn_core_bwd=d * steps)
     log(f"  launches over {steps} steps: {counts} (expected {expect})")
     if counts != expect:
         raise RuntimeError("the fine-tuning path did not go through every "
@@ -487,14 +767,13 @@ def finetune_grads(n: int = 4) -> None:
     from ep_tpu_torch.train.steps import cross_entropy
 
     cfg = finetune_config("finetune-b", n)
-    model = init_probe_model(cfg, seed=1)
-    freeze(model, True)
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((n, 224, 224, 3), dtype=np.float32))
     y = torch.from_numpy(rng.integers(0, 1000, size=(n,)))
     grads = []
-    for dev in ("cuda", "cpu"):
-        m = copy.deepcopy(model).to(dev).train()
+    for dev in ("cuda", "cpu"):  # the same seed gives both the same weights
+        m = init_probe_model(cfg, seed=1, device=dev).train()
+        freeze(m, True)
         cross_entropy(m(x.to(dev)), y.to(dev)).mean().backward()
         grads.append({k: p.grad.float().cpu() for k, p in m.named_parameters()})
     card, cpu = grads
@@ -548,45 +827,80 @@ def main() -> int:
     _build.library()
 
     rng = np.random.default_rng(0)
-    results = check_kernels(args.batch, FT_CONFIGS["finetune-h"][0], rng)
-    model, images, counts = train(args.batch, args.steps, card)
-    cross_check(model, images)
-    del model, images
-    paths = {"train": counts}
+    BH = FT_CONFIGS["finetune-h"][0]
+    results = check_kernels(args.batch, BH, rng)
+    int8_results, int8_halves = check_int8_kernels(args.batch, BH, rng)
+    results += int8_results
+
+    paths, steps_ms = {}, {}
+    for kind, (B, _) in PROBE_CONFIGS.items():
+        B = B or args.batch
+        model, images, paths[kind], med = train(kind, B, args.steps, card)
+        steps_ms[kind] = dict(batch=B, step_ms=med * 1e3, img_s=B / med)
+        if kind == "train":
+            cross_check(model, images, "bf16 MLP half")
+        elif kind == "int8-b":
+            cross_check(model, images, "int8 MLP half (CPU: the plain int8 half)")
+        del model, images
+        torch.cuda.empty_cache()
+    for bf16, int8 in (("train", "int8-b"), ("probe-h", "int8-h")):
+        a, b = steps_ms[bf16], steps_ms[int8]
+        log(f"[steps] {int8}: {b['step_ms']:.2f} ms, {b['img_s']:.1f} img/s; "
+            f"{bf16} (bf16 MLP half, same run): {a['step_ms']:.2f} ms, "
+            f"{a['img_s']:.1f} img/s at batch {a['batch']} on {card}")
     for kind, (B, _) in FT_CONFIGS.items():
         paths[kind] = finetune(kind, B, FT_STEPS, card)
     finetune_grads()
 
-    if "jax" in sys.modules:
-        raise RuntimeError("jax was imported")
+    if "jax" in sys.modules or any(
+            k == "ep_tpu" or k.startswith("ep_tpu.") for k in sys.modules):
+        raise RuntimeError("jax or the JAX package was imported")
+    csrc = "ep_tpu_torch/csrc/"
+    int8_pallas = "ep_tpu/ops/mlp_int8_pallas.py"
     replaces = {  # name -> (source, TPU kernel, the path whose count is shown)
-        "ln_qkv_gemm": ("ep_tpu_torch/csrc/attn_block_gemm.cu",
+        "ln_qkv_gemm": (csrc + "attn_block_gemm.cu",
                         "ep_tpu/ops/attn_block_pallas.py:30", "finetune-b"),
-        "attn_core": ("ep_tpu_torch/csrc/attn_core.cu",
+        "attn_core": (csrc + "attn_core.cu",
                       "ep_tpu/ops/attn_fused_pallas.py:31", "finetune-b"),
-        "attn_core_dh80": ("ep_tpu_torch/csrc/attn_core.cu",
+        "attn_core_dh80": (csrc + "attn_core.cu",
                            "ep_tpu/ops/attn_fused_pallas.py:62", "finetune-h"),
-        "proj_residual_gemm": ("ep_tpu_torch/csrc/attn_block_gemm.cu",
+        "proj_residual_gemm": (csrc + "attn_block_gemm.cu",
                                "ep_tpu/ops/attn_block_pallas.py:30", "finetune-b"),
-        "ep_pool": ("ep_tpu_torch/csrc/ep_pool.cu",
+        "ep_pool": (csrc + "ep_pool.cu",
                     "ep_tpu/ops/pool_attn_pallas.py:30", "finetune-b"),
-        "attn_core_bwd": ("ep_tpu_torch/csrc/attn_core_bwd.cu",
+        "attn_core_bwd": (csrc + "attn_core_bwd.cu",
                           "ep_tpu/ops/attn_fused_pallas.py:334", "finetune-b"),
-        "attn_core_bwd_dh80": ("ep_tpu_torch/csrc/attn_core_bwd.cu",
+        "attn_core_bwd_dh80": (csrc + "attn_core_bwd.cu",
                                "ep_tpu/ops/attn_fused_pallas.py:385",
                                "finetune-h"),
+        "mlp_int8_ln_quant": (csrc + "mlp_int8.cu", int8_pallas + ":40", "int8-b"),
+        "mlp_int8_fc1": (csrc + "mlp_int8.cu", int8_pallas + ":40", "int8-b"),
+        "mlp_int8_fc2": (csrc + "mlp_int8.cu", int8_pallas + ":40", "int8-b"),
+        "mlp_int8_ln_quant_two_kernel": (csrc + "mlp_int8.cu",
+                                         int8_pallas + ":188", "int8-h"),
+        "mlp_int8_fc1_two_kernel": (csrc + "mlp_int8.cu", int8_pallas + ":188",
+                                    "int8-h"),
+        "mlp_int8_fc2_two_kernel": (csrc + "mlp_int8.cu", int8_pallas + ":216",
+                                    "int8-h"),
     }
     kernels = []
     for r in results:
         src, tpu, path_name = replaces[r["name"]]
-        counter = r["name"].replace("_dh80", "")
+        counter = r["name"].replace("_dh80", "").replace("_two_kernel", "")
+        launches = paths[path_name][counter]
+        if launches == 0:
+            raise RuntimeError(f"{r['name']}: the {path_name} path launched it "
+                               "no time")
         kernels.append({
             "name": r["name"], "route": "cuda", "source": src, "replaces": tpu,
-            "launches": paths[path_name][counter], "max_abs_err": r["err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "launches": launches, "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "launches_path": path_name,
             "launches_by_path": {k: v[counter] for k, v in paths.items()}})
     log(card)
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels, "int8_mlp_halves": int8_halves,
+                    "probe_steps": steps_ms}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

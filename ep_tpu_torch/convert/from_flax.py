@@ -22,6 +22,8 @@ import re
 import numpy as np
 import torch
 
+from ep_tpu_torch.ops import default_device
+
 
 def unstack_block_params(backbone: dict) -> dict:
     """Scan layout (``blocks/block`` stacked on a depth axis) -> loop layout."""
@@ -69,19 +71,22 @@ def _param(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
     return ".".join(mods + [leaf]), arr
 
 
-def flax_to_torch(variables: dict) -> tuple[dict, dict]:
-    """(state_dict of parameters, dict of buffers) for ``ProbeModel``."""
+def flax_to_torch(variables: dict, device=None) -> tuple[dict, dict]:
+    """(state_dict of parameters, dict of buffers) for ``ProbeModel``, as
+    tensors on ``device`` (None: the card; raises where there is none)."""
+    device = default_device(device)
     params = dict(variables["params"])
     if "backbone" in params:
         params["backbone"] = unstack_block_params(params["backbone"])
     state = {}
     for path, arr in _flatten(params).items():
         name, arr = _param(path, arr)
-        state[name] = torch.from_numpy(np.array(arr))
+        state[name] = torch.from_numpy(np.array(arr)).to(device)
     buffers = {}
     for path, arr in _flatten(variables.get("batch_stats", {})).items():
         *mods, leaf = path
         prefix = ".".join(mods)
-        buffers[f"{prefix}.running_{leaf}"] = torch.from_numpy(np.array(arr))
-        buffers[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+        buffers[f"{prefix}.running_{leaf}"] = torch.from_numpy(
+            np.array(arr)).to(device)
+        buffers[f"{prefix}.num_batches_tracked"] = torch.tensor(0, device=device)
     return state, buffers

@@ -13,7 +13,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ep_tpu.configs import TrainConfig
+from ep_tpu_torch.configs import TrainConfig
+from ep_tpu_torch.ops import default_device
 from ep_tpu_torch.poolings.common import normal_, torch_bias_init_, torch_linear_init_
 from ep_tpu_torch.poolings.registry import ProbeHead
 from .vit import VIT_CONFIGS, ViTConfig, VisionTransformer, remap_features
@@ -37,7 +38,7 @@ def build_backbone_config(cfg: TrainConfig) -> ViTConfig:
     return VIT_CONFIGS[name](**extra).replace(
         img_size=cfg.image_size, dtype=_DTYPES[cfg.amp],
         scan_blocks=cfg.scan_blocks, remat_blocks=cfg.remat_blocks,
-        remat_policy=cfg.remat_policy)
+        remat_policy=cfg.remat_policy, int8_mlp=cfg.int8_mlp)
 
 
 class ProbeModel(nn.Module):
@@ -88,8 +89,12 @@ class ProbeModel(nn.Module):
 
 
 def init_probe_model(cfg: TrainConfig, seed: int = 0,
-                     backbone_cfg: Optional[ViTConfig] = None) -> ProbeModel:
-    """A ProbeModel on the CPU with weights drawn from ``seed``."""
+                     backbone_cfg: Optional[ViTConfig] = None,
+                     device=None) -> ProbeModel:
+    """A ProbeModel on ``device`` (None: the card; raises where there is no
+    CUDA device) with weights drawn from ``seed``. The weights are drawn from
+    a CPU generator and then moved, so every device holds the same weights."""
+    device = default_device(device)
     model = ProbeModel(backbone_cfg or build_backbone_config(cfg), cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))
-    return model
+    return model.to(device)

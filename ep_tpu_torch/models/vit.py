@@ -5,8 +5,9 @@ Counterpart of ``ep_tpu/models/vit.py`` for the slice the main paths run:
 patch embedding, [CLS] token and absolute position embedding, blocks whose
 attention half is the attention supercell (``ops/attn_block.py``: kernels A, B
 and C on the card, E in its backward) and whose MLP half is plain torch (LN2,
-fc1, GELU, fc2, residual), no final norm, and the feature modes ``cls``,
-``pos`` and ``gap``.
+fc1, GELU, fc2, residual) or, with ``int8_mlp=True`` (``--int8_mlp``, opt-in
+and approximate), the int8 half of ``ops/mlp_int8.py`` (its own kernels on the
+card); no final norm, and the feature modes ``cls``, ``pos`` and ``gap``.
 
 Block rematerialisation for fine-tuning (``remat_blocks``) is
 ``torch.utils.checkpoint`` with the JAX package's four policies
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ep_tpu_torch.ops.attn_block import attn_supercell
+from ep_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 from ep_tpu_torch.poolings.common import Dense
 
 # Pooled-feature names that consume patch tokens only / [CLS]+patch tokens.
@@ -85,6 +87,7 @@ class ViTConfig:
     scan_blocks: bool = False  # flag surface only: the port loops
     remat_blocks: bool = False  # recompute blocks in the backward
     remat_policy: str = "none"  # none | attn_out | attn_fc1 | dots
+    int8_mlp: bool = False  # opt-in int8 MLP half (ops/mlp_int8.py)
 
     @property
     def grid_size(self) -> int:
@@ -113,6 +116,19 @@ class ViTConfig:
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(f"{', '.join(bad)} {_TODO_BACKBONE}")
+
+
+def int8_mlp_inactive_reason(c: ViTConfig) -> Optional[str]:
+    """Why a requested ``int8_mlp`` would leave the MLP half in bf16, else
+    None (``ep_tpu/models/vit.py::int8_mlp_inactive_reason``). Of the JAX
+    package's reasons only the MLP type exists here: the other backbones it
+    names are refused by ``check_ported``, and the port's kernels are taken by
+    device, not by a backend switch."""
+    if not c.int8_mlp:
+        return None
+    if c.mlp_type != "gelu":
+        return f"mlp_type={c.mlp_type!r} (SwiGLU/QuickGELU MLPs stay bf16)"
+    return None
 
 
 REMAT_POLICIES = ("none", "attn_out", "attn_fc1", "dots")
@@ -201,6 +217,7 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(D, eps=cfg.norm_eps)
         hidden = int(D * cfg.mlp_ratio)
         self.mlp = Mlp(D, hidden, cfg.dtype)
+        self.int8_mlp = cfg.int8_mlp and cfg.mlp_type == "gelu"
         self.remat = (_remat_policy(cfg.remat_policy, hidden)
                       if cfg.remat_blocks else None)
 
@@ -212,6 +229,10 @@ class Block(nn.Module):
 
     def mlp_half(self, x: torch.Tensor) -> torch.Tensor:
         n2 = self.norm2
+        if self.int8_mlp:
+            m = self.mlp
+            return mlp_int8_fused(x, m.fc1.weight, m.fc1.bias, m.fc2.weight,
+                                  m.fc2.bias, n2.weight, n2.bias, self.eps)
         h = F.layer_norm(x, n2.normalized_shape, n2.weight.to(x.dtype),
                          n2.bias.to(x.dtype), self.eps)
         return x + self.mlp(h)

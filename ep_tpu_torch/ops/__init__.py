@@ -9,6 +9,10 @@ by where the tensors live instead of by backend:
 * CPU tensors go to the plain PyTorch version of the same function, which is
   also what the kernel is checked against on the card.
 
+The same rule places what the port builds: a constructor that makes tensors
+takes ``device`` and builds on the card unless asked otherwise
+(:func:`default_device`).
+
 Each kernel wrapper adds one to its entry in ``LAUNCHES`` where it launches
 its kernel, so a run can show which kernels its main path went through.
 """
@@ -25,12 +29,28 @@ LAUNCHES: dict[str, int] = {
     "proj_residual_gemm": 0,
     "ep_pool": 0,
     "attn_core_bwd": 0,
+    "mlp_int8_ln_quant": 0,
+    "mlp_int8_fc1": 0,
+    "mlp_int8_fc2": 0,
 }
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def default_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``. None means the card: the port's
+    constructors build on CUDA unless the caller asks for another device, and
+    raise where there is no CUDA device."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: ep_tpu_torch builds on the card by default; "
+            "pass device='cpu' to build on the CPU")
+    return torch.device("cuda")
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

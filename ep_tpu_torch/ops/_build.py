@@ -38,6 +38,9 @@ SIGNATURES = {
     "ep_attn_core_bwd_smem_bytes": [_I, _I],
     "ep_pool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ep_pool_smem_bytes": [_I, _I, _I],
+    "ep_mlp_int8_ln_quant": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "ep_mlp_int8_fc1": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ep_mlp_int8_fc2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

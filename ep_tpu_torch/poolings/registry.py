@@ -11,7 +11,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ep_tpu.configs import TrainConfig
+from ep_tpu_torch.configs import TrainConfig
 from ep_tpu_torch.models.vit import ATTENTIVE_POOLINGS
 from .batchnorm import TorchBatchNorm
 from .common import Dense

@@ -31,6 +31,12 @@ def _rand(shape, dev, scale=1.0, dtype=torch.bfloat16, seed=0):
     return torch.from_numpy(a * scale).to(dev, dtype)
 
 
+def _counts(**launched):
+    """LAUNCHES as expected: the named kernels, every other one zero."""
+    from ep_tpu_torch.ops import LAUNCHES
+    return {**dict.fromkeys(LAUNCHES, 0), **launched}
+
+
 @pytest.mark.parametrize("B, T, H, Dh", [
     (2, 197, 12, 64), (3, 5, 2, 64), (1, 64, 1, 64), (2, 100, 3, 64),
     (1, 256, 2, 64), (2, 257, 16, 80), (3, 9, 8, 80), (1, 272, 2, 80)])
@@ -82,9 +88,8 @@ def test_supercell_and_its_gemms(dev, B, T, D):
             _rand((D,), dev, 0.02, torch.float32, seed=7), D // 64, 0.125)
     reset_launches()
     out = attn_supercell(*args)
-    assert dict(LAUNCHES) == {"ln_qkv_gemm": 1, "attn_core": 1,
-                              "proj_residual_gemm": 1, "ep_pool": 0,
-                              "attn_core_bwd": 0}
+    assert dict(LAUNCHES) == _counts(ln_qkv_gemm=1, attn_core=1,
+                                     proj_residual_gemm=1)
     torch.testing.assert_close(out, attn_supercell_ref(*args), **TOL)
 
 
@@ -112,9 +117,9 @@ def test_supercell_gradients(dev, B, T, D, H):
         fn(*xs, H, (D // H) ** -0.5).backward(g)
         grads.append([t.grad for t in xs])
         if fn is attn_supercell:
-            assert dict(LAUNCHES) == {"ln_qkv_gemm": 2, "attn_core": 2,
-                                      "proj_residual_gemm": 1, "ep_pool": 0,
-                                      "attn_core_bwd": 1}
+            assert dict(LAUNCHES) == _counts(ln_qkv_gemm=2, attn_core=2,
+                                             proj_residual_gemm=1,
+                                             attn_core_bwd=1)
     for a, b in zip(*grads):
         assert a.dtype == b.dtype
         scale = float(b.float().abs().max())
@@ -158,3 +163,140 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(NotImplementedError, match="T=321"):
         attention_qkv_fused_bwd(_rand((1, 321, 3 * 80), dev),
                                 _rand((1, 321, 80), dev), 1, 0.125)
+
+
+def _mlp_args(B, T, D, DH, dev):
+    x = _rand((B, T, D), dev, seed=21)
+    x[0, T // 2] = 0.0  # an all-zero token row
+    return (x, _rand((DH, D), dev, D ** -0.5, seed=22),
+            _rand((DH,), dev, 0.02, torch.float32, seed=23),
+            _rand((D, DH), dev, DH ** -0.5, seed=24),
+            _rand((D,), dev, 0.02, torch.float32, seed=25),
+            1 + _rand((D,), dev, 0.1, torch.float32, seed=26),
+            _rand((D,), dev, 0.1, torch.float32, seed=27))
+
+
+def _code_diff(a, b):
+    """(share of int8 codes that differ, the largest difference)."""
+    d = (a.int() - b.int()).abs()
+    return float((d != 0).float().mean()), int(d.max())
+
+
+@pytest.mark.parametrize("B, T, D, DH, stripes", [
+    (3, 7, 128, 512, 1), (3, 7, 128, 512, 2), (2, 197, 768, 3072, 1),
+    (2, 197, 1024, 4096, 8), (1, 257, 1280, 5120, 8)])
+def test_mlp_int8_kernels(dev, B, T, D, DH, stripes):
+    """ln_quant, fc1 and fc2, each against its plain version on the same
+    inputs. The s32 products are exact, so fc1 and fc2 repeat their plain
+    versions' f32 arithmetic to the bit on the same codes. Only ln_quant's f32
+    row statistics are summed in another order, which moves single codes of
+    LN2's output across a rounding boundary: by at most 1, in under 1e-3 of
+    them. Through the whole half such a code can move a hidden value by one
+    bf16 step before the GELU, so the hidden codes are held to a share of 1e-2
+    and the output to the kernels' usual tolerance where a token's LN codes and
+    scale agree, and to 1e-2 of the largest output on the other tokens."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops import mlp_int8 as m
+    x, w1, b1, w2, b2, g, be = _mlp_args(B, T, D, DH, dev)
+    w1q, s1 = m.quantize_weight(w1)
+    w2q, s2 = m.quantize_weight(w2)
+    reset_launches()
+    hq, sx = m.ln_quant(x, g, be, 1e-6)
+    aq, sa = m.fc1(hq, sx, w1q, s1, b1, stripes)
+    out = m.fc2(aq, sa, x, w2q, s2, b2, stripes)
+    assert dict(LAUNCHES) == _counts(mlp_int8_ln_quant=1, mlp_int8_fc1=1,
+                                     mlp_int8_fc2=1)
+    hq_r, sx_r = m.ln_quant_ref(x, g, be, 1e-6)
+    share, worst = _code_diff(hq, hq_r)
+    assert worst <= 1 and share < 1e-3, (share, worst)
+    torch.testing.assert_close(sx, sx_r, rtol=1e-5, atol=0)
+    assert not hq[0, T // 2].any() or float(be.abs().max()) > 0
+    aq_r, sa_r = m.fc1_ref(hq, sx, w1q, s1, b1, stripes)
+    assert _code_diff(aq, aq_r) == (0.0, 0)
+    torch.testing.assert_close(sa, sa_r, rtol=0, atol=0)
+    torch.testing.assert_close(out, m.fc2_ref(aq, sa, x, w2q, s2, b2, stripes),
+                               rtol=0, atol=0)
+    assert torch.isfinite(out).all()
+    # the whole half from x
+    ref = m.mlp_int8_ref(x, w1, b1, w2, b2, g, be, 1e-6, stripes)
+    got = m.mlp_int8_forward(x, w1, b1, w2, b2, g, be, 1e-6, stripes)
+    same = (hq == hq_r).all(-1) & (sx == sx_r).all(-1)
+    torch.testing.assert_close(got[same], ref[same], **TOL)
+    torch.testing.assert_close(got[~same], ref[~same], rtol=1e-2,
+                               atol=1e-2 * float(ref.float().abs().max()))
+    share, worst = _code_diff(aq, m.fc1_ref(hq_r, sx_r, w1q, s1, b1, stripes)[0])
+    print(f"int8 codes B={B} T={T} D={D} S={stripes}: share differing "
+          f"{share:.2e}, largest difference {worst}")
+    assert share < 1e-2
+
+
+def test_int8_model_launches(dev):
+    """A 2-block int8 ViT: A, B, C and the three int8 kernels once a block,
+    and the int8 features near the bf16 features of the same weights."""
+    from ep_tpu_torch.models.vit import ViTConfig, VisionTransformer
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    torch.manual_seed(0)
+    kw = dict(img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2)
+    model = VisionTransformer(ViTConfig(int8_mlp=True, **kw)).to(dev)
+    plain = VisionTransformer(ViTConfig(**kw)).to(dev)
+    plain.load_state_dict(model.state_dict())
+    x = _rand((3, 32, 32, 3), dev, dtype=torch.float32, seed=30)
+    reset_launches()
+    with torch.no_grad():
+        feats = model(x, "pos")
+        assert dict(LAUNCHES) == _counts(
+            ln_qkv_gemm=2, attn_core=2, proj_residual_gemm=2,
+            mlp_int8_ln_quant=2, mlp_int8_fc1=2, mlp_int8_fc2=2)
+        ref = plain(x, "pos")
+    assert dict(LAUNCHES)["mlp_int8_fc1"] == 2  # the bf16 model launched none
+    rel = float((feats.float() - ref.float()).abs().mean()
+                / ref.float().abs().mean())
+    assert 0 < rel < 0.05
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(dev):
+    from ep_tpu_torch.ops.mlp_int8 import mlp_int8_forward
+    args = _mlp_args(2, 5, 128, 512, dev)
+    with pytest.raises(NotImplementedError, match="128"):
+        mlp_int8_forward(*args, 1e-6, 8)  # stripes of 64 columns
+    with pytest.raises(TypeError):
+        mlp_int8_forward(args[0].float(), *args[1:], 1e-6, 1)
+    with pytest.raises(ValueError, match="mix"):
+        mlp_int8_forward(args[0].cpu(), *args[1:], 1e-6, 1)
+
+
+def test_init_probe_model_builds_on_the_card(dev):
+    """Without ``device`` the model is built on the card, from the same CPU
+    generator as with ``device="cpu"``: identical weights on both."""
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.models.assembly import (build_backbone_config,
+                                              init_probe_model)
+    cfg = TrainConfig(model="vit_tiny_patch16", cls_features="ep", ep_queries=4,
+                      nb_classes=5, image_size=32)
+    bcfg = build_backbone_config(cfg).replace(embed_dim=64, depth=1, num_heads=1)
+    on_card = init_probe_model(cfg, 3, bcfg)
+    on_cpu = init_probe_model(cfg, 3, bcfg, device="cpu")
+    assert {p.device.type for p in on_card.parameters()} == {"cuda"}
+    for (k, a), (_, b) in zip(on_card.state_dict().items(),
+                              on_cpu.state_dict().items()):
+        assert torch.equal(a.cpu(), b), k
+
+
+def test_mlp_int8_fused_backward_is_the_bf16_half(dev):
+    """On the card the forward runs the int8 kernels and the backward is
+    autograd through the bf16 half: the same gradients as differentiating
+    ``mlp_bf16_ref`` directly, for the same upstream gradient."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.mlp_int8 import mlp_bf16_ref, mlp_int8_fused
+    args = _mlp_args(2, 7, 128, 512, dev)
+    g = _rand((2, 7, 128), dev, seed=28)
+    grads = []
+    for fn in (mlp_int8_fused, mlp_bf16_ref):
+        ins = [a.float().requires_grad_(True) if i else
+               a.clone().requires_grad_(True) for i, a in enumerate(args)]
+        reset_launches()
+        out = fn(*ins, 1e-6)
+        assert LAUNCHES["mlp_int8_fc1"] == (fn is mlp_int8_fused)
+        grads.append(torch.autograd.grad(out, ins, g))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -15,6 +15,8 @@ order, which can move a value across one bf16 rounding boundary, and a
 rounding of dL taken once feeds a sum over T keys, so bf16 outputs agree
 within two bf16 steps (2**-7) of their largest magnitude.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,7 @@ from ep_tpu.train import lars as jax_lars
 from ep_tpu.train import schedule as jax_schedule
 from ep_tpu.train import steps as jax_steps
 from ep_tpu.train.state import create_train_state
+from ep_tpu_torch.configs import TrainConfig as PortTrainConfig
 from ep_tpu_torch.convert.from_flax import flax_to_torch
 from ep_tpu_torch.models.assembly import ProbeModel, build_backbone_config
 from ep_tpu_torch.ops.attn_block import attn_supercell
@@ -141,6 +144,11 @@ def _cfg(amp="float32", **kw):
         lr=2.0, min_lr=0.0), **kw})
 
 
+def _p(cfg):
+    """The same configuration as the port's own ``TrainConfig``."""
+    return PortTrainConfig(**dataclasses.asdict(cfg))
+
+
 def _flax(cfg, dtype, attn_impl):
     bcfg = FlaxViTConfig(img_size=IMG, patch_size=16, embed_dim=64, depth=2,
                          num_heads=2, dtype=DTYPES[dtype][0],
@@ -152,10 +160,11 @@ def _flax(cfg, dtype, attn_impl):
 
 
 def _port(cfg, variables):
+    cfg = _p(cfg)
     bcfg = build_backbone_config(cfg).replace(embed_dim=64, depth=2,
                                               num_heads=2)
     model = ProbeModel(bcfg, cfg)
-    params, buffers = flax_to_torch(variables)
+    params, buffers = flax_to_torch(variables, device="cpu")
     model.load_state_dict({**params, **buffers}, strict=True)
     return model
 
@@ -196,7 +205,7 @@ def test_finetune_model_grads_match_flax(monkeypatch, dtype):
 
     loss_j, grads_j = jax.value_and_grad(loss_fn)(variables["params"])
     grads_j, _ = flax_to_torch({"params": jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32), grads_j)})
+        lambda a: np.asarray(a, np.float32), grads_j)}, device="cpu")
     loss_t, grads_t = _port_grads(_port(cfg, variables), imgs[0], labels[0])
     assert grads_t.keys() == grads_j.keys()
     assert any(k.startswith("backbone.blocks.0.") for k in grads_t)
@@ -239,11 +248,11 @@ def test_finetune_trajectory_matches_jax(mesh8):
             losses_j.append(float(m["loss"]))
     params_j, buffers_j = flax_to_torch(jax.tree_util.tree_map(
         np.asarray, {"params": state.trainable,
-                     "batch_stats": state.batch_stats}))
+                     "batch_stats": state.batch_stats}), device="cpu")
 
     model = _port(cfg, variables)
     opt = LARS(freeze(model, cfg.finetuning), weight_decay=0.0)
-    train_step = make_train_step(model, opt, schedule.make_lr_fn(cfg, 2))
+    train_step = make_train_step(model, opt, schedule.make_lr_fn(_p(cfg), 2))
     losses_t = [float(train_step(i, torch.from_numpy(imgs[i]),
                                  torch.from_numpy(labels[i]).long())["loss"])
                 for i in range(3)]
@@ -283,8 +292,8 @@ def test_remat_policies_match_no_remat(policy):
 def test_remat_flags_checked(kw, err):
     cfg = _cfg(**kw)
     with pytest.raises(ValueError, match=err):
-        ProbeModel(build_backbone_config(cfg).replace(embed_dim=64, depth=1,
-                                                      num_heads=2), cfg)
+        ProbeModel(build_backbone_config(_p(cfg)).replace(
+            embed_dim=64, depth=1, num_heads=2), _p(cfg))
 
 
 # ---- LARS with bf16 momentum ------------------------------------------------

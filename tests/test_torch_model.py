@@ -12,6 +12,8 @@ rounds the product and then the bias add; one bf16 step (2**-8 relative)
 taken early propagates through two blocks, BatchNorm and the classifier, so
 logits agree within 3e-2 of their largest magnitude.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from ep_tpu.configs import TrainConfig
 from ep_tpu.models.assembly import ProbeModel as FlaxProbeModel
 from ep_tpu.models.vit import ViTConfig as FlaxViTConfig, stack_block_params
+from ep_tpu_torch.configs import TrainConfig as PortTrainConfig
 from ep_tpu_torch.convert.from_flax import flax_to_torch
 from ep_tpu_torch.models.assembly import (ProbeModel, build_backbone_config,
                                           init_probe_model)
@@ -38,6 +41,11 @@ def _cfg(feats="ep", amp="float32"):
                        amp=amp, batch_size=B, eff_batch_size=B)
 
 
+def _p(cfg):
+    """The same configuration as the port's own ``TrainConfig``."""
+    return PortTrainConfig(**dataclasses.asdict(cfg))
+
+
 def flax_model(cfg, dtype, attn_impl="pallas"):
     bcfg = FlaxViTConfig(img_size=IMG, patch_size=16, embed_dim=64, depth=2,
                          num_heads=2, dtype=DT[dtype][0], attn_impl=attn_impl)
@@ -45,12 +53,13 @@ def flax_model(cfg, dtype, attn_impl="pallas"):
 
 
 def torch_model(cfg, dtype, variables):
+    cfg = _p(cfg)
     bcfg = build_backbone_config(cfg).replace(embed_dim=64, depth=2,
                                               num_heads=2)
     assert bcfg.dtype == DT[dtype][1]
     model = ProbeModel(bcfg, cfg)
     params, buffers = flax_to_torch(
-        jax.tree_util.tree_map(np.asarray, variables))
+        jax.tree_util.tree_map(np.asarray, variables), device="cpu")
     model.load_state_dict({**params, **buffers}, strict=True)
     return model
 
@@ -108,11 +117,11 @@ def test_scan_layout_converts_like_loop_layout():
     variables = flax_model(cfg, "float32", attn_impl="xla").init(
         jax.random.key(1), jnp.zeros((2, IMG, IMG, 3)), train=True)
     variables = jax.tree_util.tree_map(np.asarray, variables)
-    loop, _ = flax_to_torch(variables)
+    loop, _ = flax_to_torch(variables, device="cpu")
     scan_params = dict(variables["params"])
     scan_params["backbone"] = stack_block_params(dict(scan_params["backbone"]),
                                                  2)
-    scan, _ = flax_to_torch({"params": scan_params})
+    scan, _ = flax_to_torch({"params": scan_params}, device="cpu")
     assert loop.keys() == scan.keys()
     for k in loop:
         torch.testing.assert_close(loop[k], scan[k], rtol=0, atol=0)
@@ -143,18 +152,19 @@ def test_unported_backbone_variants_raise(kw):
     (dict(model="dinov2_vitb14"), "item 12"),
 ])
 def test_unported_configs_raise(kw, item):
-    cfg = TrainConfig(**{**dict(model="vit_tiny_patch16", cls_features="ep",
-                                ep_queries=4, image_size=IMG), **kw})
+    cfg = PortTrainConfig(**{**dict(model="vit_tiny_patch16",
+                                    cls_features="ep", ep_queries=4,
+                                    image_size=IMG), **kw})
     with pytest.raises(NotImplementedError, match=item):
         ProbeModel(build_backbone_config(cfg), cfg)
 
 
 def test_init_is_seeded():
-    cfg = _cfg()
+    cfg = _p(_cfg())
     bcfg = build_backbone_config(cfg).replace(embed_dim=64, depth=1,
                                               num_heads=2)
-    a = init_probe_model(cfg, 3, bcfg).state_dict()
-    b = init_probe_model(cfg, 3, bcfg).state_dict()
-    c = init_probe_model(cfg, 4, bcfg).state_dict()
+    a = init_probe_model(cfg, 3, bcfg, device="cpu").state_dict()
+    b = init_probe_model(cfg, 3, bcfg, device="cpu").state_dict()
+    c = init_probe_model(cfg, 4, bcfg, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["head.fc.weight"], c["head.fc.weight"])

@@ -9,6 +9,8 @@ statistics.
 Tolerances: float32 at 1e-5 relative (the suite's parity bar), with an
 absolute floor of 1e-6 for parameters that pass near zero.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from ep_tpu.train import lars as jax_lars
 from ep_tpu.train import schedule as jax_schedule
 from ep_tpu.train import steps as jax_steps
 from ep_tpu.train.state import create_train_state
+from ep_tpu_torch.configs import TrainConfig as PortTrainConfig
 from ep_tpu_torch.convert.from_flax import flax_to_torch
 from ep_tpu_torch.models.assembly import ProbeModel, build_backbone_config
 from ep_tpu_torch.train import schedule
@@ -39,6 +42,11 @@ def _cfg():
                        ep_queries=4, d_out=1, nb_classes=C, image_size=IMG,
                        amp="float32", batch_size=B, eff_batch_size=B,
                        epochs=4, warmup_epochs=1, lr=2.0, min_lr=0.0)
+
+
+def _p(cfg):
+    """The same configuration as the port's own ``TrainConfig``."""
+    return PortTrainConfig(**dataclasses.asdict(cfg))
 
 
 def _data(n_steps, seed=0):
@@ -75,14 +83,14 @@ def test_train_trajectory_matches_jax(mesh8):
     bn_j = jax.tree_util.tree_map(np.asarray, state.batch_stats["head"]["bn"])
 
     # port
-    bcfg = build_backbone_config(cfg).replace(embed_dim=64, depth=2,
+    bcfg = build_backbone_config(_p(cfg)).replace(embed_dim=64, depth=2,
                                               num_heads=2)
-    model = ProbeModel(bcfg, cfg)
-    params, buffers = flax_to_torch(variables)
+    model = ProbeModel(bcfg, _p(cfg))
+    params, buffers = flax_to_torch(variables, device="cpu")
     model.load_state_dict({**params, **buffers})
     opt = LARS(freeze(model, cfg.finetuning), weight_decay=0.0)
     train_step = make_train_step(
-        model, opt, schedule.make_lr_fn(cfg, STEPS_PER_EPOCH))
+        model, opt, schedule.make_lr_fn(_p(cfg), STEPS_PER_EPOCH))
     losses_t = []
     for i in range(3):
         m = train_step(i, torch.from_numpy(imgs[i]),
@@ -136,11 +144,11 @@ def test_schedule_matches_jax():
     cfg = TrainConfig(blr=0.1, eff_batch_size=512, min_lr=1e-4, epochs=90,
                       warmup_epochs=10)
     fj = jax_schedule.make_lr_fn(cfg, 1000)
-    ft = schedule.make_lr_fn(cfg, 1000)
+    ft = schedule.make_lr_fn(_p(cfg), 1000)
     for s in (0, 1, 999, 5000, 10_000, 10_001, 45_000, 89_999):
         assert ft(s) == pytest.approx(float(fj(s)), rel=1e-6, abs=1e-12)
     assert ft(0) == 0.0
-    assert schedule.resolve_lr(cfg) == jax_schedule.resolve_lr(cfg) == 0.2
+    assert schedule.resolve_lr(_p(cfg)) == jax_schedule.resolve_lr(cfg) == 0.2
 
 
 def test_loss_and_topk_match_jax():
@@ -159,7 +167,7 @@ def test_loss_and_topk_match_jax():
 
 
 def test_freeze_cast_and_eval_step():
-    cfg = TrainConfig(model="vit_tiny_patch16", cls_features="ep",
+    cfg = PortTrainConfig(model="vit_tiny_patch16", cls_features="ep",
                       ep_queries=4, nb_classes=C, image_size=IMG,
                       amp="bfloat16")
     model = ProbeModel(build_backbone_config(cfg).replace(
