@@ -21,6 +21,11 @@ Phases, each of which must pass (any failure exits non-zero):
              stripes) and ViT-H (8 stripes, the JAX package's two-kernel
              tier), with the share of int8 codes that differ, the distance to
              the bf16 half, and the bf16 half's and torch._int_mm's times.
+             Then the long-sequence kernels: F (attn_flash) at ViT-H/14 and
+             ViT-B/16 at 448 px (T=1025 and 785) and at the row-tiled variant's
+             shape (T=257, head width 80) beside kernel B; D at N=1024 and at
+             ViT-H's N=256; G (ep_pool_proj) at ViT-B, ViT-H and ViT-H at 448
+             px beside the unfused pair (F.linear, then D).
 4. train   — the probe-training main path as bench.py builds it: frozen
              ViT-B/16 (random weights from seed 0) + EP-32 head, BN, fc, LARS
              with the warmup-cosine LR; a few steps at --batch. Checks a finite
@@ -34,6 +39,15 @@ Phases, each of which must pass (any failure exits non-zero):
    probe-h, int8-h — the same pair for a frozen ViT-H/14 (D=1280, depth 32,
              T=257) at batch 128: the bf16 step, then the int8 step (the int8
              kernels 32x per forward, 8 stripes).
+   probe-h448 — frozen ViT-H/14 at 448 px (patch 14, a 32 x 32 grid, T=1025;
+             full depth 32) + EP-32 at batch 64: A, F and C 32x per forward, B
+             never, D once. probe-h448-fused — the same with EP_TPU_EP_FUSED=1:
+             G once and D never; step 0's loss beside probe-h448's.
+             probe-h-rowtile — probe-h with EP_TPU_ATTN_VARIANT=rowtile: F 32x
+             and B never; step 0's loss beside probe-h's. logits-448 — 2 images
+             at 448 px through a ViT-H/14-width model of depth 4 built at 224
+             px (the position embedding is interpolated), fused EP route: the
+             card's kernels against the plain path on the CPU.
 6. finetune-b — full fine-tuning as bench.py's ft_b row builds it: ViT-B/16 +
              EP-32, batch 512, --finetuning --remat_blocks --remat_policy
              attn_out, LARS and the warmup-cosine LR (at its peak, the end of
@@ -56,10 +70,12 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -70,6 +86,18 @@ import torch.nn.functional as F
 # points; what differs is the f32 summation order, which can move a value
 # across one bf16 rounding boundary.
 ATOL, RTOL = 1e-2, 1e-2
+# Where an output is an average over hundreds of keys or tokens (kernels F, G
+# and D at ViT-H), its values are around 0.05 and ATOL is a quarter of them.
+# Single elements do move that far: where a row's largest probability (up to
+# about 0.1 among a million rows) rounds to the other bf16 neighbour, the
+# output moves by that step times |v|, up to 1e-3. So ATOL, RTOL stay the
+# bound of every element, and beside it at most STEP_SHARE of the elements may
+# lie past one bf16 step of the value itself (spacing / |value| <= 2**-7) plus
+# one bf16 step at the plain version's mean magnitude, |d| <= STEP*mean|plain|
+# + STEP*|plain|. One key or token dropped from such an average moves it by
+# about 1e-3, past that bound at about half of the elements; the kernels'
+# largest share on an H100 was 7.8e-8.
+STEP, STEP_SHARE = 2.0 ** -7, 1e-5
 # Whole model, 12 blocks of bf16 rounding differences on random weights.
 MODEL_ATOL, MODEL_RTOL = 5e-2, 5e-2
 # Gradients, each against its tensor's largest magnitude: the attention
@@ -107,6 +135,15 @@ GRAD_TOL, GRAD_COS, GRAD_FLOOR = 0.25, 0.99, 2e-3
 CODE_SHARE_SAME, CODE_SHARE_LN, CODE_SHARE_CHAIN = 1e-6, 1e-3, 1e-2
 MOVED_TOL = 1e-2
 INT8_MEAN_REL, INT8_MAX_REL = 3e-2, 0.6
+
+# Step 0's loss of a path through another kernel route (F for B, G for D and
+# F.linear) against the same model, images and weights through the usual
+# route: both routes round to bf16 at the same points and sum in another
+# order, which moves single features by a bf16 step; the loss is a mean over
+# the batch of a log-softmax over 1000 classes near ln(1000). Measured on an
+# H100: 8.4e-5 (G for D) and 5.2e-4 (F for B over 32 blocks), the same in
+# every run; the bound is 4 times the larger.
+LOSS_TOL = 2e-3
 
 # Published dense peaks of an H100 SXM (operations a second) and its memory
 # rate (bytes a second), for the bound of each kernel.
@@ -178,6 +215,31 @@ def compare(name: str, out: torch.Tensor, ref: torch.Tensor,
     if not ok:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
     return max_abs
+
+
+def compare_steps(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
+    """``compare``, and the share of elements past one bf16 step (STEP)."""
+    max_abs = compare(name, out, ref)
+    out, ref = out.float(), ref.float()
+    atol = STEP * float(ref.abs().mean())
+    share = float(((out - ref).abs() > atol + STEP * ref.abs()).float().mean())
+    ok = share <= STEP_SHARE
+    log(f"    elements with |d| > {atol:.3e} + 2^-7*|ref|: share {share:.3e} "
+        f"(tol {STEP_SHARE:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version")
+    return max_abs
+
+
+def pool_sdpa(qs: torch.Tensor, tok: torch.Tensor, v: torch.Tensor):
+    """The EP pool as one scaled_dot_product_attention call: every query is a
+    head with one query row, the tokens are each head's keys, the query's
+    slice of v its head's values, scale 1. (B, Q, cq)."""
+    b, n, q, _ = v.shape
+    return F.scaled_dot_product_attention(
+        qs[None, :, None, :].expand(b, -1, -1, -1),
+        tok[:, None].expand(-1, q, -1, -1), v.permute(0, 2, 1, 3),
+        scale=1.0)[:, :, 0]
 
 
 def check_kernels(B: int, BH: int, rng) -> list[dict]:
@@ -280,7 +342,9 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
                         atol=ATOL * scale_g, rtol=RTOL)
     times["ep_pool"] = (time_ms(lambda: ep_pool_attend(qs, tok, v)),
                         time_ms(lambda: ep_pool_attend_ref(qs, tok, v), 3))
-    lib["ep_pool"] = None  # no one PyTorch call pools per-query value slices
+    compare("ep_pool as one SDPA call (library_ms)", pool_sdpa(qs, tok, v),
+            ep_pool_attend_ref(qs, tok, v))
+    lib["ep_pool"] = time_ms(lambda: pool_sdpa(qs, tok, v), 3)
     # logits q.x^T (Q*C a token) and the per-query slices (C a token)
     bounds["ep_pool"] = bound(2 * b * n * (q * c + c), "bf16",
                               nbytes(qs, v) + b * n * c * 2 + b * c * 2)
@@ -367,6 +431,130 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
              "ep_pool", "attn_core_bwd", "attn_core_bwd_dh80")
     return [dict(name=k, err=err[k], ms=times[k][0], plain_ms=times[k][1],
                  library_ms=lib[k], **bounds[k]) for k in names]
+
+
+def check_long_kernels(rng) -> tuple[list[dict], list[dict]]:
+    """Kernel F, kernel D at long N and kernel G at the shapes of 448 px
+    probing, each against its plain version on the same inputs. Returns the
+    entries of the kernels that a path of this script runs at that shape, and
+    the other shapes' numbers."""
+    from ep_tpu_torch.ops._build import query
+    from ep_tpu_torch.ops.attn_fused import (attention_core,
+                                             attention_qkv_fused_ref)
+    from ep_tpu_torch.ops.flash_attn import attn_flash
+    from ep_tpu_torch.ops.pool_attn import (ep_pool_attend, ep_pool_attend_ref,
+                                            ep_pool_proj_attend,
+                                            ep_pool_proj_attend_ref)
+    sdpa = F.scaled_dot_product_attention
+    on_path, others = [], []
+
+    def entry(name, err, t_k, t_p, t_lib, bnd, **extra):
+        log(f"  time {name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
+            f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']}, library "
+            f"{t_lib if t_lib is None else round(t_lib, 3)} ms" + "".join(
+                f", {k} {v:.3f}" for k, v in extra.items()))
+        return dict(name=name, err=err, ms=t_k, plain_ms=t_p, library_ms=t_lib,
+                    **bnd, **extra)
+
+    log("[kernels] F: attn_flash (attention_core beyond kernel B's T, and the "
+        "row-tiled variant)")
+    for b, t, h, dh in ((3, 70, 2, 64), (2, 130, 8, 80), (2, 1025, 16, 80)):
+        qkv = rand(rng, (b, t, 3 * h * dh))
+        compare_steps(f"attn_flash B={b} T={t} H={h} Dh={dh}",
+                      attn_flash(qkv, h, dh ** -0.5),
+                      attention_qkv_fused_ref(qkv, h, dh ** -0.5))
+    for name, b, t, h, dh, variant in (
+            ("attn_flash", 64, 1025, 16, 80, None),
+            ("attn_flash_dh64", 64, 785, 12, 64, None),
+            ("attn_flash_rowtile", 128, 257, 16, 80, "rowtile")):
+        sc = dh ** -0.5
+        qkv = rand(rng, (b, t, 3 * h * dh))
+        ref = attention_qkv_fused_ref(qkv, h, sc)
+        e = compare_steps(f"{name} B={b} T={t} H={h} Dh={dh}",
+                          attention_core(qkv, h, sc, variant=variant), ref)
+        del ref
+        t_k = time_ms(lambda: attention_core(qkv, h, sc, variant=variant))
+        t_p = time_ms(lambda: attention_qkv_fused_ref(qkv, h, sc), 2)
+        extra = {}
+        if variant:  # what the variant exists to be compared with: kernel B
+            extra["attn_core_ms"] = time_ms(
+                lambda: attention_core(qkv, h, sc, variant="core"))
+        q, k, v = split_heads(qkv, h)
+        t_lib = time_ms(lambda: sdpa(q, k, v, scale=sc))
+        del q, k, v
+        r = entry(name, e, t_k, t_p, t_lib,
+                  bound(4 * b * h * t * t * dh, "bf16",
+                        nbytes(qkv) + nbytes(qkv) // 3), **extra)
+        (others if name == "attn_flash_dh64" else on_path).append(r)
+        del qkv
+        torch.cuda.empty_cache()
+
+    log("[kernels] D at ViT-H: ep_pool at N=256, and at N=1024 (448 px) with "
+        "the queries split over 2 blocks an image")
+    Q = 32
+    for name, b, n, c in (("ep_pool_vith", 128, 256, 1280),
+                          ("ep_pool_n1024", 64, 1024, 1280)):
+        qs = rand(rng, (Q, c), c ** -0.5)
+        tok = rand(rng, (b, n + 1, c))[:, 1:]
+        v = rand(rng, (b, n, Q, c // Q))
+        log(f"  {name}: {query('ep_pool_query_split', n, c, Q)} block(s) an "
+            f"image, {query('ep_pool_smem_bytes', n, c, Q)} bytes of shared "
+            f"memory a block")
+        ref = ep_pool_attend_ref(qs, tok, v)
+        e = compare_steps(f"{name} B={b} N={n} C={c} Q={Q}",
+                          ep_pool_attend(qs, tok, v), ref)
+        compare(f"{name} as one SDPA call (library_ms)",
+                pool_sdpa(qs, tok, v), ref)
+        r = entry(name, e, time_ms(lambda: ep_pool_attend(qs, tok, v)),
+                  time_ms(lambda: ep_pool_attend_ref(qs, tok, v), 3),
+                  time_ms(lambda: pool_sdpa(qs, tok, v), 3),
+                  bound(2 * b * n * (Q * c + c), "bf16",
+                        nbytes(qs, v) + b * n * c * 2 + b * c * 2))
+        (on_path if name == "ep_pool_n1024" else others).append(r)
+
+    log("[kernels] G: ep_pool_proj (ep_pool_proj_attend), forward and "
+        "gradients; the unfused pair is F.linear, then kernel D")
+    for b, n, c, q in ((3, 37, 128, 4), (2, 70, 192, 12)):
+        qs = rand(rng, (q, c), c ** -0.5)
+        tok = rand(rng, (b, n + 1, c))[:, 1:]
+        w = rand(rng, (c, c), c ** -0.5, torch.float32)
+        compare_steps(f"ep_pool_proj B={b} N={n} C={c} Q={q}",
+                      ep_pool_proj_attend(qs, tok, w),
+                      ep_pool_proj_attend_ref(qs, tok, w))
+        grads = []
+        for fn in (ep_pool_proj_attend, ep_pool_proj_attend_ref):
+            qg = qs.clone().requires_grad_(True)
+            wg = w.clone().requires_grad_(True)
+            (fn(qg, tok, wg).float() ** 2).sum().backward()
+            grads.append((qg.grad, wg.grad))
+        for i, gname in enumerate(("d q_scaled", "d w")):
+            ref = grads[1][i]
+            compare(f"ep_pool_proj {gname} B={b}", grads[0][i], ref,
+                    atol=ATOL * float(ref.float().abs().max()), rtol=RTOL)
+    for name, b, n, c in (("ep_pool_proj_vitb", 512, 196, 768),
+                          ("ep_pool_proj_vith", 128, 256, 1280),
+                          ("ep_pool_proj", 64, 1024, 1280)):
+        qs = rand(rng, (Q, c), c ** -0.5)
+        tok = rand(rng, (b, n + 1, c))[:, 1:]
+        w = rand(rng, (c, c), c ** -0.5)  # the frozen-dtype copy the kernel reads
+        e = compare_steps(f"{name} B={b} N={n} C={c} Q={Q}",
+                          ep_pool_proj_attend(qs, tok, w),
+                          ep_pool_proj_attend_ref(qs, tok, w))
+
+        def unfused():
+            return ep_pool_attend(qs, tok, F.linear(tok, w).view(b, n, Q, -1))
+
+        r = entry(name, e, time_ms(lambda: ep_pool_proj_attend(qs, tok, w)),
+                  time_ms(lambda: ep_pool_proj_attend_ref(qs, tok, w), 3),
+                  None,  # no one PyTorch call projects and pools per query
+                  bound(2 * b * n * c * (c + Q), "bf16",
+                        nbytes(qs, w) + b * n * c * 2 + b * c * 2),
+                  unfused_ms=time_ms(unfused),
+                  linear_ms=time_ms(lambda: F.linear(tok, w)))
+        (on_path if name == "ep_pool_proj" else others).append(r)
+        del qs, tok, w
+        torch.cuda.empty_cache()
+    return on_path, others
 
 
 def code_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[float, int]:
@@ -521,19 +709,42 @@ def check_int8_kernels(B: int, BH: int, rng) -> tuple[list[dict], list[dict]]:
     return kernels, halves
 
 
-# bench.py:100-128: frozen backbone + EP-32; batch (None: --batch), flags
+# bench.py:100-128: frozen backbone + EP-32. kind -> (batch (None: --batch),
+# flags, steps (None: --steps), the environment knobs set for the phase, the
+# attention kernel and the pool kernel its forward must go through).
+_USUAL = (None, {}, "attn_core", "ep_pool")
+_H448 = dict(model="vit_huge_patch14", image_size=448)  # the MAE paper's ViT-H448
 PROBE_CONFIGS = {
-    "train": (None, dict(model="vit_base_patch16")),
-    "int8-b": (None, dict(model="vit_base_patch16", int8_mlp=True)),
-    "probe-h": (128, dict(model="vit_huge_patch14")),
-    "int8-h": (128, dict(model="vit_huge_patch14", int8_mlp=True)),
+    "train": (None, dict(model="vit_base_patch16"), *_USUAL),
+    "int8-b": (None, dict(model="vit_base_patch16", int8_mlp=True), *_USUAL),
+    "probe-h": (128, dict(model="vit_huge_patch14"), *_USUAL),
+    "int8-h": (128, dict(model="vit_huge_patch14", int8_mlp=True), *_USUAL),
+    # scripts/flash_longT_bench.py's batch
+    "probe-h448": (64, _H448, 5, {}, "attn_flash", "ep_pool"),
+    "probe-h448-fused": (64, _H448, 3, {"EP_TPU_EP_FUSED": "1"}, "attn_flash",
+                         "ep_pool_proj"),
+    "probe-h-rowtile": (128, dict(model="vit_huge_patch14"), 3,
+                        {"EP_TPU_ATTN_VARIANT": "rowtile"}, "attn_flash",
+                        "ep_pool"),
 }
 INT8_KERNELS = ("mlp_int8_ln_quant", "mlp_int8_fc1", "mlp_int8_fc2")
 
 
+def environment(**values):
+    """Set the given variables for a ``with`` block and restore them after."""
+    return mock.patch.dict(os.environ, values)
+
+
 def train(kind: str, B: int, steps: int, card: str):
     """The probe-training path; returns (model, images, launch counts, median
-    step seconds)."""
+    step seconds, the steps' losses)."""
+    _, flags, own_steps, env, attn_kernel, pool_kernel = PROBE_CONFIGS[kind]
+    with environment(**env):
+        return _train(kind, B, own_steps or steps, card, flags, attn_kernel,
+                      pool_kernel)
+
+
+def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel):
     from ep_tpu_torch.configs import TrainConfig
     from ep_tpu_torch.models.assembly import build_backbone_config, init_probe_model
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
@@ -545,7 +756,7 @@ def train(kind: str, B: int, steps: int, card: str):
     cfg = TrainConfig(cls_features="ep", ep_queries=32, d_out=1,
                       nb_classes=1000, amp="bfloat16", pallas_pool=True,
                       epochs=90, warmup_epochs=10, blr=0.1, batch_size=B,
-                      eff_batch_size=B, **PROBE_CONFIGS[kind][1])
+                      eff_batch_size=B, **flags)
     bcfg = build_backbone_config(cfg)
     model = init_probe_model(cfg, seed=0, backbone_cfg=bcfg)  # on the card
     trainable = freeze(model, cfg.finetuning)
@@ -572,7 +783,8 @@ def train(kind: str, B: int, steps: int, card: str):
     before_f = {k: p.detach().clone() for k, p in frozen_p.items()}
     log(f"[{kind}] {cfg.model} (D={bcfg.embed_dim}, depth {bcfg.depth}, "
         f"T={bcfg.num_patches + bcfg.num_prefix_tokens}) + EP32, "
-        f"int8_mlp={bcfg.int8_mlp}, batch {B}, {steps} steps, "
+        f"int8_mlp={bcfg.int8_mlp}, batch {B}, {bcfg.img_size} px, {steps} "
+        f"steps, attention through {attn_kernel}, pool through {pool_kernel}, "
         f"{sum(p.numel() for p in trainable)} trainable / "
         f"{sum(p.numel() for p in frozen_p.values())} frozen parameters")
 
@@ -600,8 +812,8 @@ def train(kind: str, B: int, steps: int, card: str):
         raise RuntimeError(f"frozen parameters changed: {moved[:5]}")
     d = bcfg.depth
     expect = dict.fromkeys(LAUNCHES, 0)
-    expect.update(ln_qkv_gemm=d * steps, attn_core=d * steps,
-                  proj_residual_gemm=d * steps, ep_pool=steps)
+    expect.update({"ln_qkv_gemm": d * steps, attn_kernel: d * steps,
+                   "proj_residual_gemm": d * steps, pool_kernel: steps})
     if bcfg.int8_mlp:
         expect.update(dict.fromkeys(INT8_KERNELS, d * steps))
     expect_bf16 = 0 if bcfg.int8_mlp else d * steps
@@ -616,7 +828,7 @@ def train(kind: str, B: int, steps: int, card: str):
         f"{B / med:.1f} img/s at batch {B} on {card}")
     if kind != "train":
         device_time(lambda: step_fn(steps, images, labels), card)
-    return model, images, counts, med
+    return model, images, counts, med, losses
 
 
 def cross_check(model, images, what: str) -> None:
@@ -625,8 +837,42 @@ def cross_check(model, images, what: str) -> None:
     with torch.no_grad():
         out = model(x)
         ref = copy.deepcopy(model).cpu()(x.cpu())
-    log(f"[model] {what}: logits of 4 images, card kernel path vs CPU plain path")
+    log(f"[model] {what}: logits of {len(x)} images, card kernel path vs CPU "
+        "plain path")
     compare("logits", out.cpu(), ref, MODEL_ATOL, MODEL_RTOL)
+
+
+def logits_448() -> None:
+    """2 images at 448 px through a ViT-H/14-width model of depth 4 built at
+    224 px, so that the position embedding is interpolated, with the fused EP
+    route: the card's kernels (A, F, C and G) against the plain path on the
+    CPU with the same weights. The full depth would take minutes on the CPU."""
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.models.assembly import build_backbone_config, init_probe_model
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.train.state import cast_frozen, freeze
+
+    cfg = TrainConfig(model="vit_huge_patch14", image_size=224,
+                      cls_features="ep", ep_queries=32, d_out=1,
+                      nb_classes=1000, amp="bfloat16")
+    depth = 4
+    model = init_probe_model(cfg, seed=2, backbone_cfg=build_backbone_config(
+        cfg).replace(depth=depth))
+    freeze(model, cfg.finetuning)
+    cast_frozen(model, torch.bfloat16)
+    images = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 448, 448, 3), dtype=np.float32)).cuda()
+    with environment(EP_TPU_EP_FUSED="1"):
+        reset_launches()
+        cross_check(model, images, "ViT-H/14 width, depth 4, built at 224 px, "
+                    "fed 448 px (T=1025), fused EP route")
+        counts = dict(LAUNCHES)
+    expect = dict.fromkeys(LAUNCHES, 0)
+    expect.update(ln_qkv_gemm=depth, attn_flash=depth, proj_residual_gemm=depth,
+                  ep_pool_proj=1)
+    log(f"  launches of the card's forward: {counts} (expected {expect})")
+    if counts != expect:
+        raise RuntimeError("the 448 px forward did not go through A, F, C and G")
 
 
 # bench.py:100-128 with scripts/bench_models.py's ft_* rows: batch, flags
@@ -831,12 +1077,15 @@ def main() -> int:
     results = check_kernels(args.batch, BH, rng)
     int8_results, int8_halves = check_int8_kernels(args.batch, BH, rng)
     results += int8_results
+    long_results, other_shapes = check_long_kernels(rng)
+    results += long_results
 
-    paths, steps_ms = {}, {}
-    for kind, (B, _) in PROBE_CONFIGS.items():
+    paths, steps_ms, first_loss = {}, {}, {}
+    for kind, (B, *_) in PROBE_CONFIGS.items():
         B = B or args.batch
-        model, images, paths[kind], med = train(kind, B, args.steps, card)
+        model, images, paths[kind], med, losses = train(kind, B, args.steps, card)
         steps_ms[kind] = dict(batch=B, step_ms=med * 1e3, img_s=B / med)
+        first_loss[kind] = losses[0]
         if kind == "train":
             cross_check(model, images, "bf16 MLP half")
         elif kind == "int8-b":
@@ -848,6 +1097,19 @@ def main() -> int:
         log(f"[steps] {int8}: {b['step_ms']:.2f} ms, {b['img_s']:.1f} img/s; "
             f"{bf16} (bf16 MLP half, same run): {a['step_ms']:.2f} ms, "
             f"{a['img_s']:.1f} img/s at batch {a['batch']} on {card}")
+    for route, usual in (("probe-h448-fused", "probe-h448"),
+                         ("probe-h-rowtile", "probe-h")):
+        a, b = steps_ms[route], steps_ms[usual]
+        d = abs(first_loss[route] - first_loss[usual])
+        ok = d <= LOSS_TOL
+        log(f"[steps] {route}: {a['step_ms']:.2f} ms, {a['img_s']:.1f} img/s; "
+            f"{usual} (same run): {b['step_ms']:.2f} ms, {b['img_s']:.1f} "
+            f"img/s at batch {a['batch']} on {card}; step 0's loss "
+            f"{first_loss[route]:.5f} against {first_loss[usual]:.5f}, |d| "
+            f"{d:.2e} (tol {LOSS_TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{route}: step 0's loss is not {usual}'s")
+    logits_448()
     for kind, (B, _) in FT_CONFIGS.items():
         paths[kind] = finetune(kind, B, FT_STEPS, card)
     finetune_grads()
@@ -882,11 +1144,23 @@ def main() -> int:
                                     "int8-h"),
         "mlp_int8_fc2_two_kernel": (csrc + "mlp_int8.cu", int8_pallas + ":216",
                                     "int8-h"),
+        "attn_flash": (csrc + "attn_flash.cu",
+                       "ep_tpu/ops/flash_attn_pallas.py:42", "probe-h448"),
+        "attn_flash_rowtile": (csrc + "attn_flash.cu",
+                               "ep_tpu/ops/attn_fused_pallas.py:217",
+                               "probe-h-rowtile"),
+        "ep_pool_n1024": (csrc + "ep_pool.cu",
+                          "ep_tpu/ops/pool_attn_pallas.py:30", "probe-h448"),
+        "ep_pool_proj": (csrc + "ep_pool_proj.cu",
+                         "ep_tpu/ops/pool_attn_pallas.py:194",
+                         "probe-h448-fused"),
     }
     kernels = []
     for r in results:
         src, tpu, path_name = replaces[r["name"]]
-        counter = r["name"].replace("_dh80", "").replace("_two_kernel", "")
+        counter = r["name"]  # the wrapper's entry in LAUNCHES
+        for shape_tag in ("_dh80", "_two_kernel", "_rowtile", "_n1024"):
+            counter = counter.replace(shape_tag, "")
         launches = paths[path_name][counter]
         if launches == 0:
             raise RuntimeError(f"{r['name']}: the {path_name} path launched it "
@@ -896,11 +1170,13 @@ def main() -> int:
             "launches": launches, "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: v for k, v in r.items() if k.endswith("_ms") and k not in (
+                "plain_ms", "bound_ms", "library_ms")},
             "launches_path": path_name,
             "launches_by_path": {k: v[counter] for k, v in paths.items()}})
     log(card)
     log(json.dumps({"kernels": kernels, "int8_mlp_halves": int8_halves,
-                    "probe_steps": steps_ms}))
+                    "other_shapes": other_shapes, "probe_steps": steps_ms}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,6 +19,12 @@
 //   from device memory with coalesced loads: thread j owns output column j of
 //   the (Q*cq)-wide row and walks the N tokens, so no column is computed that
 //   the output does not keep. N is exact: nothing pads to 128 lanes.
+//   Where the query bank, the token tile and the logits of all Q queries pass
+//   a block's 227 KB (ViT-H/14 at 448 px: Q=32, C=1280, N=1024 needs 295,936
+//   bytes), the queries are split over 2, 4, ... blocks an image (grid (B,
+//   split)): a block keeps its share of the query bank and of the logits
+//   (189,184 bytes at that shape with 2), and reads the image's tokens once
+//   more per share, from L2. The shapes that fit keep one block an image.
 #include "common.cuh"
 
 using namespace nvcuda;
@@ -32,17 +38,31 @@ constexpr int THREADS = 128;  // 4 warps
 __host__ __device__ inline int rows16(int n) { return (n + 15) / 16 * 16; }
 __host__ __device__ inline int tokens_padded(int N) { return (N + TN - 1) / TN * TN; }
 
-__host__ __device__ inline int smem_bytes(int N, int C, int Q) {
+// Shared memory of a block that takes QB of the queries.
+__host__ __device__ inline int smem_bytes(int N, int C, int QB) {
   const int CL = C + 8;
-  return rows16(Q) * CL * 2 + TN * CL * 2 + rows16(Q) * tokens_padded(N) * 4;
+  return rows16(QB) * CL * 2 + TN * CL * 2 + rows16(QB) * tokens_padded(N) * 4;
+}
+
+constexpr int MAX_SMEM = 232448;  // what one block may use on sm_90
+
+// Blocks an image: the fewest equal shares of the queries that fit a block's
+// shared memory; 0 when not even one query a block fits.
+inline int query_split(int N, int C, int Q) {
+  for (int split = 1; split <= Q; ++split)
+    if (Q % split == 0 && smem_bytes(N, C, Q / split) <= MAX_SMEM) return split;
+  return 0;
 }
 
 __global__ void __launch_bounds__(THREADS)
 ep_pool_kernel(const bf16* __restrict__ q, const bf16* __restrict__ x,
                const bf16* __restrict__ v, bf16* __restrict__ out, int N, int C,
                int Q, int cq, int x_bstride) {
+  // This block's share of the queries: QB of them from q_lo on.
+  const int QB = Q / gridDim.y;
+  const int q_lo = blockIdx.y * QB;
   const int CL = C + 8;  // shared row stride (bf16) of q and the token tile
-  const int Qp = rows16(Q);
+  const int Qp = rows16(QB);
   const int Np = tokens_padded(N);
   const int QC = Q * cq;
   const int CH = C / 8;
@@ -60,8 +80,8 @@ ep_pool_kernel(const bf16* __restrict__ q, const bf16* __restrict__ x,
   for (int idx = tid; idx < Qp * CH; idx += THREADS) {
     const int r = idx / CH, c = (idx % CH) * 8;
     *reinterpret_cast<uint4*>(qs + r * CL + c) =
-        r < Q ? *reinterpret_cast<const uint4*>(q + (size_t)r * C + c)
-              : zero_pack();
+        r < QB ? *reinterpret_cast<const uint4*>(q + (size_t)(q_lo + r) * C + c)
+               : zero_pack();
   }
 
   const int nfrag = (Qp / 16) * (TN / 16);
@@ -94,7 +114,7 @@ ep_pool_kernel(const bf16* __restrict__ q, const bf16* __restrict__ x,
 
   // f32 softmax over the N real tokens, one warp per query row; the
   // probabilities replace the logits, already rounded to bf16.
-  for (int r = warp; r < Q; r += THREADS / 32) {
+  for (int r = warp; r < QB; r += THREADS / 32) {
     float* srow = S + r * Np;
     float mx = -INFINITY;
     for (int n = lane; n < N; n += 32) mx = fmaxf(mx, srow[n]);
@@ -109,8 +129,8 @@ ep_pool_kernel(const bf16* __restrict__ q, const bf16* __restrict__ x,
 
   // out[q, c] = sum_n p[q, n] v[n, q*cq + c]: thread j owns column j.
   const bf16* vb = v + (size_t)b * N * QC;
-  for (int j = tid; j < QC; j += THREADS) {
-    const float* prow = S + (j / cq) * Np;
+  for (int j = q_lo * cq + tid; j < (q_lo + QB) * cq; j += THREADS) {
+    const float* prow = S + (j / cq - q_lo) * Np;
     float acc = 0.f;
 #pragma unroll 4
     for (int n = 0; n < N; ++n)
@@ -122,8 +142,16 @@ ep_pool_kernel(const bf16* __restrict__ q, const bf16* __restrict__ x,
 }  // namespace
 }  // namespace ep
 
+// Shared memory of one block at the query split the launch takes; over
+// 232,448 when not even one query a block fits.
 EP_EXPORT int ep_pool_smem_bytes(int N, int C, int Q) {
-  return ep::smem_bytes(N, C, Q);
+  const int split = ep::query_split(N, C, Q);
+  return ep::smem_bytes(N, C, split ? Q / split : 1);
+}
+
+// Blocks an image (1 where all Q queries fit one block); 0 when none fits.
+EP_EXPORT int ep_pool_query_split(int N, int C, int Q) {
+  return ep::query_split(N, C, Q);
 }
 
 // q_scaled (Q, C), tokens (B, N, C), v (B, N, Q*cq), all bf16 -> out (B, Q*cq).
@@ -134,10 +162,12 @@ EP_EXPORT int ep_pool(const void* q, const void* x, const void* v, void* out,
                       void* stream) {
   using namespace ep;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bytes = smem_bytes(N, C, Q);
+  const int split = query_split(N, C, Q);
+  if (split == 0) return (int)cudaErrorInvalidValue;
+  const int bytes = smem_bytes(N, C, Q / split);
   cudaFuncSetAttribute(ep_pool_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  ep_pool_kernel<<<B, THREADS, bytes, s>>>(
+  ep_pool_kernel<<<dim3(B, split), THREADS, bytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(x),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), N, C, Q, cq,
       x_bstride);

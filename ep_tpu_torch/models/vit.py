@@ -4,10 +4,12 @@ PyTorch.
 Counterpart of ``ep_tpu/models/vit.py`` for the slice the main paths run:
 patch embedding, [CLS] token and absolute position embedding, blocks whose
 attention half is the attention supercell (``ops/attn_block.py``: kernels A, B
-and C on the card, E in its backward) and whose MLP half is plain torch (LN2,
+or, at long sequences, F, and C on the card, E in its backward) and whose MLP half is plain torch (LN2,
 fc1, GELU, fc2, residual) or, with ``int8_mlp=True`` (``--int8_mlp``, opt-in
 and approximate), the int8 half of ``ops/mlp_int8.py`` (its own kernels on the
-card); no final norm, and the feature modes ``cls``, ``pos`` and ``gap``.
+card); no final norm, and the feature modes ``cls``, ``pos`` and ``gap``. An
+image of another size than the model's gets the position embedding resized
+to its patch grid (``utils/pos_embed.py``).
 
 Block rematerialisation for fine-tuning (``remat_blocks``) is
 ``torch.utils.checkpoint`` with the JAX package's four policies
@@ -42,6 +44,7 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 from ep_tpu_torch.ops.attn_block import attn_supercell
 from ep_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 from ep_tpu_torch.poolings.common import Dense
+from ep_tpu_torch.utils.pos_embed import interpolate_pos_embed
 
 # Pooled-feature names that consume patch tokens only / [CLS]+patch tokens.
 ATTENTIVE_POOLINGS = [
@@ -277,11 +280,14 @@ class VisionTransformer(nn.Module):
         B = x.shape[0]
         if self.cls_token is not None:
             x = torch.cat([self.cls_token.to(dt).expand(B, -1, -1), x], dim=1)
-        if self.pos_embed.shape[1] != x.shape[1]:
-            raise NotImplementedError(
-                f"position-embedding interpolation (image size != "
-                f"{c.img_size}) {_TODO_BACKBONE}")
-        x = x + self.pos_embed.to(dt)
+        pos = self.pos_embed
+        if pos.shape[1] != x.shape[1]:
+            # an image size other than the model's: resize the patch grid, in
+            # the parameter's precision, before the cast to the compute dtype
+            pos = interpolate_pos_embed(pos.float(),
+                                        x.shape[1] - c.num_prefix_tokens,
+                                        c.num_prefix_tokens)
+        x = x + pos.to(dt)
         for blk in self.blocks:
             x = blk(x)
         x_pos = x[:, c.num_prefix_tokens:]

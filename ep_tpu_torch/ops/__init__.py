@@ -29,6 +29,8 @@ LAUNCHES: dict[str, int] = {
     "proj_residual_gemm": 0,
     "ep_pool": 0,
     "attn_core_bwd": 0,
+    "attn_flash": 0,
+    "ep_pool_proj": 0,
     "mlp_int8_ln_quant": 0,
     "mlp_int8_fc1": 0,
     "mlp_int8_fc2": 0,

@@ -2,19 +2,30 @@
 
 Counterpart of ``ep_tpu/ops/attn_fused_pallas.py::attention_qkv_fused`` and
 its custom VJP. On CUDA tensors the forward is kernel B (``csrc/attn_core.cu``)
-and the backward kernel E (``csrc/attn_core_bwd.cu``); both read each head
-straight out of the qkv rows and write it at its column slice: no head-split
-transpose and no (B,H,T,T) tensor in device memory. On CPU tensors they are
+or, beyond the sequence length B holds in registers, kernel F
+(``csrc/attn_flash.cu``, ``flash_attn.py``), and the backward kernel E
+(``csrc/attn_core_bwd.cu``); all read each head straight out of the qkv rows
+and write it at its column slice: no head-split transpose and no (B,H,T,T)
+tensor in device memory. On CPU tensors they are
 :func:`attention_qkv_fused_ref` and :func:`attention_qkv_fused_bwd_ref`.
-Head widths 64 and 80 (ViT-H) are built; the long sequences of 448 px
-probing (T=1025) are the TPU's flash kernel, ROADMAP kernel queue row 7.
+Head widths 64 and 80 (ViT-H) are built. :func:`attn_route` is the routing of
+``attn_fused_pallas.py::_fwd_impl``, by shape: the TPU's memory estimates and
+its XLA fallback past them do not carry over, since F takes any T. The
+backward at long T is not a kernel in the JAX package either (``_bwd_xla``);
+it is not ported yet, and kernel E raises beyond its limit.
 """
 from __future__ import annotations
+
+import os
+from typing import Optional
 
 import torch
 
 from . import LAUNCHES, MAX_SMEM, check, use_kernel
 from ._build import call, query, stream_ptr
+from .flash_attn import attn_flash
+
+CORE_MAX_T = 272  # csrc/attn_core.cu: a warp holds its rows of logits in registers
 
 
 def _split(t: torch.Tensor, parts: int, num_heads: int):
@@ -28,19 +39,43 @@ def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
     return qkv.shape[-1] // (3 * num_heads)
 
 
+def attn_route(T: int, head_dim: int, num_heads: int,
+               variant: Optional[str] = None) -> str:
+    """Which kernel takes a (B, T, 3*H*Dh) qkv tensor: ``"core"`` (kernel B)
+    or ``"flash"`` (kernel F).
+
+    F takes the sequences past kernel B's limit. ``variant="rowtile"``
+    (``EP_TPU_ATTN_VARIANT=rowtile`` in the JAX package, an A/B knob) sends
+    the short sequences to F too, but only where the JAX package's head-group
+    route applies, a head width that does not divide 128 with the heads a
+    multiple of 8 (ViT-H); elsewhere it is ignored, as there."""
+    if T > CORE_MAX_T:
+        return "flash"
+    if variant == "rowtile" and 128 % head_dim != 0 and num_heads % 8 == 0:
+        return "flash"
+    return "core"
+
+
 def attention_core(qkv: torch.Tensor, num_heads: int, scale: float,
-                   temperature: float = 1.0) -> torch.Tensor:
-    """The forward alone, outside autograd: kernel B or the plain version."""
+                   temperature: float = 1.0,
+                   variant: Optional[str] = None) -> torch.Tensor:
+    """The forward alone, outside autograd: kernel B or F by
+    :func:`attn_route`, or the plain version. ``variant=None`` reads
+    ``EP_TPU_ATTN_VARIANT`` on every call; ``"core"`` is the usual route
+    whatever the environment says."""
     if not use_kernel(qkv):
         return attention_qkv_fused_ref(qkv, num_heads, scale, temperature)
     B, T, _ = qkv.shape
     Dh = _head_dim(qkv, num_heads)
+    if variant is None:
+        variant = os.environ.get("EP_TPU_ATTN_VARIANT")
+    if attn_route(T, Dh, num_heads, variant) == "flash":
+        return attn_flash(qkv, num_heads, scale, temperature)
     check(qkv, "qkv", (B, T, 3 * num_heads * Dh), torch.bfloat16)
     if query("ep_attn_core_smem_bytes", T, Dh) == 0:
         raise NotImplementedError(
-            f"attn_core is built for head widths 64 and 80 and T <= 272 (a "
-            f"warp holds its logits rows in registers); got head width {Dh}, "
-            f"T={T}. Long sequences are ROADMAP kernel queue row 7")
+            f"attn_core is built for head widths 64 and 80; got head width "
+            f"{Dh}, T={T}")
     out = torch.empty(B, T, num_heads * Dh, device=qkv.device, dtype=qkv.dtype)
     call("ep_attn_core", qkv.data_ptr(), out.data_ptr(), B, T, num_heads, Dh,
          scale / temperature, stream_ptr(qkv))
@@ -63,7 +98,8 @@ def attention_qkv_fused_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
         raise NotImplementedError(
             f"attn_core_bwd is built for head widths 64 and 80 and keeps q, k, "
             f"v and dO of one head in shared memory; got head width {Dh}, "
-            f"T={T}. Long sequences are ROADMAP kernel queue row 7")
+            f"T={T}. The backward at long sequences is not ported yet (ROADMAP "
+            f"module item 13)")
     dqkv = torch.empty_like(qkv)
     call("ep_attn_core_bwd", qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B,
          T, num_heads, Dh, scale / temperature, stream_ptr(qkv))

@@ -10,18 +10,28 @@ On CUDA tensors the forward is kernel D (``csrc/ep_pool.cu``); on CPU tensors
 it is :func:`ep_pool_attend_ref`. The backward is autograd through the plain
 version on the same device, as the JAX package's ``_ep_bwd`` is the VJP of
 ``ep_pool_attend_xla``.
+
+:func:`ep_pool_proj_attend` is the same pool with the value projection
+``v = x @ Wᵀ`` inside (``pool_attn_pallas.py::ep_pool_proj_attend``): kernel G
+(``csrc/ep_pool_proj.cu``) on CUDA tensors, so that neither v nor the
+probabilities reach device memory, and :func:`ep_pool_proj_attend_ref` on CPU
+tensors; the backward is autograd through the plain version, as ``_ep_proj_bwd``
+is. W is in the ``nn.Linear`` layout, (Q*cq, C), like every weight of the port.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from . import LAUNCHES, MAX_SMEM, check, use_kernel
+from . import LAUNCHES, MAX_SMEM, check, default_device, use_kernel
 from ._build import call, query, stream_ptr
 
 
 def block_mask(Q: int, cq: int, device=None) -> torch.Tensor:
-    """(Q, Q*cq) block-diagonal selector: row q is 1 on its cq-slice."""
-    return torch.block_diag(*[torch.ones(1, cq, device=device)] * Q)
+    """(Q, Q*cq) block-diagonal selector: row q is 1 on its cq-slice. On
+    ``device`` (None: the card, as every constructor of the port)."""
+    return torch.block_diag(
+        *[torch.ones(1, cq, device=default_device(device))] * Q)
 
 
 def ep_pool_attend_ref(q_scaled: torch.Tensor, tokens: torch.Tensor,
@@ -38,27 +48,44 @@ def ep_pool_attend_ref(q_scaled: torch.Tensor, tokens: torch.Tensor,
     return out.reshape(B, Q, cq).to(v.dtype)
 
 
-def _ep_pool_kernel(q_scaled, tokens, v):
-    B, N, C = tokens.shape
-    Q, cq = v.shape[2], v.shape[3]
-    check(q_scaled, "q_scaled", (Q, C), torch.bfloat16)
+def _check_pool_inputs(q_scaled, tokens) -> None:
+    N, C = tokens.shape[1:]
+    check(q_scaled, "q_scaled", (q_scaled.shape[0], C), torch.bfloat16)
     # tokens may be the patch-token view x[:, 1:]: rows contiguous, images apart
     check(tokens[0], "tokens[0]", (N, C), torch.bfloat16)
     if tokens.stride(0) % 8:
         raise ValueError("tokens: images must start 16-byte aligned")
+
+
+def _ep_pool_kernel(q_scaled, tokens, v):
+    B, N, C = tokens.shape
+    Q, cq = v.shape[2], v.shape[3]
+    _check_pool_inputs(q_scaled, tokens)
     check(v, "v", (B, N, Q, cq), torch.bfloat16)
     if C % 16:
         raise NotImplementedError(f"ep_pool tiles C by 16; got C={C}")
     smem = query("ep_pool_smem_bytes", N, C, Q)
     if smem > MAX_SMEM:
         raise NotImplementedError(
-            f"ep_pool keeps the query bank and the (Q, N) logits in shared "
-            f"memory; Q={Q}, N={N}, C={C} needs {smem} bytes")
+            f"ep_pool keeps a query's row of the bank and its N logits in "
+            f"shared memory; one query at N={N}, C={C} needs {smem} bytes")
     out = torch.empty(B, Q, cq, device=v.device, dtype=v.dtype)
     call("ep_pool", q_scaled.data_ptr(), tokens.data_ptr(), v.data_ptr(),
          out.data_ptr(), B, N, C, Q, cq, tokens.stride(0), stream_ptr(v))
     LAUNCHES["ep_pool"] += 1
     return out
+
+
+def _plain_backward(ref, ctx, g):
+    """Gradients of the kernel's inputs by autograd through its plain version
+    ``ref``, recomputed from the saved inputs."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        out = ref(*inputs)
+    wanted = [t for t in inputs if t.requires_grad]
+    grads = iter(torch.autograd.grad(out, wanted, g.to(out.dtype)))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)
 
 
 class _EPPoolAttend(torch.autograd.Function):
@@ -69,14 +96,7 @@ class _EPPoolAttend(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # recompute the (small) attention and take autograd of the plain version
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = ep_pool_attend_ref(*inputs)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, g.to(out.dtype)))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+        return _plain_backward(ep_pool_attend_ref, ctx, g)
 
 
 def ep_pool_attend(q_scaled: torch.Tensor, tokens: torch.Tensor,
@@ -86,3 +106,54 @@ def ep_pool_attend(q_scaled: torch.Tensor, tokens: torch.Tensor,
     if not use_kernel(q_scaled, tokens, v):
         return ep_pool_attend_ref(q_scaled, tokens, v)
     return _EPPoolAttend.apply(q_scaled, tokens, v)
+
+
+def ep_pool_proj_attend_ref(q_scaled: torch.Tensor, tokens: torch.Tensor,
+                            w: torch.Tensor) -> torch.Tensor:
+    """Plain version (``ep_pool_proj_attend_xla``): the projection in the
+    tokens' dtype, then the plain pool."""
+    B, N, _ = tokens.shape
+    Q = q_scaled.shape[0]
+    v = F.linear(tokens, w.to(tokens.dtype))
+    return ep_pool_attend_ref(q_scaled, tokens, v.reshape(B, N, Q, -1))
+
+
+def _ep_pool_proj_kernel(q_scaled, tokens, w):
+    B, N, C = tokens.shape
+    Q, QC = q_scaled.shape[0], w.shape[0]
+    cq = QC // Q
+    _check_pool_inputs(q_scaled, tokens)
+    w = w.to(tokens.dtype)
+    check(w, "w", (Q * cq, C), torch.bfloat16)
+    smem = query("ep_pool_proj_smem_bytes", N, C, cq)
+    if smem == 0 or smem > MAX_SMEM:
+        raise NotImplementedError(
+            f"ep_pool_proj is built for cq in (16, 24, 32, 40) and C a "
+            f"multiple of 64, and keeps 8 queries' N logits beside its ring "
+            f"in shared memory; got cq={cq}, C={C}, N={N} ({smem} bytes)")
+    out = torch.empty(B, Q, cq, device=tokens.device, dtype=tokens.dtype)
+    call("ep_pool_proj", q_scaled.data_ptr(), tokens.data_ptr(), w.data_ptr(),
+         out.data_ptr(), B, N, C, Q, cq, tokens.stride(0), stream_ptr(tokens))
+    LAUNCHES["ep_pool_proj"] += 1
+    return out
+
+
+class _EPPoolProjAttend(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q_scaled, tokens, w):
+        ctx.save_for_backward(q_scaled, tokens, w)
+        return _ep_pool_proj_kernel(q_scaled, tokens, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _plain_backward(ep_pool_proj_attend_ref, ctx, g)
+
+
+def ep_pool_proj_attend(q_scaled: torch.Tensor, tokens: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """q_scaled (Q, C) already multiplied by the scale; tokens (B, N, C); w
+    (Q*cq, C), the value projection's weight (EP's v has no bias), in its own
+    (master) dtype. Returns (B, Q, cq)."""
+    if not use_kernel(q_scaled, tokens, w):
+        return ep_pool_proj_attend_ref(q_scaled, tokens, w)
+    return _EPPoolProjAttend.apply(q_scaled, tokens, w)

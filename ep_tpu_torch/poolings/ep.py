@@ -8,17 +8,23 @@ D/(d_out*Q) slice of the projected values, and the output is the
 concatenation of those slices; no output projection.
 
 The attention is ``ops/pool_attn.py::ep_pool_attend``: kernel D on the card,
-the plain version on the CPU. The JAX package's opt-in fused route, with the
-value projection inside the kernel (``EP_TPU_EP_FUSED``), is ROADMAP kernel
-queue row 9; its ``use_pallas`` switch has no counterpart, since the port
-picks the kernel by device.
+the plain version on the CPU. With ``EP_TPU_EP_FUSED`` set (read on every
+call, opt-in as in the JAX package) it is ``ep_pool_proj_attend``, with the
+value projection inside the kernel (G on the card): ``self.v`` is not called,
+only its weight is read, so both routes share their parameters and a
+checkpoint moves between them. The fused route has no bias: with
+``qkv_bias=True`` the JAX package prints a line and runs the unfused route;
+the port raises. The JAX package's ``use_pallas`` switch has no counterpart,
+since the port picks the kernel by device.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn as nn
 
-from ep_tpu_torch.ops.pool_attn import ep_pool_attend
+from ep_tpu_torch.ops.pool_attn import ep_pool_attend, ep_pool_proj_attend
 from .common import Dense
 
 
@@ -45,6 +51,14 @@ class EfficientProbing(nn.Module):
         # the queries are cast first and then scaled in the compute dtype, as
         # JAX multiplies a bf16 array by a (weakly typed) Python float
         q_scaled = self.cls_token[0].to(dt) * torch.tensor(self.scale, dtype=dt)
+        if os.environ.get("EP_TPU_EP_FUSED"):
+            if self.v.bias is not None:
+                raise ValueError(
+                    "EP_TPU_EP_FUSED is set, but the fused EP kernel projects "
+                    "the values without a bias and this head has "
+                    "qkv_bias=True; unset it to run the unfused route")
+            out = ep_pool_proj_attend(q_scaled, x.to(dt), self.v.weight)
+            return out.reshape(B, self.c_prime)
         v = self.v(x).reshape(B, N, self.num_queries, self.cq)
         out = ep_pool_attend(q_scaled, x.to(dt), v)
         return out.reshape(B, self.c_prime)

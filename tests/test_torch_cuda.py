@@ -50,6 +50,70 @@ def test_attn_core(dev, B, T, H, Dh):
 
 
 @pytest.mark.parametrize("B, T, H, Dh", [
+    (2, 1025, 16, 80), (1, 785, 12, 64), (2, 257, 16, 80), (3, 5, 2, 64),
+    (1, 64, 1, 64), (1, 65, 2, 80), (1, 1025, 2, 64), (1, 300, 2, 80),
+    (1, 2049, 1, 64)])
+def test_attn_flash(dev, B, T, H, Dh):
+    """Kernel F at the slice's shapes (T=1025 and 785 at 448 px, T=257 for the
+    row-tiled variant) and at ragged small ones, against the plain version
+    that kernel B is held to."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.attn_fused import attention_qkv_fused_ref
+    from ep_tpu_torch.ops.flash_attn import attn_flash
+    qkv = _rand((B, T, 3 * H * Dh), dev)
+    reset_launches()
+    out = attn_flash(qkv, H, Dh ** -0.5, 1.5)
+    assert dict(LAUNCHES) == _counts(attn_flash=1)
+    torch.testing.assert_close(
+        out, attention_qkv_fused_ref(qkv, H, Dh ** -0.5, 1.5), **TOL)
+
+
+@pytest.mark.parametrize("T, H, Dh, variant, kernel", [
+    (272, 2, 80, None, "attn_core"), (273, 2, 80, None, "attn_flash"),
+    (273, 2, 64, None, "attn_flash"), (1025, 2, 64, None, "attn_flash"),
+    (4100, 1, 80, None, "attn_flash"), (257, 16, 80, "rowtile", "attn_flash"),
+    (197, 12, 64, "rowtile", "attn_core"), (257, 16, 80, "env", "attn_flash")])
+def test_attention_core_takes_b_or_f_for_every_t(dev, monkeypatch, T, H, Dh,
+                                                 variant, kernel):
+    """On a CUDA tensor ``attention_core`` raises for no T at head widths 64
+    and 80: kernel B up to its limit, kernel F beyond, and F at the short
+    ViT-H shape with the row-tiled variant (given, or read from the
+    environment)."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.attn_fused import (attention_core,
+                                             attention_qkv_fused_ref)
+    if variant == "env":
+        monkeypatch.setenv("EP_TPU_ATTN_VARIANT", "rowtile")
+        variant = None
+    qkv = _rand((1, T, 3 * H * Dh), dev)
+    reset_launches()
+    out = attention_core(qkv, H, Dh ** -0.5, 1.0, variant=variant)
+    assert dict(LAUNCHES) == _counts(**{kernel: 1})
+    torch.testing.assert_close(
+        out, attention_qkv_fused_ref(qkv, H, Dh ** -0.5, 1.0), **TOL)
+
+
+def test_flash_attention_on_split_heads(dev):
+    """The JAX module's public function: pre-split (B,H,T,Dh) tensors are
+    packed into the natural layout and go through kernel F; the backward is
+    the plain recompute."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.flash_attn import (flash_attention,
+                                             flash_attention_bwd_ref,
+                                             flash_attention_ref)
+    q, k, v, g = (_rand((2, 3, 300, 80), dev, seed=40 + i) for i in range(4))
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_launches()
+    out = flash_attention(*ins, 80 ** -0.5, 1.5)
+    assert dict(LAUNCHES) == _counts(attn_flash=1)
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, 80 ** -0.5, 1.5),
+                               **TOL)
+    out.backward(g)
+    for t, r in zip(ins, flash_attention_bwd_ref(q, k, v, g, 80 ** -0.5, 1.5)):
+        torch.testing.assert_close(t.grad, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B, T, H, Dh", [
     (2, 197, 12, 64), (3, 5, 2, 64), (1, 300, 1, 64), (2, 257, 16, 80),
     (3, 9, 8, 80), (1, 320, 2, 80)])
 def test_attn_core_bwd(dev, B, T, H, Dh):
@@ -126,7 +190,9 @@ def test_supercell_gradients(dev, B, T, D, H):
         torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2 * scale)
 
 
-@pytest.mark.parametrize("B, N, C, Q", [(4, 196, 768, 32), (3, 37, 128, 4)])
+@pytest.mark.parametrize("B, N, C, Q", [
+    (4, 196, 768, 32), (3, 37, 128, 4), (2, 256, 1280, 32),
+    (2, 1024, 1280, 32)])  # ViT-H/14 at 448 px: the queries split over 2 blocks
 def test_ep_pool_forward_and_grad(dev, B, N, C, Q):
     from ep_tpu_torch.ops.pool_attn import ep_pool_attend, ep_pool_attend_ref
     q = _rand((Q, C), dev, C ** -0.5, seed=8)
@@ -145,6 +211,84 @@ def test_ep_pool_forward_and_grad(dev, B, N, C, Q):
         torch.testing.assert_close(a, b, rtol=1e-2, atol=1e-2 * scale)
 
 
+@pytest.mark.parametrize("B, N, C, Q, d_out", [
+    (3, 37, 128, 8, 1), (3, 37, 128, 4, 2), (2, 70, 192, 12, 1),
+    (2, 196, 768, 32, 1), (2, 256, 1280, 32, 1), (2, 1024, 1280, 32, 1),
+    (2, 196, 1024, 32, 1)])
+def test_ep_pool_proj_forward_and_grad(dev, B, N, C, Q, d_out):
+    """Kernel G against its plain version at ViT-B, ViT-H (224 and 448 px) and
+    ViT-L widths and at small ragged shapes (Q below and past a group of 8),
+    on the patch-token view the model hands it, with the f32 master weight;
+    the gradients are autograd through the plain version on both sides."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.pool_attn import (ep_pool_proj_attend,
+                                            ep_pool_proj_attend_ref)
+    q = _rand((Q, C), dev, C ** -0.5, seed=50)
+    x = _rand((B, N + 1, C), dev, seed=51)[:, 1:]
+    w = _rand((C // d_out, C), dev, C ** -0.5, torch.float32, seed=52)
+    outs, grads = [], []
+    for fn in (ep_pool_proj_attend, ep_pool_proj_attend_ref):
+        qg, wg = q.clone().requires_grad_(), w.clone().requires_grad_()
+        reset_launches()
+        out = fn(qg, x, wg)
+        assert LAUNCHES["ep_pool_proj"] == (fn is ep_pool_proj_attend)
+        assert LAUNCHES["ep_pool"] == 0
+        (out.float() ** 2).sum().backward()
+        outs.append(out)
+        grads.append((qg.grad, wg.grad))
+    assert outs[0].shape == (B, Q, C // d_out // Q)
+    torch.testing.assert_close(outs[0], outs[1], **TOL)
+    for a, b in zip(*grads):
+        assert a.dtype == b.dtype
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-2, atol=1e-2 * scale)
+
+
+def test_ep_head_routes(dev, monkeypatch):
+    """EfficientProbing on the card: kernel D by default, kernel G (and no
+    call of the value projection) with EP_TPU_EP_FUSED set; the two agree."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.poolings.ep import EfficientProbing
+    torch.manual_seed(0)
+    mod = EfficientProbing(768, num_queries=32).to(dev)
+    x = _rand((4, 196, 768), dev, seed=53)
+    reset_launches()
+    unfused = mod(x)
+    assert dict(LAUNCHES) == _counts(ep_pool=1)
+    monkeypatch.setenv("EP_TPU_EP_FUSED", "1")
+    calls = []
+    mod.v.register_forward_hook(lambda *_: calls.append(1))
+    reset_launches()
+    fused = mod(x)
+    assert dict(LAUNCHES) == _counts(ep_pool_proj=1) and not calls
+    torch.testing.assert_close(fused, unfused, **TOL)
+    fused.float().sum().backward()
+    assert mod.v.weight.grad is not None and mod.cls_token.grad is not None
+
+
+def test_model_at_448_px_goes_through_f(dev, monkeypatch):
+    """A 2-block ViT-H-width model built at 224 px and fed 448 px images:
+    the position embedding is interpolated, every block takes A, F and C, and
+    the fused head takes G."""
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.models.assembly import (build_backbone_config,
+                                              init_probe_model)
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    monkeypatch.setenv("EP_TPU_EP_FUSED", "1")
+    cfg = TrainConfig(model="vit_huge_patch14", cls_features="ep",
+                      ep_queries=32, nb_classes=10, image_size=224,
+                      amp="bfloat16")
+    model = init_probe_model(cfg, 0, build_backbone_config(cfg).replace(depth=2))
+    model.eval()
+    x = _rand((2, 448, 448, 3), dev, dtype=torch.float32, seed=54)
+    reset_launches()
+    with torch.no_grad():
+        out = model(x)
+    assert dict(LAUNCHES) == _counts(ln_qkv_gemm=2, attn_flash=2,
+                                     proj_residual_gemm=2, ep_pool_proj=1)
+    assert out.shape == (2, 10) and torch.isfinite(out).all()
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     from ep_tpu_torch.ops.attn_fused import attention_qkv_fused
     with pytest.raises(TypeError):
@@ -153,8 +297,15 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     from ep_tpu_torch.ops.attn_fused import attention_qkv_fused_bwd
     with pytest.raises(NotImplementedError, match="head width"):
         attention_qkv_fused(_rand((1, 5, 3 * 64), dev), 2, 0.125)
-    with pytest.raises(NotImplementedError, match="T=273"):
-        attention_qkv_fused(_rand((1, 273, 3 * 80), dev), 1, 0.125)
+    with pytest.raises(NotImplementedError, match="head width 32"):
+        attention_qkv_fused(_rand((1, 273, 3 * 64), dev), 2, 0.125)  # F's widths
+    from ep_tpu_torch.ops.pool_attn import ep_pool_proj_attend
+    with pytest.raises(NotImplementedError, match="cq=6"):
+        ep_pool_proj_attend(_rand((32, 192), dev), _rand((1, 9, 192), dev),
+                            _rand((192, 192), dev))
+    with pytest.raises(ValueError, match="mix"):
+        ep_pool_proj_attend(_rand((8, 128), dev), _rand((1, 9, 128), dev),
+                            _rand((128, 128), dev).cpu())
     with pytest.raises(ValueError):
         attention_qkv_fused(_rand((1, 3 * 64, 5), dev).transpose(1, 2), 1, 0.125)
     with pytest.raises(NotImplementedError, match="head width 32"):

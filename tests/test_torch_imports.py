@@ -14,6 +14,8 @@ from ep_tpu_torch.convert.from_flax import flax_to_torch
 from ep_tpu_torch.models.assembly import (build_backbone_config,
                                           init_probe_model)
 from ep_tpu_torch.ops import default_device
+from ep_tpu_torch.ops.pool_attn import block_mask
+from ep_tpu_torch.utils.pos_embed import bicubic_weight_matrix
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "ep_tpu")
@@ -40,7 +42,8 @@ def _forbidden(module: str) -> bool:
 def test_the_walk_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "ep_tpu_torch/configs.py",
-            "ep_tpu_torch/ops/mlp_int8.py",
+            "ep_tpu_torch/ops/mlp_int8.py", "ep_tpu_torch/ops/flash_attn.py",
+            "ep_tpu_torch/utils/pos_embed.py",
             "ep_tpu_torch/models/assembly.py"} <= names
     assert _forbidden("ep_tpu") and _forbidden("ep_tpu.configs")
     assert _forbidden("jax.numpy") and not _forbidden("ep_tpu_torch.configs")
@@ -104,6 +107,13 @@ def test_constructors_build_on_the_card_unless_asked():
     variables = {"params": {"head": {"fc": {"bias": [0.0, 1.0]}}}}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flax_to_torch(variables)
+    # helpers that build a tensor follow the same rule
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        block_mask(2, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bicubic_weight_matrix(2, 4)
+    assert block_mask(2, 3, "cpu").shape == (2, 6)
+    assert bicubic_weight_matrix(2, 4, "cpu").shape == (2, 4)
     model = init_probe_model(cfg, 0, bcfg, device="cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}
     state, _ = flax_to_torch(variables, device="cpu")
