@@ -14,13 +14,18 @@ Phases, each of which must pass (any failure exits non-zero):
              tolerance, and kernel time beside plain time, the card's bound
              for the same work and, where one PyTorch call computes the same
              function, that call's time, at the main paths' shapes: A, B, C
-             and D at ViT-B; B at ViT-H (head width 80, T=257); E, the
+             and D at ViT-B (A and C also at ViT-H/14, 224 and 448 px, at
+             ViT-L's width and at batches of 3 and 8; A's row statistics
+             alone); B at ViT-H (head width 80, T=257); E, the
              attention backward, at ViT-B and ViT-H; the supercell's gradients
              (forward and backward) at both; the int8 MLP half's three
              kernels (ln_quant, fc1, fc2) at ViT-B (1 stripe), ViT-L (8
              stripes) and ViT-H (8 stripes, the JAX package's two-kernel
              tier), with the share of int8 codes that differ, the distance to
-             the bf16 half, and the bf16 half's and torch._int_mm's times.
+             the bf16 half, and the bf16 half's and torch._int_mm's times;
+             fc1's table-driven GELU against the GELU arithmetic at every
+             bf16 value, and fc1 at a ragged M with a token at the scale's
+             floor.
              Then the long-sequence kernels: F (attn_flash) at ViT-H/14 and
              ViT-B/16 at 448 px (T=1025 and 785) and at the row-tiled variant's
              shape (T=257, head width 80) beside kernel B; D at N=1024 and at
@@ -250,6 +255,7 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
                                              attention_qkv_fused_bwd,
                                              attention_qkv_fused_bwd_ref,
                                              attention_qkv_fused_ref)
+    from ep_tpu_torch.ops import _build
     from ep_tpu_torch.ops.pool_attn import ep_pool_attend, ep_pool_attend_ref
 
     T, D, H = 197, 768, 12
@@ -257,7 +263,7 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
     scale = Dh ** -0.5
     err = {}
 
-    def block_weights(D):
+    def block_weights(D, rng=rng):
         return dict(w_qkv=rand(rng, (3 * D, D), D ** -0.5),
                     b_qkv=rand(rng, (3 * D,), 0.02, torch.float32),
                     gamma=1 + rand(rng, (D,), 0.1, torch.float32),
@@ -317,6 +323,17 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
     t_cell = (time_ms(lambda: attn_supercell(*args)),
               time_ms(lambda: attn_supercell_ref(*args), 3))
     log(f"  attn_supercell B={B}: kernels {t_cell[0]:.3f} ms, plain {t_cell[1]:.3f} ms")
+    # kernel A's row statistics alone (a kernel of their own before the GEMM)
+    stats = torch.empty(M, 2, device="cuda", dtype=torch.float32)
+    stats_ms = time_ms(lambda: _build.call(
+        "ep_ln_row_stats", x.data_ptr(), stats.data_ptr(), M, D, 1e-6,
+        _build.stream_ptr(x)))
+    xf = x.float().view(M, D)
+    compare("ln_row_stats mean", stats[:, 0], xf.mean(-1), 1e-5, 1e-5)
+    compare("ln_row_stats rstd", stats[:, 1],
+            torch.rsqrt(xf.var(-1, unbiased=False) + 1e-6), 1e-5, 1e-5)
+    del stats, xf
+    others = gemm_other_shapes(BH, block_weights)
 
     log("[kernels] D: ep_pool (ep_pool_attend), forward and gradients")
     for b, n, c, q in ((16, 196, 768, 32), (3, 37, 128, 4), (B, 196, 768, 32)):
@@ -429,8 +446,63 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
             if k in bounds else ""))
     names = ("ln_qkv_gemm", "attn_core", "attn_core_dh80", "proj_residual_gemm",
              "ep_pool", "attn_core_bwd", "attn_core_bwd_dh80")
-    return [dict(name=k, err=err[k], ms=times[k][0], plain_ms=times[k][1],
-                 library_ms=lib[k], **bounds[k]) for k in names]
+    results = [dict(name=k, err=err[k], ms=times[k][0], plain_ms=times[k][1],
+                    library_ms=lib[k], **bounds[k]) for k in names]
+    results[0]["stats_ms"] = stats_ms  # of ln_qkv_gemm's ms
+    return results, others
+
+
+def gemm_other_shapes(BH: int, block_weights) -> list[dict]:
+    """Kernels A and C at the other paths' shapes (ViT-H/14 at 224 px, batch
+    BH, and at 448 px, batch 64), timed beside bound, plain and library; and,
+    for correctness alone, at ViT-L's width (K = 1024) and at every width
+    with batches of 3 and 8, whose M is no multiple of the 128-row panel.
+    Inputs come from a generator of their own, so that the checks that follow
+    see the inputs they always saw."""
+    rng = np.random.default_rng(6)
+    from ep_tpu_torch.ops.attn_block import (ln_qkv, ln_qkv_ref, proj_residual,
+                                             proj_residual_ref)
+    others = []
+    for tag, b, t, d, timed in (
+            ("vitb_b3", 3, 197, 768, False),
+            ("vitl_b3", 3, 197, 1024, False), ("vitl_b8", 8, 197, 1024, False),
+            ("vith_b3", 3, 257, 1280, False), ("h448_b3", 3, 1025, 1280, False),
+            ("vith", BH, 257, 1280, True), ("h448", 64, 1025, 1280, True)):
+        w = block_weights(d, rng)
+        x, o = rand(rng, (b, t, d)), rand(rng, (b, t, d))
+        a_args = (x, w["gamma"], w["beta"], w["w_qkv"], w["b_qkv"], 1e-6)
+        c_args = (o, w["w_proj"], w["b_proj"], x)
+        e_a = compare(f"ln_qkv_gemm ({b},{t},{d})", ln_qkv(*a_args),
+                      ln_qkv_ref(*a_args))
+        e_c = compare(f"proj_residual_gemm ({b},{t},{d})",
+                      proj_residual(*c_args), proj_residual_ref(*c_args))
+        if not timed:
+            continue
+        g16, be16, bq16, bp16 = (w[k].bfloat16() for k in (
+            "gamma", "beta", "b_qkv", "b_proj"))
+        m = b * t
+        for name, e, fn, ref, lib_fn, bnd in (
+                (f"ln_qkv_gemm_{tag}", e_a, lambda: ln_qkv(*a_args),
+                 lambda: ln_qkv_ref(*a_args),
+                 lambda: F.linear(F.layer_norm(x, (d,), g16, be16, 1e-6),
+                                  w["w_qkv"], bq16),
+                 bound(2 * m * 3 * d * d, "bf16", nbytes(
+                     x, w["w_qkv"], w["b_qkv"], w["gamma"], w["beta"])
+                     + 3 * nbytes(x))),
+                (f"proj_residual_gemm_{tag}", e_c, lambda: proj_residual(*c_args),
+                 lambda: proj_residual_ref(*c_args),
+                 lambda: x + F.linear(o, w["w_proj"], bp16),
+                 bound(2 * m * d * d, "bf16",
+                       nbytes(o, w["w_proj"], w["b_proj"], x) + nbytes(x)))):
+            r = dict(name=name, err=e, ms=time_ms(fn), plain_ms=time_ms(ref, 3),
+                     library_ms=time_ms(lib_fn), **bnd)
+            log(f"  time {name}: kernel {r['ms']:.3f} ms, plain "
+                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
+                f"{r['bound_by']}, library {r['library_ms']:.3f} ms")
+            others.append(r)
+        del x, o, w
+        torch.cuda.empty_cache()
+    return others
 
 
 def check_long_kernels(rng) -> tuple[list[dict], list[dict]]:
@@ -573,6 +645,37 @@ def check_int8_kernels(B: int, BH: int, rng) -> tuple[list[dict], list[dict]]:
 
     eps = 1e-6
     kernels, halves = [], []
+    bad = m.gelu_table_mismatches(torch.device("cuda"))
+    log(f"[kernels] fc1's GELU by table against the GELU arithmetic at every "
+        f"finite bf16 value: {bad} differ (tol 0) {'ok' if bad == 0 else 'FAIL'}")
+    if bad:
+        raise RuntimeError("fc1's GELU table disagrees with the GELU arithmetic")
+    # M = 111 rows, no multiple of the 128-row panel, and a token whose GELU
+    # outputs are all zero (zero codes, zero bias): its scale is the 1e-8
+    # floor. (A generator of its own: the checks below keep their inputs.)
+    own_rng, shared_rng = np.random.default_rng(7), rng
+    rng = own_rng
+    for D, S in ((768, 1), (1280, 8)):
+        DH = 4 * D
+        hq = torch.from_numpy(rng.integers(-127, 128, (3, 37, D),
+                                           dtype=np.int8)).cuda()
+        hq[1, 5] = 0
+        sx = rand(rng, (3, 37, 1), 0.01, torch.float32).abs() + 1e-3
+        w1q, s1 = m.quantize_weight(rand(rng, (DH, D), D ** -0.5))
+        b1 = torch.zeros(DH, device="cuda")
+        aq, sa = m.fc1(hq, sx, w1q, s1, b1, S)
+        aq_r, sa_r = m.fc1_ref(hq, sx, w1q, s1, b1, S)
+        floor = float(torch.full((), 1e-8) / torch.full((), 127.0))
+        ok = (bool(torch.equal(aq, aq_r)) and bool(torch.equal(sa, sa_r))
+              and bool((sa[1, 5] == floor).all()) and not bool(aq[1, 5].any()))
+        log(f"  fc1 at M=111, D={D}, {S} stripe(s), tiling "
+            f"{m.fc1_tiling(DH // S)}: codes and scales equal to the plain "
+            f"version's {bool(torch.equal(aq, aq_r))}, the zero token's scale "
+            f"{float(sa[1, 5, 0]):.4e} (floor {floor:.4e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("fc1 disagrees with its plain version")
+    rng = shared_rng
     for tag, suffix, b, T, D, tier in (
             ("ViT-B", "", B, 197, 768, ("resident", 1)),
             ("ViT-L", None, 128, 197, 1024, ("resident", 8)),
@@ -826,8 +929,7 @@ def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel):
     med = statistics.median(times[1:]) if steps > 1 else times[0]
     log(f"  median step {med * 1e3:.2f} ms (steps 1..{steps - 1}), "
         f"{B / med:.1f} img/s at batch {B} on {card}")
-    if kind != "train":
-        device_time(lambda: step_fn(steps, images, labels), card)
+    device_time(lambda: step_fn(steps, images, labels), card)
     return model, images, counts, med, losses
 
 
@@ -1074,11 +1176,12 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     BH = FT_CONFIGS["finetune-h"][0]
-    results = check_kernels(args.batch, BH, rng)
+    results, gemm_shapes = check_kernels(args.batch, BH, rng)
     int8_results, int8_halves = check_int8_kernels(args.batch, BH, rng)
     results += int8_results
     long_results, other_shapes = check_long_kernels(rng)
     results += long_results
+    other_shapes = gemm_shapes + other_shapes
 
     paths, steps_ms, first_loss = {}, {}, {}
     for kind, (B, *_) in PROBE_CONFIGS.items():

@@ -9,244 +9,412 @@
 //   becomes three kernels that keep its contract: the LN output never reaches
 //   device memory, and no per-head q/k/v copy or (B,H,T,T) tensor exists.
 //
-// Bound on this card: compute. At ViT-B bs512 the qkv product is 357 GFLOP
+// Bound on this card: operations. At ViT-B bs512 the qkv product is 357 GFLOP
 //   and proj 119 GFLOP per block against 155 MB of activations read, far above
-//   the ~295 FLOP/byte ridge of an H100 in bf16.
-// Design: a tiled GEMM on the tensor cores with mma.sync m16n8k16 (bf16
-//   operands, f32 accumulation) fed by ldmatrix. A 256-thread block computes
-//   a 128x128 output tile, each of its 8 warps a 64x32 piece; 64-deep K
-//   slices of A and W stream through a 3-stage cp.async ring in shared
-//   memory, and two blocks share an SM. LN is a prologue: a pre-pass writes
-//   one (mean, rstd) pair per row, and each thread normalises its own chunks
-//   of an A slice in shared memory once the slice has landed. The epilogue
-//   stages the f32 tile in shared memory, adds the f32 bias (and, for C, the
-//   f32 residual) and rounds once to bf16 with 16-byte loads and stores: the
-//   cast points of the TPU kernel. Of nine tile shapes timed on the card this
-//   one was the fastest (~230 TFLOP/s for C's product against 562 TFLOP/s for
-//   mma.sync with register operands only); wgmma, TMA and warp specialisation
-//   are later work.
+//   the ~295 FLOP/byte ridge of an H100 in bf16, and only wgmma reaches the
+//   tensor cores' full rate.
+// Design: the main loop of hopper.cuh. One persistent block an SM (384
+//   threads: two consumer warpgroups and a producer) owns a panel of 128 rows
+//   for all of its 256-column tiles, then takes the panel gridDim further on.
+//   A producer thread streams 64-deep K slices of the panel and of W through
+//   a 3-stage ring by TMA; each consumer warpgroup accumulates its 64 x 256
+//   half of the tile in registers with wgmma m64n256k16 (f32 accumulators),
+//   one group in flight while the next is prepared.
+//   * C takes both operands from shared memory.
+//   * A applies LN on the way from shared memory to the tensor core: wgmma
+//     takes its A operand from registers, so each warp reads the raw-x
+//     fragment of its 16 rows with ldmatrix (the swizzle's XOR in the
+//     address), normalises the 8 values a thread holds with its two rows'
+//     (mean, rstd) kept in registers and gamma / beta staged once a block in
+//     shared memory, rounds to bf16 and issues the product. Nothing is
+//     written back, no block-wide barrier sits in the loop, and the fragments
+//     of slice k+1 are prepared while the products of slice k run. The row
+//     statistics come from a kernel of their own, one warp a row, which reads
+//     the row once with 16-byte loads and keeps it in registers for the
+//     two-pass variance (taken inside the GEMM at the head of each panel they
+//     left the tensor cores idle for a fifth of its time).
+//   * The epilogue adds the f32 bias (and, for C, the f32 residual) to the
+//     accumulators and rounds once to bf16, the cast points of the TPU
+//     kernel, into a buffer of the warpgroup in shared memory, in the layout
+//     of TMA boxes; one thread hands the boxes to TMA, which writes them
+//     while the next tile's loop runs and drops what lies past M or N. For C
+//     the producer brings the residual tile into the same buffer by TMA
+//     during the loop. (Stores of 4 bytes a thread straight from the
+//     accumulators took as long as the product itself.)
 //
 // Layouts: A (M, K) row-major bf16 with M = B*T; W (N, K) row-major bf16, the
-// nn.Linear weight layout; out (M, N) bf16. Requires K % 64 == 0 and
-// N % 8 == 0 (checked by the Python wrapper); M and N may be ragged.
-#include "common.cuh"
+// nn.Linear weight layout; out (M, N) bf16. Requires K % 64 == 0, N % 8 == 0
+// and, for kernel A, K <= 1280 (a row's values are held by one warp); checked
+// by the Python wrapper.
+#include "hopper.cuh"
 
 namespace ep {
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3;
-constexpr int THREADS = 256;
-constexpr int LDS = BK + 8;  // shared row stride (bf16) of A and W slices
-constexpr int CPR = BK / 8;  // 16-byte chunks per slice row
-constexpr int A_STAGE = BM * LDS, B_STAGE = BN * LDS;  // elements
-constexpr int CLD = BN + 4;  // shared row stride (f32) of the epilogue tile
-constexpr int RING_BYTES = STAGES * (A_STAGE + B_STAGE) * 2;
-constexpr int SMEM_BYTES =
-    RING_BYTES > BM * CLD * 4 ? RING_BYTES : BM * CLD * 4;
+using namespace hopper;
 
-// One warp per row: mean and 1/sqrt(var + eps) in f32, the variance taken as
-// the mean squared deviation (two passes over the row, as the reference does).
+constexpr int BM = TILE_M, THREADS = BLOCK_THREADS;
+constexpr int BN = 256, BK = 64, STAGES = 3;
+constexpr int STAGE_BYTES = A_STAGE_BYTES + BN * SLICE_BYTES;
+// The output tile on its way out (and, for C, the residual tile on its way
+// in): per consumer warpgroup four chunks of 64 rows x 64 columns, each in
+// the 128-byte swizzle a TMA box has.
+constexpr int CHUNK_COLS = 64, CHUNKS = BN / CHUNK_COLS;
+constexpr int CHUNK_BYTES = 64 * CHUNK_COLS * 2;
+constexpr int OUT_BYTES = 2 * CHUNKS * CHUNK_BYTES;
+constexpr int BAR_BYTES = (2 * STAGES + 4) * 8;
+constexpr int MAX_K_LN = 1280;
+constexpr int ROW_CHUNKS = MAX_K_LN / 8 / 32;  // 16-byte chunks a lane holds
+
+__host__ __device__ constexpr int smem_bytes(bool ln, int K) {
+  return 1024 + STAGES * STAGE_BYTES + OUT_BYTES + BAR_BYTES +
+         (ln ? 2 * K * 4 : 0);
+}
+static_assert(smem_bytes(true, MAX_K_LN) <= MAX_SMEM, "kernel A fits a block");
+
+// One warp a row: mean and 1/sqrt(var + eps) in f32, the variance taken as
+// the mean squared deviation. The row is read once, 16 bytes a lane and
+// load, and held in registers for the second pass (K <= MAX_K_LN).
 __global__ void ln_stats_kernel(const bf16* __restrict__ x,
                                 float2* __restrict__ stats, int M, int K,
                                 float eps) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
-  const bf16* xr = x + (size_t)row * K;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * K);
+  unsigned v[ROW_CHUNKS][4];
+#pragma unroll
+  for (int c = 0; c < ROW_CHUNKS; ++c) {
+    const uint4 u = (lane + 32 * c) * 8 < K ? __ldg(xr + lane + 32 * c)
+                                            : zero_pack();
+    v[c][0] = u.x, v[c][1] = u.y, v[c][2] = u.z, v[c][3] = u.w;
+  }
   float s = 0.f;
-  for (int c = lane; c < K; c += 32) s += __bfloat162float(xr[c]);
+#pragma unroll
+  for (int c = 0; c < ROW_CHUNKS; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s += bf16_lo(v[c][e]) + bf16_hi(v[c][e]);
   const float mean = warp_sum(s) / (float)K;
   float ss = 0.f;
-  for (int c = lane; c < K; c += 32) {
-    const float d = __fsub_rn(__bfloat162float(xr[c]), mean);
-    ss = __fadd_rn(ss, __fmul_rn(d, d));
-  }
+#pragma unroll
+  for (int c = 0; c < ROW_CHUNKS; ++c)
+    if ((lane + 32 * c) * 8 < K) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float d0 = __fsub_rn(bf16_lo(v[c][e]), mean);
+        const float d1 = __fsub_rn(bf16_hi(v[c][e]), mean);
+        ss = __fadd_rn(ss, __fmul_rn(d0, d0));
+        ss = __fadd_rn(ss, __fmul_rn(d1, d1));
+      }
+    }
   const float var = warp_sum(ss) / (float)K;
   if (lane == 0) stats[row] = make_float2(mean, 1.0f / sqrtf(var + eps));
 }
 
-template <bool LN, bool RESID>
-__global__ void __launch_bounds__(THREADS, 2)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
+__device__ __forceinline__ void ldmatrix_x4_u32(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// LN of the two bf16 values in `raw`, each rounded to bf16 again. No
+// multiply-add is contracted: the steps round as the plain version's do.
+__device__ __forceinline__ unsigned ln_pair(unsigned raw, float2 st, float2 g,
+                                            float2 b) {
+  return pack_bf16(
+      __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(bf16_lo(raw), st.x), st.y), g.x), b.x),
+      __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(bf16_hi(raw), st.x), st.y), g.y), b.y));
+}
+
+template <bool LN>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+            const __grid_constant__ CUtensorMap map_w,
+            const __grid_constant__ CUtensorMap map_out,
+            const __grid_constant__ CUtensorMap map_resid,
             const float* __restrict__ bias, const float2* __restrict__ stats,
             const float* __restrict__ gamma, const float* __restrict__ beta,
-            const bf16* __restrict__ resid, bf16* __restrict__ out, int M,
-            int N, int K) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [STAGES][BM][LDS]
-  bf16* Bs = As + STAGES * A_STAGE;          // [STAGES][BN][LDS]
-  float* Cs = reinterpret_cast<float*>(smem);  // [BM][CLD], after the loop
+            int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* out_s = smem + STAGES * STAGE_BYTES;  // [2][CHUNKS][64][128 B]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(out_s + OUT_BYTES);
+  const Ring ring{smem, bars, bars + STAGES, STAGES, STAGE_BYTES};
+  uint64_t* resid_full = bars + 2 * STAGES;  // [2]: a warpgroup's residual landed
+  uint64_t* out_free = resid_full + 2;       // [2]: its store has read the buffer
+  float* gamma_s = reinterpret_cast<float*>(out_s + OUT_BYTES + BAR_BYTES);
+  float* beta_s = gamma_s + K;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2;  // 2 warp rows of 64
-  const int wn = warp & 3;   // 4 warp columns of 32
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
+  if (tid == 0) {
+    ring_init(ring);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(resid_full + i, 1);
+      mbar_init(out_free + i, 1);
+    }
+    fence_barrier_init();
+  }
+  if (LN)
+    for (int i = tid; i < K; i += THREADS) {
+      gamma_s[i] = gamma[i];
+      beta_s[i] = beta[i];
+    }
+  __syncthreads();
 
-  // This thread's chunks of each slice: rows c_row + 32*i (i < 4) of A and
-  // of W, columns c_col..c_col+7. It also normalises its own A chunks.
-  const int c_row = tid / CPR, c_col = (tid % CPR) * 8;
-  float2 st[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + c_row + 32 * i;
-    st[i] = (LN && m < M) ? stats[m] : make_float2(0.f, 0.f);
+  const int wg = tid >> 7;
+  const int n_panels = (M + BM - 1) / BM, n_tiles = (N + BN - 1) / BN;
+  const int nk = K / BK;
+
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (tid == 256) {
+      RingPos pos;
+      unsigned free_phase = 0;
+      for (int panel = blockIdx.x; panel < n_panels; panel += gridDim.x) {
+        const int m0 = panel * BM;
+        for (int tile = 0; tile < n_tiles; ++tile) {
+          const int n0 = tile * BN;
+          if (LN) {
+            produce_tile(ring, pos, &map_a, &map_w, m0, n0, 0, nk, BK,
+                         STAGE_BYTES);
+            continue;
+          }
+          // C: the residual tile follows half of the tile's slices, when the
+          // store of the tile before has long read the buffer it lands in
+          produce_tile(ring, pos, &map_a, &map_w, m0, n0, 0, nk / 2, BK,
+                       STAGE_BYTES);
+          for (int w = 0; w < 2; ++w) {
+            mbar_wait(out_free + w, free_phase ^ 1);
+            int chunks = 0;
+            for (int c = 0; c < CHUNKS; ++c)
+              chunks += m0 + w * 64 < M && n0 + c * CHUNK_COLS < N;
+            mbar_expect_tx(resid_full + w, chunks * CHUNK_BYTES);
+            for (int c = 0; c < chunks; ++c)
+              tma_load_2d(out_s + (w * CHUNKS + c) * CHUNK_BYTES, &map_resid,
+                          resid_full + w, n0 + c * CHUNK_COLS, m0 + w * 64);
+          }
+          free_phase ^= 1;
+          produce_tile(ring, pos, &map_a, &map_w, m0, n0, nk / 2, nk, BK,
+                       STAGE_BYTES);
+        }
+      }
+    }
+    return;
   }
 
-  auto load_stage = [&](int buf, int kt) {
-    const int k0 = kt * BK + c_col;
-    bf16* as = As + buf * A_STAGE;
-    bf16* ws = Bs + buf * B_STAGE;
+  setmaxnreg_inc<232>();
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_in_tile = wg * 64 + warp * 16;  // first of this warp's rows
+  unsigned char* out_wg = out_s + wg * CHUNKS * CHUNK_BYTES;
+  RingPos pos;
+  unsigned resid_phase = 0;
+  float acc[BN / 2];
+
+  // This lane's share of the LN'd A fragments of one slice: for each 16-deep
+  // step, rows g and g + 8 at k = 2t, 2t + 1 and 2t + 8, 2t + 9.
+  float2 st0 = make_float2(0.f, 0.f), st1 = st0;
+  auto load_frags = [&](unsigned (&a)[4][4], int stage, int kt) {
+    const int row = row_in_tile + (lane & 15);
+    const unsigned base = smem_u32(ring.a(stage)) + row * SLICE_BYTES;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = c_row + 32 * i;
-      bf16* da = as + r * LDS + c_col;
-      if (m0 + r < M)
-        cp_async16(da, A + (size_t)(m0 + r) * K + k0);
-      else
-        *reinterpret_cast<uint4*>(da) = zero_pack();
-      bf16* dw = ws + r * LDS + c_col;
-      if (n0 + r < N)
-        cp_async16(dw, W + (size_t)(n0 + r) * K + k0);
-      else
-        *reinterpret_cast<uint4*>(dw) = zero_pack();
+    for (int kk = 0; kk < 4; ++kk) {
+      unsigned raw[4];
+      ldmatrix_x4_u32(raw, base + (((kk * 2 + (lane >> 4)) ^ (row & 7)) << 4));
+      const int k = kt * BK + kk * 16 + 2 * t;
+      const float2 g0 = *reinterpret_cast<const float2*>(gamma_s + k);
+      const float2 g1 = *reinterpret_cast<const float2*>(gamma_s + k + 8);
+      const float2 b0 = *reinterpret_cast<const float2*>(beta_s + k);
+      const float2 b1 = *reinterpret_cast<const float2*>(beta_s + k + 8);
+      a[kk][0] = ln_pair(raw[0], st0, g0, b0);
+      a[kk][1] = ln_pair(raw[1], st1, g0, b0);
+      a[kk][2] = ln_pair(raw[2], st0, g1, b1);
+      a[kk][3] = ln_pair(raw[3], st1, g1, b1);
     }
   };
-
-  float acc[4][4][4];
+  // The slice's four products with A from registers; returns its stage.
+  auto issue_rs = [&](unsigned (&a)[4][4], int kt) {
+    const uint64_t db = smem_desc(ring.b(pos.stage));
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16_rs_n256(acc, a[kk], db + kk * DESC_K_STEP, (kt | kk) != 0);
+    wgmma_commit();
+    const int stage = pos.stage;
+    pos.advance(STAGES);
+    return stage;
+  };
 
-  const int nk = K / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt % STAGES;
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slice kt landed; every warp is done with slice kt-1
-    if (kt + STAGES - 1 < nk) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
-
-    bf16* as = As + buf * A_STAGE;
-    const bf16* ws = Bs + buf * B_STAGE;
+  for (int panel = blockIdx.x; panel < n_panels; panel += gridDim.x) {
+    const int m0 = panel * BM;
     if (LN) {
-      const int k0 = kt * BK + c_col;
-      float g[8], be[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        g[e] = __ldg(gamma + k0 + e);
-        be[e] = __ldg(beta + k0 + e);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        Pack8* p = reinterpret_cast<Pack8*>(as + (c_row + 32 * i) * LDS + c_col);
-        Pack8 v = *p;
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v.set(e, __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.get(e), st[i].x),
-                                                 st[i].y),
-                                       g[e]),
-                             be[e]));
-        *p = v;
-      }
-      __syncthreads();
+      const int r0 = m0 + row_in_tile + g;
+      st0 = r0 < M ? __ldg(stats + r0) : make_float2(0.f, 0.f);
+      st1 = r0 + 8 < M ? __ldg(stats + r0 + 8) : make_float2(0.f, 0.f);
     }
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int n0 = tile * BN;
+      int prev = -1;
+      if (LN) {
+        unsigned a0[4][4], a1[4][4];
+        mbar_wait(ring.full + pos.stage, pos.phase);
+        load_frags(a0, pos.stage, 0);
+        for (int kt = 0; kt < nk; kt += 2) {
+          int cur = issue_rs(a0, kt);
+          wgmma_wait<1>();  // slice kt-1 has retired: its stage and a1 are free
+          if (prev >= 0) release(ring, prev, lane);
+          prev = cur;
+          if (kt + 1 < nk) {
+            mbar_wait(ring.full + pos.stage, pos.phase);
+            load_frags(a1, pos.stage, kt + 1);
+            cur = issue_rs(a1, kt + 1);
+            wgmma_wait<1>();  // slice kt has retired: a0 is free
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) keep_all(a0[kk]);
+            release(ring, prev, lane);
+            prev = cur;
+            if (kt + 2 < nk) {
+              mbar_wait(ring.full + pos.stage, pos.phase);
+              load_frags(a0, pos.stage, kt + 2);
+            }
+          }
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          keep_all(a0[kk]);
+          keep_all(a1[kk]);
+        }
+      } else {
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(ring.full + pos.stage, pos.phase);
+          const uint64_t da =
+              smem_desc(ring.a(pos.stage) + wg * 64 * SLICE_BYTES);
+          const uint64_t db = smem_desc(ring.b(pos.stage));
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_bf16_ss_n256(acc, da + kk * DESC_K_STEP, db + kk * DESC_K_STEP,
+                               (kt | kk) != 0);
+          wgmma_commit();
+          const int cur = pos.stage;
+          pos.advance(STAGES);
+          wgmma_wait<1>();
+          if (prev >= 0) release(ring, prev, lane);
+          prev = cur;
+        }
+        wgmma_wait<0>();
+      }
+      keep_all(acc);
+      release(ring, prev, lane);
 
+      // out = bf16(acc + bias), for C bf16(f32(resid) + (acc + bias)), into
+      // the warpgroup's buffer and from there to device memory by TMA, which
+      // drops what lies past M or N and runs on under the next tile's loop.
+      if (LN) {
+        if (warp == 0 && lane == 0) bulk_wait_read();  // the tile before is out
+        named_barrier(1 + wg, 128);
+      } else {
+        mbar_wait(resid_full + wg, resid_phase);
+        resid_phase ^= 1;
+      }
 #pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      unsigned af[4][4];
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        const float2 b = col < N ? __ldg(reinterpret_cast<const float2*>(bias + col))
+                                 : make_float2(0.f, 0.f);
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], as + (wm * 64 + mi * 16 + (lane & 15)) * LDS + ks +
-                                (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        unsigned bfr[4];
-        ldmatrix_x4(bfr, ws + (wn * 32 + nj * 16 + (lane & 7) + (lane >> 4) * 8) *
-                                  LDS + ks + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma_bf16_16816(acc[mi][2 * nj], af[mi], bfr[0], bfr[1]);
-          mma_bf16_16816(acc[mi][2 * nj + 1], af[mi], bfr[2], bfr[3]);
+        for (int half = 0; half < 2; ++half) {
+          // row warp*16 + g + 8*half of the chunk, 16-byte unit j % 8 of it
+          unsigned* at = reinterpret_cast<unsigned*>(
+              out_wg + (j >> 3) * CHUNK_BYTES +
+              (warp * 16 + g + 8 * half) * SLICE_BYTES + (((j & 7) ^ g) << 4) +
+              4 * t);
+          float lo = __fadd_rn(acc[4 * j + 2 * half], b.x);
+          float hi = __fadd_rn(acc[4 * j + 2 * half + 1], b.y);
+          if (!LN) {
+            const unsigned res = *at;
+            lo = __fadd_rn(bf16_lo(res), lo);
+            hi = __fadd_rn(bf16_hi(res), hi);
+          }
+          *at = pack_bf16(lo, hi);
+        }
+      }
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (warp == 0 && lane == 0) {
+        if (m0 + wg * 64 < M)
+          for (int c = 0; c < CHUNKS && n0 + c * CHUNK_COLS < N; ++c)
+            tma_store_2d(&map_out, out_wg + c * CHUNK_BYTES, n0 + c * CHUNK_COLS,
+                         m0 + wg * 64);
+        bulk_commit();
+        if (!LN) {
+          bulk_wait_read();
+          mbar_arrive(out_free + wg);
         }
       }
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free for the epilogue tile
-
-  // Thread (g, t) of a warp holds rows g and g+8, columns 2t and 2t+1 of
-  // each 16x8 accumulator tile.
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wm * 64 + mi * 16 + g + 8 * half;
-        const int c = wn * 32 + ni * 8 + 2 * t;
-        *reinterpret_cast<float2*>(Cs + r * CLD + c) =
-            make_float2(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
-      }
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN / 8; idx += THREADS) {
-    const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    Pack8 res, o;
-    if (RESID) res.u = *reinterpret_cast<const uint4*>(resid + (size_t)m * N + n);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float v = __fadd_rn(Cs[r * CLD + c + e], bias[n + e]);
-      if (RESID) v = __fadd_rn(res.get(e), v);
-      o.set(e, v);
-    }
-    *reinterpret_cast<uint4*>(out + (size_t)m * N + n) = o.u;
-  }
+  if (warp == 0 && lane == 0) bulk_wait();
 }
 
-template <bool LN, bool RESID>
-int launch_gemm(const bf16* a, const bf16* w, const float* b, const float2* st,
+template <bool LN>
+int launch_gemm(const bf16* a, const bf16* w, const float* b, const float2* stats,
                 const float* gamma, const float* beta, const bf16* resid,
                 bf16* out, int M, int N, int K, cudaStream_t s) {
-  cudaFuncSetAttribute(gemm_kernel<LN, RESID>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<LN, RESID><<<grid, THREADS, SMEM_BYTES, s>>>(
-      a, w, b, st, gamma, beta, resid, out, M, N, K);
+  CUtensorMap map_a, map_w, map_out, map_resid;
+  int rc = make_map(&map_a, a, 2, M, K, BM);
+  if (rc == 0) rc = make_map(&map_w, w, 2, N, K, BN);
+  if (rc == 0) rc = make_map(&map_out, out, 2, M, N, 64);
+  if (rc == 0) rc = make_map(&map_resid, LN ? out : resid, 2, M, N, 64);
+  if (rc != 0) return rc;
+  const int smem = smem_bytes(LN, K);
+  cudaFuncSetAttribute(gemm_kernel<LN>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem_bytes(LN, MAX_K_LN));
+  const int n_panels = (M + BM - 1) / BM;
+  const int grid = n_panels < sm_count() ? n_panels : sm_count();
+  gemm_kernel<LN><<<grid, THREADS, smem, s>>>(map_a, map_w, map_out, map_resid, b,
+                                              stats, gamma, beta, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+int launch_stats(const bf16* x, float2* stats, int M, int K, float eps,
+                 cudaStream_t s) {
+  const int rows_per_block = 256 / 32;
+  ln_stats_kernel<<<(M + rows_per_block - 1) / rows_per_block, 256, 0, s>>>(
+      x, stats, M, K, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace ep
 
-// Kernel A. x (M, K), w (N, K), b/gamma/beta f32; stats: f32 scratch of 2*M.
+// The row statistics of kernel A alone: x (M, K) bf16 -> stats (M, 2) f32,
+// (mean, 1/sqrt(var + eps)) a row.
+EP_EXPORT int ep_ln_row_stats(const void* x, void* stats, int M, int K,
+                              float eps, void* stream) {
+  using namespace ep;
+  return launch_stats(static_cast<const bf16*>(x), static_cast<float2*>(stats),
+                      M, K, eps, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel A. x (M, K), w (N, K) bf16; b (N), gamma, beta (K) f32; stats: f32
+// scratch of 2*M -> out (M, N).
 EP_EXPORT int ep_ln_qkv_gemm(const void* x, const void* w, const void* b,
                              const void* gamma, const void* beta, void* stats,
                              void* out, int M, int N, int K, float eps,
                              void* stream) {
   using namespace ep;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows_per_block = 256 / 32;
-  ln_stats_kernel<<<(M + rows_per_block - 1) / rows_per_block, 256, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<float2*>(stats), M, K, eps);
-  const int rc = (int)cudaGetLastError();
+  const int rc = launch_stats(static_cast<const bf16*>(x),
+                              static_cast<float2*>(stats), M, K, eps, s);
   if (rc != 0) return rc;
-  return launch_gemm<true, false>(
+  return launch_gemm<true>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const float*>(b), static_cast<const float2*>(stats),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      nullptr, static_cast<bf16*>(out), M, N, K, s);
+      static_cast<const float*>(gamma), static_cast<const float*>(beta), nullptr,
+      static_cast<bf16*>(out), M, N, K, s);
 }
 
 // Kernel C. o (M, K), w (N, K), b f32, resid (M, N) -> out (M, N).
@@ -254,7 +422,7 @@ EP_EXPORT int ep_proj_residual_gemm(const void* o, const void* w, const void* b,
                                     const void* resid, void* out, int M, int N,
                                     int K, void* stream) {
   using namespace ep;
-  return launch_gemm<false, true>(
+  return launch_gemm<false>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(w),
       static_cast<const float*>(b), nullptr, nullptr, nullptr,
       static_cast<const bf16*>(resid), static_cast<bf16*>(out), M, N, K,

@@ -50,6 +50,14 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
+// The two bf16 values packed in a 32-bit word (lo in the low half), as f32.
+__device__ __forceinline__ float bf16_lo(unsigned pair) {
+  return __uint_as_float(pair << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned pair) {
+  return __uint_as_float(pair & 0xffff0000u);
+}
+
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }

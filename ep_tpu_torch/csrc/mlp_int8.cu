@@ -16,34 +16,49 @@
 // Bound on this card: operations. One block's two products are 4*M*D*DH
 //   int8 operations against about M*(4*D + 2*DH) bytes of activations, far
 //   above the int8 ridge of an H100.
-// Design: a simple tiled product first. mma.sync m16n8k32 (s8 x s8 -> s32)
-//   fed by ldmatrix from a 3-stage cp.async ring of 128-byte K slices; an
-//   int8 row of 32 bytes has the byte layout of a bf16 row of 16 values, so
-//   the b16 ldmatrix addressing of attn_block_gemm.cu carries over in bytes.
+// Design:
 //   * ln_quant: one warp a row; f32 statistics, h = LN(x), sx = max|h|/127,
 //     hq = rint(h / sx).
-//   * fc1: one block owns 128 rows and one stripe. The requantisation scale
-//     needs the whole stripe's max before any code can be written, and a
-//     stripe (3072 columns at ViT-B) fits no tile, so the block runs the
-//     stripe's product twice: pass 0 keeps only max|gelu| per row (quad
-//     shuffles, then atomicMax in shared memory), pass 1 recomputes and
-//     writes aq = rint(gelu / sa). GELU is the tanh form on the bf16-rounded
-//     pre-activation, rounded to bf16 after every elementary operation.
-//   * fc2: a 128x64 tile over K = DH; at each stripe's end the s32
-//     accumulator is dequantised with sa[:, s]*s2 into an f32 running sum
-//     (the scale changes per stripe, so the s32 sum cannot run across
-//     stripes); epilogue bias, f32 residual, one rounding to bf16.
+//   * fc1: one product. The requantisation scale needs the whole stripe's
+//     max|gelu| before any code can be written, so the stripe's GELU outputs
+//     wait on chip, as bf16 in shared memory, until it is known. A block owns
+//     128 rows and up to three tiles of 128 or 160 columns of one stripe; a
+//     stripe wider than that (3072 columns at ViT-B) is shared by a cluster
+//     of up to 8 blocks on neighbouring SMs, which split its columns. The
+//     product is the main loop of hopper.cuh with s8 operands: 128-byte K
+//     slices of hq and W1 through a TMA ring, wgmma m64nBNk32 (s32
+//     accumulators) in two consumer warpgroups of 64 rows each. Clusters are
+//     persistent and take (panel, stripe) items in turn, the ring running on
+//     from tile to tile and item to item. Each tile's epilogue dequantises,
+//     takes the GELU (the tanh form on the bf16-rounded pre-activation,
+//     rounded to bf16 after every elementary operation: a function from bf16
+//     to bf16, read from a table that this arithmetic filled), writes it to
+//     the block's bf16 buffer and folds the row maxima in registers. The
+//     blocks of a cluster push their maxima into each other's shared memory
+//     (red.shared::cluster.max on the bits of a non-negative f32), meet at a
+//     cluster barrier, and each quantises its own buffer, aq = rint(gelu /
+//     sa), with 16-byte stores. Both elementwise passes are free of branches
+//     and calls (table, a product with 1/sa checked against the division's
+//     rounding), because with 8 warps an SM their time is latency, not work.
+//   * fc2: a simple tiled product: mma.sync m16n8k32 (s8 x s8 -> s32) fed by
+//     ldmatrix from a 3-stage cp.async ring of 128-byte K slices over a
+//     128x64 tile with K = DH; at each stripe's end the s32 accumulator is
+//     dequantised with sa[:, s]*s2 into an f32 running sum (the scale changes
+//     per stripe, so the s32 sum cannot run across stripes); epilogue bias,
+//     f32 residual, one rounding to bf16. The pipeline refill per tile and
+//     mma.sync instead of wgmma are what a faster fc2 would remove.
 //   Every f32 step uses the round-to-nearest intrinsics so that no
 //   multiply-add is contracted: the kernels round where the plain version
-//   (ops/mlp_int8.py::mlp_int8_ref) rounds, and the s32 sums are exact.
-//   Running fc1's product twice, the pipeline refill per column tile and
-//   mma.sync instead of wgmma are what a faster version would remove.
+//   (ops/mlp_int8.py::mlp_int8_ref) rounds, and the s32 sums are exact in any
+//   order, so fc1's codes and scales equal the plain version's bit for bit.
 //
 // Layouts: x, out (M, D) bf16; w1q (DH, D) and w2q (D, DH) int8, the
 // nn.Linear layout (K contiguous per output channel, the "col" operand of the
 // mma); s1 (DH), s2 (D), b1, b2, gamma, beta f32. Requires D % 128 == 0 and
-// (DH / S) % 128 == 0 (checked by the Python wrapper); M may be ragged.
-#include "common.cuh"
+// (DH / S) % 128 == 0; fc1 also that the stripe splits into C <= 8 blocks of
+// 384, 320, 256 or 128 columns (ops/mlp_int8.py::fc1_tiling; checked by the
+// Python wrapper); M may be ragged.
+#include "hopper.cuh"
 
 namespace ep {
 namespace {
@@ -80,6 +95,23 @@ __device__ __forceinline__ float gelu_bf16(float a) {
 
 __device__ __forceinline__ int quantise(float v, float scale) {
   return (int)rintf(__fdiv_rn(v, scale));  // half to even; |v/scale| <= 127
+}
+
+// quantise(v, scale) for |v / scale| <= 127 without a division: t = v *
+// fl(1 / scale) lies within 127 * 2^-23 = 1.5e-5 of the quotient, so rint(t)
+// is the rounded quotient unless t is that close to a half. `doubt` is set
+// then, and the caller divides; the test stays out of the chain of
+// dependent instructions, so the elements of an unrolled loop overlap.
+__device__ __forceinline__ int quantise_by_inverse(float v, float inv_scale,
+                                                   bool& doubt) {
+  // Adding 1.5 * 2^23 leaves rint(t), half to even, in the sum's low bits:
+  // plain additions, where rintf and the cast are conversions at a fraction
+  // of their rate.
+  constexpr float MAGIC = 12582912.0f;
+  const float t = __fmul_rn(v, inv_scale);
+  const float m = __fadd_rn(t, MAGIC);
+  doubt |= fabsf(fabsf(__fsub_rn(t, __fsub_rn(m, MAGIC))) - 0.5f) < 4e-5f;
+  return __float_as_int(m) - __float_as_int(MAGIC);
 }
 
 // h = LN(x) in f32 for 8 consecutive columns of one row.
@@ -230,118 +262,340 @@ __device__ __forceinline__ void product(const int8_t* __restrict__ A,
   __syncthreads();
 }
 
-constexpr int FC1_BN = 128, FC1_MI = 4, FC1_NJ = 2;  // 2x4 warps of 64x32
-constexpr int FC1_SMEM = STAGES * (BM + FC1_BN) * LDS;
 constexpr int FC2_BN = 64, FC2_MI = 2, FC2_NJ = 2;  // 4x2 warps of 32x32
 constexpr int FC2_SMEM = STAGES * (BM + FC2_BN) * LDS;
 constexpr int FC2_CLD = FC2_BN + 4;  // f32 row stride of fc2's epilogue tile
 static_assert(BM * FC2_CLD * 4 <= FC2_SMEM, "fc2's epilogue tile fits the ring");
-static_assert(BM * LDS <= FC1_SMEM, "fc1's code tile fits the ring");
 
-// grid (S, ceil(M / 128)): rows m0.. and stripe blockIdx.x of the hidden dim.
-__global__ void __launch_bounds__(THREADS, 2)
-fc1_kernel(const int8_t* __restrict__ hq, const float* __restrict__ sx,
-           const int8_t* __restrict__ w1q, const float* __restrict__ s1,
-           const float* __restrict__ b1, int8_t* __restrict__ aq,
-           float* __restrict__ sa, int M, int D, int DH, int S) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float sx_s[BM];
-  __shared__ float sa_s[BM];
-  __shared__ unsigned amax_s[BM];  // bits of a non-negative f32: order-preserving
+// The GELU above is a function from bf16 to bf16, so a table holds it: for
+// every bf16 value with 2^-14 <= |a| < 8, the result of gelu_bf16 itself,
+// filled once by gelu_table_kernel. fc1's epilogue looks it up: one shared
+// memory load in place of a chain of ~50 dependent instructions and tanhf's
+// branch, which kept 8 warps an SM waiting on latency.
+constexpr int GELU_EXP0 = 127 - 14, GELU_EXPS = 17;  // biased exponents covered
+constexpr int GELU_TABLE = GELU_EXPS * 256;           // entries, 2 bytes each
+
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float bf16_value(unsigned short bits) {
+  return __uint_as_float((unsigned)bits << 16);
+}
+
+
+// Entry (e, sign, mantissa) at (e - GELU_EXP0) * 256 + sign * 128 + mantissa.
+__global__ void gelu_table_kernel(unsigned short* __restrict__ table) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= GELU_TABLE) return;
+  const unsigned bits = ((unsigned)((i >> 7) & 1) << 15) |
+                        ((unsigned)(GELU_EXP0 + (i >> 8)) << 7) | (i & 127);
+  table[i] = bf16_bits(gelu_bf16(bf16_value((unsigned short)bits)));
+}
+
+// bf16 bits of gelu_bf16(a) for the bf16 value with bits `a`, without a
+// branch, so that the lookups of an unrolled loop overlap. Inside the table's
+// range it is the table's entry. Past it (|a| >= 8) the arithmetic of
+// gelu_bf16 gives tanh = +-1 exactly, so the result is a for a > 0 and -0 for
+// a < 0. Below it (|a| < 2^-14) the cubic term vanishes against a, tanh(u)
+// rounds to u and 1 + u to 1, so the result is bf16(a * 0.5), `half` here.
+// (Only -inf and NaN, which no finite input produces, come out as -0 and a
+// instead of NaN.) gelu_check_kernel holds this against gelu_bf16 for every
+// bf16 value.
+__device__ __forceinline__ unsigned gelu_select(
+    const unsigned short* __restrict__ table, unsigned a, unsigned half) {
+  const int e = (int)((a >> 7) & 0xffu) - GELU_EXP0;
+  const unsigned entry = table[(min(max(e, 0), GELU_EXPS - 1) << 8) |
+                               ((a >> 8) & 0x80u) | (a & 0x7fu)];
+  const unsigned big = (a & 0x8000u) ? 0x8000u : a;
+  return e < 0 ? half : e >= GELU_EXPS ? big : entry;
+}
+
+// The GELUs of bf16(fa) and bf16(fb), packed (fa's in the low half). The two
+// roundings to bf16 are one conversion each for the pair.
+__device__ __forceinline__ unsigned gelu_lookup2(
+    const unsigned short* __restrict__ table, float fa, float fb) {
+  const unsigned ab = pack_bf16(fa, fb);
+  const unsigned half = pack_bf16(__fmul_rn(bf16_lo(ab), 0.5f),
+                                  __fmul_rn(bf16_hi(ab), 0.5f));
+  return gelu_select(table, ab & 0xffffu, half & 0xffffu) |
+         (gelu_select(table, ab >> 16, half >> 16) << 16);
+}
+
+// mismatches[0] += the finite bf16 values at which gelu_lookup2 and gelu_bf16
+// differ (it must stay 0); one thread a value.
+__global__ void gelu_check_kernel(const unsigned short* __restrict__ table,
+                                  int* __restrict__ mismatches) {
+  const unsigned a = blockIdx.x * blockDim.x + threadIdx.x;
+  if (a >= 65536u || ((a >> 7) & 0xffu) == 0xffu) return;
+  const float v = bf16_value((unsigned short)a);
+  const unsigned want = bf16_bits(gelu_bf16(v));
+  if (gelu_lookup2(table, v, v) != (want | (want << 16)))
+    atomicAdd(mismatches, 1);
+}
+
+// fc1's shared memory: the ring, the block's GELU buffer (128 rows of
+// tiles*BN bf16 values, 16 bytes of padding a row against bank conflicts),
+// the GELU table, the ring's barriers, the rows' sx and the rows' maxima
+// over the whole stripe.
+__host__ __device__ constexpr int fc1_stage_bytes(int bn) {
+  return hopper::A_STAGE_BYTES + bn * hopper::SLICE_BYTES;
+}
+__host__ __device__ constexpr int fc1_row_bytes(int nb) { return nb * 2 + 16; }
+constexpr int FC1_MAX_STAGES = 4, FC1_BAR_BYTES = 2 * FC1_MAX_STAGES * 8;
+__host__ __device__ constexpr int fc1_smem_bytes(int bn, int tiles, int stages) {
+  return 1024 + stages * fc1_stage_bytes(bn) + BM * fc1_row_bytes(bn * tiles) +
+         GELU_TABLE * 2 + FC1_BAR_BYTES + 2 * BM * 4;  // last: the maxima
+}
+inline int fc1_stages(int bn, int tiles) {
+  int st = FC1_MAX_STAGES;
+  while (fc1_smem_bytes(bn, tiles, st) > hopper::MAX_SMEM) --st;
+  return st;
+}
+
+// Persistent clusters of C blocks along x. A cluster takes work items
+// (panel, stripe) in turn: rows 128*panel.., and of the stripe's columns block
+// `rank` takes stripe*ds + rank*tiles*BN... The ring runs on from one item
+// into the next, so the next item's slices land while this one is quantised.
+template <int BN>
+__global__ void __launch_bounds__(hopper::BLOCK_THREADS, 1)
+fc1_kernel(const __grid_constant__ CUtensorMap map_hq,
+           const __grid_constant__ CUtensorMap map_w,
+           const float* __restrict__ sx, const float* __restrict__ s1,
+           const float* __restrict__ b1,
+           const unsigned short* __restrict__ gelu_table,
+           int8_t* __restrict__ aq, float* __restrict__ sa, int M, int D, int DH,
+           int S, int C, int tiles, int stages) {
+  using namespace hopper;
+  constexpr int STAGE = fc1_stage_bytes(BN);
+  const int NB = tiles * BN;  // this block's columns
+  const int ROW = fc1_row_bytes(NB);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* gelu_s = smem + stages * STAGE;  // [BM][ROW]
+  unsigned short* table_s = reinterpret_cast<unsigned short*>(gelu_s + BM * ROW);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(table_s + GELU_TABLE);
+  // the rows' maxima over the stripe as bits of a non-negative f32, which
+  // order as the values do; one array for even items, one for odd
+  unsigned* amax_s = reinterpret_cast<unsigned*>(bars + 2 * FC1_MAX_STAGES);
+  const Ring ring{smem, bars, bars + FC1_MAX_STAGES, stages, STAGE};
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  const int stripe = blockIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const int ds = DH / S;
+  const unsigned rank = cluster_rank();
+  const int n_work = ((M + BM - 1) / BM) * S;
+  const int n_clusters = gridDim.x / C, cluster_id = blockIdx.x / C;
   const int nk = D / BK;
 
-  if (tid < BM) {
-    sx_s[tid] = (m0 + tid < M) ? sx[m0 + tid] : 0.f;
-    amax_s[tid] = 0u;
-  }
+  if (tid == 0) ring_init(ring);
+  if (tid < 2 * BM) amax_s[tid] = 0u;
+  for (int i = tid; i < GELU_TABLE * 2 / 16; i += BLOCK_THREADS)
+    reinterpret_cast<uint4*>(table_s)[i] =
+        __ldg(reinterpret_cast<const uint4*>(gelu_table) + i);
   __syncthreads();
+  // every block's maxima are zeroed before a peer of its cluster reaches them
+  cluster_arrive();
+  cluster_wait();
 
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int n0 = stripe * ds; n0 < (stripe + 1) * ds; n0 += FC1_BN) {
-      int acc[FC1_MI][2 * FC1_NJ][4];
-#pragma unroll
-      for (int mi = 0; mi < FC1_MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 2 * FC1_NJ; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-      product<FC1_BN, FC1_MI, FC1_NJ>(hq, w1q, D, M, m0, n0, nk, smem, wm * 64,
-                                      wn * 32, tid, acc, [](int) {});
-
-      // a = acc*(sx*s1) + b1 in f32, rounded to bf16, GELU in bf16
-      float rmax[FC1_MI][2];
-#pragma unroll
-      for (int mi = 0; mi < FC1_MI; ++mi) rmax[mi][0] = rmax[mi][1] = 0.f;
-#pragma unroll
-      for (int ni = 0; ni < 2 * FC1_NJ; ++ni) {
-        const int c = wn * 32 + ni * 8 + 2 * t;
-        const float s1a = __ldg(s1 + n0 + c), s1b = __ldg(s1 + n0 + c + 1);
-        const float b1a = __ldg(b1 + n0 + c), b1b = __ldg(b1 + n0 + c + 1);
-#pragma unroll
-        for (int mi = 0; mi < FC1_MI; ++mi)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = wm * 64 + mi * 16 + g + 8 * half;
-            const float sxr = sx_s[r];
-            const float va = gelu_bf16(round_bf16(__fadd_rn(
-                __fmul_rn(__int2float_rn(acc[mi][ni][2 * half]),
-                          __fmul_rn(sxr, s1a)), b1a)));
-            const float vb = gelu_bf16(round_bf16(__fadd_rn(
-                __fmul_rn(__int2float_rn(acc[mi][ni][2 * half + 1]),
-                          __fmul_rn(sxr, s1b)), b1b)));
-            if (pass == 0) {
-              rmax[mi][half] = fmaxf(rmax[mi][half], fmaxf(fabsf(va), fabsf(vb)));
-            } else {
-              const float sar = sa_s[r];
-              const unsigned q = (unsigned)(quantise(va, sar) & 0xff) |
-                                 ((unsigned)(quantise(vb, sar) & 0xff) << 8);
-              *reinterpret_cast<unsigned short*>(smem + r * LDS + c) =
-                  (unsigned short)q;
-            }
-          }
+  const int wg = tid >> 7;
+  if (wg == 2) {
+    // The producer meets the cluster's barrier once an item like everyone,
+    // but waits for it only after the next item's loads are on their way.
+    setmaxnreg_dec<40>();
+    RingPos pos;
+    bool arrived = false;
+    for (int work = cluster_id; work < n_work; work += n_clusters) {
+      if (tid == 256) {
+        const int col0 = (work % S) * (DH / S) + (int)rank * NB;
+        for (int tile = 0; tile < tiles; ++tile)
+          produce_tile(ring, pos, &map_hq, &map_w, (work / S) * BM,
+                       col0 + tile * BN, 0, nk, BK, STAGE);
       }
-      if (pass == 0) {
-#pragma unroll
-        for (int mi = 0; mi < FC1_MI; ++mi)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            float v = rmax[mi][half];
-            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-            if (t == 0)
-              atomicMax(&amax_s[wm * 64 + mi * 16 + g + 8 * half],
-                        __float_as_uint(v));
-          }
-      } else {
-        __syncthreads();  // the code tile is whole
-        for (int idx = tid; idx < BM * (FC1_BN / 16); idx += THREADS) {
-          const int r = idx / (FC1_BN / 16), c = (idx % (FC1_BN / 16)) * 16;
-          if (m0 + r < M)
-            *reinterpret_cast<uint4*>(aq + (size_t)(m0 + r) * DH + n0 + c) =
-                *reinterpret_cast<const uint4*>(smem + r * LDS + c);
-        }
-        __syncthreads();  // before the next tile's copies land on it
-      }
+      __syncwarp();
+      if (arrived) cluster_wait();
+      cluster_arrive();
+      arrived = true;
     }
-    if (pass == 0) {
-      __syncthreads();  // every warp's maxima are in
-      if (tid < BM) {
-        const float v =
-            __fdiv_rn(fmaxf(__uint_as_float(amax_s[tid]), 1e-8f), 127.0f);
-        sa_s[tid] = v;
-        if (m0 + tid < M) sa[(size_t)(m0 + tid) * S + stripe] = v;
-      }
-      __syncthreads();
-    }
+    if (arrived) cluster_wait();
+    return;
   }
+
+  setmaxnreg_inc<232>();
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = wg * 64 + warp * 16 + g;  // and row0 + 8
+  RingPos pos;
+  int parity = 0;
+  for (int work = cluster_id; work < n_work; work += n_clusters, parity ^= 1) {
+    const int stripe = work % S, m0 = (work / S) * BM;
+    const int col0 = stripe * (DH / S) + (int)rank * NB;
+    unsigned* amax = amax_s + parity * BM;
+    const float sxr[2] = {m0 + row0 < M ? __ldg(sx + m0 + row0) : 0.f,
+                          m0 + row0 + 8 < M ? __ldg(sx + m0 + row0 + 8) : 0.f};
+    float rmax[2] = {0.f, 0.f};
+#pragma unroll 1
+    for (int tile = 0; tile < tiles; ++tile) {
+      // this thread's columns' scales and biases, asked for before the loop
+      // that hides their way from L2 (the cluster barrier empties L1)
+      float2 s1v[BN / 8], b1v[BN / 8];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = col0 + tile * BN + 8 * j + 2 * t;
+        s1v[j] = __ldg(reinterpret_cast<const float2*>(s1 + c));
+        b1v[j] = __ldg(reinterpret_cast<const float2*>(b1 + c));
+      }
+      int acc[BN / 2];
+      int prev = -1;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(ring.full + pos.stage, pos.phase);
+        const uint64_t da = smem_desc(ring.a(pos.stage) + wg * 64 * SLICE_BYTES);
+        const uint64_t db = smem_desc(ring.b(pos.stage));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_s8<BN>(acc, da + kk * DESC_K_STEP, db + kk * DESC_K_STEP,
+                       (kt | kk) != 0);
+        wgmma_commit();
+        const int cur = pos.stage;
+        pos.advance(stages);
+        wgmma_wait<1>();
+        if (prev >= 0) release(ring, prev, lane);
+        prev = cur;
+      }
+      wgmma_wait<0>();
+      keep_all(acc);
+      release(ring, prev, lane);
+
+      // a = acc*(sx*s1) + b1 in f32, rounded to bf16, then its GELU
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const unsigned gg = gelu_lookup2(
+              table_s,
+              __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * half]),
+                                  __fmul_rn(sxr[half], s1v[j].x)), b1v[j].x),
+              __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * half + 1]),
+                                  __fmul_rn(sxr[half], s1v[j].y)), b1v[j].y));
+          rmax[half] = fmaxf(rmax[half], fmaxf(fabsf(bf16_lo(gg)),
+                                               fabsf(bf16_hi(gg))));
+          *reinterpret_cast<unsigned*>(gelu_s + (row0 + 8 * half) * ROW +
+                                       (tile * BN + 8 * j + 2 * t) * 2) = gg;
+        }
+    }
+
+    // The row's max over this block's columns goes to every block of the
+    // cluster; the other array is zeroed for the next item (its last readers
+    // passed the barrier that ended the item before).
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float v = rmax[half];
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      if (t == 0) {
+        for (int peer = 0; peer < C; ++peer)
+          cluster_max_u32(amax + row0 + 8 * half, peer, __float_as_uint(v));
+        amax_s[(parity ^ 1) * BM + row0 + 8 * half] = 0u;
+      }
+    }
+    cluster_arrive();  // also orders this block's writes of gelu_s
+    cluster_wait();
+
+    // aq = rint(gelu / sa): 16 codes a chunk, two chunks a thread and turn
+    // (their instructions interleave), each stored with one 16-byte write.
+    // 128 rows of NB / 16 chunks are a multiple of the 512 chunks of a turn.
+    const int chunks = NB / 16;
+    for (int idx = tid; idx < BM * chunks; idx += 2 * 2 * 128) {
+      int r[2], c[2];
+      float sar[2];
+      unsigned pair[2][8], w[2][4];
+      bool doubt[2] = {false, false};
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        r[k] = (idx + k * 2 * 128) / chunks;
+        c[k] = ((idx + k * 2 * 128) % chunks) * 16;
+        sar[k] = __fdiv_rn(fmaxf(__uint_as_float(amax[r[k]]), 1e-8f), 127.0f);
+        const uint4* src =
+            reinterpret_cast<const uint4*>(gelu_s + r[k] * ROW + c[k] * 2);
+        const uint4 u0 = src[0], u1 = src[1];
+        pair[k][0] = u0.x, pair[k][1] = u0.y, pair[k][2] = u0.z, pair[k][3] = u0.w;
+        pair[k][4] = u1.x, pair[k][5] = u1.y, pair[k][6] = u1.z, pair[k][7] = u1.w;
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float inv = __fdiv_rn(1.0f, sar[k]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[k][e] = 0u;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int lo = quantise_by_inverse(bf16_lo(pair[k][e]), inv, doubt[k]);
+          const int hi = quantise_by_inverse(bf16_hi(pair[k][e]), inv, doubt[k]);
+          w[k][e >> 1] |= ((unsigned)(lo & 0xff) | ((unsigned)(hi & 0xff) << 8))
+                          << (16 * (e & 1));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (doubt[k]) {  // some quotient lies at a half: divide
+#pragma unroll
+          for (int e = 0; e < 4; ++e) w[k][e] = 0u;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int lo = quantise(bf16_lo(pair[k][e]), sar[k]);
+            const int hi = quantise(bf16_hi(pair[k][e]), sar[k]);
+            w[k][e >> 1] |= ((unsigned)(lo & 0xff) | ((unsigned)(hi & 0xff) << 8))
+                            << (16 * (e & 1));
+          }
+        }
+        if (m0 + r[k] >= M) continue;
+        if (rank == 0 && c[k] == 0)
+          sa[(size_t)(m0 + r[k]) * S + stripe] = sar[k];
+        *reinterpret_cast<uint4*>(aq + (size_t)(m0 + r[k]) * DH + col0 + c[k]) =
+            make_uint4(w[k][0], w[k][1], w[k][2], w[k][3]);
+      }
+    }
+    named_barrier(1, 2 * 128);  // the GELU buffer is free for the next item
+  }
+}
+
+template <int BN>
+int launch_fc1(const int8_t* hq, const float* sx, const int8_t* w1q,
+               const float* s1, const float* b1, const unsigned short* table,
+               int8_t* aq, float* sa, int M, int D, int DH, int S, int C,
+               int tiles, cudaStream_t stream) {
+  CUtensorMap map_hq, map_w;
+  int rc = hopper::make_map(&map_hq, hq, 1, M, D, BM);
+  if (rc == 0) rc = hopper::make_map(&map_w, w1q, 1, DH, D, BN);
+  if (rc != 0) return rc;
+  const int stages = fc1_stages(BN, tiles);
+  const int smem = fc1_smem_bytes(BN, tiles, stages);
+  cudaFuncSetAttribute(fc1_kernel<BN>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       hopper::MAX_SMEM);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(hopper::BLOCK_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  // as many clusters as the card runs at once (asked once a cluster size)
+  static int resident[9] = {};
+  if (!resident[C]) {
+    cfg.gridDim = dim3(C * hopper::sm_count());
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, fc1_kernel<BN>, &cfg) != cudaSuccess ||
+        n < 1)
+      n = hopper::sm_count() / C;
+    resident[C] = n;
+  }
+  const int n_work = ((M + BM - 1) / BM) * S;
+  cfg.gridDim = dim3(C * (n_work < resident[C] ? n_work : resident[C]));
+  rc = (int)cudaLaunchKernelEx(&cfg, fc1_kernel<BN>, map_hq, map_w, sx, s1, b1,
+                               table, aq, sa, M, D, DH, S, C, tiles, stages);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 // grid (D / 64, ceil(M / 128)).
@@ -448,21 +702,46 @@ EP_EXPORT int ep_mlp_int8_ln_quant(const void* x, const void* gamma,
   return (int)cudaGetLastError();
 }
 
-// hq (M, D), sx (M), w1q (DH, D), s1/b1 (DH) -> aq (M, DH) int8, sa (M, S).
+// The GELU table fc1 reads: GELU_TABLE entries of 2 bytes, filled once.
+EP_EXPORT int ep_mlp_int8_gelu_table(void* table, void* stream) {
+  using namespace ep;
+  gelu_table_kernel<<<(GELU_TABLE + 255) / 256, 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned short*>(table));
+  return (int)cudaGetLastError();
+}
+EP_EXPORT int ep_mlp_int8_gelu_table_entries() { return ep::GELU_TABLE; }
+
+// Adds to *mismatches (an int32 on the device) the finite bf16 values at
+// which fc1's table-driven GELU differs from the GELU arithmetic itself.
+EP_EXPORT int ep_mlp_int8_gelu_check(const void* table, void* mismatches,
+                                     void* stream) {
+  using namespace ep;
+  gelu_check_kernel<<<256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned short*>(table), static_cast<int*>(mismatches));
+  return (int)cudaGetLastError();
+}
+
+// hq (M, D), sx (M), w1q (DH, D), s1/b1 (DH), the GELU table -> aq (M, DH)
+// int8, sa (M, S). A block takes `tiles` tiles of `bn` columns, a cluster of
+// DH / S / (tiles * bn) blocks one stripe (ops/mlp_int8.py::fc1_tiling).
 EP_EXPORT int ep_mlp_int8_fc1(const void* hq, const void* sx, const void* w1q,
-                              const void* s1, const void* b1, void* aq,
-                              void* sa, int M, int D, int DH, int S,
+                              const void* s1, const void* b1,
+                              const void* gelu_table, void* aq, void* sa, int M,
+                              int D, int DH, int S, int bn, int tiles,
                               void* stream) {
   using namespace ep;
-  cudaFuncSetAttribute(fc1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       FC1_SMEM);
-  const dim3 grid(S, (M + BM - 1) / BM);
-  fc1_kernel<<<grid, THREADS, FC1_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(hq), static_cast<const float*>(sx),
-      static_cast<const int8_t*>(w1q), static_cast<const float*>(s1),
-      static_cast<const float*>(b1), static_cast<int8_t*>(aq),
-      static_cast<float*>(sa), M, D, DH, S);
-  return (int)cudaGetLastError();
+  const int ds = DH / S;
+  if (D % BK || tiles < 1 || ds % (bn * tiles) || ds / (bn * tiles) > 8)
+    return (int)cudaErrorInvalidValue;
+  if (bn != 160 && bn != 128) return (int)cudaErrorInvalidValue;
+  const auto launch = bn == 160 ? launch_fc1<160> : launch_fc1<128>;
+  return launch(static_cast<const int8_t*>(hq), static_cast<const float*>(sx),
+                static_cast<const int8_t*>(w1q), static_cast<const float*>(s1),
+                static_cast<const float*>(b1),
+                static_cast<const unsigned short*>(gelu_table),
+                static_cast<int8_t*>(aq), static_cast<float*>(sa), M, D, DH, S,
+                ds / (bn * tiles), tiles, static_cast<cudaStream_t>(stream));
 }
 
 // aq (M, DH), sa (M, S), w2q (D, DH), s2/b2 (D), x (M, D) -> out (M, D) bf16.

@@ -30,6 +30,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types (all return int, a cudaError_t)
 SIGNATURES = {
+    "ep_ln_row_stats": [_P, _P, _I, _I, _F, _P],
     "ep_ln_qkv_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "ep_proj_residual_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ep_attn_core": [_P, _P, _I, _I, _I, _I, _F, _P],
@@ -43,7 +44,11 @@ SIGNATURES = {
     "ep_pool_proj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ep_pool_proj_smem_bytes": [_I, _I, _I],
     "ep_mlp_int8_ln_quant": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
-    "ep_mlp_int8_fc1": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ep_mlp_int8_gelu_table": [_P, _P],
+    "ep_mlp_int8_gelu_table_entries": [],
+    "ep_mlp_int8_gelu_check": [_P, _P, _P],
+    "ep_mlp_int8_fc1": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P],
     "ep_mlp_int8_fc2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -95,7 +100,8 @@ def build() -> tuple[Path, float, bool]:
         failed = any(p.returncode for p in procs)
         if not failed:
             tmp = Path(tmpdir) / lib.name
-            link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+            link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs),
+                    "-ldl"]  # hopper.cuh takes the tensor-map encoder by dlsym
             proc = subprocess.run(link, capture_output=True, text=True)
             log += " ".join(link) + "\n" + proc.stdout + proc.stderr
             failed = proc.returncode != 0

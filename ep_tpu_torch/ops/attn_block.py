@@ -27,13 +27,19 @@ from .attn_fused import (attention_core, attention_qkv_fused_bwd,
                          attention_qkv_fused_ref)
 
 
-def _check_gemm(name: str, N: int, K: int) -> None:
-    # csrc/attn_block_gemm.cu streams K in slices of 64 and stores columns
-    # 8 at a time
+MAX_K_LN = 1280  # kernel A: one warp holds a row's values for its statistics
+
+
+def _check_gemm(name: str, N: int, K: int, ln: bool = False) -> None:
+    # csrc/attn_block_gemm.cu streams K in slices of 64 (one 128-byte swizzle
+    # row of bf16) and stores columns in groups of 8
     if N % 8 or K % 64:
         raise NotImplementedError(
             f"{name}: the GEMM kernel needs N % 8 == 0 and K % 64 == 0; got "
             f"N={N}, K={K}")
+    if ln and K > MAX_K_LN:
+        raise NotImplementedError(
+            f"{name}: the LN prologue takes K <= {MAX_K_LN}; got K={K}")
 
 
 def ln_qkv(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -43,7 +49,7 @@ def ln_qkv(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         return ln_qkv_ref(x, gamma, beta, w_qkv, b_qkv, eps)
     B, T, D = x.shape
     N = w_qkv.shape[0]
-    _check_gemm("ln_qkv", N, D)
+    _check_gemm("ln_qkv", N, D, ln=True)
     w = w_qkv.to(x.dtype)
     check(x, "x", (B, T, D), torch.bfloat16)
     check(w, "w_qkv", (N, D), torch.bfloat16)

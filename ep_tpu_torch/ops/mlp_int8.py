@@ -24,7 +24,11 @@ the port raises ``NotImplementedError``.
 On a CUDA device the half runs as three hand-written kernels
 (``csrc/mlp_int8.cu``): :func:`ln_quant` (steps 1-2), :func:`fc1` (step 4 up
 to ``aq``, ``sa``) and :func:`fc2` (the rest). Only int8 codes with their f32 scales
-pass between them through device memory. On the CPU the plain versions below
+pass between them through device memory. ``fc1`` runs each stripe's product
+once: the blocks of a cluster keep the stripe's GELU outputs in shared memory
+until its max is known (:func:`fc1_tiling`), and read the bf16 GELU from a
+table that the kernels' own GELU arithmetic fills once a device
+(:func:`gelu_table_mismatches` tries every bf16 value against it). On the CPU the plain versions below
 run; they are also what the kernels are checked against on the card. Weights
 are in the ``nn.Linear`` layout: w1 (DH, D), w2 (D, DH).
 
@@ -39,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from . import LAUNCHES, check, use_kernel
-from ._build import call, stream_ptr
+from ._build import call, query, stream_ptr
 
 # The tanh-GELU's constants as bf16 holds them (``jax.nn.gelu`` on a bf16
 # array rounds its constants to bf16): 0.044715 and sqrt(2/pi).
@@ -194,6 +198,51 @@ def _check_shapes(D: int, DH: int, stripes: int) -> None:
             f" got D={D}, DH={DH}, stripes={stripes}")
 
 
+# Kernel fc1 keeps a block's GELU outputs in shared memory until the stripe's
+# max is known: ``tiles`` tiles of ``bn`` columns a block, and the blocks of a
+# cluster split the stripe. Columns a block -> (bn, tiles).
+FC1_BLOCK_COLUMNS = {384: (128, 3), 320: (160, 2), 256: (128, 2),
+                     128: (128, 1)}
+FC1_MAX_CLUSTER = 8
+
+
+def fc1_tiling(ds: int) -> tuple[int, int, int]:
+    """(tile width, tiles a block, cluster size) kernel ``fc1`` takes for a
+    stripe of ``ds`` columns: the smallest cluster whose blocks' share of the
+    stripe is one of ``FC1_BLOCK_COLUMNS``."""
+    for c in range(1, FC1_MAX_CLUSTER + 1):
+        if ds % c == 0 and ds // c in FC1_BLOCK_COLUMNS:
+            return (*FC1_BLOCK_COLUMNS[ds // c], c)
+    raise NotImplementedError(
+        f"fc1: no tiling for a stripe of {ds} columns: it must be C blocks of "
+        f"{sorted(FC1_BLOCK_COLUMNS)} columns with C <= {FC1_MAX_CLUSTER}")
+
+
+_GELU_TABLES: dict = {}
+
+
+def gelu_table_mismatches(device: torch.device) -> int:
+    """At how many finite bf16 values kernel ``fc1``'s table-driven GELU
+    differs from the kernels' GELU arithmetic (it must be 0): every value is
+    tried on the card."""
+    count = torch.zeros(1, device=device, dtype=torch.int32)
+    call("ep_mlp_int8_gelu_check", _gelu_table(device).data_ptr(),
+         count.data_ptr(), stream_ptr(count))
+    return int(count)
+
+
+def _gelu_table(device: torch.device) -> torch.Tensor:
+    """The bf16 -> bf16 table of the GELU that kernel ``fc1`` reads, filled on
+    the card by the kernels' own GELU arithmetic, once a device."""
+    key = (device.type, device.index)
+    if key not in _GELU_TABLES:
+        table = torch.empty(query("ep_mlp_int8_gelu_table_entries"),
+                            device=device, dtype=torch.int16)
+        call("ep_mlp_int8_gelu_table", table.data_ptr(), stream_ptr(table))
+        _GELU_TABLES[key] = table
+    return _GELU_TABLES[key]
+
+
 def ln_quant(x, gamma, beta, eps: float):
     """Kernel ``ln_quant``: x (B,T,D) bf16 -> hq (B,T,D) int8, sx (B,T,1)."""
     if not use_kernel(x, gamma, beta):
@@ -221,6 +270,7 @@ def fc1(hq, sx, w1q, s1, b1, stripes: int):
     B, T, D = hq.shape
     DH = w1q.shape[0]
     _check_shapes(D, DH, stripes)
+    bn, tiles, _ = fc1_tiling(DH // stripes)
     b1 = b1.float().contiguous()
     check(hq, "hq", (B, T, D), torch.int8)
     check(sx, "sx", (B, T, 1), torch.float32)
@@ -230,8 +280,9 @@ def fc1(hq, sx, w1q, s1, b1, stripes: int):
     aq = torch.empty(B, T, DH, device=hq.device, dtype=torch.int8)
     sa = torch.empty(B, T, stripes, device=hq.device, dtype=torch.float32)
     call("ep_mlp_int8_fc1", hq.data_ptr(), sx.data_ptr(), w1q.data_ptr(),
-         s1.data_ptr(), b1.data_ptr(), aq.data_ptr(), sa.data_ptr(), B * T, D,
-         DH, stripes, stream_ptr(hq))
+         s1.data_ptr(), b1.data_ptr(), _gelu_table(hq.device).data_ptr(),
+         aq.data_ptr(), sa.data_ptr(), B * T, D, DH, stripes, bn, tiles,
+         stream_ptr(hq))
     LAUNCHES["mlp_int8_fc1"] += 1
     return aq, sa
 

@@ -157,6 +157,47 @@ def test_supercell_and_its_gemms(dev, B, T, D):
     torch.testing.assert_close(out, attn_supercell_ref(*args), **TOL)
 
 
+@pytest.mark.parametrize("B, T, D", [
+    (1, 5, 768), (3, 197, 768), (1, 100, 1024), (3, 257, 1024), (1, 64, 1280),
+    (2, 257, 1280), (1, 1025, 1280), (2, 37, 64), (1, 128, 768)])
+def test_gemm_kernels_at_every_width_and_ragged_m(dev, B, T, D):
+    """Kernels A and C alone at the three model widths (and K = 64), with
+    M = B*T smaller than one 128-row panel, equal to one, and ragged past
+    several: TMA zero-fills the rows it reads past M and drops the rows it
+    would store there."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.attn_block import (ln_qkv, ln_qkv_ref, proj_residual,
+                                             proj_residual_ref)
+    x = _rand((B, T, D), dev, seed=60)
+    a_args = (x, 1 + _rand((D,), dev, 0.1, torch.float32, seed=61),
+              _rand((D,), dev, 0.1, torch.float32, seed=62),
+              _rand((3 * D, D), dev, D ** -0.5, seed=63),
+              _rand((3 * D,), dev, 0.02, torch.float32, seed=64), 1e-6)
+    c_args = (_rand((B, T, D), dev, seed=65), _rand((D, D), dev, D ** -0.5, seed=66),
+              _rand((D,), dev, 0.02, torch.float32, seed=67), x)
+    reset_launches()
+    qkv, out = ln_qkv(*a_args), proj_residual(*c_args)
+    assert dict(LAUNCHES) == _counts(ln_qkv_gemm=1, proj_residual_gemm=1)
+    torch.testing.assert_close(qkv, ln_qkv_ref(*a_args), **TOL)
+    torch.testing.assert_close(out, proj_residual_ref(*c_args), **TOL)
+
+
+def test_gemm_kernels_refuse_what_they_do_not_take(dev):
+    from ep_tpu_torch.ops.attn_block import ln_qkv, proj_residual
+    for D, match in ((96, "K % 64"), (1344, "K <= 1280")):
+        x = _rand((1, 5, D), dev)
+        with pytest.raises(NotImplementedError, match=match):
+            ln_qkv(x, torch.ones(D, device=dev), torch.zeros(D, device=dev),
+                   _rand((3 * D, D), dev), torch.zeros(3 * D, device=dev), 1e-6)
+    with pytest.raises(NotImplementedError, match="K % 64"):
+        proj_residual(_rand((1, 5, 96), dev), _rand((96, 96), dev),
+                      torch.zeros(96, device=dev), _rand((1, 5, 96), dev))
+    with pytest.raises(TypeError):
+        proj_residual(_rand((1, 5, 64), dev, dtype=torch.float32),
+                      _rand((64, 64), dev), torch.zeros(64, device=dev),
+                      _rand((1, 5, 64), dev))
+
+
 @pytest.mark.parametrize("B, T, D, H", [(2, 197, 768, 12), (2, 257, 1280, 16)])
 def test_supercell_gradients(dev, B, T, D, H):
     """The supercell's backward (A and B recomputed, E, plain products)
@@ -379,6 +420,55 @@ def test_mlp_int8_kernels(dev, B, T, D, DH, stripes):
     print(f"int8 codes B={B} T={T} D={D} S={stripes}: share differing "
           f"{share:.2e}, largest difference {worst}")
     assert share < 1e-2
+
+
+@pytest.mark.parametrize("B, T, D, stripes", [
+    (1, 5, 768, 1), (3, 197, 768, 1), (1, 100, 1024, 8), (3, 257, 1024, 8),
+    (1, 64, 1280, 8), (2, 257, 1280, 8), (1, 128, 768, 8), (2, 37, 128, 4),
+    (1, 300, 640, 1)])
+def test_fc1_equals_its_plain_version_bit_for_bit(dev, B, T, D, stripes):
+    """Kernel fc1 on random codes at the three model widths with 1 and 8
+    stripes (clusters of 8, 2 and 1 blocks; tiles of 128 and 160 columns), M
+    smaller than one 128-row panel, equal to one and ragged, with one token
+    whose GELU outputs are all zero in the first stripe (zero codes and zero
+    bias there), so that its scale is the 1e-8 floor: the s32 sums are exact
+    and the f32 steps round as the plain version's, so codes and scales are
+    equal."""
+    from ep_tpu_torch.ops import mlp_int8 as m
+    DH = 4 * D
+    rng = np.random.default_rng(70)
+    hq = torch.from_numpy(rng.integers(-127, 128, (B, T, D), dtype=np.int8)).to(dev)
+    hq[0, T // 2] = 0
+    sx = _rand((B, T, 1), dev, 0.01, torch.float32, seed=71).abs() + 1e-3
+    w1q, s1 = m.quantize_weight(_rand((DH, D), dev, D ** -0.5, seed=72))
+    b1 = _rand((DH,), dev, 0.1, torch.float32, seed=73)
+    b1[:DH // stripes] = 0
+    aq, sa = m.fc1(hq, sx, w1q, s1, b1, stripes)
+    aq_r, sa_r = m.fc1_ref(hq, sx, w1q, s1, b1, stripes)
+    assert _code_diff(aq, aq_r) == (0.0, 0)
+    torch.testing.assert_close(sa, sa_r, rtol=0, atol=0)
+    assert float(sa[0, T // 2, 0]) == float(
+        torch.full((), 1e-8) / torch.full((), 127.0))
+    assert not aq[0, T // 2, :DH // stripes].any()
+
+
+def test_fc1_gelu_table_is_the_gelu_arithmetic(dev):
+    """fc1 reads its GELU from a table (and closed forms outside its range);
+    a kernel tries every finite bf16 value: each gives the bits of the
+    kernels' op-by-op bf16 GELU (which the bit-equal codes of the test above
+    hold to the plain version's)."""
+    from ep_tpu_torch.ops import mlp_int8 as m
+    assert m.gelu_table_mismatches(dev) == 0
+
+
+def test_fc1_refuses_what_it_does_not_take(dev):
+    from ep_tpu_torch.ops import mlp_int8 as m
+    hq = torch.zeros(1, 5, 1024, device=dev, dtype=torch.int8)
+    sx = torch.ones(1, 5, 1, device=dev)
+    w1q = torch.zeros(4096, 1024, device=dev, dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="tiling"):
+        m.fc1(hq, sx, w1q, torch.ones(4096, device=dev),
+              torch.zeros(4096, device=dev), 1)  # one stripe of 4096 columns
 
 
 def test_int8_model_launches(dev):

@@ -384,6 +384,40 @@ def test_int8_block_under_remat(policy):
         torch.testing.assert_close(grads[1][k], gr, rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("D, DH, stripes, tiling", [
+    (768, 3072, 1, (128, 3, 8)), (1024, 4096, 8, (128, 2, 2)),
+    (1280, 5120, 8, (160, 2, 2)), (128, 512, 1, (128, 2, 2)),
+    (128, 512, 2, (128, 2, 1)), (128, 512, 4, (128, 1, 1)),
+    (768, 3072, 8, (128, 3, 1)), (256, 1024, 1, (128, 2, 4)),
+    (640, 2560, 1, (160, 2, 8)), (128, 896, 1, (128, 1, 7))])
+def test_fc1_takes_the_plans_stripes(D, DH, stripes, tiling):
+    """What kernel fc1 accepts after its redesign: a stripe that splits into
+    at most 8 blocks of 384, 320, 256 or 128 columns, which covers
+    every stripe count :func:`plan` gives at the published widths. The tiling
+    is (tile width, tiles a block, blocks a cluster) and spans the stripe."""
+    pt._check_shapes(D, DH, stripes)
+    bn, tiles, cluster = pt.fc1_tiling(DH // stripes)
+    assert (bn, tiles, cluster) == tiling
+    assert bn * tiles * cluster == DH // stripes and cluster <= 8
+
+
+@pytest.mark.parametrize("D, DH, stripes, check", [
+    (768, 3072, 48, "shapes"), (192, 768, 1, "shapes"), (768, 3000, 1, "shapes"),
+    (1024, 4096, 1, "tiling"), (1408, 1408, 1, "tiling"),
+    (1280, 5120, 1, "tiling")])
+def test_fc1_refuses_other_stripes(D, DH, stripes, check):
+    """A K that is no multiple of 128 bytes or a stripe that is no multiple of
+    128 columns fails the int8 kernels' common check; a stripe wider than 8
+    blocks hold (4096 and 5120 columns in one stripe) or of 11 x 128 columns
+    fails fc1's tiling. Both raise NotImplementedError."""
+    with pytest.raises(NotImplementedError):
+        if check == "shapes":
+            pt._check_shapes(D, DH, stripes)
+        else:
+            pt._check_shapes(D, DH, stripes)
+            pt.fc1_tiling(DH // stripes)
+
+
 def test_int8_mlp_inactive_reason():
     assert int8_mlp_inactive_reason(ViTConfig()) is None
     assert int8_mlp_inactive_reason(ViTConfig(int8_mlp=True)) is None

@@ -143,6 +143,29 @@ def test_kernel_input_checks(bad, err):
         check(bad, "t", (4, 8), torch.bfloat16)
 
 
+@pytest.mark.parametrize("N, K, ln", [
+    (2304, 768, True), (3072, 1024, True), (3840, 1280, True), (192, 64, True),
+    (768, 768, False), (1024, 1024, False), (1280, 1280, False),
+    (1408, 1408, False), (8, 64, False)])
+def test_gemm_kernels_take_the_models_widths(N, K, ln):
+    """What the wrappers of kernels A and C accept: every K that is a multiple
+    of 64 (one 128-byte swizzle row of bf16) with N a multiple of 8; kernel A,
+    whose statistics kernel holds a row in one warp's registers, up to
+    K = 1280."""
+    from ep_tpu_torch.ops.attn_block import _check_gemm
+    _check_gemm("gemm", N, K, ln=ln)
+
+
+@pytest.mark.parametrize("N, K, ln, what", [
+    (2304, 800, True, "K % 64"), (2304, 32, False, "K % 64"),
+    (2300, 768, False, "N % 8"), (4032, 1344, True, "K <= 1280"),
+    (6144, 2048, True, "K <= 1280")])
+def test_gemm_kernels_refuse_other_widths(N, K, ln, what):
+    from ep_tpu_torch.ops.attn_block import _check_gemm
+    with pytest.raises(NotImplementedError, match=what):
+        _check_gemm("gemm", N, K, ln=ln)
+
+
 def test_supercell_is_forward_only():
     """The supercell differentiates on the CPU through the plain versions
     (kernels A, B and E are never launched there), and every input gets a
