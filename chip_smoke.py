@@ -24,11 +24,14 @@ Phases, each of which must pass (any failure exits non-zero):
              tier), with the share of int8 codes that differ, the distance to
              the bf16 half, and the bf16 half's and torch._int_mm's times;
              fc1's table-driven GELU against the GELU arithmetic at every
-             bf16 value, and fc1 at a ragged M with a token at the scale's
-             floor.
+             bf16 value, fc1 at a ragged M with a token at the scale's
+             floor, and fc2 in both tiers' bias orders (1 and 8 stripes, M
+             of 111 and 64) equal to its plain version.
              Then the long-sequence kernels: F (attn_flash) at ViT-H/14 and
              ViT-B/16 at 448 px (T=1025 and 785) and at the row-tiled variant's
-             shape (T=257, head width 80) beside kernel B; D at N=1024 and at
+             shape (T=257, head width 80) beside kernel B, and at the edges of
+             its tiles (T of 1 to 1025 at both head widths, more (image, head)
+             pairs than SMs, temperature 1.5); D at N=1024 and at
              ViT-H's N=256; G (ep_pool_proj) at ViT-B, ViT-H and ViT-H at 448
              px beside the unfused pair (F.linear, then D).
 4. train   — the probe-training main path as bench.py builds it: frozen
@@ -75,6 +78,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -96,13 +100,17 @@ ATOL, RTOL = 1e-2, 1e-2
 # Single elements do move that far: where a row's largest probability (up to
 # about 0.1 among a million rows) rounds to the other bf16 neighbour, the
 # output moves by that step times |v|, up to 1e-3. So ATOL, RTOL stay the
-# bound of every element, and beside it at most STEP_SHARE of the elements may
-# lie past one bf16 step of the value itself (spacing / |value| <= 2**-7) plus
-# one bf16 step at the plain version's mean magnitude, |d| <= STEP*mean|plain|
-# + STEP*|plain|. One key or token dropped from such an average moves it by
-# about 1e-3, past that bound at about half of the elements; the kernels'
-# largest share on an H100 was 7.8e-8.
-STEP, STEP_SHARE = 2.0 ** -7, 1e-5
+# bound of every element, and beside it at most STEP_SHARE of the elements,
+# and never fewer than STEP_FLOOR elements, may lie past one bf16 step of the
+# value itself (spacing / |value| <= 2**-7) plus one bf16 step at the plain
+# version's mean magnitude, |d| <= STEP*mean|plain| + STEP*|plain|. One key or
+# token dropped from such an average moves it by about 1e-3, past that bound
+# at about half of the elements. The share the kernels reached on an H100 was
+# 7.8e-8 at most, but it counts single elements: kernel D at ViT-H once had 2
+# of 163,840 past it (1.2e-5) on another random draw, and at the small ragged
+# shapes one element is already a share above 1e-5. So the bound grows with
+# the element count and has a floor of a few elements.
+STEP, STEP_SHARE, STEP_FLOOR = 2.0 ** -7, 1e-5, 4
 # Whole model, 12 blocks of bf16 rounding differences on random weights.
 MODEL_ATOL, MODEL_RTOL = 5e-2, 5e-2
 # Gradients, each against its tensor's largest magnitude: the attention
@@ -223,14 +231,18 @@ def compare(name: str, out: torch.Tensor, ref: torch.Tensor,
 
 
 def compare_steps(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
-    """``compare``, and the share of elements past one bf16 step (STEP)."""
+    """``compare``, and the elements past one bf16 step (STEP): at most
+    STEP_SHARE of them, and STEP_FLOOR whatever the count."""
     max_abs = compare(name, out, ref)
     out, ref = out.float(), ref.float()
     atol = STEP * float(ref.abs().mean())
-    share = float(((out - ref).abs() > atol + STEP * ref.abs()).float().mean())
-    ok = share <= STEP_SHARE
-    log(f"    elements with |d| > {atol:.3e} + 2^-7*|ref|: share {share:.3e} "
-        f"(tol {STEP_SHARE:g}) {'ok' if ok else 'FAIL'}")
+    past = int(((out - ref).abs() > atol + STEP * ref.abs()).sum())
+    limit = max(math.ceil(STEP_SHARE * ref.numel()), STEP_FLOOR)
+    ok = past <= limit
+    log(f"    elements with |d| > {atol:.3e} + 2^-7*|ref|: {past} of "
+        f"{ref.numel()}, share {past / ref.numel():.3e} (tol {limit} elements: "
+        f"a share of {STEP_SHARE:g}, at least {STEP_FLOOR}) "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
     return max_abs
@@ -535,6 +547,18 @@ def check_long_kernels(rng) -> tuple[list[dict], list[dict]]:
         compare_steps(f"attn_flash B={b} T={t} H={h} Dh={dh}",
                       attn_flash(qkv, h, dh ** -0.5),
                       attention_qkv_fused_ref(qkv, h, dh ** -0.5))
+    # The edges of F's tiles, from a generator of their own: a single key,
+    # the last key tile narrowed to 16, 32 or 64 columns, query tiles whose
+    # second warpgroup has no row or one; more (image, head) pairs than SMs
+    # (the persistent blocks take several items); temperature 1.5.
+    edge_rng = np.random.default_rng(8)
+    for b, t, h, dh in [(2, t, 2, dh) for dh in (64, 80)
+                        for t in (1, 63, 65, 129, 257, 785, 1025)] + [
+                            (9, 70, 16, 80), (12, 33, 12, 64)]:
+        qkv = rand(edge_rng, (b, t, 3 * h * dh))
+        compare_steps(f"attn_flash B={b} T={t} H={h} Dh={dh} temperature 1.5",
+                      attn_flash(qkv, h, dh ** -0.5, 1.5),
+                      attention_qkv_fused_ref(qkv, h, dh ** -0.5, 1.5))
     for name, b, t, h, dh, variant in (
             ("attn_flash", 64, 1025, 16, 80, None),
             ("attn_flash_dh64", 64, 785, 12, 64, None),
@@ -675,6 +699,28 @@ def check_int8_kernels(B: int, BH: int, rng) -> tuple[list[dict], list[dict]]:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError("fc1 disagrees with its plain version")
+    # fc2 in both tiers' bias orders on the same codes, 1 and 8 stripes, M
+    # ragged (111) and under one 128-row panel (64): equal to the bit.
+    for b, t, D, S in ((3, 37, 768, 1), (3, 37, 1280, 8), (1, 64, 768, 1),
+                       (1, 64, 1024, 8)):
+        DH = 4 * D
+        aq = torch.from_numpy(rng.integers(-127, 128, (b, t, DH),
+                                           dtype=np.int8)).cuda()
+        sa = rand(rng, (b, t, S), 0.01, torch.float32).abs() + 1e-3
+        w2q, s2 = m.quantize_weight(rand(rng, (D, DH), DH ** -0.5))
+        x, b2 = rand(rng, (b, t, D)), rand(rng, (D,), 0.5, torch.float32)
+        outs = {tier: m.fc2(aq, sa, x, w2q, s2, b2, S, tier) for tier in m.TIERS}
+        for tier, out in outs.items():
+            ok = bool(torch.equal(out, m.fc2_ref(aq, sa, x, w2q, s2, b2, S, tier)))
+            log(f"  fc2 at M={b * t}, D={D}, {S} stripe(s), the {tier} tier's "
+                f"bias order: equal to the plain version's "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("fc2 disagrees with its plain version")
+        # in bf16 the two orders round alike almost everywhere (the JAX
+        # package's tiers agree to the bit in bf16); their f32 sums differ
+        log(f"    the two orders differ at {int((outs['resident'] != outs['two_kernel']).sum())}"
+            f" of {outs['resident'].numel()} bf16 outputs")
     rng = shared_rng
     for tag, suffix, b, T, D, tier in (
             ("ViT-B", "", B, 197, 768, ("resident", 1)),
@@ -721,13 +767,13 @@ def check_int8_kernels(B: int, BH: int, rng) -> tuple[list[dict], list[dict]]:
             raise RuntimeError("fc1 disagrees with its plain version")
         del aq_r, sa_r
 
-        out = m.fc2(aq, sa, x, w2q, s2, b2, S)
+        out = m.fc2(aq, sa, x, w2q, s2, b2, S, tier[0])
         e_fc2 = compare("fc2 on the same codes", out,
-                        m.fc2_ref(aq, sa, x, w2q, s2, b2, S))
+                        m.fc2_ref(aq, sa, x, w2q, s2, b2, S, tier[0]))
 
         args = (x, w1, b1, w2, b2, gamma, beta, eps)
-        ref = m.mlp_int8_ref(*args, S)
-        half_out = m.mlp_int8_forward(*args, S)
+        ref = m.mlp_int8_ref(*args, S, tier[0])
+        half_out = m.mlp_int8_forward(*args, S, tier[0])
         same = ((hq == hq_r).all(-1) & (sx == sx_r).all(-1))
         e_half = compare(f"the whole half against the plain int8 half, the "
                          f"{int(same.sum())} of {M} tokens whose LN codes and "
@@ -767,8 +813,9 @@ def check_int8_kernels(B: int, BH: int, rng) -> tuple[list[dict], list[dict]]:
                          time_ms(lambda: m.ln_quant_ref(x, gamma, beta, eps), 3)),
             "fc1": (time_ms(lambda: m.fc1(hq, sx, w1q, s1, b1, S)),
                     time_ms(lambda: m.fc1_ref(hq, sx, w1q, s1, b1, S), 3)),
-            "fc2": (time_ms(lambda: m.fc2(aq, sa, x, w2q, s2, b2, S)),
-                    time_ms(lambda: m.fc2_ref(aq, sa, x, w2q, s2, b2, S), 3)),
+            "fc2": (time_ms(lambda: m.fc2(aq, sa, x, w2q, s2, b2, S, tier[0])),
+                    time_ms(lambda: m.fc2_ref(aq, sa, x, w2q, s2, b2, S,
+                                              tier[0]), 3)),
         }
         lib = {"ln_quant": None,  # no one call normalises and quantises
                "fc1": time_ms(lambda: torch._int_mm(hq2, w1q.t())),
@@ -783,11 +830,11 @@ def check_int8_kernels(B: int, BH: int, rng) -> tuple[list[dict], list[dict]]:
         }
         half = dict(
             shape=tag, stripes=S, max_abs_err=e_half, mean_rel_vs_bf16=mean_rel,
-            ms=time_ms(lambda: m.mlp_int8_forward(*args, S)),
+            ms=time_ms(lambda: m.mlp_int8_forward(*args, S, tier[0])),
             kernels_ms=sum(v[0] for v in t.values()),
             weight_quant_ms=time_ms(lambda: (m.quantize_weight(w1),
                                              m.quantize_weight(w2))),
-            plain_ms=time_ms(lambda: m.mlp_int8_ref(*args, S), 3),
+            plain_ms=time_ms(lambda: m.mlp_int8_ref(*args, S, tier[0]), 3),
             bf16_half_ms=time_ms(bf16_half),
             int_mm_ms=lib["fc1"] + lib["fc2"],
             bound_ms=sum(v["bound_ms"] for v in bounds.values()))

@@ -1,7 +1,8 @@
 // The Hopper GEMM main loop shared by the supercell's products (kernels A and
-// C, attn_block_gemm.cu) and the int8 fc1 (mlp_int8.cu): PTX wrappers for
-// TMA loads and stores, mbarrier, wgmma, setmaxnreg and cluster barriers, the
-// tensor-map encoder, and the producer's half of the loop.
+// C, attn_block_gemm.cu) and the int8 fc1 and fc2 (mlp_int8.cu): PTX wrappers
+// for TMA loads and stores, mbarrier, wgmma, setmaxnreg and cluster barriers,
+// the tensor-map encoders, and the producer's half of the loop. Kernel F
+// (attn_flash.cu) runs its own loop on the same wrappers.
 //
 // The loop: a ring of K slices in shared memory, each 128 bytes deep (64 bf16
 // or 128 int8 values) and laid out by TMA with the 128-byte swizzle that
@@ -92,6 +93,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a 3-D tensor at (c0 innermost, c1, c2).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 // One box from shared memory to the tensor behind `map`; parts out of range
 // are not written. Completion is tracked by the thread's bulk groups.
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
@@ -154,6 +167,16 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p) {
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 constexpr int DESC_K_STEP = 2;
+
+// The same for the 32-byte swizzle: rows of 32 bytes (16 bf16, one K step),
+// groups of 8 rows 256 bytes apart. Read N-major (wgmma's transpose bit), a
+// 32-byte swizzled tile is 16 columns wide and the 8-row groups step along K;
+// the same holds for smem_desc with 64 columns.
+__device__ __forceinline__ uint64_t smem_desc_32(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(256 >> 4) << 32) | (uint64_t(3) << 62);
+}
 
 template <int REGS>
 __device__ __forceinline__ void setmaxnreg_inc() {
@@ -289,6 +312,27 @@ inline int make_map(CUtensorMap* map, const void* ptr, int elem_bytes,
   return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Map of a (depth, rows, cols) bf16 tensor with boxes of box_rows x box_cols
+// in one (row, col) plane, the given swizzle, zero fill past each of the
+// three bounds (a box never reads rows of the next plane). Returns 0 or a
+// cudaError_t.
+inline int make_map_3d(CUtensorMap* map, const void* ptr, uint64_t depth,
+                       uint64_t rows, uint64_t cols, uint32_t box_rows,
+                       uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[3] = {cols, rows, depth};
+  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(ptr), dims, strides, box,
+                         elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 inline int sm_count() {
   static int n = [] {
     int dev = 0, v = 0;
@@ -421,6 +465,79 @@ __device__ __forceinline__ void wgmma_bf16_ss_n256(float (&d)[128], uint64_t a, 
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// Kernel F's logits tile: A (the query rows) from registers, an m16k16
+// fragment per warp, B (the keys) K-major in shared memory; N = 64.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2],
+                                              const unsigned (&a)[4], uint64_t b,
+                                              int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<64>(float (&d)[32],
+                                                  const unsigned (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+// Kernel F's P V: A from registers (an m16k16 fragment per warp), B N-major
+// in shared memory (the transpose bit), N = 64 or 16.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_rs_tb(float (&d)[N / 2],
+                                                 const unsigned (&a)[4],
+                                                 uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs_tb<64>(float (&d)[32],
+                                                     const unsigned (&a)[4],
+                                                     uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs_tb<16>(float (&d)[8],
+                                                     const unsigned (&a)[4],
+                                                     uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 template <>

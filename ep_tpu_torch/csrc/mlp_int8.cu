@@ -40,13 +40,20 @@
 //     sa), with 16-byte stores. Both elementwise passes are free of branches
 //     and calls (table, a product with 1/sa checked against the division's
 //     rounding), because with 8 warps an SM their time is latency, not work.
-//   * fc2: a simple tiled product: mma.sync m16n8k32 (s8 x s8 -> s32) fed by
-//     ldmatrix from a 3-stage cp.async ring of 128-byte K slices over a
-//     128x64 tile with K = DH; at each stripe's end the s32 accumulator is
-//     dequantised with sa[:, s]*s2 into an f32 running sum (the scale changes
-//     per stripe, so the s32 sum cannot run across stripes); epilogue bias,
-//     f32 residual, one rounding to bf16. The pipeline refill per tile and
-//     mma.sync instead of wgmma are what a faster fc2 would remove.
+//   * fc2: the main loop of hopper.cuh as fc1 runs it: 128-byte K slices of
+//     aq and W2 (both K-major) through a 5-stage TMA ring, wgmma m64n128k32
+//     in two consumer warpgroups of 64 rows, persistent blocks over (row
+//     panel, 128-column tile) items, so that one tile's epilogue runs under
+//     the next tile's loads. A stripe is DH/S/128 slices (24 at ViT-B, 5 at
+//     ViT-H, 4 at ViT-L): at its end the s32 sums retire and are dequantised
+//     once, acc*(sa[:, s]*s2), into an f32 running sum (the scale changes per
+//     stripe, so the s32 sum cannot run across stripes), and the next
+//     stripe's first slice overwrites the accumulators. The epilogue is
+//     kernel C's: the producer brings the residual tile in by TMA, in the
+//     128-byte swizzle, into a buffer of the warpgroup; bias and residual are
+//     added in the JAX tier's order (resident: x + (y + b2), two-kernel:
+//     (x + y) + b2), each rounded once to bf16 in place, and TMA stores the
+//     tile, dropping rows past M.
 //   Every f32 step uses the round-to-nearest intrinsics so that no
 //   multiply-add is contracted: the kernels round where the plain version
 //   (ops/mlp_int8.py::mlp_int8_ref) rounds, and the s32 sums are exact in any
@@ -63,21 +70,9 @@
 namespace ep {
 namespace {
 
-constexpr int BM = 128, BK = 128, STAGES = 3, THREADS = 256;
-constexpr int LDS = BK + 16;  // shared row stride (bytes) of a K slice
-constexpr int CPR = BK / 16;  // 16-byte chunks per slice row
+constexpr int BM = 128, BK = 128;
 constexpr float GELU_K0 = 0.044677734375f;  // bf16(0.044715)
 constexpr float GELU_K1 = 0.796875f;        // bf16(sqrt(2/pi))
-
-// d += a * b: a 16x32 s8 (row), b 32x8 s8 (col), d 16x8 s32. Thread
-// (g = lane/4, t = lane%4) holds d rows g and g+8, columns 2t and 2t+1.
-__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const unsigned (&a)[4],
-                                             unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -174,98 +169,6 @@ __global__ void ln_quant_kernel(const bf16* __restrict__ x,
   }
   if (lane == 0) sx[row] = scale;
 }
-
-// Rows row0.. of a (rows, ld) int8 matrix, bytes k0..k0+BK, into one stage.
-// Rows at or past `rows` are zero-filled.
-template <int TILE_ROWS>
-__device__ __forceinline__ void load_tile(unsigned char* dst,
-                                          const int8_t* __restrict__ src,
-                                          int ld, int row0, int rows, int k0,
-                                          int tid) {
-  const int c_row = tid / CPR, c_col = (tid % CPR) * 16;
-#pragma unroll
-  for (int i = 0; i < TILE_ROWS / (THREADS / CPR); ++i) {
-    const int r = c_row + (THREADS / CPR) * i;
-    unsigned char* d = dst + r * LDS + c_col;
-    if (row0 + r < rows)
-      cp_async16(d, src + (size_t)(row0 + r) * ld + k0 + c_col);
-    else
-      *reinterpret_cast<uint4*>(d) = zero_pack();
-  }
-}
-
-// acc += A slice x W slice for one warp: rows a_row0.. of the A stage, rows
-// (output channels) w_row0.. of the W stage, MI x 2*NJ tiles of 16 x 8.
-template <int MI, int NJ>
-__device__ __forceinline__ void mma_slice(const unsigned char* as,
-                                          const unsigned char* ws, int a_row0,
-                                          int w_row0, int lane,
-                                          int (&acc)[MI][2 * NJ][4]) {
-#pragma unroll
-  for (int ks = 0; ks < BK; ks += 32) {
-    unsigned af[MI][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-      ldmatrix_x4(af[mi], reinterpret_cast<const bf16*>(
-                              as + (a_row0 + mi * 16 + (lane & 15)) * LDS + ks +
-                              (lane >> 4) * 16));
-#pragma unroll
-    for (int nj = 0; nj < NJ; ++nj) {
-      unsigned bfr[4];
-      ldmatrix_x4(bfr, reinterpret_cast<const bf16*>(
-                           ws + (w_row0 + nj * 16 + (lane & 7) + (lane >> 4) * 8) *
-                                    LDS + ks + ((lane >> 3) & 1) * 16));
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        mma_s8_16832(acc[mi][2 * nj], af[mi], bfr[0], bfr[1]);
-        mma_s8_16832(acc[mi][2 * nj + 1], af[mi], bfr[2], bfr[3]);
-      }
-    }
-  }
-}
-
-// The product of rows m0.. of A (M, K) with output channels n0..n0+BN of W
-// over K slices kt0..kt0+nk, through the cp.async ring. after(kt) runs once
-// the MMAs of slice kt are issued. Leaves the ring free (all copies landed,
-// all warps past their last read).
-template <int BN, int MI, int NJ, class After>
-__device__ __forceinline__ void product(const int8_t* __restrict__ A,
-                                        const int8_t* __restrict__ W, int K,
-                                        int M, int m0, int n0, int nk,
-                                        unsigned char* ring, int a_row0,
-                                        int w_row0, int tid,
-                                        int (&acc)[MI][2 * NJ][4], After after) {
-  constexpr int A_STAGE = BM * LDS, B_STAGE = BN * LDS;
-  unsigned char* As = ring;
-  unsigned char* Bs = ring + STAGES * A_STAGE;
-  auto load_stage = [&](int buf, int kt) {
-    load_tile<BM>(As + buf * A_STAGE, A, K, m0, M, kt * BK, tid);
-    load_tile<BN>(Bs + buf * B_STAGE, W, K, n0, n0 + BN, kt * BK, tid);
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slice kt landed; every warp is done with slice kt-1
-    if (kt + STAGES - 1 < nk)
-      load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
-    const int buf = kt % STAGES;
-    mma_slice<MI, NJ>(As + buf * A_STAGE, Bs + buf * B_STAGE, a_row0, w_row0,
-                      tid & 31, acc);
-    after(kt);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-constexpr int FC2_BN = 64, FC2_MI = 2, FC2_NJ = 2;  // 4x2 warps of 32x32
-constexpr int FC2_SMEM = STAGES * (BM + FC2_BN) * LDS;
-constexpr int FC2_CLD = FC2_BN + 4;  // f32 row stride of fc2's epilogue tile
-static_assert(BM * FC2_CLD * 4 <= FC2_SMEM, "fc2's epilogue tile fits the ring");
 
 // The GELU above is a function from bf16 to bf16, so a table holds it: for
 // every bf16 value with 2^-14 <= |a| < 8, the result of gelu_bf16 itself,
@@ -598,91 +501,192 @@ int launch_fc1(const int8_t* hq, const float* sx, const int8_t* w1q,
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
-// grid (D / 64, ceil(M / 128)).
-__global__ void __launch_bounds__(THREADS, 2)
-fc2_kernel(const int8_t* __restrict__ aq, const float* __restrict__ sa,
-           const int8_t* __restrict__ w2q, const float* __restrict__ s2,
-           const float* __restrict__ b2, const bf16* __restrict__ x,
-           bf16* __restrict__ out, int M, int D, int DH, int S) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Cs = reinterpret_cast<float*>(smem);  // [BM][FC2_CLD], after the loop
+// fc2: 128 x 128 output tiles, 5 stages of 32 KB (a 128-byte slice of 128
+// rows of aq and of 128 rows of W2), the residual / output tile (per
+// consumer warpgroup two chunks of 64 rows x 64 bf16 columns, each a TMA box
+// in the 128-byte swizzle) and the barriers.
+constexpr int FC2_BN = 128, FC2_STAGES = 5;
+constexpr int FC2_STAGE = hopper::A_STAGE_BYTES + FC2_BN * hopper::SLICE_BYTES;
+constexpr int FC2_CHUNKS = FC2_BN / 64, FC2_CHUNK_BYTES = 64 * 64 * 2;
+constexpr int FC2_OUT_BYTES = 2 * FC2_CHUNKS * FC2_CHUNK_BYTES;
+constexpr int FC2_SMEM =
+    1024 + FC2_STAGES * FC2_STAGE + FC2_OUT_BYTES + (2 * FC2_STAGES + 4) * 8;
+static_assert(FC2_SMEM <= hopper::MAX_SMEM, "fc2 fits a block");
+
+// Persistent blocks take (panel, column tile) items in turn, the column tiles
+// of a panel side by side so that its rows of aq come from L2.
+__global__ void __launch_bounds__(hopper::BLOCK_THREADS, 1)
+fc2_kernel(const __grid_constant__ CUtensorMap map_aq,
+           const __grid_constant__ CUtensorMap map_w,
+           const __grid_constant__ CUtensorMap map_x,
+           const __grid_constant__ CUtensorMap map_out,
+           const float* __restrict__ sa, const float* __restrict__ s2,
+           const float* __restrict__ b2, int M, int D, int DH, int S,
+           int bias_last) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* out_s = smem + FC2_STAGES * FC2_STAGE;  // [2][CHUNKS][64][128 B]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(out_s + FC2_OUT_BYTES);
+  const Ring ring{smem, bars, bars + FC2_STAGES, FC2_STAGES, FC2_STAGE};
+  uint64_t* x_full = bars + 2 * FC2_STAGES;  // [2]: a warpgroup's x landed
+  uint64_t* out_free = x_full + 2;           // [2]: its store has read the buffer
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * FC2_BN;
-  const int m0 = blockIdx.y * BM;
-  const int per_stripe = (DH / S) / BK;
-
-  float s2v[2 * FC2_NJ][2];
-#pragma unroll
-  for (int ni = 0; ni < 2 * FC2_NJ; ++ni) {
-    s2v[ni][0] = __ldg(s2 + n0 + wn * 32 + ni * 8 + 2 * t);
-    s2v[ni][1] = __ldg(s2 + n0 + wn * 32 + ni * 8 + 2 * t + 1);
+  if (tid == 0) {
+    ring_init(ring);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(x_full + i, 1);
+      mbar_init(out_free + i, 1);
+    }
+    fence_barrier_init();
   }
-  int acc[FC2_MI][2 * FC2_NJ][4];
-  float y[FC2_MI][2 * FC2_NJ][4];
-#pragma unroll
-  for (int mi = 0; mi < FC2_MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2 * FC2_NJ; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[mi][ni][e] = 0;
-        y[mi][ni][e] = 0.f;
-      }
-
-  // y += acc * (sa[:, s] * s2) at the end of each stripe of K
-  auto fold = [&](int kt) {
-    if ((kt + 1) % per_stripe) return;
-    const int s = kt / per_stripe;
-#pragma unroll
-    for (int mi = 0; mi < FC2_MI; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm * 32 + mi * 16 + g + 8 * half;
-        const float sar = (m < M) ? __ldg(sa + (size_t)m * S + s) : 0.f;
-#pragma unroll
-        for (int ni = 0; ni < 2 * FC2_NJ; ++ni)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int e = 2 * half + j;
-            y[mi][ni][e] = __fadd_rn(
-                y[mi][ni][e], __fmul_rn(__int2float_rn(acc[mi][ni][e]),
-                                        __fmul_rn(sar, s2v[ni][j])));
-            acc[mi][ni][e] = 0;
-          }
-      }
-  };
-  product<FC2_BN, FC2_MI, FC2_NJ>(aq, w2q, DH, M, m0, n0, DH / BK, smem,
-                                  wm * 32, wn * 32, tid, acc, fold);
-
-#pragma unroll
-  for (int mi = 0; mi < FC2_MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2 * FC2_NJ; ++ni)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wm * 32 + mi * 16 + g + 8 * half;
-        const int c = wn * 32 + ni * 8 + 2 * t;
-        *reinterpret_cast<float2*>(Cs + r * FC2_CLD + c) =
-            make_float2(y[mi][ni][2 * half], y[mi][ni][2 * half + 1]);
-      }
   __syncthreads();
-  // out = bf16(f32(x) + (y + b2))
-  for (int idx = tid; idx < BM * FC2_BN / 8; idx += THREADS) {
-    const int r = idx / (FC2_BN / 8), c = (idx % (FC2_BN / 8)) * 8;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M) continue;
-    Pack8 res, o;
-    res.u = *reinterpret_cast<const uint4*>(x + (size_t)m * D + n);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      o.set(e, __fadd_rn(res.get(e),
-                         __fadd_rn(Cs[r * FC2_CLD + c + e], __ldg(b2 + n + e))));
-    *reinterpret_cast<uint4*>(out + (size_t)m * D + n) = o.u;
+
+  const int wg = tid >> 7;
+  const int n_tiles = D / FC2_BN;
+  const int n_items = ((M + BM - 1) / BM) * n_tiles;
+  const int nk = DH / BK, per_stripe = nk / S;
+
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (tid == 256) {
+      RingPos pos;
+      unsigned free_phase = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int m0 = (item / n_tiles) * BM, n0 = (item % n_tiles) * FC2_BN;
+        // the residual follows half of the tile's slices, when the store of
+        // the tile before has long read the buffer it lands in
+        produce_tile(ring, pos, &map_aq, &map_w, m0, n0, 0, nk / 2, BK,
+                     FC2_STAGE);
+        for (int w = 0; w < 2; ++w) {
+          mbar_wait(out_free + w, free_phase ^ 1);
+          const bool rows = m0 + w * 64 < M;
+          mbar_expect_tx(x_full + w, rows ? FC2_CHUNKS * FC2_CHUNK_BYTES : 0);
+          if (rows)
+            for (int c = 0; c < FC2_CHUNKS; ++c)
+              tma_load_2d(out_s + (w * FC2_CHUNKS + c) * FC2_CHUNK_BYTES, &map_x,
+                          x_full + w, n0 + c * 64, m0 + w * 64);
+        }
+        free_phase ^= 1;
+        produce_tile(ring, pos, &map_aq, &map_w, m0, n0, nk / 2, nk, BK,
+                     FC2_STAGE);
+      }
+    }
+    return;
   }
+
+  setmaxnreg_inc<232>();
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = wg * 64 + warp * 16 + g;  // and row0 + 8
+  unsigned char* out_wg = out_s + wg * FC2_CHUNKS * FC2_CHUNK_BYTES;
+  RingPos pos;
+  unsigned x_phase = 0;
+  int acc[FC2_BN / 2];
+  float y[FC2_BN / 2];  // the stripes' dequantised sums, in acc's layout
+
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int m0 = (item / n_tiles) * BM, n0 = (item % n_tiles) * FC2_BN;
+    // this thread's columns 8j + 2t, + 1 of the tile
+    float2 s2v[FC2_BN / 8];
+#pragma unroll
+    for (int j = 0; j < FC2_BN / 8; ++j)
+      s2v[j] = __ldg(reinterpret_cast<const float2*>(s2 + n0 + 8 * j + 2 * t));
+    for (int s = 0; s < S; ++s) {
+      const float sar[2] = {
+          m0 + row0 < M ? __ldg(sa + (size_t)(m0 + row0) * S + s) : 0.f,
+          m0 + row0 + 8 < M ? __ldg(sa + (size_t)(m0 + row0 + 8) * S + s) : 0.f};
+      int prev = -1;
+      for (int kt = 0; kt < per_stripe; ++kt) {
+        mbar_wait(ring.full + pos.stage, pos.phase);
+        const uint64_t da = smem_desc(ring.a(pos.stage) + wg * 64 * SLICE_BYTES);
+        const uint64_t db = smem_desc(ring.b(pos.stage));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_s8<FC2_BN>(acc, da + kk * DESC_K_STEP, db + kk * DESC_K_STEP,
+                           (kt | kk) != 0);
+        wgmma_commit();
+        const int cur = pos.stage;
+        pos.advance(FC2_STAGES);
+        wgmma_wait<1>();
+        if (prev >= 0) release(ring, prev, lane);
+        prev = cur;
+      }
+      wgmma_wait<0>();
+      keep_all(acc);
+      release(ring, prev, lane);
+      // y += acc * (sa[:, s] * s2): the stripe's s32 sums dequantised once
+#pragma unroll
+      for (int j = 0; j < FC2_BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float part =
+              __fmul_rn(__int2float_rn(acc[4 * j + e]),
+                        __fmul_rn(sar[e >> 1], (e & 1) ? s2v[j].y : s2v[j].x));
+          y[4 * j + e] = s == 0 ? part : __fadd_rn(y[4 * j + e], part);
+        }
+    }
+
+    // out = bf16(x + (y + b2)) at the resident tier, bf16((x + y) + b2) at
+    // the two-kernel tier, in place of x in the warpgroup's buffer, and from
+    // there to device memory by TMA, which drops rows past M and runs on under
+    // the next tile's loop.
+    mbar_wait(x_full + wg, x_phase);
+    x_phase ^= 1;
+#pragma unroll
+    for (int j = 0; j < FC2_BN / 8; ++j) {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(b2 + n0 + 8 * j + 2 * t));
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        // row warp*16 + g + 8*half of the chunk, 16-byte unit j % 8 of it
+        unsigned* at = reinterpret_cast<unsigned*>(
+            out_wg + (j >> 3) * FC2_CHUNK_BYTES +
+            (warp * 16 + g + 8 * half) * SLICE_BYTES + (((j & 7) ^ g) << 4) +
+            4 * t);
+        const unsigned xr = *at;
+        const float y0 = y[4 * j + 2 * half], y1 = y[4 * j + 2 * half + 1];
+        const float lo = bias_last
+                             ? __fadd_rn(__fadd_rn(bf16_lo(xr), y0), b.x)
+                             : __fadd_rn(bf16_lo(xr), __fadd_rn(y0, b.x));
+        const float hi = bias_last
+                             ? __fadd_rn(__fadd_rn(bf16_hi(xr), y1), b.y)
+                             : __fadd_rn(bf16_hi(xr), __fadd_rn(y1, b.y));
+        *at = pack_bf16(lo, hi);
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (warp == 0 && lane == 0) {
+      if (m0 + wg * 64 < M)
+        for (int c = 0; c < FC2_CHUNKS; ++c)
+          tma_store_2d(&map_out, out_wg + c * FC2_CHUNK_BYTES, n0 + c * 64,
+                       m0 + wg * 64);
+      bulk_commit();
+      bulk_wait_read();
+      mbar_arrive(out_free + wg);
+    }
+  }
+  if (warp == 0 && lane == 0) bulk_wait();
+}
+
+int launch_fc2(const int8_t* aq, const float* sa, const int8_t* w2q,
+               const float* s2, const float* b2, const bf16* x, bf16* out,
+               int M, int D, int DH, int S, int bias_last, cudaStream_t stream) {
+  CUtensorMap map_aq, map_w, map_x, map_out;
+  int rc = hopper::make_map(&map_aq, aq, 1, M, DH, BM);
+  if (rc == 0) rc = hopper::make_map(&map_w, w2q, 1, D, DH, FC2_BN);
+  if (rc == 0) rc = hopper::make_map(&map_x, x, 2, M, D, 64);
+  if (rc == 0) rc = hopper::make_map(&map_out, out, 2, M, D, 64);
+  if (rc != 0) return rc;
+  cudaFuncSetAttribute(fc2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       FC2_SMEM);
+  const int n_items = ((M + BM - 1) / BM) * (D / FC2_BN);
+  const int grid = n_items < hopper::sm_count() ? n_items : hopper::sm_count();
+  fc2_kernel<<<grid, hopper::BLOCK_THREADS, FC2_SMEM, stream>>>(
+      map_aq, map_w, map_x, map_out, sa, s2, b2, M, D, DH, S, bias_last);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -744,19 +748,18 @@ EP_EXPORT int ep_mlp_int8_fc1(const void* hq, const void* sx, const void* w1q,
                 ds / (bn * tiles), tiles, static_cast<cudaStream_t>(stream));
 }
 
-// aq (M, DH), sa (M, S), w2q (D, DH), s2/b2 (D), x (M, D) -> out (M, D) bf16.
+// aq (M, DH), sa (M, S), w2q (D, DH), s2/b2 (D), x (M, D) -> out (M, D) bf16;
+// bias_last: the two-kernel tier's (x + y) + b2, else x + (y + b2).
 EP_EXPORT int ep_mlp_int8_fc2(const void* aq, const void* sa, const void* w2q,
                               const void* s2, const void* b2, const void* x,
                               void* out, int M, int D, int DH, int S,
-                              void* stream) {
+                              int bias_last, void* stream) {
   using namespace ep;
-  cudaFuncSetAttribute(fc2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       FC2_SMEM);
-  const dim3 grid(D / FC2_BN, (M + BM - 1) / BM);
-  fc2_kernel<<<grid, THREADS, FC2_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(aq), static_cast<const float*>(sa),
-      static_cast<const int8_t*>(w2q), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<const bf16*>(x),
-      static_cast<bf16*>(out), M, D, DH, S);
-  return (int)cudaGetLastError();
+  if (M < 1 || S < 1 || D % FC2_BN || DH % S || (DH / S) % BK)
+    return (int)cudaErrorInvalidValue;
+  return launch_fc2(static_cast<const int8_t*>(aq), static_cast<const float*>(sa),
+                    static_cast<const int8_t*>(w2q), static_cast<const float*>(s2),
+                    static_cast<const float*>(b2), static_cast<const bf16*>(x),
+                    static_cast<bf16*>(out), M, D, DH, S, bias_last,
+                    static_cast<cudaStream_t>(stream));
 }

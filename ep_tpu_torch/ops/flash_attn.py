@@ -3,11 +3,12 @@
 Counterpart of ``ep_tpu/ops/flash_attn_pallas.py``, the long-sequence route of
 448 px probing (T=1025), and of the row-tiled variant of the head-width-80
 kernel (``attn_fused_pallas.py::_fwd_head_group_rowtile``). On CUDA tensors
-both are kernel F (``csrc/attn_flash.cu``): one block per (query tile, head,
-image), K and V streamed through shared memory, two sweeps over the keys so
-that the softmax is normalised before PV as in the TPU kernels. No (T, T)
-tensor in device or shared memory, and no head-split copies: the kernel reads
-the natural-layout (B, T, 3D) qkv tensor, as kernel B does.
+both are kernel F (``csrc/attn_flash.cu``): persistent blocks over (192-row
+query tile, head, image), K and V streamed by TMA through an mbarrier ring to
+three ``wgmma`` warpgroups, two sweeps over the keys so that the softmax is
+normalised before PV as in the TPU kernels. No (T, T) tensor in device or
+shared memory, and no head-split copies: the kernel reads the natural-layout
+(B, T, 3D) qkv tensor, as kernel B does.
 
 :func:`attn_flash` is the wrapper on that layout, which
 ``attn_fused.py::attention_core`` routes to; its plain version is
@@ -27,6 +28,30 @@ from ._build import call, stream_ptr
 HEAD_DIMS = (64, 80)  # head widths csrc/attn_flash.cu is built for
 
 
+def flash_head_dim(shape: tuple, num_heads: int, scale: float,
+                   temperature: float = 1.0) -> int:
+    """The head width kernel F runs a (B, T, 3*H*Dh) qkv tensor at; raises
+    for what it does not take: a last dimension that is not 3*H*Dh, an empty
+    batch or sequence, a head width other than 64 or 80, or a non-positive
+    scale/temperature (the kernel takes each row's max of the logits before
+    scaling). Every T >= 1 is taken."""
+    B, T, C = shape
+    if num_heads < 1 or C % (3 * num_heads):
+        raise ValueError(f"attn_flash: last dimension {C} is not 3 x "
+                         f"{num_heads} heads")
+    if B < 1 or T < 1:
+        raise ValueError(f"attn_flash: empty batch or sequence {tuple(shape)}")
+    Dh = C // (3 * num_heads)
+    if Dh not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"attn_flash is built for head widths {HEAD_DIMS}; got head width "
+            f"{Dh}")
+    if not scale / temperature > 0:
+        raise ValueError(f"attn_flash: scale/temperature must be positive; got "
+                         f"{scale}/{temperature}")
+    return Dh
+
+
 def attn_flash(qkv: torch.Tensor, num_heads: int, scale: float,
                temperature: float = 1.0) -> torch.Tensor:
     """Kernel F on CUDA tensors: (B, T, 3*H*Dh) bf16 qkv -> (B, T, H*Dh), any
@@ -35,12 +60,8 @@ def attn_flash(qkv: torch.Tensor, num_heads: int, scale: float,
         raise ValueError("attn_flash launches kernel F and takes CUDA tensors; "
                          "attention_core routes CPU tensors to the plain version")
     B, T, _ = qkv.shape
-    Dh = qkv.shape[-1] // (3 * num_heads)
+    Dh = flash_head_dim(qkv.shape, num_heads, scale, temperature)
     check(qkv, "qkv", (B, T, 3 * num_heads * Dh), torch.bfloat16)
-    if Dh not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"attn_flash is built for head widths {HEAD_DIMS}; got head width "
-            f"{Dh}")
     out = torch.empty(B, T, num_heads * Dh, device=qkv.device, dtype=qkv.dtype)
     call("ep_attn_flash", qkv.data_ptr(), out.data_ptr(), B, T, num_heads, Dh,
          scale / temperature, stream_ptr(qkv))

@@ -13,17 +13,23 @@ where the TPU kernels round:
    tanh-GELU on ``a`` rounded to bf16 and in bf16; ``sa = max(max|a|, 1e-8) /
    127`` per token and per stripe; ``aq = round(a / sa)``; ``aq @ w2q`` in s32;
    ``y += acc2*(sa*s2)`` in f32;
-5. ``out = x_f32 + (y + b2)`` in x's dtype.
+5. the bias and the residual in the order of the JAX package's tier:
+   ``x_f32 + (y + b2)`` at the resident tier (``_kernel``), ``(x_f32 + y) +
+   b2`` at the two-kernel tier (``_kernel_fc2``); then x's dtype.
 
 The stripe count is part of the result (it sets which columns share an
-activation scale); :func:`plan` gives the count the JAX package uses at a
-shape, so both packages compute the same function shape for shape. Where the
+activation scale), and so is the tier (it sets the order of step 5);
+:func:`plan` gives both as the JAX package chooses them at a shape, so both
+packages compute the same function shape for shape. The order is the tier's
+and not the stripe count's: ViT-L is resident at 8 stripes, ViT-H two-kernel
+at 8. Where the
 JAX package would silently run the bf16 half (``plan`` answers ``fallback``),
 the port raises ``NotImplementedError``.
 
 On a CUDA device the half runs as three hand-written kernels
 (``csrc/mlp_int8.cu``): :func:`ln_quant` (steps 1-2), :func:`fc1` (step 4 up
-to ``aq``, ``sa``) and :func:`fc2` (the rest). Only int8 codes with their f32 scales
+to ``aq``, ``sa``) and :func:`fc2` (the rest, on the same ``wgmma`` main loop
+as ``fc1``). Only int8 codes with their f32 scales
 pass between them through device memory. ``fc1`` runs each stripe's product
 once: the blocks of a cluster keep the stripe's GELU outputs in shared memory
 until its max is known (:func:`fc1_tiling`), and read the bf16 GELU from a
@@ -69,8 +75,9 @@ def quantize_weight(w: torch.Tensor):
 def plan(T: int, D: int, DH: int) -> tuple:
     """The tier and stripe count the JAX package uses at (T, D, DH).
 
-    A copy of ``mlp_int8_pallas.plan``, kept for the stripe count alone:
-    ``("resident", stripes)``, ``("two_kernel", 8)`` or ``("fallback",)``.
+    A copy of ``mlp_int8_pallas.plan``, kept for the tier and the stripe
+    count: ``("resident", stripes)``, ``("two_kernel", 8)`` or
+    ``("fallback",)``.
     Its byte estimates describe the TPU's VMEM; they say nothing about the
     H100 and choose no tile there.
     """
@@ -153,25 +160,39 @@ def fc1_ref(hq, sx, w1q, s1, b1, stripes: int):
     return aq, sa
 
 
-def fc2_ref(aq, sa, x, w2q, s2, b2, stripes: int):
-    """The rest of step 4 and step 5 (``mlp_int8_pallas._kernel_fc2``)."""
+TIERS = ("resident", "two_kernel")
+
+
+def _check_tier(tier: str) -> None:
+    if tier not in TIERS:
+        raise ValueError(f"int8 MLP half: tier {tier!r} is none of {TIERS}")
+
+
+def fc2_ref(aq, sa, x, w2q, s2, b2, stripes: int, tier: str = "resident"):
+    """The rest of step 4 and step 5: ``mlp_int8_pallas._kernel`` after its
+    second product at the resident tier, ``_kernel_fc2`` at the two-kernel
+    tier."""
+    _check_tier(tier)
     ds = aq.shape[-1] // stripes
     y = None
     for s in range(stripes):
         sl = slice(s * ds, (s + 1) * ds)
         part = _int_matmul(aq[..., sl], w2q[:, sl]) * (sa[..., s:s + 1] * s2)
         y = part if y is None else y + part
-    return (x.float() + (y + b2.float())).to(x.dtype)
+    xf, b = x.float(), b2.float()
+    out = (xf + y) + b if tier == "two_kernel" else xf + (y + b)
+    return out.to(x.dtype)
 
 
-def mlp_int8_ref(x, w1, b1, w2, b2, gamma, beta, eps: float, stripes: int):
-    """Plain version of the whole int8 half for a given stripe count, on any
-    device. Both tiers of the JAX package compute these numbers."""
+def mlp_int8_ref(x, w1, b1, w2, b2, gamma, beta, eps: float, stripes: int,
+                 tier: str = "resident"):
+    """Plain version of the whole int8 half for a given stripe count and tier,
+    on any device: the numbers of the JAX package's kernels of that tier."""
     w1q, s1 = quantize_weight(w1)
     w2q, s2 = quantize_weight(w2)
     hq, sx = ln_quant_ref(x, gamma, beta, eps)
     aq, sa = fc1_ref(hq, sx, w1q, s1, b1, stripes)
-    return fc2_ref(aq, sa, x, w2q, s2, b2, stripes)
+    return fc2_ref(aq, sa, x, w2q, s2, b2, stripes, tier)
 
 
 def mlp_bf16_ref(x, w1, b1, w2, b2, gamma, beta, eps: float):
@@ -287,10 +308,12 @@ def fc1(hq, sx, w1q, s1, b1, stripes: int):
     return aq, sa
 
 
-def fc2(aq, sa, x, w2q, s2, b2, stripes: int):
-    """Kernel ``fc2``: aq, sa, the residual x (B,T,D) bf16 -> out (B,T,D)."""
+def fc2(aq, sa, x, w2q, s2, b2, stripes: int, tier: str = "resident"):
+    """Kernel ``fc2``: aq, sa, the residual x (B,T,D) bf16 -> out (B,T,D),
+    the bias added in ``tier``'s order."""
     if not use_kernel(aq, sa, x, w2q, s2, b2):
-        return fc2_ref(aq, sa, x, w2q, s2, b2, stripes)
+        return fc2_ref(aq, sa, x, w2q, s2, b2, stripes, tier)
+    _check_tier(tier)
     B, T, D = x.shape
     DH = aq.shape[-1]
     _check_shapes(D, DH, stripes)
@@ -304,20 +327,22 @@ def fc2(aq, sa, x, w2q, s2, b2, stripes: int):
     out = torch.empty_like(x)
     call("ep_mlp_int8_fc2", aq.data_ptr(), sa.data_ptr(), w2q.data_ptr(),
          s2.data_ptr(), b2.data_ptr(), x.data_ptr(), out.data_ptr(), B * T, D,
-         DH, stripes, stream_ptr(x))
+         DH, stripes, int(tier == "two_kernel"), stream_ptr(x))
     LAUNCHES["mlp_int8_fc2"] += 1
     return out
 
 
-def mlp_int8_forward(x, w1, b1, w2, b2, gamma, beta, eps: float, stripes: int):
-    """The int8 half for a given stripe count: the kernels for CUDA tensors,
-    the plain versions for CPU tensors. The weights are quantised here, in
-    plain torch, on every call, as the JAX package leaves it to XLA."""
+def mlp_int8_forward(x, w1, b1, w2, b2, gamma, beta, eps: float, stripes: int,
+                     tier: str = "resident"):
+    """The int8 half for a given stripe count and tier: the kernels for CUDA
+    tensors, the plain versions for CPU tensors. The weights are quantised
+    here, in plain torch, on every call, as the JAX package leaves it to
+    XLA."""
     w1q, s1 = quantize_weight(w1)
     w2q, s2 = quantize_weight(w2)
     hq, sx = ln_quant(x, gamma, beta, eps)
     aq, sa = fc1(hq, sx, w1q, s1, b1, stripes)
-    return fc2(aq, sa, x, w2q, s2, b2, stripes)
+    return fc2(aq, sa, x, w2q, s2, b2, stripes, tier)
 
 
 class _MlpInt8(torch.autograd.Function):
@@ -328,8 +353,9 @@ class _MlpInt8(torch.autograd.Function):
     def forward(ctx, x, w1, b1, w2, b2, gamma, beta, eps):
         ctx.save_for_backward(x, w1, b1, w2, b2, gamma, beta)
         ctx.eps = eps
-        stripes = stripes_for(x.shape[1], x.shape[2], w1.shape[0])
-        return mlp_int8_forward(x, w1, b1, w2, b2, gamma, beta, eps, stripes)
+        T, D, DH = x.shape[1], x.shape[2], w1.shape[0]
+        return mlp_int8_forward(x, w1, b1, w2, b2, gamma, beta, eps,
+                                stripes_for(T, D, DH), plan(T, D, DH)[0])
 
     @staticmethod
     def backward(ctx, g):
@@ -348,6 +374,6 @@ def mlp_int8_fused(x, w1, b1, w2, b2, gamma, beta,
 
     x (B,T,D); w1 (DH,D); b1 (DH,); w2 (D,DH); b2 (D,); gamma/beta (D,):
     full-precision weights in, quantised per output channel on every call.
-    The stripe count is :func:`plan`'s at (T, D, DH). Returns (B,T,D) in
+    The tier and stripe count are :func:`plan`'s at (T, D, DH). Returns (B,T,D) in
     x.dtype; differentiable as the bf16 half (straight-through)."""
     return _MlpInt8.apply(x, w1, b1, w2, b2, gamma, beta, eps)

@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Quick check of ep_tpu_torch's three wgmma + TMA kernels on one H100.
+"""Quick check of ep_tpu_torch's wgmma + TMA kernels on one H100.
 
     python3 scripts/torch_hopper_gemm_check.py [--no-time] [--big]
-                                               [--skip gemm|fc1]
+                                               [--only gemm fc1 fc2 flash]
 
-Builds ep_tpu_torch/csrc, prints ptxas' lines for the kernels of
-attn_block_gemm.cu and for fc1 (registers, spills, warnings), then runs
-kernel A (ln_qkv), kernel C (proj_residual) and the int8 fc1 against their
-plain versions at small, ragged and full shapes (fc1: codes and scales equal
-bit for bit, with a token at the scale's floor; its GELU table against the
-GELU arithmetic at every bf16 value), and times each at the paths' shapes
-beside the PyTorch call that computes the same product (F.layer_norm +
-F.linear, F.linear + add, torch._int_mm). The last fc1 shape is ViT-B's with
-8 stripes: the same work without clusters. Half a minute of card time: the
-first thing to run after a change to hopper.cuh.
+Builds ep_tpu_torch/csrc, prints ptxas' lines for the kernels on the Hopper
+main loop (registers, spills, warnings), then runs kernel A (ln_qkv), kernel
+C (proj_residual), the int8 fc1 and fc2 and kernel F (attn_flash) against
+their plain versions at small, ragged and full shapes (fc1: codes and scales
+equal bit for bit, with a token at the scale's floor; its GELU table against
+the GELU arithmetic at every bf16 value; fc2 equal bit for bit in its tier's
+bias order), and times each at the paths' shapes beside the PyTorch call that
+computes the same function (F.layer_norm + F.linear, F.linear + add,
+torch._int_mm, scaled_dot_product_attention). The last fc1 shape is ViT-B's
+with 8 stripes: the same work without clusters. Half a minute of card time:
+the first thing to run after a change to hopper.cuh.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 ATOL = RTOL = 1e-2
+GROUPS = ("gemm", "fc1", "fc2", "flash")
 
 
 def rand(rng, shape, scale=1.0, dtype=torch.bfloat16):
@@ -64,7 +66,7 @@ def main() -> int:
     ap.add_argument("--no-time", action="store_true")
     ap.add_argument("--big", action="store_true",
                     help="only the paths' shapes (batch >= 64)")
-    ap.add_argument("--skip", choices=("gemm", "fc1"), default=None)
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=GROUPS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -80,8 +82,9 @@ def main() -> int:
     show = False
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry" in line:
-            show = "gemm_kernel" in line or "fc1_kernel" in line
-        if show and ("registers" in line or "Compiling" in line) or (
+            show = any(k in line for k in ("gemm_kernel", "fc1_kernel",
+                                           "fc2_kernel", "attn_flash_kernel"))
+        if show and any(k in line for k in ("registers", "Compiling", "spill")) or (
                 "warning" in line.lower() or "serializ" in line.lower()):
             print("  " + line.strip()[:200])
     _build.library()
@@ -92,7 +95,7 @@ def main() -> int:
     for b, t, d in ((1, 5, 64), (3, 197, 768), (8, 197, 768), (3, 257, 1024),
                     (2, 1025, 1280), (512, 197, 768), (128, 257, 1280),
                     (64, 1025, 1280)):
-        if args.skip == "gemm" or (args.big and b < 64):
+        if "gemm" not in args.only or (args.big and b < 64):
             continue
         x = rand(rng, (b, t, d))
         w = rand(rng, (3 * d, d), d ** -0.5)
@@ -129,7 +132,7 @@ def main() -> int:
                        (2, 197, 1024, 8), (1, 257, 1280, 8), (512, 197, 768, 1),
                        (128, 197, 1024, 8), (128, 257, 1280, 8),
                        (512, 197, 768, 8)):
-        if args.skip == "fc1" or (args.big and b < 64):
+        if "fc1" not in args.only or (args.big and b < 64):
             continue
         dh = 4 * d
         hq = torch.from_numpy(rng.integers(-127, 128, (b, t, d), dtype=np.int8)).cuda()
@@ -155,6 +158,55 @@ def main() -> int:
             print(f"  time: fc1 {tk:.3f} ms ({ops / tk / 1e9:.0f} TOP/s), "
                   f"torch._int_mm {tl:.3f} ms", flush=True)
         del hq, aq, aq_r, w1q
+        torch.cuda.empty_cache()
+    print("fc2 (equal to the plain version's in the tier's bias order)")
+    for b, t, d, s in ((3, 37, 768, 1), (1, 64, 1280, 8), (3, 37, 1024, 8),
+                       (512, 197, 768, 1), (128, 197, 1024, 8),
+                       (128, 257, 1280, 8)):
+        if "fc2" not in args.only or (args.big and b < 64):
+            continue
+        dh = 4 * d
+        tier = m.plan(t, d, dh)[0]
+        aq = torch.from_numpy(rng.integers(-127, 128, (b, t, dh), dtype=np.int8)).cuda()
+        sa = rand(rng, (b, t, s), 0.01, torch.float32).abs() + 1e-3
+        w2q, s2 = m.quantize_weight(rand(rng, (d, dh), dh ** -0.5))
+        x, b2 = rand(rng, (b, t, d)), rand(rng, (d,), 0.1, torch.float32)
+        out = m.fc2(aq, sa, x, w2q, s2, b2, s, tier)
+        same = bool(torch.equal(out, m.fc2_ref(aq, sa, x, w2q, s2, b2, s, tier)))
+        print(f"  fc2 ({b},{t},{d}) S={s} {tier}: equal {same} "
+              f"{'ok' if same else 'FAIL'}", flush=True)
+        ok &= same
+        if b >= 64 and not args.no_time:
+            tk = time_ms(lambda: m.fc2(aq, sa, x, w2q, s2, b2, s, tier))
+            tl = time_ms(lambda: torch._int_mm(aq.view(-1, dh), w2q.t()))
+            ops = 2 * b * t * d * dh
+            print(f"  time: fc2 {tk:.3f} ms ({ops / tk / 1e9:.0f} TOP/s), "
+                  f"torch._int_mm {tl:.3f} ms", flush=True)
+        del aq, w2q, x
+        torch.cuda.empty_cache()
+
+    from ep_tpu_torch.ops.attn_fused import attention_qkv_fused_ref
+    from ep_tpu_torch.ops.flash_attn import attn_flash
+    print("F attn_flash")
+    for b, t, h, dh in ((1, 1, 1, 80), (2, 65, 2, 64), (2, 257, 2, 80),
+                        (2, 1025, 16, 80), (64, 1025, 16, 80),
+                        (64, 785, 12, 64), (128, 257, 16, 80)):
+        if "flash" not in args.only or (args.big and b < 64):
+            continue
+        qkv = rand(rng, (b, t, 3 * h * dh))
+        sc = dh ** -0.5
+        ok &= close(f"F ({b},{t},{h}x{dh})", attn_flash(qkv, h, sc, 1.5),
+                    attention_qkv_fused_ref(qkv, h, sc, 1.5))
+        if b >= 64 and not args.no_time:
+            q, k, v = (u.contiguous() for u in
+                       qkv.view(b, t, 3, h, dh).permute(2, 0, 3, 1, 4).unbind(0))
+            tk = time_ms(lambda: attn_flash(qkv, h, sc))
+            tl = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
+            flop = 4 * b * h * t * t * dh
+            print(f"  time: F {tk:.3f} ms ({flop / tk / 1e9:.0f} TFLOP/s of the "
+                  f"two products), SDPA {tl:.3f} ms", flush=True)
+            del q, k, v
+        del qkv
         torch.cuda.empty_cache()
     print("ALL OK" if ok else "FAILED")
     return 0 if ok else 1

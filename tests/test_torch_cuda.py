@@ -52,11 +52,16 @@ def test_attn_core(dev, B, T, H, Dh):
 @pytest.mark.parametrize("B, T, H, Dh", [
     (2, 1025, 16, 80), (1, 785, 12, 64), (2, 257, 16, 80), (3, 5, 2, 64),
     (1, 64, 1, 64), (1, 65, 2, 80), (1, 1025, 2, 64), (1, 300, 2, 80),
-    (1, 2049, 1, 64)])
+    (1, 2049, 1, 64)] + [(2, t, 2, dh) for dh in (64, 80)
+                         for t in (1, 63, 65, 129, 257, 785)] + [
+    (9, 70, 16, 80), (12, 33, 12, 64)])
 def test_attn_flash(dev, B, T, H, Dh):
     """Kernel F at the slice's shapes (T=1025 and 785 at 448 px, T=257 for the
-    row-tiled variant) and at ragged small ones, against the plain version
-    that kernel B is held to."""
+    row-tiled variant), at the edges of its tiles at both head widths (a
+    single key; one key tile narrowed to 16, 32 or 64 columns; a query tile
+    whose second warpgroup has no row or one row) and with more (image, head)
+    pairs than the card has SMs, so that its persistent blocks take several
+    items, against the plain version that kernel B is held to."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.attn_fused import attention_qkv_fused_ref
     from ep_tpu_torch.ops.flash_attn import attn_flash
@@ -420,6 +425,34 @@ def test_mlp_int8_kernels(dev, B, T, D, DH, stripes):
     print(f"int8 codes B={B} T={T} D={D} S={stripes}: share differing "
           f"{share:.2e}, largest difference {worst}")
     assert share < 1e-2
+
+
+@pytest.mark.parametrize("B, T, D, stripes", [
+    (3, 37, 768, 1), (1, 100, 768, 1), (3, 37, 1280, 8), (1, 64, 1280, 8),
+    (2, 197, 1024, 8), (1, 128, 768, 8)])
+def test_fc2_takes_the_tiers_bias_order(dev, B, T, D, stripes):
+    """Kernel fc2 at both tiers against its plain version on the same codes,
+    to the bit: x + (y + b2) at the resident tier, (x + y) + b2 at the
+    two-kernel tier (the two differ), with 1 and 8 stripes, M ragged (111),
+    under one 128-row panel (64, 100) and at one panel (128)."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops import mlp_int8 as m
+    DH = 4 * D
+    rng = np.random.default_rng(80)
+    aq = torch.from_numpy(rng.integers(-127, 128, (B, T, DH), dtype=np.int8)).to(dev)
+    sa = _rand((B, T, stripes), dev, 0.01, torch.float32, seed=81).abs() + 1e-3
+    w2q, s2 = m.quantize_weight(_rand((D, DH), dev, DH ** -0.5, seed=82))
+    x = _rand((B, T, D), dev, seed=83)
+    b2 = _rand((D,), dev, 0.5, torch.float32, seed=84)
+    outs = {}
+    for tier in m.TIERS:
+        reset_launches()
+        outs[tier] = m.fc2(aq, sa, x, w2q, s2, b2, stripes, tier)
+        assert dict(LAUNCHES) == _counts(mlp_int8_fc2=1)
+        torch.testing.assert_close(
+            outs[tier], m.fc2_ref(aq, sa, x, w2q, s2, b2, stripes, tier),
+            rtol=0, atol=0)
+    assert not torch.equal(*outs.values())
 
 
 @pytest.mark.parametrize("B, T, D, stripes", [

@@ -118,7 +118,7 @@ def test_mlp_int8_ref_matches_pallas_interpret(dtype, tier, stripes):
     else:
         fn = lambda *a: jx._fwd_two_kernel(*a, EPS, True, stripes)  # noqa: E731
     jargs = _jax_args(arrs, dtype)
-    out_t = pt.mlp_int8_ref(*_torch_args(arrs, dtype), EPS, stripes)
+    out_t = pt.mlp_int8_ref(*_torch_args(arrs, dtype), EPS, stripes, tier)
     assert out_t.dtype == DT[dtype][1]
     _assert_close(out_t, _strict(fn, *jargs), dtype)
     if stripes != 1:
@@ -159,6 +159,113 @@ def test_int8_codes_match_the_fc1_kernel():
     assert aq_t.dtype == torch.int8 and aq_t.shape == (B, T, DH)
     np.testing.assert_array_equal(aq_t.numpy(), np.asarray(aq_j))
     np.testing.assert_allclose(sa_t.numpy(), np.asarray(sa_j), rtol=1e-6)
+
+
+def _fc2_pallas(aq, sa, x, w2q, s2, b2, stripes):
+    """``_kernel_fc2``, the two-kernel tier's second kernel, run on its own in
+    interpret mode on the given codes and scales."""
+    import functools
+    from jax.experimental import pallas as pl
+    full = lambda shape: pl.BlockSpec(shape, lambda b: (0,) * len(shape))  # noqa: E731
+    row = lambda n: pl.BlockSpec((1, T, n), lambda b: (b, 0, 0))  # noqa: E731
+    return pl.pallas_call(
+        functools.partial(jx._kernel_fc2, nstripes=stripes), grid=(B,),
+        in_specs=[row(DH), row(stripes), row(D), full((DH, D)), full((1, D)),
+                  full((1, D))],
+        out_specs=row(D), out_shape=jax.ShapeDtypeStruct((B, T, D), x.dtype),
+        interpret=True)(aq, sa, x, w2q, s2, b2)
+
+
+def _fc2_inputs(seed, stripes, exact):
+    """Random int8 codes aq, scales sa and s2, f32 x and b2. With ``exact``
+    every scale is a power of two, so each stripe's dequantised sum and
+    their total are exact in f32 and the bias and residual are the only
+    additions that round."""
+    rng = np.random.default_rng(seed)
+    aq = rng.integers(-127, 128, (B, T, DH), dtype=np.int8)
+    w2q = rng.integers(-127, 128, (DH, D), dtype=np.int8)  # the flax layout
+    if exact:
+        sa = 2.0 ** rng.integers(-12, -6, (B, T, stripes))
+        s2 = 2.0 ** rng.integers(-9, -5, (1, D))
+    else:
+        sa = np.abs(rng.standard_normal((B, T, stripes))) * 0.01 + 1e-3
+        s2 = np.abs(rng.standard_normal((1, D))) * 0.002 + 1e-4
+    x = rng.standard_normal((B, T, D))
+    b2 = rng.standard_normal((1, D)) * 0.5
+    return aq, sa.astype(np.float32), x.astype(np.float32), w2q, \
+        s2.astype(np.float32), b2.astype(np.float32)
+
+
+def _fc2_port(arrs, stripes, tier):
+    aq, sa, x, w2q, s2, b2 = (torch.from_numpy(a) for a in arrs)
+    return pt.fc2_ref(aq, sa, x, w2q.t().contiguous(), s2[0], b2[0], stripes,
+                      tier).numpy()
+
+
+@pytest.mark.parametrize("stripes", [1, 2])
+def test_fc2_bias_order_is_the_two_kernel_tiers(stripes):
+    """``fc2_ref`` at the two-kernel tier against ``_kernel_fc2`` in interpret
+    mode on the same codes and scales, in f32: ``(x + y) + b2``. With scales
+    that are powers of two the products are exact and the two agree bit for
+    bit, where the resident order ``x + (y + b2)`` differs. With other scales
+    XLA on the CPU contracts ``x + acc * scale`` into one fused multiply-add,
+    which rounds once where the port (and its kernel) round twice: the gap
+    measured at most 1.7 * 2**-23 of |x| + |out| + |b2| elementwise (16
+    draws), held here to 2**-21 of it."""
+    arrs = _fc2_inputs(3, stripes, exact=True)
+    out_j = np.asarray(_strict(lambda *a: _fc2_pallas(*a, stripes),
+                               *(jnp.asarray(a) for a in arrs)))
+    np.testing.assert_array_equal(_fc2_port(arrs, stripes, "two_kernel"), out_j)
+    assert (_fc2_port(arrs, stripes, "resident") != out_j).sum() > 10
+    arrs = _fc2_inputs(4, stripes, exact=False)
+    out_j = np.asarray(_strict(lambda *a: _fc2_pallas(*a, stripes),
+                               *(jnp.asarray(a) for a in arrs)))
+    gap = np.abs(_fc2_port(arrs, stripes, "two_kernel") - out_j)
+    assert (gap <= 2.0 ** -21 * (np.abs(arrs[2]) + np.abs(out_j)
+                                 + np.abs(arrs[5]))).all()
+
+
+@pytest.mark.parametrize("stripes", [1, 2])
+def test_fc2_bias_order_is_the_resident_tiers(stripes):
+    """The resident counterpart: the whole ``_kernel`` in interpret mode
+    against the port's plain chain at the resident tier, f32, on inputs that
+    make the scales of the second product powers of two (a hidden column at
+    the head of each stripe with zero weights and bias 127/16, whose GELU is
+    itself and the stripe's largest, so sa = 2**-4; a hidden row of W2 at
+    127/128, each output channel's largest, so s2 = 2**-7). Then only the
+    bias and the residual round and ``x + (y + b2)`` agrees bit for bit, where
+    the two-kernel order differs."""
+    x, w1, b1, w2, b2, g, be = _inputs(seed=1)
+    heads = np.arange(stripes) * (DH // stripes)
+    w1[:, heads] = 0.0
+    b1[heads] = 127.0 / 16
+    w2[0, :] = 127.0 / 128
+    b2 = (b2 * 10).astype(np.float32)
+    arrs = (x, w1, b1, w2, b2, g, be)
+    out_j = np.asarray(_strict(
+        lambda *a: jx.mlp_int8_fused(*a, EPS, True, stripes),
+        *_jax_args(arrs, "float32")))
+    targs = _torch_args(arrs, "float32")
+    hq, sx = pt.ln_quant_ref(targs[0], targs[5], targs[6], EPS)
+    _, sa = pt.fc1_ref(hq, sx, *pt.quantize_weight(targs[1]), targs[2], stripes)
+    assert bool((sa == 2.0 ** -4).all())
+    assert bool((pt.quantize_weight(targs[3])[1] == 2.0 ** -7).all())
+    out = pt.mlp_int8_ref(*targs, EPS, stripes, "resident").numpy()
+    np.testing.assert_array_equal(out, out_j)
+    other = pt.mlp_int8_ref(*targs, EPS, stripes, "two_kernel").numpy()
+    assert (other != out_j).sum() > 10
+
+
+def test_fc2_takes_the_two_tiers_only():
+    arrs = [torch.from_numpy(a) for a in _fc2_inputs(5, 1, exact=True)]
+    aq, sa, x, w2q, s2, b2 = arrs
+    args = (aq, sa, x, w2q.t().contiguous(), s2[0], b2[0], 1)
+    for tier in pt.TIERS:
+        assert pt.fc2(*args, tier=tier).shape == x.shape
+    with pytest.raises(ValueError, match="tier"):
+        pt.fc2(*args, tier="fallback")
+    with pytest.raises(ValueError, match="tier"):
+        pt.fc2_ref(*args, "striped")
 
 
 def test_all_zero_token_row_stays_finite():

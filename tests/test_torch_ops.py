@@ -166,6 +166,33 @@ def test_gemm_kernels_refuse_other_widths(N, K, ln, what):
         _check_gemm("gemm", N, K, ln=ln)
 
 
+@pytest.mark.parametrize("B, T, H, Dh", [
+    (1, 1, 1, 64), (2, 63, 2, 80), (1, 65, 12, 64), (1, 129, 16, 80),
+    (1, 257, 16, 80), (64, 785, 12, 64), (64, 1025, 16, 80), (1, 4097, 1, 64)])
+def test_flash_takes_every_t_at_both_head_widths(B, T, H, Dh):
+    """What kernel F's wrapper accepts after its redesign: every T >= 1 (the
+    last key tile narrows to 16, 32 or 64 columns, query rows come in 64-row
+    units) at head widths 64 and 80, the widths of its two-box tiles."""
+    from ep_tpu_torch.ops.flash_attn import flash_head_dim
+    assert flash_head_dim((B, T, 3 * H * Dh), H, Dh ** -0.5, 1.5) == Dh
+
+
+@pytest.mark.parametrize("shape, H, scale, temperature, err, what", [
+    ((1, 65, 3 * 2 * 32), 2, 0.2, 1.0, NotImplementedError, "head width 32"),
+    ((1, 65, 3 * 1 * 128), 1, 0.1, 1.0, NotImplementedError, "head width 128"),
+    ((1, 65, 3 * 2 * 96), 2, 0.1, 1.0, NotImplementedError, "head width 96"),
+    ((1, 65, 3 * 64 + 8), 1, 0.1, 1.0, ValueError, "3 x 1 heads"),
+    ((1, 0, 3 * 64), 1, 0.1, 1.0, ValueError, "empty"),
+    ((0, 9, 3 * 64), 1, 0.1, 1.0, ValueError, "empty"),
+    ((1, 9, 3 * 64), 1, 0.125, -1.0, ValueError, "positive"),
+    ((1, 9, 3 * 64), 1, 0.0, 1.0, ValueError, "positive")])
+def test_flash_refuses_what_it_does_not_take(shape, H, scale, temperature, err,
+                                             what):
+    from ep_tpu_torch.ops.flash_attn import flash_head_dim
+    with pytest.raises(err, match=what):
+        flash_head_dim(shape, H, scale, temperature)
+
+
 def test_supercell_is_forward_only():
     """The supercell differentiates on the CPU through the plain versions
     (kernels A, B and E are never launched there), and every input gets a
