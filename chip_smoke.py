@@ -16,8 +16,13 @@ Phases, each of which must pass (any failure exits non-zero):
              function, that call's time, at the main paths' shapes: A, B, C
              and D at ViT-B (A and C also at ViT-H/14, 224 and 448 px, at
              ViT-L's width and at batches of 3 and 8; A's row statistics
-             alone); B at ViT-H (head width 80, T=257); E, the
-             attention backward, at ViT-B and ViT-H; the supercell's gradients
+             alone); B at ViT-H (head width 80, T=257) and at the edges of
+             its tiles and key bins (T of 1 to 272 at both head widths, more
+             (image, head) pairs than SMs, temperature 1.5); E, the
+             attention backward, at ViT-B and ViT-H, at the edges of its
+             tiles up to its limits (T=320 at head width 80, 384 at 64; more
+             pairs than SMs, temperature 1.5) and twice, equal bit for bit;
+             the supercell's gradients
              (forward and backward) at both; the int8 MLP half's three
              kernels (ln_quant, fc1, fc2) at ViT-B (1 stripe), ViT-L (8
              stripes) and ViT-H (8 stripes, the JAX package's two-kernel
@@ -395,6 +400,33 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
     bounds["attn_core_dh80"] = bound(4 * BH * HH * TH * TH * 80, "bf16",
                                      nbytes(qkv) + nbytes(qkv) // 3)
     del q, k, v
+
+    log("[kernels] B and E at the edges of their tiles, 3 x 48 (image, head) "
+        "pairs, temperature 1.5")
+    for dh in (64, 80):
+        for t in (1, 63, 64, 65, 129, 197, 256, 257, 272):
+            qkv = rand(rng, (3, t, 3 * 48 * dh))
+            name = "attn_core" if dh == 64 else "attn_core_dh80"
+            err[name] = max(err[name], compare(
+                f"attn_core B=3 T={t} H=48 Dh={dh}",
+                attention_qkv_fused(qkv, 48, dh ** -0.5, 1.5),
+                attention_qkv_fused_ref(qkv, 48, dh ** -0.5, 1.5)))
+        for t in (1, 5, 16, 63, 64, 65, 128, 129, 197, 257, 300, 320) + (
+                (384,) if dh == 64 else ()):
+            qkv = rand(rng, (3, t, 3 * 48 * dh))
+            g = rand(rng, (3, t, 48 * dh))
+            name = "attn_core_bwd" if dh == 64 else "attn_core_bwd_dh80"
+            out = attention_qkv_fused_bwd(qkv, g, 48, dh ** -0.5, 1.5)
+            ref = attention_qkv_fused_bwd_ref(qkv, g, 48, dh ** -0.5, 1.5)
+            err[name] = max(err.get(name, 0.0), compare(
+                f"attn_core_bwd B=3 T={t} H=48 Dh={dh}", out, ref,
+                atol=BWD_TOL * float(ref.float().abs().max()), rtol=BWD_TOL))
+            if not torch.equal(out, attention_qkv_fused_bwd(qkv, g, 48,
+                                                            dh ** -0.5, 1.5)):
+                raise RuntimeError(f"attn_core_bwd T={t} Dh={dh}: two calls "
+                                   "differ")
+            del out, ref
+    log("  attn_core_bwd: every second call equal to the first, bit for bit")
 
     log("[kernels] E: attn_core_bwd (attention_qkv_fused_bwd)")
     for name, cases in (

@@ -214,24 +214,12 @@ attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
       continue;
     }
     // The warpgroup's query rows go to registers once an item, as the A
-    // fragments of the logits' 4 (+ 1) K steps, read through the swizzles
-    // (16-byte unit u of row r lies at u ^ (r % 8) in a 128-byte row, at
-    // u ^ (r / 4 % 2) in a 32-byte row): wgmma with A from shared memory
-    // reads 4 KB a 64-column K step, the whole 128 bytes a clock of shared
-    // memory at the tensor cores' rate.
+    // fragments of the logits' 4 (+ 1) K steps: wgmma with A from shared
+    // memory reads 4 KB a 64-column K step, the whole 128 bytes a clock of
+    // shared memory at the tensor cores' rate.
     unsigned qf[DH / 16][4];
-    {
-      const int r = 16 * warp + (lane & 15);
-      const unsigned char* q0r = q0_s(qpos.stage, wg) + r * 128;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        ldmatrix_x4(qf[kk], reinterpret_cast<const bf16*>(
-                                q0r + (((kk * 2 + (lane >> 4)) ^ (r & 7)) << 4)));
-      if constexpr (L::R1 > 0)
-        ldmatrix_x4(qf[4], reinterpret_cast<const bf16*>(
-                               q1_s(qpos.stage, wg) + r * 32 +
-                               (((lane >> 4) ^ ((r >> 2) & 1)) << 4)));
-    }
+    load_head_rows<DH>(qf, q0_s(qpos.stage, wg), q1_s(qpos.stage, wg), 0, warp,
+                       lane);
     release(q_empty + qpos.stage);
     qpos.advance(2);
 
@@ -415,26 +403,17 @@ int launch(const void* qkv, void* out, int B, int T, int H, float coef,
   using L = Flash<DH>;
   // boxes of BQ query rows or BN keys, columns 0..63 (128-byte swizzle) and,
   // at DH = 80, 64..79 (32-byte swizzle); DH = 64 reads no second box
-  CUtensorMap maps[4];
-  for (int i = 0; i < 4; ++i) {
-    const bool past64 = i & 1;
-    if (past64 && L::R1 == 0) {
-      maps[i] = maps[i - 1];
-      continue;
-    }
-    const int rc = make_map_3d(
-        maps + i, qkv, B, T, 3 * H * DH, i < 2 ? BQ : BN, past64 ? L::R1 : 64,
-        past64 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B);
-    if (rc != 0) return rc;
-  }
+  CUtensorMap mq[2], mkv[2];
+  int rc = make_head_maps(mq, qkv, DH, B, T, 3 * H * DH, BQ);
+  if (rc == 0) rc = make_head_maps(mkv, qkv, DH, B, T, 3 * H * DH, BN);
+  if (rc != 0) return rc;
   cudaFuncSetAttribute(attn_flash_kernel<DH>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   const long long items = (long long)((T + NC * BQ - 1) / (NC * BQ)) * H * B;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int grid = items < sm_count() ? (int)items : sm_count();
   attn_flash_kernel<DH><<<grid, THREADS, L::SMEM, s>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(out), B, T, H,
-      coef);
+      mq[0], mq[1], mkv[0], mkv[1], static_cast<bf16*>(out), B, T, H, coef);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // The Hopper GEMM main loop shared by the supercell's products (kernels A and
 // C, attn_block_gemm.cu) and the int8 fc1 and fc2 (mlp_int8.cu): PTX wrappers
 // for TMA loads and stores, mbarrier, wgmma, setmaxnreg and cluster barriers,
-// the tensor-map encoders, and the producer's half of the loop. Kernel F
-// (attn_flash.cu) runs its own loop on the same wrappers.
+// the tensor-map encoders, and the producer's half of the loop. The attention
+// kernels B, E and F (attn_core.cu, attn_core_bwd.cu, attn_flash.cu) run
+// loops of their own on the same wrappers and the head-tile helpers below.
 //
 // The loop: a ring of K slices in shared memory, each 128 bytes deep (64 bf16
 // or 128 int8 values) and laid out by TMA with the 128-byte swizzle that
@@ -113,6 +114,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
           "l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// The same for a 3-D tensor at (c0 innermost, c1, c2).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -467,12 +478,44 @@ __device__ __forceinline__ void wgmma_bf16_ss_n256(float (&d)[128], uint64_t a, 
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// Kernel F's logits tile: A (the query rows) from registers, an m16k16
-// fragment per warp, B (the keys) K-major in shared memory; N = 64.
+// The attention kernels' logits tiles (B, E, F): A (query, key or value
+// rows) from registers, an m16k16 fragment per warp, B K-major in shared
+// memory; N = 64, or 32 and 16 for the keys past the last 64.
 template <int N>
 __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2],
                                               const unsigned (&a)[4], uint64_t b,
                                               int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<16>(float (&d)[8],
+                                                  const unsigned (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<32>(float (&d)[16],
+                                                  const unsigned (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_bf16_rs<64>(float (&d)[32],
@@ -496,8 +539,9 @@ __device__ __forceinline__ void wgmma_bf16_rs<64>(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
-// Kernel F's P V: A from registers (an m16k16 fragment per warp), B N-major
-// in shared memory (the transpose bit), N = 64 or 16.
+// The attention kernels' products over keys or queries (P V, dQ, dK, dV): A
+// from registers (an m16k16 fragment per warp), B N-major in shared memory
+// (the transpose bit), N = 64 or 16.
 template <int N>
 __device__ __forceinline__ void wgmma_bf16_rs_tb(float (&d)[N / 2],
                                                  const unsigned (&a)[4],
@@ -538,6 +582,78 @@ __device__ __forceinline__ void wgmma_bf16_rs_tb<16>(float (&d)[8],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// ---- attention tiles ----------------------------------------------------------
+// Tiles of 64 rows of one head of width DH (64 or 80), as the attention
+// kernels stage them: columns 0..63 as rows of 128 bytes in the 128-byte
+// swizzle at s0, columns 64..DH-1 as rows of 32 bytes in the 32-byte swizzle
+// at s1 (DH = 80). Both swizzles repeat every 8 rows, so any tile that starts
+// on a multiple of 8 rows of a 1024-byte aligned array reads the same way.
+
+// The A fragments of rows row0 + 16*warp .. + 15 for the DH / 16 K steps of
+// a product over the head's columns: 16-byte unit u of row r lies at
+// u ^ (r % 8) in a 128-byte row, at u ^ (r / 4 % 2) in a 32-byte row.
+template <int DH>
+__device__ __forceinline__ void load_head_rows(unsigned (&f)[DH / 16][4],
+                                               const unsigned char* s0,
+                                               const unsigned char* s1,
+                                               int row0, int warp, int lane) {
+  const int r = row0 + 16 * warp + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    ldmatrix_x4(f[kk], reinterpret_cast<const bf16*>(
+                           s0 + r * 128 + (((kk * 2 + (lane >> 4)) ^ (r & 7)) << 4)));
+  if constexpr (DH > 64)
+    ldmatrix_x4(f[4], reinterpret_cast<const bf16*>(
+                          s1 + r * 32 + (((lane >> 4) ^ ((r >> 2) & 1)) << 4)));
+}
+
+// A 64-row accumulator pair (a0: columns 0..63, a1: 64..79, in wgmma's
+// layout) rounded to bf16 into a staging tile of the same layout, for a TMA
+// store: thread (warp, g, t) writes rows 16*warp + g and + 8, 4 bytes at
+// column 8j + 2t, every quad of lanes a different bank.
+template <int DH>
+__device__ __forceinline__ void stage_head_rows(unsigned char* s0,
+                                                unsigned char* s1,
+                                                const float (&a0)[32],
+                                                const float (&a1)[8], int warp,
+                                                int lane) {
+  const int r = 16 * warp + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    unsigned char* p = s0 + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t;
+    *reinterpret_cast<unsigned*>(p) = pack_bf16(a0[4 * j], a0[4 * j + 1]);
+    *reinterpret_cast<unsigned*>(p + 8 * 128) =
+        pack_bf16(a0[4 * j + 2], a0[4 * j + 3]);
+  }
+  if constexpr (DH > 64) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      unsigned char* p = s1 + r * 32 + ((j ^ ((r >> 2) & 1)) << 4) + 4 * t;
+      *reinterpret_cast<unsigned*>(p) = pack_bf16(a1[4 * j], a1[4 * j + 1]);
+      *reinterpret_cast<unsigned*>(p + 8 * 32) =
+          pack_bf16(a1[4 * j + 2], a1[4 * j + 3]);
+    }
+  }
+}
+
+// The maps of one head's tiles in a (depth, rows, cols) bf16 tensor: boxes of
+// box_rows x 64 columns in the 128-byte swizzle and, for DH = 80, of
+// box_rows x 16 in the 32-byte swizzle (for DH = 64 the second is a copy of
+// the first and is never used). Returns 0 or a cudaError_t.
+inline int make_head_maps(CUtensorMap (&maps)[2], const void* ptr, int DH,
+                          uint64_t depth, uint64_t rows, uint64_t cols,
+                          uint32_t box_rows) {
+  int rc = make_map_3d(maps, ptr, depth, rows, cols, box_rows, 64,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  if (DH == 64) {
+    maps[1] = maps[0];
+    return 0;
+  }
+  return make_map_3d(maps + 1, ptr, depth, rows, cols, box_rows, DH - 64,
+                     CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 template <>

@@ -5,14 +5,25 @@ its custom VJP. On CUDA tensors the forward is kernel B (``csrc/attn_core.cu``)
 or, beyond the sequence length B holds in registers, kernel F
 (``csrc/attn_flash.cu``, ``flash_attn.py``), and the backward kernel E
 (``csrc/attn_core_bwd.cu``); all read each head straight out of the qkv rows
-and write it at its column slice: no head-split transpose and no (B,H,T,T)
-tensor in device memory. On CPU tensors they are
+by TMA and write it at its column slice by TMA store: no head-split transpose
+and no (B,H,T,T) tensor in device memory. On CPU tensors they are
 :func:`attention_qkv_fused_ref` and :func:`attention_qkv_fused_bwd_ref`.
-Head widths 64 and 80 (ViT-H) are built. :func:`attn_route` is the routing of
-``attn_fused_pallas.py::_fwd_impl``, by shape: the TPU's memory estimates and
-its XLA fallback past them do not carry over, since F takes any T. The
-backward at long T is not a kernel in the JAX package either (``_bwd_xla``);
-it is not ported yet, and kernel E raises beyond its limit.
+Head widths 64 and 80 (ViT-H) are built.
+
+B and E are ``wgmma`` designs on the wrappers of ``csrc/hopper.cuh``, with
+persistent blocks of two consumer warpgroups and one TMA producer. B keeps a
+64-row query tile's whole row of logits in registers: one sweep, two
+products, the exact softmax normalised before PV. E runs 7 products an
+(image, head) where the function needs 5: a query-stationary pass (logits and
+dA once, the keys split between the two warpgroups, dQ summed across them in
+a fixed order) and a key-stationary pass (dK and dV). Both are bound by bytes
+on the H100; what each measured is in ``PERF.md``.
+
+:func:`attn_route` is the routing of ``attn_fused_pallas.py::_fwd_impl``, by
+shape: the TPU's memory estimates and its XLA fallback past them do not carry
+over, since F takes any T. The backward at long T is not a kernel in the JAX
+package either (``_bwd_xla``); it is not ported yet, and kernel E raises
+beyond its limit (:data:`BWD_MAX_T`).
 """
 from __future__ import annotations
 
@@ -25,7 +36,9 @@ from . import LAUNCHES, MAX_SMEM, check, use_kernel
 from ._build import call, query, stream_ptr
 from .flash_attn import attn_flash
 
-CORE_MAX_T = 272  # csrc/attn_core.cu: a warp holds its rows of logits in registers
+CORE_MAX_T = 272  # csrc/attn_core.cu: a tile's rows of logits sit in registers
+# csrc/attn_core_bwd.cu stages q, k, v and dO of one head in shared memory
+BWD_MAX_T = {64: 384, 80: 320}
 
 
 def _split(t: torch.Tensor, parts: int, num_heads: int):
@@ -86,7 +99,9 @@ def attention_core(qkv: torch.Tensor, num_heads: int, scale: float,
 def attention_qkv_fused_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
                             scale: float, temperature: float = 1.0) -> torch.Tensor:
     """(qkv (B,T,3D), dO (B,T,D)) -> dqkv (B,T,3D): kernel E or the plain
-    version."""
+    version. Kernel E takes head widths 64 and 80 up to :data:`BWD_MAX_T`
+    and raises beyond; it is deterministic (two calls on the same inputs are
+    equal bit for bit)."""
     if not use_kernel(qkv, g):
         return attention_qkv_fused_bwd_ref(qkv, g, num_heads, scale, temperature)
     B, T, _ = qkv.shape
@@ -96,10 +111,11 @@ def attention_qkv_fused_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
     smem = query("ep_attn_core_bwd_smem_bytes", T, Dh)
     if smem == 0 or smem > MAX_SMEM:
         raise NotImplementedError(
-            f"attn_core_bwd is built for head widths 64 and 80 and keeps q, k, "
-            f"v and dO of one head in shared memory; got head width {Dh}, "
+            f"attn_core_bwd is built for head widths 64 (T <= "
+            f"{BWD_MAX_T[64]}) and 80 (T <= {BWD_MAX_T[80]}) and keeps q, k, v "
+            f"and dO of one head in shared memory; got head width {Dh}, "
             f"T={T}. The backward at long sequences is not ported yet (ROADMAP "
-            f"module item 13)")
+            f"module item 5)")
     dqkv = torch.empty_like(qkv)
     call("ep_attn_core_bwd", qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B,
          T, num_heads, Dh, scale / temperature, stream_ptr(qkv))

@@ -2,17 +2,19 @@
 """Quick check of ep_tpu_torch's wgmma + TMA kernels on one H100.
 
     python3 scripts/torch_hopper_gemm_check.py [--no-time] [--big]
-                                               [--only gemm fc1 fc2 flash]
+                               [--only gemm fc1 fc2 flash core bwd]
 
-Builds ep_tpu_torch/csrc, prints ptxas' lines for the kernels on the Hopper
-main loop (registers, spills, warnings), then runs kernel A (ln_qkv), kernel
-C (proj_residual), the int8 fc1 and fc2 and kernel F (attn_flash) against
-their plain versions at small, ragged and full shapes (fc1: codes and scales
+Builds ep_tpu_torch/csrc, prints ptxas' lines for the wgmma kernels
+(registers, spills, warnings), then runs kernel A (ln_qkv), kernel C
+(proj_residual), the int8 fc1 and fc2, and the attention kernels F
+(attn_flash), B (attn_core) and E (attn_core_bwd, also twice, to be equal bit
+for bit) against their plain versions at small, ragged and full shapes (fc1: codes and scales
 equal bit for bit, with a token at the scale's floor; its GELU table against
 the GELU arithmetic at every bf16 value; fc2 equal bit for bit in its tier's
 bias order), and times each at the paths' shapes beside the PyTorch call that
 computes the same function (F.layer_norm + F.linear, F.linear + add,
-torch._int_mm, scaled_dot_product_attention). The last fc1 shape is ViT-B's
+torch._int_mm, scaled_dot_product_attention and its backward). The last fc1
+shape is ViT-B's
 with 8 stripes: the same work without clusters. Half a minute of card time:
 the first thing to run after a change to hopper.cuh.
 """
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 ATOL = RTOL = 1e-2
-GROUPS = ("gemm", "fc1", "fc2", "flash")
+GROUPS = ("gemm", "fc1", "fc2", "flash", "core", "bwd")
 
 
 def rand(rng, shape, scale=1.0, dtype=torch.bfloat16):
@@ -82,8 +84,9 @@ def main() -> int:
     show = False
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry" in line:
-            show = any(k in line for k in ("gemm_kernel", "fc1_kernel",
-                                           "fc2_kernel", "attn_flash_kernel"))
+            show = any(k in line for k in (
+                "gemm_kernel", "fc1_kernel", "fc2_kernel", "attn_flash_kernel",
+                "attn_core_kernel", "attn_core_bwd_kernel"))
         if show and any(k in line for k in ("registers", "Compiling", "spill")) or (
                 "warning" in line.lower() or "serializ" in line.lower()):
             print("  " + line.strip()[:200])
@@ -207,6 +210,65 @@ def main() -> int:
                   f"two products), SDPA {tl:.3f} ms", flush=True)
             del q, k, v
         del qkv
+        torch.cuda.empty_cache()
+    from ep_tpu_torch.ops.attn_fused import (attention_core,
+                                             attention_qkv_fused_bwd,
+                                             attention_qkv_fused_bwd_ref)
+    print("B attn_core")
+    for b, t, h, dh in ((1, 1, 1, 64), (2, 63, 2, 80), (2, 65, 2, 64),
+                        (2, 129, 3, 80), (2, 197, 12, 64), (2, 257, 16, 80),
+                        (3, 272, 2, 80), (200, 33, 2, 64), (512, 197, 12, 64),
+                        (128, 256, 16, 80), (128, 257, 16, 80)):
+        if "core" not in args.only or (args.big and b < 64):
+            continue
+        qkv = rand(rng, (b, t, 3 * h * dh))
+        sc = dh ** -0.5
+        ok &= close(f"B ({b},{t},{h}x{dh})",
+                    attention_core(qkv, h, sc, 1.5, variant="core"),
+                    attention_qkv_fused_ref(qkv, h, sc, 1.5))
+        if b >= 64 and t > 64 and not args.no_time:
+            q, k, v = (u.contiguous() for u in
+                       qkv.view(b, t, 3, h, dh).permute(2, 0, 3, 1, 4).unbind(0))
+            tk = time_ms(lambda: attention_core(qkv, h, sc, variant="core"))
+            tl = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
+            print(f"  time: B {tk:.3f} ms, SDPA {tl:.3f} ms", flush=True)
+            del q, k, v
+        del qkv
+        torch.cuda.empty_cache()
+    print("E attn_core_bwd (rtol 1e-2, atol 1e-2 of max |ref|; twice, equal)")
+    for b, t, h, dh in ((1, 1, 1, 64), (2, 65, 2, 80), (3, 129, 2, 64),
+                        (2, 197, 12, 64), (2, 257, 16, 80), (1, 320, 2, 80),
+                        (1, 384, 2, 64), (300, 5, 1, 80), (512, 197, 12, 64),
+                        (128, 257, 16, 80)):
+        if "bwd" not in args.only or (args.big and b < 64):
+            continue
+        qkv = rand(rng, (b, t, 3 * h * dh))
+        g = rand(rng, (b, t, h * dh))
+        sc = dh ** -0.5
+        out = attention_qkv_fused_bwd(qkv, g, h, sc, 1.5)
+        again = attention_qkv_fused_bwd(qkv, g, h, sc, 1.5)
+        ref = attention_qkv_fused_bwd_ref(qkv, g, h, sc, 1.5)
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        scale = float(ref.float().abs().max())
+        good = bool((d <= 1e-2 * scale + 1e-2 * ref.float().abs()).all()) and bool(
+            torch.isfinite(out.float()).all())
+        same = bool(torch.equal(out, again))
+        print(f"  E ({b},{t},{h}x{dh}): max_abs_err {float(d.max()):.3e} of "
+              f"max |ref| {scale:.3e}, repeat equal {same} "
+              f"{'ok' if good and same else 'FAIL'}", flush=True)
+        ok &= good and same
+        del ref, again, d
+        if b >= 64 and not args.no_time:
+            tk = time_ms(lambda: attention_qkv_fused_bwd(qkv, g, h, sc))
+            ql = [u.detach().requires_grad_(True) for u in
+                  qkv.view(b, t, 3, h, dh).permute(2, 0, 3, 1, 4).unbind(0)]
+            ol = F.scaled_dot_product_attention(*ql, scale=sc)
+            gl = g.view(b, t, h, dh).transpose(1, 2)
+            tl = time_ms(lambda: torch.autograd.grad(ol, ql, gl, retain_graph=True))
+            print(f"  time: E {tk:.3f} ms, SDPA's backward {tl:.3f} ms", flush=True)
+            del ql, ol, gl
+        del qkv, g, out
         torch.cuda.empty_cache()
     print("ALL OK" if ok else "FAILED")
     return 0 if ok else 1

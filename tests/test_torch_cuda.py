@@ -37,9 +37,21 @@ def _counts(**launched):
     return {**dict.fromkeys(LAUNCHES, 0), **launched}
 
 
+# The tile edges of kernels B and E: a single row, one row short of a 64-row
+# tile, one tile, one row past it, B's key bins (32, 64, 128, 208, 256, 272)
+# and E's staged rows (128, 256, 320, 384, its limit at head width 64); 3
+# images of 48 heads are more (image, head) pairs than the card has SMs, so
+# every persistent block takes several items.
+CORE_EDGES = [(3, t, 48, dh) for dh in (64, 80)
+              for t in (1, 63, 64, 65, 129, 197, 256, 257, 272)]
+BWD_EDGES = [(3, t, 48, dh) for dh in (64, 80)
+             for t in (1, 5, 16, 63, 64, 65, 128, 129, 197, 257, 300, 320)] + [
+                 (3, 384, 48, 64)]
+
+
 @pytest.mark.parametrize("B, T, H, Dh", [
     (2, 197, 12, 64), (3, 5, 2, 64), (1, 64, 1, 64), (2, 100, 3, 64),
-    (1, 256, 2, 64), (2, 257, 16, 80), (3, 9, 8, 80), (1, 272, 2, 80)])
+    (1, 256, 2, 64), (2, 257, 16, 80), (3, 9, 8, 80), (1, 272, 2, 80)] + CORE_EDGES)
 def test_attn_core(dev, B, T, H, Dh):
     from ep_tpu_torch.ops.attn_fused import (attention_qkv_fused,
                                              attention_qkv_fused_ref)
@@ -120,11 +132,11 @@ def test_flash_attention_on_split_heads(dev):
 
 @pytest.mark.parametrize("B, T, H, Dh", [
     (2, 197, 12, 64), (3, 5, 2, 64), (1, 300, 1, 64), (2, 257, 16, 80),
-    (3, 9, 8, 80), (1, 320, 2, 80)])
+    (3, 9, 8, 80), (1, 320, 2, 80)] + BWD_EDGES)
 def test_attn_core_bwd(dev, B, T, H, Dh):
-    """Kernel E against the plain backward, and through autograd. dq and dk
-    sum T products of a bf16-rounded dL, so the absolute bound is taken at
-    the output's largest magnitude."""
+    """Kernel E against the plain backward, twice (it is deterministic), and
+    through autograd. dq and dk sum T products of a bf16-rounded dL, so the
+    absolute bound is taken at the output's largest magnitude."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.attn_fused import (attention_qkv_fused,
                                              attention_qkv_fused_bwd,
@@ -135,6 +147,8 @@ def test_attn_core_bwd(dev, B, T, H, Dh):
     out = attention_qkv_fused_bwd(qkv, g, H, Dh ** -0.5, 1.5)
     scale = float(ref.float().abs().max())
     torch.testing.assert_close(out, ref, rtol=1e-2, atol=1e-2 * scale)
+    torch.testing.assert_close(
+        attention_qkv_fused_bwd(qkv, g, H, Dh ** -0.5, 1.5), out, rtol=0, atol=0)
     if T > 272:  # past kernel B's register tile: E alone
         return
     reset_launches()
@@ -360,6 +374,9 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(NotImplementedError, match="T=321"):
         attention_qkv_fused_bwd(_rand((1, 321, 3 * 80), dev),
                                 _rand((1, 321, 80), dev), 1, 0.125)
+    with pytest.raises(NotImplementedError, match="T=385"):
+        attention_qkv_fused_bwd(_rand((1, 385, 3 * 64), dev),
+                                _rand((1, 385, 64), dev), 1, 0.125)
 
 
 def _mlp_args(B, T, D, DH, dev):

@@ -91,6 +91,22 @@ def test_attention_backward_matches_jax(dtype, dh):
                                                 1.5), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dh, t", [(64, 1), (64, 64), (64, 65), (80, 1),
+                                   (80, 65)])
+def test_attention_backward_matches_jax_at_tile_edges(dh, t):
+    """The plain backward that kernel E is held to, against the JAX package's
+    Pallas backward in interpret mode at the edges of E's 64-row tiles (one
+    row, one tile, one row past it), f32."""
+    h = ATTN_SHAPES[dh][2]
+    rng = np.random.default_rng(20 + t)
+    qkv_j, qkv_t = _pair(rng.standard_normal((1, t, 3 * h * dh), np.float32),
+                         "float32")
+    g_j, g_t = _pair(rng.standard_normal((1, t, h * dh), np.float32), "float32")
+    _, vjp = jax.vjp(lambda x: jax_attn(x, h, dh ** -0.5, 1.5, True), qkv_j)
+    _close(attention_qkv_fused_bwd_ref(qkv_t, g_t, h, dh ** -0.5, 1.5),
+           vjp(g_j)[0], "float32")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_head_width_80_matches_jax(dtype):
     b, t, h = ATTN_SHAPES[80]
