@@ -36,9 +36,10 @@ Phases, each of which must pass (any failure exits non-zero):
              ViT-B/16 at 448 px (T=1025 and 785) and at the row-tiled variant's
              shape (T=257, head width 80) beside kernel B, and at the edges of
              its tiles (T of 1 to 1025 at both head widths, more (image, head)
-             pairs than SMs, temperature 1.5); D at N=1024 and at
-             ViT-H's N=256; G (ep_pool_proj) at ViT-B, ViT-H and ViT-H at 448
-             px beside the unfused pair (F.linear, then D).
+             pairs than SMs, temperature 1.5); D at N=1024, at ViT-H's N=256
+             and at ViT-L's width (D at every shape, and ln_quant, also
+             twice: equal bit for bit); G (ep_pool_proj) at ViT-B, ViT-H and
+             ViT-H at 448 px beside the unfused pair (F.linear, then D).
 4. train   — the probe-training main path as bench.py builds it: frozen
              ViT-B/16 (random weights from seed 0) + EP-32 head, BN, fc, LARS
              with the warmup-cosine LR; a few steps at --batch. Checks a finite
@@ -253,6 +254,16 @@ def compare_steps(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     return max_abs
 
 
+def repeat_equal(name: str, first, second) -> None:
+    """A kernel's second call on the same inputs equals its first bit for
+    bit (tensors, or tuples of them)."""
+    pairs = zip(first, second) if isinstance(first, tuple) else [(first, second)]
+    same = all(bool(torch.equal(a, b)) for a, b in pairs)
+    log(f"    {name}: a second call equal bit for bit {'ok' if same else 'FAIL'}")
+    if not same:
+        raise RuntimeError(f"{name}: two calls differ")
+
+
 def pool_sdpa(qs: torch.Tensor, tok: torch.Tensor, v: torch.Tensor):
     """The EP pool as one scaled_dot_product_attention call: every query is a
     head with one query row, the tokens are each head's keys, the query's
@@ -359,9 +370,12 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
         # the main path hands the kernel the patch-token view x[:, 1:]
         tok = rand(rng, (b, n + 1, c))[:, 1:]
         v = rand(rng, (b, n, q, cq))
+        out = ep_pool_attend(qs, tok, v)
         err["ep_pool"] = max(err.get("ep_pool", 0.0), compare(
-            f"ep_pool B={b} N={n} C={c} Q={q}", ep_pool_attend(qs, tok, v),
+            f"ep_pool B={b} N={n} C={c} Q={q}", out,
             ep_pool_attend_ref(qs, tok, v)))
+        repeat_equal(f"ep_pool B={b} N={n} C={c} Q={q}", out,
+                     ep_pool_attend(qs, tok, v))
         if b <= 16:
             grads = []
             for fn in (ep_pool_attend, ep_pool_attend_ref):
@@ -560,7 +574,8 @@ def check_long_kernels(rng) -> tuple[list[dict], list[dict]]:
     from ep_tpu_torch.ops.flash_attn import attn_flash
     from ep_tpu_torch.ops.pool_attn import (ep_pool_attend, ep_pool_attend_ref,
                                             ep_pool_proj_attend,
-                                            ep_pool_proj_attend_ref)
+                                            ep_pool_proj_attend_ref,
+                                            ep_pool_smem_bytes, ep_pool_tiling)
     sdpa = F.scaled_dot_product_attention
     on_path, others = [], []
 
@@ -617,20 +632,27 @@ def check_long_kernels(rng) -> tuple[list[dict], list[dict]]:
         del qkv
         torch.cuda.empty_cache()
 
-    log("[kernels] D at ViT-H: ep_pool at N=256, and at N=1024 (448 px) with "
-        "the queries split over 2 blocks an image")
+    log("[kernels] D at ViT-H (N=256), at N=1024 (448 px) and at ViT-L's "
+        "width (C=1024)")
     Q = 32
     for name, b, n, c in (("ep_pool_vith", 128, 256, 1280),
-                          ("ep_pool_n1024", 64, 1024, 1280)):
+                          ("ep_pool_n1024", 64, 1024, 1280),
+                          ("ep_pool_vitl", 16, 196, 1024)):
         qs = rand(rng, (Q, c), c ** -0.5)
         tok = rand(rng, (b, n + 1, c))[:, 1:]
         v = rand(rng, (b, n, Q, c // Q))
-        log(f"  {name}: {query('ep_pool_query_split', n, c, Q)} block(s) an "
-            f"image, {query('ep_pool_smem_bytes', n, c, Q)} bytes of shared "
-            f"memory a block")
+        cluster, tiles = ep_pool_tiling(n, c, Q, c)
+        log(f"  {name}: clusters of {cluster} block(s) an image, {tiles} tile(s) "
+            f"of 64 tokens a block, {ep_pool_smem_bytes(Q, c, cluster, tiles)} "
+            f"bytes of shared memory a block, "
+            f"{query('ep_pool_resident_clusters', Q, c, cluster, tiles)} "
+            f"clusters resident")
         ref = ep_pool_attend_ref(qs, tok, v)
-        e = compare_steps(f"{name} B={b} N={n} C={c} Q={Q}",
-                          ep_pool_attend(qs, tok, v), ref)
+        out = ep_pool_attend(qs, tok, v)
+        e = compare_steps(f"{name} B={b} N={n} C={c} Q={Q}", out, ref)
+        repeat_equal(f"{name} B={b} N={n} C={c} Q={Q}", out,
+                     ep_pool_attend(qs, tok, v))
+        del out
         compare(f"{name} as one SDPA call (library_ms)",
                 pool_sdpa(qs, tok, v), ref)
         r = entry(name, e, time_ms(lambda: ep_pool_attend(qs, tok, v)),
@@ -776,6 +798,7 @@ def check_int8_kernels(B: int, BH: int, rng) -> tuple[list[dict], list[dict]]:
         hq, sx = m.ln_quant(x, gamma, beta, eps)
         hq_r, sx_r = m.ln_quant_ref(x, gamma, beta, eps)
         share, worst = code_diff(hq, hq_r)
+        share_ln = share
         e_ln = float((hq.float() * sx - hq_r.float() * sx_r).abs().max())
         ok = worst <= 1 and share <= CODE_SHARE_LN and bool(torch.isfinite(sx).all())
         log(f"  ln_quant: codes differing {share:.3e} (tol {CODE_SHARE_LN:g}), "
@@ -783,6 +806,7 @@ def check_int8_kernels(B: int, BH: int, rng) -> tuple[list[dict], list[dict]]:
             f"{e_ln:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError("ln_quant disagrees with its plain version")
+        repeat_equal("ln_quant", (hq, sx), m.ln_quant(x, gamma, beta, eps))
 
         aq, sa = m.fc1(hq, sx, w1q, s1, b1, S)
         aq_r, sa_r = m.fc1_ref(hq, sx, w1q, s1, b1, S)
@@ -886,6 +910,7 @@ def check_int8_kernels(B: int, BH: int, rng) -> tuple[list[dict], list[dict]]:
             kernels += [dict(name=f"mlp_int8_{k}{suffix}", err=errs[k],
                              ms=t[k][0], plain_ms=t[k][1], library_ms=lib[k],
                              **bounds[k]) for k in t]
+            kernels[-3]["codes_differing"] = share_ln  # ln_quant's
         del x, w1, w2, w1q, w2q, hq, aq, sa, out, hq2, aq2, args
         torch.cuda.empty_cache()
     return kernels, halves
@@ -1113,8 +1138,10 @@ def device_time(step, card: str) -> None:
         f"({100 * busy / (wall * 1e3):.1f}%) on {card}; hand-written kernels "
         f"{groups['ours']:.1f} ms, cuBLAS GEMMs {groups['gemm']:.1f} ms, "
         f"other (elementwise, reductions, copies) {groups['other']:.1f} ms")
-    for ms, n, key in rows[:12]:
-        log(f"    {ms:9.3f} ms  x{n:<4d} {key[:110]}")
+    # the 12 longest, then every other hand-written kernel
+    for i, (ms, n, key) in enumerate(rows):
+        if i < 12 or "ep::" in key.lower():
+            log(f"    {ms:9.3f} ms  x{n:<4d} {key[:110]}")
 
 
 def finetune(kind: str, B: int, steps: int, card: str):
@@ -1352,7 +1379,8 @@ def main() -> int:
             "launches": launches, "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: v for k, v in r.items() if k.endswith("_ms") and k not in (
+            **{k: v for k, v in r.items() if (
+                k.endswith("_ms") or k == "codes_differing") and k not in (
                 "plain_ms", "bound_ms", "library_ms")},
             "launches_path": path_name,
             "launches_by_path": {k: v[counter] for k, v in paths.items()}})

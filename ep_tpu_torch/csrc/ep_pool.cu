@@ -3,173 +3,483 @@
 //   p = softmax_n(logits), rounded to bf16
 //   out[q, c]   = sum_n p[q, n] * v[n, q*cq + c]        (f32 sum, one bf16 rounding)
 //
-// Replaces: ep_tpu/ops/pool_attn_pallas.py::_ep_kernel (ep_pool_attend). It
-//   computes what the TPU kernel computes, not its masked-full block-diagonal
-//   (Q, N) @ (N, Q*cq) product, which exists to keep the 128x128 MXU busy and
-//   spends Q times the needed MACs.
+// Replaces: ep_tpu/ops/pool_attn_pallas.py::_ep_kernel (ep_pool_attend), and
+//   computes as it does: both products on the matrix unit, the value
+//   contraction as the full (Q, tokens) @ (tokens, Q*cq) product of which the
+//   block diagonal is kept. At Q <= 64 the columns thrown away cost the
+//   tensor cores almost nothing, and what bounds the kernel is its bytes.
 //
-// Bound on this card: bytes. At ViT-B EP32 bs512 the pool reads 155 MB of
-//   tokens and 155 MB of projected values for ~10 GFLOP of useful work
-//   (~32 FLOP/byte), far below the bf16 ridge.
-// Design: one 128-thread block per image. q_scaled (Q x C, 48 KB at ViT-B) stays
-//   in shared memory; one image's tokens (301 KB) do not fit in a block's
-//   227 KB, so they stream through a 32-token shared tile and the f32 logits
-//   (Q x N, 25 KB) build up tile by tile with wmma (bf16 in, f32 accumulate).
-//   The f32 softmax runs in place. The value contraction reads v once, straight
-//   from device memory with coalesced loads: thread j owns output column j of
-//   the (Q*cq)-wide row and walks the N tokens, so no column is computed that
-//   the output does not keep. N is exact: nothing pads to 128 lanes.
-//   Where the query bank, the token tile and the logits of all Q queries pass
-//   a block's 227 KB (ViT-H/14 at 448 px: Q=32, C=1280, N=1024 needs 295,936
-//   bytes), the queries are split over 2, 4, ... blocks an image (grid (B,
-//   split)): a block keeps its share of the query bank and of the logits
-//   (189,184 bytes at that shape with 2), and reads the image's tokens once
-//   more per share, from L2. The shapes that fit keep one block an image.
-#include "common.cuh"
-
-using namespace nvcuda;
+// Bound on this card: bytes. The pool reads every token and every projected
+// value once (2 * B * N * C bytes each in bf16 at d_out = 1: 154 MB each at
+// ViT-B, batch 512) for 2 * B * N * Q * C useful operations, about 32 a byte.
+//
+// Design: a cluster of blocks per image splits its tokens into tiles of 64
+//   (wgmma's M), `tiles` consecutive tiles a block (ops/pool_attn.py::
+//   ep_pool_tiling picks the cluster size and the tiles; 4 blocks of one tile
+//   at N=196 and N=256, 16 at N=1024), so that every shape puts enough blocks
+//   on the card and no token is read twice. A block is one warpgroup; its
+//   thread 0 keeps a ring of STAGES TMA loads in flight over the block's
+//   items, in this order: for each tile, 128-byte slices of C (64 tokens x 64
+//   channels by a 3-D map over the patch-token view, zero past N, with the
+//   matching slice of the query bank, zero past Q), then for each tile the
+//   v boxes of 64 tokens x 64 columns, so the first values land while the
+//   softmax runs.
+//   1. logits^T (64 tokens x QN queries, QN = 8, 16, 32 or 64 >= Q) by wgmma
+//      m64nQNk16 from shared memory, f32 accumulators, into shared memory.
+//   2. The softmax over all N tokens of the image, across the cluster: each
+//      block's per-query max goes into every peer's shared memory
+//      (distributed shared memory), a cluster barrier, the global max; then
+//      the per-query sums of exp(l - max) the same way, summed in rank order,
+//      so every block holds the same max and sum. p = bf16(exp(l - max) / sum)
+//      with a true division: the rounding point of the TPU kernel, which an
+//      online softmax would move.
+//   3. p (the query rows, 64 tokens deep, in the 128-byte swizzle) times each
+//      v box by wgmma m64n64k16, v read N-major (the transpose bit); the
+//      thread that holds (query r, column j) with j / cq == r adds it to the
+//      block's f32 partial sum of column j.
+//   4. A cluster barrier; each block sums its share of the columns over the
+//      ranks' partial sums in rank order (distributed shared memory), rounds
+//      to bf16 once and stores. No atomics: two calls agree bit for bit.
+//   What holds it back is the time a block spends off its loads (the
+//   exchanges, the products, the barriers), not the depth of its ring: on an
+//   H100 a ring of 2 slots with 5 blocks an SM beat 4 slots with 3 and 8
+//   with 1. So the block keeps its shared memory small: the exchange arrays
+//   are sized by the cluster, and a tile's p holds only its query rows (the
+//   64 rows wgmma reads run on into what follows, and give output rows that
+//   no column keeps).
+#include "hopper.cuh"
 
 namespace ep {
 namespace {
 
-constexpr int TN = 32;        // tokens per streamed tile
-constexpr int THREADS = 128;  // 4 warps
+using namespace hopper;
 
-__host__ __device__ inline int rows16(int n) { return (n + 15) / 16 * 16; }
-__host__ __device__ inline int tokens_padded(int N) { return (N + TN - 1) / TN * TN; }
+constexpr int TN = 64;                            // tokens a tile
+constexpr int TILE_BYTES = TN * SLICE_BYTES;      // 64 rows x 128 bytes
+constexpr int STAGES = 2;
+constexpr int MAX_CLUSTER = 16;
+constexpr int THREADS = 128;                      // one warpgroup
 
-// Shared memory of a block that takes QB of the queries.
-__host__ __device__ inline int smem_bytes(int N, int C, int QB) {
-  const int CL = C + 8;
-  return rows16(QB) * CL * 2 + TN * CL * 2 + rows16(QB) * tokens_padded(N) * 4;
+__host__ __device__ constexpr int query_rows(int Q) {
+  return Q <= 8 ? 8 : Q <= 16 ? 16 : Q <= 32 ? 32 : 64;
+}
+__host__ __device__ constexpr int slot_bytes(int qn) {
+  return TILE_BYTES + qn * SLICE_BYTES;
+}
+// f32 logits a query row: padded so that the 4 lanes of a quad (2 queries
+// apart) and its 8 groups (one token apart) write 32 different banks
+__host__ __device__ constexpr int logits_stride(int tiles) {
+  return tiles * TN + 4;
 }
 
-constexpr int MAX_SMEM = 232448;  // what one block may use on sm_90
+// Rows of p a tile keeps: Q rounded up to the swizzle's 8-row group. wgmma
+// reads 64 rows from a tile's start; the rows past Q are whatever follows
+// (the next tile's p, the logits), and only give output rows that no column
+// keeps.
+__host__ __device__ constexpr int p_rows(int Q) { return (Q + 7) / 8 * 8; }
 
-// Blocks an image: the fewest equal shares of the queries that fit a block's
-// shared memory; 0 when not even one query a block fits.
-inline int query_split(int N, int C, int Q) {
-  for (int split = 1; split <= Q; ++split)
-    if (Q % split == 0 && smem_bytes(N, C, Q / split) <= MAX_SMEM) return split;
-  return 0;
+// Byte offsets from the 1024-aligned base of the block's shared memory.
+struct Layout {
+  int p, logits, partial, xmax, xsum, bars, bytes;
+};
+__host__ __device__ constexpr int max_int(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr Layout layout(int Q, int QC, int CL, int tiles) {
+  const int qn = query_rows(Q);
+  const int p = STAGES * slot_bytes(qn);              // tiles x [p_rows][128 B]
+  const int logits = p + tiles * p_rows(Q) * SLICE_BYTES;  // [qn][stride] f32
+  const int partial = logits + qn * logits_stride(tiles) * 4;  // [QC] f32
+  const int xmax = partial + (QC + 3) / 4 * 16;       // [CL][qn]
+  const int xsum = xmax + CL * qn * 4;                // [CL][qn]
+  const int bars = xsum + CL * qn * 4;
+  // the last tile's 64 rows end inside the block's memory
+  const int end = max_int(bars + STAGES * 8,
+                          p + (tiles - 1) * p_rows(Q) * SLICE_BYTES + TILE_BYTES);
+  return Layout{p, logits, partial, xmax, xsum, bars, 1024 + end};
 }
 
+__device__ __forceinline__ unsigned cluster_addr(const void* local,
+                                                 unsigned rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(local)), "r"(rank));
+  return remote;
+}
+__device__ __forceinline__ void st_cluster(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+__device__ __forceinline__ float ld_cluster(unsigned addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// d (+)= a * b for one warpgroup: 64 rows, N = 2 * (size of d) columns, 16
+// bf16 of K, both operands from shared memory (K-major; with TB = 1, b is
+// read N-major).
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, %7;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// One cluster (CL blocks along x) an image; block `rank` takes tiles
+// rank*tiles .. of the image's ceil(N / 64), at least one of them.
+template <int QN>
 __global__ void __launch_bounds__(THREADS)
-ep_pool_kernel(const bf16* __restrict__ q, const bf16* __restrict__ x,
-               const bf16* __restrict__ v, bf16* __restrict__ out, int N, int C,
-               int Q, int cq, int x_bstride) {
-  // This block's share of the queries: QB of them from q_lo on.
-  const int QB = Q / gridDim.y;
-  const int q_lo = blockIdx.y * QB;
-  const int CL = C + 8;  // shared row stride (bf16) of q and the token tile
-  const int Qp = rows16(QB);
-  const int Np = tokens_padded(N);
+ep_pool_kernel(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_v,
+               bf16* __restrict__ out, int N, int C, int Q, int cq, int CL,
+               int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
   const int QC = Q * cq;
-  const int CH = C / 8;
+  const Layout L = layout(Q, QC, CL, tiles);
+  unsigned char* p_s = smem + L.p;
+  float* logits = reinterpret_cast<float*>(smem + L.logits);
+  float* partial = reinterpret_cast<float*>(smem + L.partial);
+  float* xmax = reinterpret_cast<float*>(smem + L.xmax);
+  float* xsum = reinterpret_cast<float*>(smem + L.xsum);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);             // [Qp][CL]
-  bf16* xs = qs + Qp * CL;                              // [TN][CL]
-  float* S = reinterpret_cast<float*>(xs + TN * CL);    // [Qp][Np]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const unsigned rank = cluster_rank();
+  const int b = blockIdx.x / CL;
+  const int n0 = (int)rank * tiles * TN;
+  const int my_tiles = min(tiles, (N + TN - 1) / TN - n0 / TN);
+  const int valid = min(N - n0, my_tiles * TN);  // this block's real tokens
+  const int nk = (C + 63) / 64, nv = (QC + 63) / 64;
+  const int n_logit_items = my_tiles * nk;
+  const int n_items = n_logit_items + my_tiles * nv;
+  const int LDL = logits_stride(tiles);
+  const int PT = p_rows(Q) * SLICE_BYTES;  // bytes from one tile's p to the next
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.x;
-  const bf16* xb = x + (size_t)b * x_bstride;
-
-  for (int idx = tid; idx < Qp * CH; idx += THREADS) {
-    const int r = idx / CH, c = (idx % CH) * 8;
-    *reinterpret_cast<uint4*>(qs + r * CL + c) =
-        r < QB ? *reinterpret_cast<const uint4*>(q + (size_t)(q_lo + r) * C + c)
-               : zero_pack();
-  }
-
-  const int nfrag = (Qp / 16) * (TN / 16);
-  for (int n0 = 0; n0 < Np; n0 += TN) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int idx = tid; idx < TN * CH; idx += THREADS) {
-      const int r = idx / CH, c = (idx % CH) * 8;
-      *reinterpret_cast<uint4*>(xs + r * CL + c) =
-          n0 + r < N ? *reinterpret_cast<const uint4*>(
-                           xb + (size_t)(n0 + r) * C + c)
-                     : zero_pack();
+  // thread 0: item i into slot i % STAGES
+  auto issue = [&](int i) {
+    const int slot = i % STAGES;
+    unsigned char* s = smem + slot * slot_bytes(QN);
+    if (i < n_logit_items) {
+      const int tile = i / nk, kt = i % nk;
+      mbar_expect_tx(full + slot, slot_bytes(QN));
+      tma_load_3d(s, &map_x, full + slot, kt * 64, n0 + tile * TN, b);
+      tma_load_2d(s + TILE_BYTES, &map_q, full + slot, kt * 64, 0);
+    } else {
+      const int j = i - n_logit_items, tile = j / nv, cb = j % nv;
+      mbar_expect_tx(full + slot, TILE_BYTES);
+      tma_load_3d(s, &map_v, full + slot, cb * 64, n0 + tile * TN, b);
     }
-    __syncthreads();
-    for (int f = warp; f < nfrag; f += THREADS / 32) {
-      const int qi = f / (TN / 16), ti = f % (TN / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k = 0; k < C; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, qs + qi * 16 * CL + k, CL);
-        wmma::load_matrix_sync(fb, xs + ti * 16 * CL + k, CL);
-        wmma::mma_sync(acc, fa, fb, acc);
+  };
+  // every warp's reads of item i's slot are over: thread 0 refills it
+  auto consumed = [&](int i) {
+    named_barrier(1, THREADS);
+    if (tid == 0 && i + STAGES < n_items) issue(i + STAGES);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(full + s, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < min(STAGES, n_items); ++i) issue(i);
+  // every peer has started before this block writes into its shared memory
+  // (the wait comes after the logits)
+  cluster_arrive();
+
+  // 1. logits^T, a 64-token tile at a time: rows tokens, columns queries
+  int it = 0;
+  for (int tile = 0; tile < my_tiles; ++tile) {
+    float acc[QN / 2];
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int slot = it % STAGES;
+      mbar_wait(full + slot, (it / STAGES) & 1);
+      unsigned char* s = smem + slot * slot_bytes(QN);
+      const uint64_t da = smem_desc(s), db = smem_desc(s + TILE_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0>(acc, da + kk * DESC_K_STEP, db + kk * DESC_K_STEP,
+                    (kt | kk) != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep_all(acc);
+      consumed(it);
+    }
+#pragma unroll
+    for (int jj = 0; jj < QN / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * jj + 2 * t + e;
+        if (q < Q)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            logits[q * LDL + tile * TN + 16 * warp + g + 8 * half] =
+                acc[4 * jj + 2 * half + e];
       }
-      wmma::store_matrix_sync(S + qi * 16 * Np + n0 + ti * 16, acc, Np,
-                              wmma::mem_row_major);
+  }
+  __syncthreads();
+  cluster_wait();
+
+  // 2. softmax across the cluster, a warp a query
+  for (int q = warp; q < Q; q += THREADS / 32) {
+    const float* lr = logits + q * LDL;
+    float mx = -INFINITY;
+    for (int n = lane; n < valid; n += 32) mx = fmaxf(mx, lr[n]);
+    mx = warp_max(mx);
+    if (lane < CL) st_cluster(cluster_addr(xmax + rank * QN + q, lane), mx);
+  }
+  cluster_arrive();
+  cluster_wait();
+  for (int q = warp; q < Q; q += THREADS / 32) {
+    float* lr = logits + q * LDL;
+    const float m = warp_max(lane < CL ? xmax[lane * QN + q] : -INFINITY);
+    float sum = 0.f;
+    for (int n = lane; n < valid; n += 32) {
+      const float e = expf(lr[n] - m);
+      lr[n] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    if (lane < CL) st_cluster(cluster_addr(xsum + rank * QN + q, lane), sum);
+  }
+  cluster_arrive();
+  cluster_wait();
+  for (int q = warp; q < Q; q += THREADS / 32) {
+    const float* lr = logits + q * LDL;
+    float s = xsum[q];
+    for (int r = 1; r < CL; ++r) s += xsum[r * QN + q];
+    for (int n = lane; n < my_tiles * TN; n += 32) {
+      const float p = n < valid ? __fdiv_rn(lr[n], s) : 0.f;
+      const int k = n % TN;
+      *reinterpret_cast<bf16*>(p_s + (n / TN) * PT + q * SLICE_BYTES +
+                               (((k >> 3) ^ (q & 7)) << 4) + (k & 7) * 2) =
+          __float2bfloat16_rn(p);
     }
   }
+  fence_proxy_async();  // p is read by wgmma (the async proxy)
   __syncthreads();
 
-  // f32 softmax over the N real tokens, one warp per query row; the
-  // probabilities replace the logits, already rounded to bf16.
-  for (int r = warp; r < QB; r += THREADS / 32) {
-    float* srow = S + r * Np;
-    float mx = -INFINITY;
-    for (int n = lane; n < N; n += 32) mx = fmaxf(mx, srow[n]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int n = lane; n < N; n += 32) sum += expf(srow[n] - mx);
-    sum = warp_sum(sum);
-    for (int n = lane; n < N; n += 32)
-      srow[n] = __bfloat162float(__float2bfloat16_rn(expf(srow[n] - mx) / sum));
+  // 3. p @ v, a v box at a time; keep the block diagonal
+  const int r0 = 16 * warp + g;  // and r0 + 8: this thread's query rows
+  for (int tile = 0; tile < my_tiles; ++tile) {
+    const uint64_t dp = smem_desc(p_s + tile * PT);
+    for (int cb = 0; cb < nv; ++cb, ++it) {
+      const int slot = it % STAGES;
+      mbar_wait(full + slot, (it / STAGES) & 1);
+      const uint64_t dv = smem_desc(smem + slot * slot_bytes(QN));
+      float acc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1>(acc, dp + kk * DESC_K_STEP,
+                    dv + kk * (16 * SLICE_BYTES >> 4), kk != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep_all(acc);
+      consumed(it);
+      // row r owns the box's columns [r*cq - cb*64, + cq): most rows none
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int lo = (r0 + 8 * half) * cq - cb * 64;
+        if (r0 + 8 * half < Q && lo < 64 && lo + cq > 0) {
+          float* dst = partial + cb * 64;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * jj + 2 * t + e;
+              if (col >= lo && col < lo + cq)
+                dst[col] = (tile ? dst[col] : 0.f) + acc[4 * jj + 2 * half + e];
+            }
+        }
+      }
+    }
   }
-  __syncthreads();
 
-  // out[q, c] = sum_n p[q, n] v[n, q*cq + c]: thread j owns column j.
-  const bf16* vb = v + (size_t)b * N * QC;
-  for (int j = q_lo * cq + tid; j < (q_lo + QB) * cq; j += THREADS) {
-    const float* prow = S + (j / cq - q_lo) * Np;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int n = 0; n < N; ++n)
-      acc = fmaf(prow[n], __bfloat162float(vb[(size_t)n * QC + j]), acc);
-    out[(size_t)b * QC + j] = __float2bfloat16_rn(acc);
+  // 4. the partial sums of the cluster, in rank order
+  cluster_arrive();
+  cluster_wait();
+  for (int j = (int)rank * THREADS + tid; j < QC; j += CL * THREADS) {
+    float total = ld_cluster(cluster_addr(partial + j, 0));
+    for (int r = 1; r < CL; ++r) total += ld_cluster(cluster_addr(partial + j, r));
+    out[(size_t)b * QC + j] = __float2bfloat16_rn(total);
   }
+  // no block leaves while a peer reads its partial sums
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Map of the (B, N, cols) bf16 tensor at ptr, rows `row_stride` and images
+// `image_stride` elements apart, with boxes of 64 rows x 64 columns in the
+// 128-byte swizzle, zero fill past N and past cols. Returns 0 or a cudaError_t.
+int make_tile_map(CUtensorMap* map, const void* ptr, int B, int N, int cols,
+                  int row_stride, long long image_stride) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2,
+                                 (cuuint64_t)image_stride * 2};
+  const cuuint32_t box[3] = {64, TN, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(ptr), dims, strides, box,
+                         elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The launch's configuration but its grid, after setting the kernel's
+// attributes for it.
+template <int QN>
+cudaLaunchConfig_t configure(int Q, int QC, int CL, int tiles,
+                             cudaLaunchAttribute* attr, cudaStream_t stream) {
+  const int smem = layout(Q, QC, CL, tiles).bytes;
+  cudaFuncSetAttribute(ep_pool_kernel<QN>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (CL > 8)
+    cudaFuncSetAttribute(ep_pool_kernel<QN>,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int QN>
+int resident_clusters(int Q, int QC, int CL, int tiles) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = configure<QN>(Q, QC, CL, tiles, &attr, 0);
+  cfg.gridDim = dim3(CL * sm_count());
+  int n = 0;
+  const cudaError_t rc =
+      cudaOccupancyMaxActiveClusters(&n, ep_pool_kernel<QN>, &cfg);
+  return rc == cudaSuccess ? n : -(int)rc;
+}
+
+template <int QN>
+int launch(const bf16* q, const bf16* x, const bf16* v, bf16* out, int B,
+           int N, int C, int Q, int cq, int x_bstride, int CL, int tiles,
+           cudaStream_t stream) {
+  const int QC = Q * cq;
+  CUtensorMap map_x, map_q, map_v;
+  int rc = make_tile_map(&map_x, x, B, N, C, C, x_bstride);
+  if (rc == 0) rc = make_map(&map_q, q, 2, Q, C, QN);
+  if (rc == 0) rc = make_tile_map(&map_v, v, B, N, QC, QC, (long long)N * QC);
+  if (rc != 0) return rc;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = configure<QN>(Q, QC, CL, tiles, &attr, stream);
+  cfg.gridDim = dim3(B * CL);
+  rc = (int)cudaLaunchKernelEx(&cfg, ep_pool_kernel<QN>, map_x, map_q, map_v,
+                               out, N, C, Q, cq, CL, tiles);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace ep
 
-// Shared memory of one block at the query split the launch takes; over
-// 232,448 when not even one query a block fits.
-EP_EXPORT int ep_pool_smem_bytes(int N, int C, int Q) {
-  const int split = ep::query_split(N, C, Q);
-  return ep::smem_bytes(N, C, split ? Q / split : 1);
+// Shared memory of one block for Q queries, Q*cq value columns, a cluster of
+// `cluster` blocks and `tiles` tiles of 64 tokens a block
+// (ops/pool_attn.py::ep_pool_smem_bytes computes the same).
+EP_EXPORT int ep_pool_smem_bytes(int Q, int QC, int cluster, int tiles) {
+  return ep::layout(Q, QC, cluster, tiles).bytes;
 }
 
-// Blocks an image (1 where all Q queries fit one block); 0 when none fits.
-EP_EXPORT int ep_pool_query_split(int N, int C, int Q) {
-  return ep::query_split(N, C, Q);
+// Clusters of `cluster` blocks that the card holds at once, what the shared
+// memory and the cluster's shape leave of the SMs (a negative cudaError_t
+// where the query fails).
+EP_EXPORT int ep_pool_resident_clusters(int Q, int QC, int cluster, int tiles) {
+  using namespace ep;
+  if (Q < 1 || Q > 64 || cluster < 1 || cluster > MAX_CLUSTER || tiles < 1)
+    return -(int)cudaErrorInvalidValue;
+  return Q <= 8    ? resident_clusters<8>(Q, QC, cluster, tiles)
+         : Q <= 16 ? resident_clusters<16>(Q, QC, cluster, tiles)
+         : Q <= 32 ? resident_clusters<32>(Q, QC, cluster, tiles)
+                   : resident_clusters<64>(Q, QC, cluster, tiles);
 }
 
 // q_scaled (Q, C), tokens (B, N, C), v (B, N, Q*cq), all bf16 -> out (B, Q*cq).
 // The tokens' rows are contiguous; images are x_bstride elements apart, so the
-// patch tokens can be a view that skips the [CLS] row.
+// patch tokens can be a view that skips the [CLS] row. A cluster of `cluster`
+// blocks an image, `tiles` tiles of 64 tokens a block
+// (ops/pool_attn.py::ep_pool_tiling).
 EP_EXPORT int ep_pool(const void* q, const void* x, const void* v, void* out,
                       int B, int N, int C, int Q, int cq, int x_bstride,
-                      void* stream) {
+                      int cluster, int tiles, void* stream) {
   using namespace ep;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int split = query_split(N, C, Q);
-  if (split == 0) return (int)cudaErrorInvalidValue;
-  const int bytes = smem_bytes(N, C, Q / split);
-  cudaFuncSetAttribute(ep_pool_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  ep_pool_kernel<<<dim3(B, split), THREADS, bytes, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), N, C, Q, cq,
-      x_bstride);
-  return (int)cudaGetLastError();
+  const int span = tiles * TN;  // tokens a block
+  if (B < 1 || N < 1 || Q < 1 || Q > 64 || cq < 1 || C % 8 || (Q * cq) % 8 ||
+      x_bstride % 8 || cluster < 1 || cluster > MAX_CLUSTER || tiles < 1 ||
+      cluster * span < N || (cluster - 1) * span >= N ||
+      layout(Q, Q * cq, cluster, tiles).bytes > MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  const auto fn = Q <= 8 ? launch<8> : Q <= 16 ? launch<16>
+                : Q <= 32 ? launch<32> : launch<64>;
+  return fn(static_cast<const bf16*>(q), static_cast<const bf16*>(x),
+            static_cast<const bf16*>(v), static_cast<bf16*>(out), B, N, C, Q,
+            cq, x_bstride, cluster, tiles, static_cast<cudaStream_t>(stream));
 }

@@ -15,10 +15,15 @@
 //
 // Bound on this card: operations. One block's two products are 4*M*D*DH
 //   int8 operations against about M*(4*D + 2*DH) bytes of activations, far
-//   above the int8 ridge of an H100.
+//   above the int8 ridge of an H100. ln_quant alone is bound by its bytes:
+//   it reads x once and writes a code an element (3 bytes an element).
 // Design:
-//   * ln_quant: one warp a row; f32 statistics, h = LN(x), sx = max|h|/127,
-//     hq = rint(h / sx).
+//   * ln_quant: one warp a row, read once into registers (a lane's 16-byte
+//     chunks; rows wider than 2048 once into shared memory); f32 statistics,
+//     h = LN(x) kept in registers, sx = max|h|/127, hq = rint(h / sx) by the
+//     inverse of sx, dividing only where a quotient lies near a half, so the
+//     codes are the division's. Persistent warps load the next row under
+//     this row's reductions; gamma and beta are read once a block.
 //   * fc1: one product. The requantisation scale needs the whole stripe's
 //     max|gelu| before any code can be written, so the stripe's GELU outputs
 //     wait on chip, as bf16 in shared memory, until it is known. A block owns
@@ -109,65 +114,204 @@ __device__ __forceinline__ int quantise_by_inverse(float v, float inv_scale,
   return __float_as_int(m) - __float_as_int(MAGIC);
 }
 
-// h = LN(x) in f32 for 8 consecutive columns of one row.
-__device__ __forceinline__ void ln_chunk(const bf16* xr, const float* gamma,
-                                         const float* beta, int c, float mean,
-                                         float rstd, float (&h)[8]) {
-  Pack8 v;
-  v.u = *reinterpret_cast<const uint4*>(xr + c);
+// ---- ln_quant -------------------------------------------------------------
+// One warp a row. Lane l holds the row's 16-byte chunks at columns l*8 +
+// 256*c, and every per-lane sum runs over them in that order, then the warp's
+// butterfly: the statistics, and so the codes and scales, do not depend on
+// where the row is kept.
+constexpr int LNQ_WARPS = 8;        // rows in flight a block
+constexpr int LNQ_MAX_CHUNKS = 8;   // chunks a lane holds in registers: D <= 2048
+
+__device__ __forceinline__ float chunk_value(const uint4& u, int e) {
+  const unsigned w = e < 2 ? u.x : e < 4 ? u.y : e < 6 ? u.z : u.w;
+  return e & 1 ? bf16_hi(w) : bf16_lo(w);
+}
+__device__ __forceinline__ void chunk_sum(const uint4& u, float& s) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s += chunk_value(u, e);
+}
+__device__ __forceinline__ void chunk_sq_dev(const uint4& u, float mean,
+                                             float& ss) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float d = __fsub_rn(chunk_value(u, e), mean);
+    ss = __fadd_rn(ss, __fmul_rn(d, d));
+  }
+}
+// h = LN(x) for one chunk, with its 8 gammas and betas; am = max(am, |h|)
+__device__ __forceinline__ void chunk_ln(const uint4& u, float mean, float rstd,
+                                         const float4 (&gb)[4], float (&h)[8],
+                                         float& am) {
+  const float g[8] = {gb[0].x, gb[0].y, gb[0].z, gb[0].w,
+                      gb[1].x, gb[1].y, gb[1].z, gb[1].w};
+  const float b[8] = {gb[2].x, gb[2].y, gb[2].z, gb[2].w,
+                      gb[3].x, gb[3].y, gb[3].z, gb[3].w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    h[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(chunk_value(u, e), mean),
+                                         rstd), g[e]), b[e]);
+    am = fmaxf(am, fabsf(h[e]));
+  }
+}
+// The 8 codes rint(h / scale), packed: by the inverse, or where that is in
+// doubt for any of them (doubt_out), by the division.
+__device__ __forceinline__ uint2 chunk_codes(const float (&h)[8], float scale,
+                                             float inv, bool& doubt_out) {
+  bool doubt = false;
+  unsigned w[2] = {0u, 0u};
 #pragma unroll
   for (int e = 0; e < 8; ++e)
-    h[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.get(e), mean), rstd),
-                               __ldg(gamma + c + e)),
-                     __ldg(beta + c + e));
-}
-
-// One warp per row: LN2 with f32 statistics (the variance as the mean squared
-// deviation), the row's scale sx = max(max|h|, 1e-8) / 127 and its codes.
-__global__ void ln_quant_kernel(const bf16* __restrict__ x,
-                                const float* __restrict__ gamma,
-                                const float* __restrict__ beta,
-                                int8_t* __restrict__ hq, float* __restrict__ sx,
-                                int M, int D, float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const bf16* xr = x + (size_t)row * D;
-  float s = 0.f;
-  for (int c = lane * 8; c < D; c += 256) {
-    Pack8 v;
-    v.u = *reinterpret_cast<const uint4*>(xr + c);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) s += v.get(e);
-  }
-  const float mean = warp_sum(s) / (float)D;
-  float ss = 0.f;
-  for (int c = lane * 8; c < D; c += 256) {
-    Pack8 v;
-    v.u = *reinterpret_cast<const uint4*>(xr + c);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float d = __fsub_rn(v.get(e), mean);
-      ss = __fadd_rn(ss, __fmul_rn(d, d));
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(ss) / (float)D + eps);
-  float am = 0.f, h[8];
-  for (int c = lane * 8; c < D; c += 256) {
-    ln_chunk(xr, gamma, beta, c, mean, rstd, h);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) am = fmaxf(am, fabsf(h[e]));
-  }
-  const float scale = __fdiv_rn(fmaxf(warp_max(am), 1e-8f), 127.0f);
-  for (int c = lane * 8; c < D; c += 256) {
-    ln_chunk(xr, gamma, beta, c, mean, rstd, h);
-    unsigned w[2] = {0u, 0u};
+    w[e >> 2] |= (unsigned)(quantise_by_inverse(h[e], inv, doubt) & 0xff)
+                 << (8 * (e & 3));
+  if (doubt) {  // some quotient lies at a half
+    w[0] = w[1] = 0u;
 #pragma unroll
     for (int e = 0; e < 8; ++e)
       w[e >> 2] |= (unsigned)(quantise(h[e], scale) & 0xff) << (8 * (e & 3));
-    *reinterpret_cast<uint2*>(hq + (size_t)row * D + c) = make_uint2(w[0], w[1]);
   }
-  if (lane == 0) sx[row] = scale;
+  doubt_out |= doubt;
+  return make_uint2(w[0], w[1]);
+}
+__device__ __forceinline__ float row_scale(float am) {
+  return __fdiv_rn(fmaxf(warp_max(am), 1e-8f), 127.0f);
+}
+
+// LN2 with f32 statistics (the variance as the mean squared deviation), the
+// row's scale sx = max(max|h|, 1e-8) / 127 and its codes rint(h / sx). The
+// row is read once, into registers (NC chunks a lane, D <= 256 * NC), and h
+// stays there from the LN to the codes. Persistent warps take rows
+// row, row + warps, ... and load the next row's chunks before this row's
+// reductions, so a warp keeps two rows of loads in flight. gamma and beta
+// sit in shared memory, read once a block.
+template <int NC>
+__global__ void __launch_bounds__(LNQ_WARPS * 32)
+ln_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                const float* __restrict__ beta, int8_t* __restrict__ hq,
+                float* __restrict__ sx, int M, int D, float eps) {
+  extern __shared__ float4 gb_s[];  // gamma [D / 4], then beta [D / 4]
+  for (int i = threadIdx.x; i < D / 4; i += blockDim.x) {
+    gb_s[i] = __ldg(reinterpret_cast<const float4*>(gamma) + i);
+    gb_s[D / 4 + i] = __ldg(reinterpret_cast<const float4*>(beta) + i);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * LNQ_WARPS;
+  auto load = [&](uint4 (&v)[NC], int row) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x) + (size_t)row * (D / 8);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      v[c] = row < M && lane * 8 + 256 * c < D ? __ldg(xr + lane + 32 * c)
+                                               : zero_pack();
+  };
+  int row = blockIdx.x * LNQ_WARPS + (threadIdx.x >> 5);
+  uint4 cur[NC];
+  load(cur, row);
+  for (; row < M; row += stride) {
+    uint4 next[NC];
+    load(next, row + stride);
+    float s = 0.f, ss = 0.f, am = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (lane * 8 + 256 * c < D) chunk_sum(cur[c], s);
+    const float mean = warp_sum(s) / (float)D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (lane * 8 + 256 * c < D) chunk_sq_dev(cur[c], mean, ss);
+    const float rstd = rsqrtf(warp_sum(ss) / (float)D + eps);
+    float h[NC][8];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int i = (lane * 8 + 256 * c) / 4;
+      if (i < D / 4) {
+        const float4 gb[4] = {gb_s[i], gb_s[i + 1], gb_s[D / 4 + i],
+                              gb_s[D / 4 + i + 1]};
+        chunk_ln(cur[c], mean, rstd, gb, h[c], am);
+      }
+    }
+    const float scale = row_scale(am);
+    const float inv = __fdiv_rn(1.0f, scale);
+    bool doubt = false;
+    uint2* out = reinterpret_cast<uint2*>(hq + (size_t)row * D);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (lane * 8 + 256 * c < D)
+        out[lane + 32 * c] = chunk_codes(h[c], scale, inv, doubt);
+    if (lane == 0) sx[row] = scale;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) cur[c] = next[c];
+  }
+}
+
+// The same for rows wider than the registers hold (D > 256 * LNQ_MAX_CHUNKS):
+// the warp stages its row in shared memory (read once from device memory),
+// and h is computed twice from there, for its max and for its codes.
+__global__ void __launch_bounds__(LNQ_WARPS * 32)
+ln_quant_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                     const float* __restrict__ beta, int8_t* __restrict__ hq,
+                     float* __restrict__ sx, int M, int D, float eps) {
+  extern __shared__ uint4 rows_s[];  // [warps][D / 8]
+  const int warps = blockDim.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = D / 8;
+  uint4* row_s = rows_s + (threadIdx.x >> 5) * chunks;
+  const float4* g4 = reinterpret_cast<const float4*>(gamma);
+  const float4* b4 = reinterpret_cast<const float4*>(beta);
+  for (int row = blockIdx.x * warps + (threadIdx.x >> 5); row < M;
+       row += gridDim.x * warps) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x) + (size_t)row * chunks;
+    for (int i = lane; i < chunks; i += 32) row_s[i] = __ldg(xr + i);
+    float s = 0.f, ss = 0.f, am = 0.f, h[8];
+    for (int i = lane; i < chunks; i += 32) chunk_sum(row_s[i], s);
+    const float mean = warp_sum(s) / (float)D;
+    for (int i = lane; i < chunks; i += 32) chunk_sq_dev(row_s[i], mean, ss);
+    const float rstd = rsqrtf(warp_sum(ss) / (float)D + eps);
+    for (int i = lane; i < chunks; i += 32) {
+      const float4 gb[4] = {__ldg(g4 + 2 * i), __ldg(g4 + 2 * i + 1),
+                            __ldg(b4 + 2 * i), __ldg(b4 + 2 * i + 1)};
+      chunk_ln(row_s[i], mean, rstd, gb, h, am);
+    }
+    const float scale = row_scale(am);
+    const float inv = __fdiv_rn(1.0f, scale);
+    bool doubt = false;
+    uint2* out = reinterpret_cast<uint2*>(hq + (size_t)row * D);
+    for (int i = lane; i < chunks; i += 32) {
+      const float4 gb[4] = {__ldg(g4 + 2 * i), __ldg(g4 + 2 * i + 1),
+                            __ldg(b4 + 2 * i), __ldg(b4 + 2 * i + 1)};
+      float unused = 0.f;
+      chunk_ln(row_s[i], mean, rstd, gb, h, unused);
+      out[i] = chunk_codes(h, scale, inv, doubt);
+    }
+    if (lane == 0) sx[row] = scale;
+    __syncwarp();  // the row's chunks are read before the next row lands
+  }
+}
+
+template <int NC>
+int launch_ln_quant(const bf16* x, const float* gamma, const float* beta,
+                    int8_t* hq, float* sx, int M, int D, float eps,
+                    cudaStream_t stream) {
+  // as many blocks as the card runs at once (asked once a chunk count, at the
+  // widest row of that count), fewer where M has fewer rows
+  static int resident = 0;
+  if (!resident) {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, ln_quant_kernel<NC>, LNQ_WARPS * 32,
+            NC * 256 * 2 * sizeof(float)) != cudaSuccess || n < 1)
+      n = 1;
+    resident = n * hopper::sm_count();
+  }
+  const int blocks = (M + LNQ_WARPS - 1) / LNQ_WARPS;
+  ln_quant_kernel<NC><<<blocks < resident ? blocks : resident, LNQ_WARPS * 32,
+                        D * 2 * sizeof(float), stream>>>(x, gamma, beta, hq, sx,
+                                                         M, D, eps);
+  return (int)cudaGetLastError();
+}
+
+// Warps a block of ln_quant_wide_kernel: as many rows of D as shared memory
+// holds, up to LNQ_WARPS (0: not one).
+inline int ln_quant_wide_warps(int D) {
+  const int w = hopper::MAX_SMEM / (D * 2);
+  return w < LNQ_WARPS ? w : LNQ_WARPS;
 }
 
 // The GELU above is a function from bf16 to bf16, so a table holds it: for
@@ -692,17 +836,38 @@ int launch_fc2(const int8_t* aq, const float* sa, const int8_t* w2q,
 }  // namespace
 }  // namespace ep
 
-// x (M, D) bf16 -> hq (M, D) int8 and sx (M) f32.
+// x (M, D) bf16 -> hq (M, D) int8 and sx (M) f32; D % 128 == 0.
 EP_EXPORT int ep_mlp_int8_ln_quant(const void* x, const void* gamma,
                                    const void* beta, void* hq, void* sx, int M,
                                    int D, float eps, void* stream) {
   using namespace ep;
-  const int rows_per_block = 256 / 32;
-  ln_quant_kernel<<<(M + rows_per_block - 1) / rows_per_block, 256, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<int8_t*>(hq),
-      static_cast<float*>(sx), M, D, eps);
+  const bf16* xp = static_cast<const bf16*>(x);
+  const float* gp = static_cast<const float*>(gamma);
+  const float* bp = static_cast<const float*>(beta);
+  int8_t* hp = static_cast<int8_t*>(hq);
+  float* sp = static_cast<float*>(sx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M < 1 || D < 128 || D % 128) return (int)cudaErrorInvalidValue;
+  switch ((D + 255) / 256) {
+    case 1: return launch_ln_quant<1>(xp, gp, bp, hp, sp, M, D, eps, s);
+    case 2: return launch_ln_quant<2>(xp, gp, bp, hp, sp, M, D, eps, s);
+    case 3: return launch_ln_quant<3>(xp, gp, bp, hp, sp, M, D, eps, s);
+    case 4: return launch_ln_quant<4>(xp, gp, bp, hp, sp, M, D, eps, s);
+    case 5: return launch_ln_quant<5>(xp, gp, bp, hp, sp, M, D, eps, s);
+    case 6: return launch_ln_quant<6>(xp, gp, bp, hp, sp, M, D, eps, s);
+    case 7: return launch_ln_quant<7>(xp, gp, bp, hp, sp, M, D, eps, s);
+    case 8: return launch_ln_quant<8>(xp, gp, bp, hp, sp, M, D, eps, s);
+  }
+  static_assert(LNQ_MAX_CHUNKS == 8, "a case a chunk count");
+  const int warps = ln_quant_wide_warps(D);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const int smem = warps * D * 2;
+  cudaFuncSetAttribute(ln_quant_wide_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int blocks = (M + warps - 1) / warps;
+  const int grid = blocks < 2 * hopper::sm_count() ? blocks : 2 * hopper::sm_count();
+  ln_quant_wide_kernel<<<grid, warps * 32, smem, s>>>(xp, gp, bp, hp, sp, M, D,
+                                                      eps);
   return (int)cudaGetLastError();
 }
 

@@ -48,7 +48,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES, check, use_kernel
+from . import LAUNCHES, MAX_SMEM, check, use_kernel
 from ._build import call, query, stream_ptr
 
 # The tanh-GELU's constants as bf16 holds them (``jax.nn.gelu`` on a bf16
@@ -264,13 +264,26 @@ def _gelu_table(device: torch.device) -> torch.Tensor:
     return _GELU_TABLES[key]
 
 
+# Kernel ln_quant holds a row in one warp's registers up to D = 2048 and
+# stages a wider one in shared memory, one row a warp: at most MAX_SMEM / 2
+# columns.
+LN_QUANT_MAX_D = MAX_SMEM // 2
+
+
+def check_ln_quant_width(D: int) -> None:
+    """Raise NotImplementedError unless kernel ``ln_quant`` takes rows of D."""
+    if D % 128 or D > LN_QUANT_MAX_D:
+        raise NotImplementedError(
+            f"ln_quant: needs D % 128 == 0 and D <= {LN_QUANT_MAX_D} (a row in "
+            f"one warp's share of shared memory); got D={D}")
+
+
 def ln_quant(x, gamma, beta, eps: float):
     """Kernel ``ln_quant``: x (B,T,D) bf16 -> hq (B,T,D) int8, sx (B,T,1)."""
     if not use_kernel(x, gamma, beta):
         return ln_quant_ref(x, gamma, beta, eps)
     B, T, D = x.shape
-    if D % 128:
-        raise NotImplementedError(f"ln_quant: needs D % 128 == 0; got D={D}")
+    check_ln_quant_width(D)
     g, bt = gamma.float().contiguous(), beta.float().contiguous()
     check(x, "x", (B, T, D), torch.bfloat16)
     check(g, "gamma", (D,), torch.float32)

@@ -57,21 +57,68 @@ def _check_pool_inputs(q_scaled, tokens) -> None:
         raise ValueError("tokens: images must start 16-byte aligned")
 
 
+# Kernel D's tiling (csrc/ep_pool.cu): an image's tokens in tiles of 64
+# (wgmma's M), a cluster of blocks an image, `tiles` consecutive tiles a
+# block; the query bank padded to 8, 16, 32 or 64 rows (wgmma's N); a ring of
+# EP_POOL_STAGES TMA slots a block.
+EP_POOL_TILE = 64
+EP_POOL_STAGES = 2
+EP_POOL_MAX_CLUSTER = 16
+EP_POOL_QUERY_ROWS = (8, 16, 32, 64)
+
+
+def ep_pool_smem_bytes(Q: int, QC: int, cluster: int, tiles: int) -> int:
+    """Shared memory of one block of kernel D (``csrc/ep_pool.cu::layout``):
+    the ring, p (Q rows rounded up to 8 a tile; the last tile's 64 rows reach
+    into what follows), the f32 logits, the partial sums of the Q*cq = QC
+    columns, the cluster's maxima and sums, the barriers and the 1024-byte
+    alignment."""
+    qn = next(r for r in EP_POOL_QUERY_ROWS if r >= Q)
+    tile, p_tile = EP_POOL_TILE * 128, -(-Q // 8) * 8 * 128
+    p = EP_POOL_STAGES * (tile + qn * 128)
+    logits = p + tiles * p_tile
+    partial = logits + qn * (tiles * EP_POOL_TILE + 4) * 4
+    bars = partial + -(-QC // 4) * 16 + 2 * cluster * qn * 4
+    end = max(bars + EP_POOL_STAGES * 8, p + (tiles - 1) * p_tile + tile)
+    return 1024 + end
+
+
+def ep_pool_tiling(N: int, C: int, Q: int, QC: int) -> tuple[int, int]:
+    """(cluster size, tiles a block) of kernel D for N tokens of width C, Q
+    queries and QC = Q*cq value columns: one tile a block and a cluster of
+    ceil(N / 64) blocks up to 16 (N <= 1024), else the fewest tiles a block
+    that keep the cluster within 16. Every block has at least one tile.
+    Raises NotImplementedError for a shape the kernel does not take."""
+    if Q > EP_POOL_QUERY_ROWS[-1]:
+        raise NotImplementedError(
+            f"ep_pool takes at most {EP_POOL_QUERY_ROWS[-1]} queries (the N of "
+            f"its wgmma); got Q={Q}")
+    if C % 16 or QC % 8:
+        raise NotImplementedError(
+            f"ep_pool streams 16-byte rows by TMA: it needs C % 16 == 0 and "
+            f"Q*cq % 8 == 0; got C={C}, Q*cq={QC}")
+    n_tiles = -(-N // EP_POOL_TILE)
+    tiles = -(-n_tiles // EP_POOL_MAX_CLUSTER)
+    cluster = -(-n_tiles // tiles)
+    smem = ep_pool_smem_bytes(Q, QC, cluster, tiles)
+    if smem > MAX_SMEM:
+        raise NotImplementedError(
+            f"ep_pool keeps the logits and p of its {tiles} tiles of 64 tokens "
+            f"a block in shared memory: N={N}, Q={Q}, Q*cq={QC} needs {smem} "
+            f"bytes, more than {MAX_SMEM}")
+    return cluster, tiles
+
+
 def _ep_pool_kernel(q_scaled, tokens, v):
     B, N, C = tokens.shape
     Q, cq = v.shape[2], v.shape[3]
     _check_pool_inputs(q_scaled, tokens)
     check(v, "v", (B, N, Q, cq), torch.bfloat16)
-    if C % 16:
-        raise NotImplementedError(f"ep_pool tiles C by 16; got C={C}")
-    smem = query("ep_pool_smem_bytes", N, C, Q)
-    if smem > MAX_SMEM:
-        raise NotImplementedError(
-            f"ep_pool keeps a query's row of the bank and its N logits in "
-            f"shared memory; one query at N={N}, C={C} needs {smem} bytes")
+    cluster, tiles = ep_pool_tiling(N, C, Q, Q * cq)
     out = torch.empty(B, Q, cq, device=v.device, dtype=v.dtype)
     call("ep_pool", q_scaled.data_ptr(), tokens.data_ptr(), v.data_ptr(),
-         out.data_ptr(), B, N, C, Q, cq, tokens.stride(0), stream_ptr(v))
+         out.data_ptr(), B, N, C, Q, cq, tokens.stride(0), cluster, tiles,
+         stream_ptr(v))
     LAUNCHES["ep_pool"] += 1
     return out
 

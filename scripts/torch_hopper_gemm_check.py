@@ -2,7 +2,8 @@
 """Quick check of ep_tpu_torch's wgmma + TMA kernels on one H100.
 
     python3 scripts/torch_hopper_gemm_check.py [--no-time] [--big]
-                               [--only gemm fc1 fc2 flash core bwd]
+                               [--only gemm fc1 fc2 flash core bwd pool lnq]
+                               [--root DIR]
 
 Builds ep_tpu_torch/csrc, prints ptxas' lines for the wgmma kernels
 (registers, spills, warnings), then runs kernel A (ln_qkv), kernel C
@@ -15,8 +16,16 @@ bias order), and times each at the paths' shapes beside the PyTorch call that
 computes the same function (F.layer_norm + F.linear, F.linear + add,
 torch._int_mm, scaled_dot_product_attention and its backward). The last fc1
 shape is ViT-B's
-with 8 stripes: the same work without clusters. Half a minute of card time:
-the first thing to run after a change to hopper.cuh.
+with 8 stripes: the same work without clusters. Then kernel D (ep_pool: N
+from 1 to 1025, Q from 4 to 64, the patch-token view) and the int8 ln_quant
+(D from 128 to 2176, past the rows held in registers; a zero row; codes at
+exact halves), each twice, to be equal bit for bit, and each timed beside its
+bound (and D beside SDPA). Half a minute of card time: the first thing to run
+after a change to hopper.cuh.
+
+--root DIR imports ep_tpu_torch from another checkout (an earlier commit
+unpacked beside this one) and builds that tree's kernels, so that one call can
+time two versions of a kernel with the same script and inputs.
 """
 from __future__ import annotations
 
@@ -29,10 +38,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 ATOL = RTOL = 1e-2
-GROUPS = ("gemm", "fc1", "fc2", "flash", "core", "bwd")
+GROUPS = ("gemm", "fc1", "fc2", "flash", "core", "bwd", "pool", "lnq")
+HBM_RATE = 3.35e12  # bytes a second, an H100 SXM's memory
 
 
 def rand(rng, shape, scale=1.0, dtype=torch.bfloat16):
@@ -69,7 +78,10 @@ def main() -> int:
     ap.add_argument("--big", action="store_true",
                     help="only the paths' shapes (batch >= 64)")
     ap.add_argument("--only", nargs="+", choices=GROUPS, default=GROUPS)
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent),
+                    help="the checkout whose ep_tpu_torch is checked")
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(
@@ -86,7 +98,8 @@ def main() -> int:
         if "Compiling entry" in line:
             show = any(k in line for k in (
                 "gemm_kernel", "fc1_kernel", "fc2_kernel", "attn_flash_kernel",
-                "attn_core_kernel", "attn_core_bwd_kernel"))
+                "attn_core_kernel", "attn_core_bwd_kernel", "ep_pool_kernel",
+                "ln_quant"))
         if show and any(k in line for k in ("registers", "Compiling", "spill")) or (
                 "warning" in line.lower() or "serializ" in line.lower()):
             print("  " + line.strip()[:200])
@@ -270,8 +283,119 @@ def main() -> int:
             del ql, ol, gl
         del qkv, g, out
         torch.cuda.empty_cache()
+    if "pool" in args.only:
+        ok &= check_pool(rng, args)
+    if "lnq" in args.only:
+        ok &= check_ln_quant(rng, args, m)
     print("ALL OK" if ok else "FAILED")
     return 0 if ok else 1
+
+
+def check_pool(rng, args) -> bool:
+    """Kernel D against its plain version, twice (equal bit for bit), and its
+    time beside its bound and one SDPA call at the paths' shapes."""
+    from ep_tpu_torch.ops import _build
+    from ep_tpu_torch.ops import pool_attn as pa
+    print("D ep_pool (the patch-token view x[:, 1:]; twice, equal)")
+    ok = True
+    for b, n, c, q in ((3, 1, 128, 4), (3, 37, 128, 4), (2, 63, 768, 32),
+                       (2, 64, 768, 32), (2, 65, 1024, 32), (4, 196, 768, 32),
+                       (2, 256, 1280, 32), (2, 1024, 1280, 32),
+                       (2, 1025, 1280, 32), (2, 100, 1280, 64),
+                       (2, 70, 192, 12), (3, 50, 1408, 32), (512, 196, 768, 32),
+                       (128, 256, 1280, 32), (64, 1024, 1280, 32),
+                       (16, 196, 1024, 32)):
+        if args.big and b < 16:
+            continue
+        cq = c // q
+        qs = rand(rng, (q, c), c ** -0.5)
+        tok = rand(rng, (b, n + 1, c))[:, 1:]
+        v = rand(rng, (b, n, q, cq))
+        out = pa.ep_pool_attend(qs, tok, v)
+        again = pa.ep_pool_attend(qs, tok, v)
+        tiling = ""
+        if hasattr(pa, "ep_pool_tiling"):
+            cl, tl_ = pa.ep_pool_tiling(n, c, q, c)
+            tiling = (f" tiling {(cl, tl_)}, resident clusters "
+                      f"{_build.query('ep_pool_resident_clusters', q, c, cl, tl_)}")
+        same = bool(torch.equal(out, again))
+        ok &= close(f"D ({b},{n},{c},{q}){tiling}, repeat equal {same}", out,
+                    pa.ep_pool_attend_ref(qs, tok, v)) and same
+        if b >= 16 and not args.no_time:
+            tk = time_ms(lambda: pa.ep_pool_attend(qs, tok, v))
+            tl = time_ms(lambda: F.scaled_dot_product_attention(
+                qs[None, :, None, :].expand(b, -1, -1, -1),
+                tok[:, None].expand(-1, q, -1, -1), v.permute(0, 2, 1, 3),
+                scale=1.0))
+            bound = (2 * b * n * c + 2 * b * n * q * cq + 2 * q * c
+                     + 2 * b * q * cq) / HBM_RATE * 1e3
+            print(f"  time: D {tk:.3f} ms, bound {bound:.3f} ms (bytes, "
+                  f"{bound / tk:.0%}), SDPA {tl:.3f} ms", flush=True)
+        del qs, tok, v, out, again
+        torch.cuda.empty_cache()
+    return ok
+
+
+def check_ln_quant(rng, args, m) -> bool:
+    """ln_quant against its plain version: codes differing by at most one step
+    in under 1e-3 of them, scales within 1e-5; a zero row (the scale's floor);
+    gamma = 0 with betas at odd multiples of sx / 2 (every quotient a half:
+    rounded half to even); twice, equal bit for bit; timed beside its bound."""
+    print("ln_quant (codes and scales against the plain version; twice, equal)")
+    ok = True
+    eps = 1e-6
+    cases = [(1, d) for d in (128, 384, 768, 1024, 1280, 1408, 2176)] + [
+        (111, d) for d in (128, 384, 768, 1024, 1280, 1408, 2176)] + [
+        (512 * 197, 768), (128 * 257, 1280), (128 * 197, 1024), (512 * 197, 1408)]
+    for mrows, d in cases:
+        if args.big and mrows < 1000:
+            continue
+        x = rand(rng, (1, mrows, d))
+        g = 1 + rand(rng, (d,), 0.1, torch.float32)
+        be = rand(rng, (d,), 0.1, torch.float32)
+        if mrows > 1:
+            x[0, mrows // 2] = 0  # with beta = 0 below: the floor of the scale
+        hq, sx = m.ln_quant(x, g, be, eps)
+        hq2, sx2 = m.ln_quant(x, g, be, eps)
+        hq_r, sx_r = m.ln_quant_ref(x, g, be, eps)
+        d_codes = (hq.int() - hq_r.int()).abs()
+        share = float((d_codes != 0).float().mean())
+        rel = float(((sx - sx_r).abs() / sx_r).max())
+        same = bool(torch.equal(hq, hq2)) and bool(torch.equal(sx, sx2))
+        good = (int(d_codes.max()) <= 1 and share < 1e-3 and rel <= 1e-5
+                and same)
+        print(f"  ln_quant M={mrows} D={d}: codes differing {share:.2e}, "
+              f"largest {int(d_codes.max())}, sx rel {rel:.1e}, repeat equal "
+              f"{same} {'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+        if mrows < 1000:
+            # every h = beta (gamma = 0): quotients at exact halves, and a
+            # row of zeros with beta = 0 at the scale's floor
+            half = torch.arange(d, device="cuda", dtype=torch.float32)
+            be_h = ((half % 254) - 127 + 0.5) / 64  # odd multiples of 1/128
+            be_h[0] = 127 / 64                      # sx = 1/64 exactly
+            z = torch.zeros_like(g)
+            hq, sx = m.ln_quant(x, z, be_h, eps)
+            hq_r, sx_r = m.ln_quant_ref(x, z, be_h, eps)
+            hz, sz = m.ln_quant(x, g, z, eps)
+            hz_r, sz_r = m.ln_quant_ref(x, g, z, eps)
+            floor = float(sz[0, mrows // 2]) if mrows > 1 else None
+            good = (bool(torch.equal(hq, hq_r)) and bool(torch.equal(sx, sx_r))
+                    and (mrows == 1 or not bool(hz[0, mrows // 2].any())))
+            print(f"    halves: codes equal {bool(torch.equal(hq, hq_r))}, "
+                  f"scales equal {bool(torch.equal(sx, sx_r))}; zero row's "
+                  f"scale {floor} (plain "
+                  f"{float(sz_r[0, mrows // 2]) if mrows > 1 else None}) "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            ok &= good
+        if mrows >= 1000 and not args.no_time:
+            tk = time_ms(lambda: m.ln_quant(x, g, be, eps))
+            bound = (3 * mrows * d + 8 * d + 4 * mrows) / HBM_RATE * 1e3
+            print(f"  time: ln_quant {tk:.3f} ms, bound {bound:.3f} ms (bytes, "
+                  f"{bound / tk:.0%})", flush=True)
+        del x, hq, hq2, hq_r
+        torch.cuda.empty_cache()
+    return ok
 
 
 if __name__ == "__main__":

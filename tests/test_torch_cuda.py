@@ -252,7 +252,7 @@ def test_supercell_gradients(dev, B, T, D, H):
 
 @pytest.mark.parametrize("B, N, C, Q", [
     (4, 196, 768, 32), (3, 37, 128, 4), (2, 256, 1280, 32),
-    (2, 1024, 1280, 32)])  # ViT-H/14 at 448 px: the queries split over 2 blocks
+    (2, 1024, 1280, 32)])  # ViT-H/14 at 448 px: a cluster of 16 blocks an image
 def test_ep_pool_forward_and_grad(dev, B, N, C, Q):
     from ep_tpu_torch.ops.pool_attn import ep_pool_attend, ep_pool_attend_ref
     q = _rand((Q, C), dev, C ** -0.5, seed=8)
@@ -269,6 +269,48 @@ def test_ep_pool_forward_and_grad(dev, B, N, C, Q):
     for a, b in zip(*grads):
         scale = float(b.float().abs().max())
         torch.testing.assert_close(a, b, rtol=1e-2, atol=1e-2 * scale)
+
+
+# Kernel D at the edges of its 64-token tiles (one token; one short of a
+# tile, one tile, one past it; ViT-B/L's 196 and ViT-H's 256 tokens, split
+# over clusters of 4; 448 px's 1024 over 16) and at every width and query
+# count the paths give it (EP-4 on a 128-wide model, EP-32 at ViT-B, ViT-L
+# and ViT-H).
+POOL_EDGES = [(2, n, c, q) for n in (1, 37, 63, 64, 65, 196, 256, 1024)
+              for c, q in ((128, 4), (768, 32), (1024, 32), (1280, 32))]
+
+
+@pytest.mark.parametrize("B, N, C, Q", POOL_EDGES)
+def test_ep_pool_at_the_edges_of_its_tiles(dev, B, N, C, Q):
+    """Kernel D against its plain version on the patch-token view x[:, 1:],
+    one launch a call, and two calls equal bit for bit (the cluster's partial
+    sums are added in rank order, without atomics)."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.pool_attn import ep_pool_attend, ep_pool_attend_ref
+    q = _rand((Q, C), dev, C ** -0.5, seed=40)
+    x = _rand((B, N + 1, C), dev, seed=41)[:, 1:]
+    v = _rand((B, N, Q, C // Q), dev, seed=42)
+    reset_launches()
+    out = ep_pool_attend(q, x, v)
+    again = ep_pool_attend(q, x, v)
+    assert dict(LAUNCHES) == _counts(ep_pool=2)
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ep_pool_attend_ref(q, x, v), **TOL)
+
+
+@pytest.mark.parametrize("N, C, Q, QC", [
+    (196, 768, 32, 768), (256, 1280, 32, 1280), (1024, 1280, 32, 1280),
+    (37, 128, 4, 128), (1025, 1280, 32, 1280), (100, 1280, 64, 1280),
+    (70, 192, 12, 192)])
+def test_ep_pool_tiling_is_the_kernels(dev, N, C, Q, QC):
+    """ops/pool_attn.py's copy of kernel D's shared-memory layout is the
+    kernel's own, and the card holds at least one cluster of the tiling."""
+    from ep_tpu_torch.ops._build import query
+    from ep_tpu_torch.ops.pool_attn import ep_pool_smem_bytes, ep_pool_tiling
+    cluster, tiles = ep_pool_tiling(N, C, Q, QC)
+    assert (query("ep_pool_smem_bytes", Q, QC, cluster, tiles)
+            == ep_pool_smem_bytes(Q, QC, cluster, tiles))
+    assert query("ep_pool_resident_clusters", Q, QC, cluster, tiles) >= 1
 
 
 @pytest.mark.parametrize("B, N, C, Q, d_out", [
@@ -442,6 +484,47 @@ def test_mlp_int8_kernels(dev, B, T, D, DH, stripes):
     print(f"int8 codes B={B} T={T} D={D} S={stripes}: share differing "
           f"{share:.2e}, largest difference {worst}")
     assert share < 1e-2
+
+
+@pytest.mark.parametrize("M, D", [
+    (m, d) for m in (1, 111, 512 * 197)
+    for d in (128, 384, 768, 1024, 1280, 1408, 2176)])
+def test_ln_quant_at_every_width(dev, M, D):
+    """ln_quant against its plain version at the widths of the models (and
+    384, a row that half the lanes hold twice; 2176, past the 2048 columns a
+    warp holds in registers): codes one step apart at most and in at most
+    1e-3 of them (at least 2; the row statistics are summed in another order
+    than torch's), scales to 1e-5; two calls equal bit for bit; a zero row
+    with beta = 0 at the scale's floor with zero codes; and with gamma = 0,
+    every h = beta an odd multiple of sx / 2, codes rounded half to even and
+    scales equal to the plain version's."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops import mlp_int8 as m
+    x = _rand((1, M, D), dev, seed=60)
+    x[0, M // 2] = 0.0
+    g = 1 + _rand((D,), dev, 0.1, torch.float32, seed=61)
+    be = _rand((D,), dev, 0.1, torch.float32, seed=62)
+    reset_launches()
+    hq, sx = m.ln_quant(x, g, be, 1e-6)
+    hq2, sx2 = m.ln_quant(x, g, be, 1e-6)
+    assert dict(LAUNCHES) == _counts(mlp_int8_ln_quant=2)
+    assert torch.equal(hq, hq2) and torch.equal(sx, sx2)
+    hq_r, sx_r = m.ln_quant_ref(x, g, be, 1e-6)
+    d = (hq.int() - hq_r.int()).abs()
+    assert int(d.max()) <= 1 and int((d != 0).sum()) <= max(2, 1e-3 * d.numel())
+    torch.testing.assert_close(sx, sx_r, rtol=1e-5, atol=0)
+    zero = torch.zeros_like(g)
+    hz, sz = m.ln_quant(x, g, zero, 1e-6)
+    floor = torch.full((), 1e-8) / torch.full((), 127.0)
+    assert float(sz[0, M // 2]) == float(floor) and not hz[0, M // 2].any()
+    # every h = beta: odd multiples of 1/128 with max |h| = 127/64, so that
+    # sx = 1/64 and every h / sx is a half
+    beta = (torch.arange(D, device=dev, dtype=torch.float32) % 254 - 126.5) / 64
+    beta[0] = 127 / 64
+    hh, sh = m.ln_quant(x, zero, beta, 1e-6)
+    hh_r, sh_r = m.ln_quant_ref(x, zero, beta, 1e-6)
+    assert torch.equal(sh, sh_r) and float(sh.max()) == 1 / 64
+    assert torch.equal(hh, hh_r)
 
 
 @pytest.mark.parametrize("B, T, D, stripes", [

@@ -525,6 +525,20 @@ def test_fc1_refuses_other_stripes(D, DH, stripes, check):
             pt.fc1_tiling(DH // stripes)
 
 
+@pytest.mark.parametrize("D", [128, 384, 768, 1024, 1280, 1408, 2048, 2176,
+                               8192, pt.LN_QUANT_MAX_D])
+def test_ln_quant_takes_every_width_of_128(D):
+    """Kernel ln_quant holds a row in registers up to 2048 columns and stages
+    a wider one in shared memory, up to half of a block's."""
+    pt.check_ln_quant_width(D)
+
+
+@pytest.mark.parametrize("D", [64, 200, 1000, pt.LN_QUANT_MAX_D + 128])
+def test_ln_quant_refuses_other_widths(D):
+    with pytest.raises(NotImplementedError, match="ln_quant"):
+        pt.check_ln_quant_width(D)
+
+
 def test_int8_mlp_inactive_reason():
     assert int8_mlp_inactive_reason(ViTConfig()) is None
     assert int8_mlp_inactive_reason(ViTConfig(int8_mlp=True)) is None

@@ -18,10 +18,13 @@ import torch
 from ep_tpu.ops.attn_block_pallas import attn_supercell as jax_supercell
 from ep_tpu.ops.attn_fused_pallas import attention_qkv_fused as jax_attn
 from ep_tpu.ops.pool_attn_pallas import ep_pool_attend as jax_ep
-from ep_tpu_torch.ops import LAUNCHES, check, reset_launches, use_kernel
+from ep_tpu_torch.ops import (LAUNCHES, MAX_SMEM, check, reset_launches,
+                              use_kernel)
 from ep_tpu_torch.ops.attn_block import attn_supercell, attn_supercell_ref
 from ep_tpu_torch.ops.attn_fused import attention_qkv_fused
-from ep_tpu_torch.ops.pool_attn import ep_pool_attend, ep_pool_attend_ref
+from ep_tpu_torch.ops.pool_attn import (EP_POOL_MAX_CLUSTER, EP_POOL_TILE,
+                                        ep_pool_attend, ep_pool_attend_ref,
+                                        ep_pool_smem_bytes, ep_pool_tiling)
 
 F32_TOL = 1e-5
 BF16_RTOL = 2.0 ** -7
@@ -122,6 +125,52 @@ def test_ep_pool_plain_is_the_masked_full_form():
     direct = torch.einsum("bqn,bnqc->bqc", attn, v)
     torch.testing.assert_close(ep_pool_attend_ref(q, x, v), direct,
                                rtol=F32_TOL, atol=F32_TOL)
+
+
+# Kernel D's shapes: the ViT-B/16, ViT-L/16, ViT-L/14, ViT-H/14 and ViT-g/14
+# patch grids at 224 px, ViT-B/16, ViT-L/14 and ViT-H/14 at 448 px (EP-32 at
+# d_out 1: Q*cq = C), EP-64 and d_out 2, and small ragged N around a tile.
+EP_POOL_SHAPES = [
+    (196, 768, 32, 768), (196, 1024, 32, 1024), (256, 1024, 32, 1024),
+    (256, 1280, 32, 1280), (256, 1408, 32, 1408), (784, 768, 32, 768),
+    (1024, 1024, 32, 1024), (1024, 1280, 32, 1280), (196, 768, 64, 768),
+    (196, 768, 32, 384), (1, 128, 4, 128), (37, 128, 4, 128),
+    (63, 192, 12, 192), (64, 768, 32, 768), (65, 768, 32, 768),
+    (129, 64, 8, 64), (1025, 1280, 32, 1280), (2048, 768, 32, 768),
+    (4096, 1280, 32, 1280)]
+
+
+@pytest.mark.parametrize("N, C, Q, QC", EP_POOL_SHAPES)
+def test_ep_pool_tiling_takes_every_token_once(N, C, Q, QC):
+    """Kernel D's blocks cover the image's tiles of 64 tokens once, each block
+    at least one of them, in a cluster the card schedules (at most 16, past 8
+    only with the non-portable size) and within a block's shared memory; up
+    to N = 1024 a block takes one tile."""
+    cluster, tiles = ep_pool_tiling(N, C, Q, QC)
+    span = tiles * EP_POOL_TILE
+    assert 1 <= cluster <= EP_POOL_MAX_CLUSTER and tiles >= 1
+    assert (cluster - 1) * span < N <= cluster * span
+    assert ep_pool_smem_bytes(Q, QC, cluster, tiles) <= MAX_SMEM
+    if N <= EP_POOL_TILE * EP_POOL_MAX_CLUSTER:
+        assert (cluster, tiles) == (-(-N // EP_POOL_TILE), 1)
+
+
+@pytest.mark.parametrize("N, C, Q, QC, what", [
+    (196, 768, 65, 780, "64 queries"), (196, 776, 8, 776, "C % 16"),
+    (37, 128, 4, 12, r"Q\*cq % 8"), (16 * 64 * 48, 768, 32, 768, "bytes")])
+def test_ep_pool_tiling_refuses_what_kernel_d_does_not_take(N, C, Q, QC, what):
+    with pytest.raises(NotImplementedError, match=what):
+        ep_pool_tiling(N, C, Q, QC)
+
+
+def test_ep_pool_smem_grows_with_tiles_and_queries():
+    """The layout holds the ring, a tile's p and logits, the cluster's
+    exchange and the partial sums: it grows with each of them."""
+    base = ep_pool_smem_bytes(32, 768, 4, 1)
+    assert ep_pool_smem_bytes(32, 768, 4, 2) > base
+    assert ep_pool_smem_bytes(64, 768, 4, 1) > base
+    assert ep_pool_smem_bytes(32, 1280, 4, 1) > base
+    assert ep_pool_smem_bytes(32, 768, 16, 1) > base
 
 
 def test_dispatch_by_device():
