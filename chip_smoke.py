@@ -39,7 +39,10 @@ Phases, each of which must pass (any failure exits non-zero):
              pairs than SMs, temperature 1.5); D at N=1024, at ViT-H's N=256
              and at ViT-L's width (D at every shape, and ln_quant, also
              twice: equal bit for bit); G (ep_pool_proj) at ViT-B, ViT-H and
-             ViT-H at 448 px beside the unfused pair (F.linear, then D).
+             ViT-H at 448 px beside the unfused pair (F.linear, then D), and
+             at the edges of its panels and query bank and at cq 12 and 20
+             (each also twice: equal bit for bit), then through the EP head
+             at --d_out 2 (ViT-B and ViT-H widths) against its unfused route.
 4. train   — the probe-training main path as bench.py builds it: frozen
              ViT-B/16 (random weights from seed 0) + EP-32 head, BN, fc, LARS
              with the warmup-cosine LR; a few steps at --batch. Checks a finite
@@ -575,6 +578,8 @@ def check_long_kernels(rng) -> tuple[list[dict], list[dict]]:
     from ep_tpu_torch.ops.pool_attn import (ep_pool_attend, ep_pool_attend_ref,
                                             ep_pool_proj_attend,
                                             ep_pool_proj_attend_ref,
+                                            ep_pool_proj_smem_bytes,
+                                            ep_pool_proj_tiling,
                                             ep_pool_smem_bytes, ep_pool_tiling)
     sdpa = F.scaled_dot_product_attention
     on_path, others = [], []
@@ -681,15 +686,65 @@ def check_long_kernels(rng) -> tuple[list[dict], list[dict]]:
             ref = grads[1][i]
             compare(f"ep_pool_proj {gname} B={b}", grads[0][i], ref,
                     atol=ATOL * float(ref.float().abs().max()), rtol=RTOL)
+    def proj_tiling(n, c, q, qc):
+        cluster, panels = ep_pool_proj_tiling(n, c, q, qc)
+        return (f"clusters of {cluster} block(s) an image, {panels} panel(s) "
+                f"of 128 tokens a block, "
+                f"{ep_pool_proj_smem_bytes(q, qc, cluster)} bytes of shared "
+                f"memory a block, "
+                f"{query('ep_pool_proj_resident_clusters', q, qc, cluster)} "
+                f"clusters resident")
+
+    # The edges of G's panels (N of 1, 127 to 129, 1025; 2100 past 16 panels:
+    # two a block), of its query bank (Q of 4, 33 and 64: padded to 8, 64
+    # and 64 rows) and the widths of --d_out 2 at ViT-B and ViT-H (cq 12 and
+    # 20), from a generator of their own; each also twice, equal bit for bit.
+    edge_rng = np.random.default_rng(9)
+    for b, n, c, q, qc in ((3, 1, 768, 32, 768), (3, 127, 768, 32, 768),
+                           (3, 128, 768, 32, 768), (3, 129, 768, 32, 768),
+                           (2, 1025, 1280, 32, 1280), (2, 2100, 768, 32, 768),
+                           (3, 196, 128, 4, 128), (3, 196, 528, 33, 528),
+                           (3, 196, 1280, 64, 1280), (8, 196, 768, 32, 384),
+                           (8, 256, 1280, 32, 640)):
+        qs = rand(edge_rng, (q, c), c ** -0.5)
+        tok = rand(edge_rng, (b, n + 1, c))[:, 1:]
+        w = rand(edge_rng, (qc, c), c ** -0.5)
+        tag = f"ep_pool_proj B={b} N={n} C={c} Q={q} cq={qc // q}"
+        log(f"  {tag}: {proj_tiling(n, c, q, qc)}")
+        out = ep_pool_proj_attend(qs, tok, w)
+        compare_steps(tag, out, ep_pool_proj_attend_ref(qs, tok, w))
+        repeat_equal(tag, out, ep_pool_proj_attend(qs, tok, w))
+    log("[kernels] G through the EP head at --d_out 2 (EP_TPU_EP_FUSED=1): "
+        "the module a probe calls, against its unfused route")
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.poolings.ep import EfficientProbing
+    for c, n in ((768, 196), (1280, 256)):
+        torch.manual_seed(0)
+        head = EfficientProbing(c, num_queries=Q, d_out=2).cuda()
+        x = rand(edge_rng, (64, n, c))
+        with torch.no_grad():
+            unfused = head(x)
+            with environment(EP_TPU_EP_FUSED="1"):
+                reset_launches()
+                fused = head(x)
+                counts = dict(LAUNCHES)
+        if counts["ep_pool_proj"] != 1 or counts["ep_pool"] != 0:
+            raise RuntimeError(f"the fused head at d_out 2 launched {counts}")
+        compare_steps(f"EfficientProbing C={c} d_out=2 (cq={head.cq}) N={n}, "
+                      "fused (G) against unfused (F.linear, D)", fused, unfused)
     for name, b, n, c in (("ep_pool_proj_vitb", 512, 196, 768),
                           ("ep_pool_proj_vith", 128, 256, 1280),
                           ("ep_pool_proj", 64, 1024, 1280)):
         qs = rand(rng, (Q, c), c ** -0.5)
         tok = rand(rng, (b, n + 1, c))[:, 1:]
         w = rand(rng, (c, c), c ** -0.5)  # the frozen-dtype copy the kernel reads
-        e = compare_steps(f"{name} B={b} N={n} C={c} Q={Q}",
-                          ep_pool_proj_attend(qs, tok, w),
+        log(f"  {name}: {proj_tiling(n, c, Q, c)}")
+        out = ep_pool_proj_attend(qs, tok, w)
+        e = compare_steps(f"{name} B={b} N={n} C={c} Q={Q}", out,
                           ep_pool_proj_attend_ref(qs, tok, w))
+        repeat_equal(f"{name} B={b} N={n} C={c} Q={Q}", out,
+                     ep_pool_proj_attend(qs, tok, w))
+        del out
 
         def unfused():
             return ep_pool_attend(qs, tok, F.linear(tok, w).view(b, n, Q, -1))

@@ -1,322 +1,538 @@
 // Kernel G (ep_pool_proj): the Efficient Probing pool with the value
 // projection inside.
-//   logits[q, n] = q_scaled[q] . x[n]                    (f32)
-//   p = softmax_n(logits), rounded to bf16
+//   logits[q, n] = q_scaled[q] . x[n]                   (f32 from bf16)
+//   p = bf16(softmax_n(logits))                          (f32 max, exp, sum)
 //   v[n, j]     = bf16(sum_c x[n, c] * W[j, c])          (f32 sum)
-//   out[q, c]   = sum_n p[q, n] * v[n, q*cq + c]          (f32 sum, one bf16 rounding)
+//   out[q, k]   = bf16(sum_n p[q, n] * v[n, q*cq + k])   (f32 sum)
 // Only q_scaled, x, W and out touch device memory: neither the projected
 // values (B, N, Q*cq) nor the probabilities are written.
 //
 // Replaces: ep_tpu/ops/pool_attn_pallas.py::_ep_fused_kernel
-//   (ep_pool_proj_attend). The TPU kernel multiplies the (Q, N) probabilities
-//   by the whole (N, Q*cq) projection and masks the block diagonal, Q times
-//   the needed products, to fill its 128x128 unit; this kernel computes only
-//   each query's own cq columns, as kernel D does. W is nn.Linear's (Q*cq, C)
-//   weight, the "col" operand of the product.
+//   (ep_pool_proj_attend), with its rounding points. The TPU kernel multiplies
+//   p by the whole projection and keeps the block diagonal; here the product
+//   with p is the projection's epilogue: each v element is weighted by p of
+//   its column's query and summed over the tokens, so any cq works. W is
+//   nn.Linear's (Q*cq, C) weight, K-major like the tokens.
 //
-// Bound on this card: operations. At ViT-H/14, 448 px, batch 64 (N=1024,
-//   C=1280, Q*cq=1280) the projection is 2*64*1024*1280*1280 = 215 GFLOP,
-//   0.217 ms at 989 TFLOP/s, against 168 MB of tokens, 0.050 ms.
-// Design: one 256-thread block per (image, group of 8 queries). W (3.3 MB at
-//   ViT-H) does not fit shared memory, so everything streams in 64-channel
-//   slices of C on a 3-stage cp.async ring, one __syncthreads a slice:
-//   pass 1 walks the image in tiles of 256 tokens with the group's 8 query
-//     rows beside them and builds the (8, N) f32 logits in shared memory
-//     (mma.sync m16n8k16: tokens are the rows, the 8 queries one n-tile, 32
-//     tokens a warp); then a warp per query runs the f32 softmax in place and
-//     rounds to bf16. Its tiles are large because the pass has almost no
-//     arithmetic and lives on the bytes it keeps in flight (with 64-token
-//     tiles it took over a quarter of the kernel's time);
-//   pass 2 walks the image again in tiles of 64 tokens with the group's 8*cq
-//     rows of W: each warp owns 32 tokens x 2*cq columns of the tile's
-//     x @ W^T in f32 registers (7 ldmatrix feed 20 mma at cq=40; a 16-token
-//     warp tile needed 11), rounds them to bf16 when the last slice is in,
-//     weights them by p of their column's query and adds them to per-thread
-//     f32 sums.
-//   The sums are folded once at the end (lane shuffles, then the 2 token
-//   warps through shared memory): no atomics, so the sum's order is fixed.
-//   An image's tokens are read twice by each of its Q/8 blocks and the
-//   group's slice of W once a token tile, both from L2 at these sizes; pass 2
-//   is bound by its mma.sync loop and the ldmatrix traffic that feeds it, not
-//   by those loads.
-#include "common.cuh"
+// Bound on this card: operations. The projection is 2*B*N*C*QC: 215 GFLOP at
+//   ViT-H/14, 448 px, batch 64 (N=1024, C=QC=1280), 0.217 ms at 989 TFLOP/s,
+//   against 168 MB of tokens (0.050 ms); the logits add Q/QC of it. The
+//   product stays whole: (p @ x) @ W^T would be 40 times less work but drops
+//   v's rounding point.
+//
+// Design: the main loop of hopper.cuh, a cluster of blocks an image.
+//   * Block `rank` takes `panels` consecutive panels of 128 tokens
+//     (ops/pool_attn.py::ep_pool_proj_tiling: 2 blocks at N=196 and 256, 8 at
+//     N=1024, at most 16). A block is a TMA producer warp and two consumer
+//     warpgroups. For each panel it walks W's QC rows in tiles of 256; each
+//     tile is a loop over 64-deep K slices of W's rows and of the panel (a
+//     3-D map with the image as depth: tokens past N read as zero, never the
+//     next image's) through a 3-stage ring. The product is v^T: a warpgroup
+//     takes 128 of the tile's rows of W as wgmma's M (two m64n128k16, the
+//     panel's tokens as N), 128 f32 accumulators a thread. The panel's
+//     re-reads for the later tiles come from L2.
+//   * The first tile's slices also bring the query bank's (padded by TMA's
+//     zero fill to QN = 8, 16, 32 or 64 rows), and the same loop issues
+//     logits^T (a warpgroup's 64 tokens x QN, wgmma m64nQNk16) beside the
+//     projection.
+//   * The softmax across the cluster, after the first tile: each block's
+//     per-query max goes into every peer's shared memory (distributed shared
+//     memory), a cluster barrier, the global max; then the sums of
+//     exp(l - max) the same way, added in rank order. p = bf16(exp(l - max) /
+//     sum), a true division, stays in shared memory for the panel's tiles;
+//     tokens past N get p = 0.
+//   * The pool in the epilogue: a thread holds 4 rows j of v^T, each at 32 of
+//     the panel's tokens, so each row has one query (j / cq), found once a
+//     tile. It rounds each value to bf16 (v), weights it by p of the token
+//     and sums along the row; two shuffles add the 4 lanes of a row, and the
+//     row's sum goes into the block's f32 partial sum of column j. No barrier:
+//     the warps run on into the next tile independently. (With the tokens as
+//     M instead, each thread held 64 columns of two tokens: a query lookup
+//     for every value and a reduction across lanes and warps made the
+//     epilogue a third of the kernel's time.)
+//   * After the last tile a cluster barrier, and each block sums its share of
+//     the columns over the ranks' partial sums in rank order, rounds once and
+//     stores. No atomics: two calls agree bit for bit.
+//   * Past 16 panels (N > 2048) a block takes several. It then computes its
+//     panels' logits in two passes of their own (the max, then the sums) and
+//     again in each panel's first tile, where p is made: the same products in
+//     the same order give the same logits, and shared memory does not grow
+//     with N.
+//   The producer thread meets the cluster's barriers like everyone, after
+//   the loads that precede each one, so it never waits on a barrier that
+//   needs slices it has not issued.
+#include "hopper.cuh"
 
 namespace ep {
 namespace {
 
-constexpr int QG = 8;          // queries per block
-constexpr int TN1 = 256;       // tokens per tile, pass 1
-constexpr int TN = 64;         // tokens per tile, pass 2
-constexpr int KS = 64;         // channels per streamed slice
-constexpr int LDK = KS + 8;    // shared row stride (bf16) of a slice
+using namespace hopper;
+
+constexpr int BT = TILE_M;                      // tokens a panel
+constexpr int BJ = 256;                         // rows of W (columns of v) a tile
 constexpr int STAGES = 3;
-constexpr int THREADS = 256;   // 8 warps: 2 token halves x 4 column quarters
-constexpr int CHK = KS / 8;    // 16-byte chunks per slice row
+constexpr int MAX_CLUSTER = 16;
+constexpr int THREADS = BLOCK_THREADS;
+constexpr int CONSUMERS = 256;                  // two warpgroups
+constexpr int X_BYTES = BT * SLICE_BYTES;       // the panel's slice
+constexpr int W_BYTES = BJ * SLICE_BYTES;       // W's rows of the tile
+// p as bf16 [Q][P_STRIDE], a panel's tokens in order: 68 words a query, so
+// the 8 row lanes of a warp, whose queries may differ, read 8 bank groups
+constexpr int P_STRIDE = BT + 8;
 
-// The logits' row stride: N padded to pass 1's tile.
-__host__ __device__ inline int proj_tokens_padded(int N) {
-  return (N + TN1 - 1) / TN1 * TN1;
+__host__ __device__ constexpr int query_rows(int Q) {
+  return Q <= 8 ? 8 : Q <= 16 ? 16 : Q <= 32 ? 32 : 64;
+}
+__host__ __device__ constexpr int stage_bytes(int qn) {
+  return X_BYTES + W_BYTES + qn * SLICE_BYTES;
 }
 
-// Rows of one ring stage: the x slice with the q slice (pass 1) or the W
-// slice (pass 2) beside it.
-__host__ __device__ constexpr int proj_stage_rows(int cq) {
-  return TN + QG * cq > TN1 + QG ? TN + QG * cq : TN1 + QG;
+// Byte offsets from the 1024-aligned base of the block's shared memory
+// (ops/pool_attn.py::ep_pool_proj_smem_bytes computes the same).
+struct Layout {
+  int p, wred, partial, xmax, xsum, stat, bars, bytes;
+};
+__host__ __device__ constexpr Layout layout(int Q, int QC, int CL) {
+  const int qn = query_rows(Q);
+  const int p = STAGES * stage_bytes(qn);          // [Q][P_STRIDE] bf16
+  const int wred = p + Q * P_STRIDE * 2;           // [8][qn] f32
+  const int partial = wred + 8 * qn * 4;           // [QC] f32
+  const int xmax = partial + (QC + 3) / 4 * 16;    // [CL][qn]
+  const int xsum = xmax + CL * qn * 4;             // [CL][qn]
+  const int stat = xsum + CL * qn * 4;             // [2][qn]: max, sum
+  const int bars = stat + 2 * qn * 4;              // [2][STAGES]
+  return Layout{p, wred, partial, xmax, xsum, stat, bars,
+                1024 + bars + 2 * STAGES * 8};
 }
 
-// The logits follow the ring.
-__host__ __device__ inline int proj_smem_bytes(int N, int cq) {
-  return STAGES * proj_stage_rows(cq) * LDK * 2 +
-         QG * proj_tokens_padded(N) * 4;
+// The K loop of one tile of a panel. With PROJ, v^T: the warpgroup's 128 of
+// the tile's rows of W (two wgmma M of 64, acc[m]) times the panel's 128
+// tokens; with LOGITS, logits^T: the warpgroup's 64 tokens times the query
+// bank (lacc).
+template <int QN, bool PROJ, bool LOGITS>
+__device__ __forceinline__ void k_loop(const Ring& ring, RingPos& pos, int nk,
+                                       int wg, int lane,
+                                       float (&acc)[2][BT / 2],
+                                       float (&lacc)[QN / 2]) {
+  int prev = -1;
+  for (int kt = 0; kt < nk; ++kt) {
+    mbar_wait(ring.full + pos.stage, pos.phase);
+    const unsigned char* s = ring.a(pos.stage);
+    const uint64_t dx = smem_desc(s);
+    const uint64_t dxl = smem_desc(s + wg * 64 * SLICE_BYTES);
+    const uint64_t dw0 = smem_desc(s + X_BYTES + wg * 128 * SLICE_BYTES);
+    const uint64_t dw1 = smem_desc(s + X_BYTES + (wg * 128 + 64) * SLICE_BYTES);
+    const uint64_t dq = smem_desc(s + X_BYTES + W_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (PROJ) {
+        wgmma_bf16_ss_n128(acc[0], dw0 + kk * DESC_K_STEP, dx + kk * DESC_K_STEP,
+                           (kt | kk) != 0);
+        wgmma_bf16_ss_n128(acc[1], dw1 + kk * DESC_K_STEP, dx + kk * DESC_K_STEP,
+                           (kt | kk) != 0);
+      }
+      if (LOGITS)
+        wgmma_ss<0>(lacc, dxl + kk * DESC_K_STEP, dq + kk * DESC_K_STEP,
+                    (kt | kk) != 0);
+    }
+    wgmma_commit();
+    const int cur = pos.stage;
+    pos.advance(STAGES);
+    wgmma_wait<1>();
+    if (prev >= 0) release(ring, prev, lane);
+    prev = cur;
+  }
+  wgmma_wait<0>();
+  if (PROJ) {
+    keep_all(acc[0]);
+    keep_all(acc[1]);
+  }
+  if (LOGITS) keep_all(lacc);
+  release(ring, prev, lane);
 }
 
-template <int CQ>
-__global__ void __launch_bounds__(THREADS)
-ep_pool_proj_kernel(const bf16* __restrict__ q, const bf16* __restrict__ x,
-                    const bf16* __restrict__ w, bf16* __restrict__ out, int N,
-                    int C, int Q, int x_bstride) {
-  constexpr int COLS = QG * CQ;      // columns of x @ W^T this block owns
-  constexpr int NTW = CQ / 4;        // 8-column tiles a warp owns (2*CQ / 8)
-  constexpr int STAGE = proj_stage_rows(CQ) * LDK;
-  static_assert(CQ % 8 == 0, "a warp's column tiles pair up for ldmatrix.x4");
-  const int Np = proj_tokens_padded(N);
-  const int QC = Q * CQ;
+// The block's value for each query column of `v` (this thread's part: index
+// 2*jj + e is query 8*jj + 2*t + e) reduced over the 8 row lanes of each warp
+// and the 8 warps, max or sum in a fixed order; then, after the cluster
+// barrier that the caller's peers meet as well, over the cluster into
+// stat[q]: the max, or the sum in rank order. `xchg` is [CL][QN].
+template <int QN, bool MAX>
+__device__ __forceinline__ void cluster_reduce(float (&v)[QN / 4], float* wred,
+                                               float* xchg, float* stat,
+                                               unsigned rank, int CL, int tid,
+                                               int lane) {
+  const int wid = tid >> 5, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < QN / 4; ++i) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      const float u = __shfl_xor_sync(0xffffffffu, v[i], o);
+      v[i] = MAX ? fmaxf(v[i], u) : v[i] + u;
+    }
+    if (lane < 4) wred[wid * QN + 8 * (i >> 1) + 2 * t + (i & 1)] = v[i];
+  }
+  named_barrier(1, CONSUMERS);
+  if (tid < QN) {
+    float r = wred[tid];
+    for (int w = 1; w < 8; ++w)
+      r = MAX ? fmaxf(r, wred[w * QN + tid]) : r + wred[w * QN + tid];
+    for (int peer = 0; peer < CL; ++peer)
+      st_cluster(cluster_addr(xchg + rank * QN + tid, peer), r);
+  }
+  cluster_arrive();
+  cluster_wait();
+  if (tid < QN) {
+    float r = xchg[tid];
+    for (int peer = 1; peer < CL; ++peer)
+      r = MAX ? fmaxf(r, xchg[peer * QN + tid]) : r + xchg[peer * QN + tid];
+    stat[tid] = r;
+  }
+  named_barrier(1, CONSUMERS);
+}
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);               // [STAGES][STAGE]
-  float* S = reinterpret_cast<float*>(ring + STAGES * STAGE);  // [QG][Np]
+// One tile's pool. The thread holds, of each of its rows j of v^T (n0 + the
+// warpgroup's 128 + 64m + 16*warp + g + 8h), the panel's tokens 8jj + 2t and
+// + 1: it rounds them to bf16 (v), weights them by p of the row's query
+// (j / cq) and of the token, and sums them; the 4 lanes of a row add their
+// sums, and lane 0 adds the row's into partial[j] (assigned on the block's
+// first panel). Fixed order, no barrier: the warps run on independently.
+// (Nothing but wgmma writes acc: ptxas serialises every wgmma of a kernel
+// whose accumulators other instructions define, C7515.)
+__device__ __forceinline__ void pool_epilogue(
+    const float (&acc)[2][BT / 2], const unsigned char* p_s, float* partial, int n0,
+    int QC, int Q, int cq, int wg, int warp, int lane, bool first) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = n0 + wg * 128 + m * 64 + warp * 16 + g + 8 * h;
+      // past QC the row of W reads as zero, and q stays in range
+      const unsigned char* pr = p_s + (min(j / cq, Q - 1) * P_STRIDE + 2 * t) * 2;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < BT / 8; ++jj) {
+        const unsigned pp = *reinterpret_cast<const unsigned*>(pr + jj * 16);
+        const unsigned v =
+            pack_bf16(acc[m][4 * jj + 2 * h], acc[m][4 * jj + 2 * h + 1]);
+        sum = fmaf(bf16_hi(pp), bf16_hi(v), fmaf(bf16_lo(pp), bf16_lo(v), sum));
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (t == 0 && j < QC) partial[j] = first ? sum : partial[j] + sum;
+    }
+}
+
+// One cluster (CL blocks along x) an image; block `rank` takes panels
+// rank*panels .. of the image's ceil(N / 128), at least one of them.
+template <int QN>
+__global__ void __launch_bounds__(THREADS, 1)
+ep_pool_proj_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w,
+                    const __grid_constant__ CUtensorMap map_q,
+                    bf16* __restrict__ out, int N, int C, int Q, int cq, int CL,
+                    int panels) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int QC = Q * cq;
+  const Layout L = layout(Q, QC, CL);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  const Ring ring{smem, bars, bars + STAGES, STAGES, stage_bytes(QN)};
+  unsigned char* p_s = smem + L.p;
+  float* wred = reinterpret_cast<float*>(smem + L.wred);
+  float* partial = reinterpret_cast<float*>(smem + L.partial);
+  float* xmax = reinterpret_cast<float*>(smem + L.xmax);
+  float* xsum = reinterpret_cast<float*>(smem + L.xsum);
+  float* stat_m = reinterpret_cast<float*>(smem + L.stat);
+  float* stat_s = stat_m + QN;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;  // pass 2: token half, column quarter
-  const int b = blockIdx.x;
-  const int q_lo = blockIdx.y * QG;  // first query of the group
-  const int c_lo = q_lo * CQ;        // first column of the group
-  const bf16* xb = x + (size_t)b * x_bstride;
+  const unsigned rank = cluster_rank();
+  const int b = blockIdx.x / CL;
+  const int first_panel = (int)rank * panels;
+  const int my_panels = min(panels, (N + BT - 1) / BT - first_panel);
+  const int nk = (C + 63) / 64;
+  const int n_tiles = (QC + BJ - 1) / BJ;
+  const bool multi = panels > 1;
 
-  const int n_slices = C / KS;
-  const int items1 = Np / TN1 * n_slices;              // pass 1
-  const int items2 = (N + TN - 1) / TN * n_slices;     // pass 2
-  const int total = items1 + items2;
-
-  // Item i < items1 is token tile i / n_slices of pass 1, else of pass 2,
-  // and channel slice i % n_slices. Rows past N, Q or Q*cq are zero.
-  auto prefetch = [&](int i) {
-    if (i < total) {
-      const bool pass2 = i >= items1;
-      const int tile = (pass2 ? i - items1 : i) / n_slices;
-      const int tokens = pass2 ? TN : TN1;
-      const int n0 = tile * tokens;
-      const int k0 = (i % n_slices) * KS;  // items1 is a multiple of n_slices
-      bf16* xs = ring + (i % STAGES) * STAGE;
-      bf16* bs = xs + tokens * LDK;
-      for (int idx = tid; idx < tokens * CHK; idx += THREADS) {
-        const int r = idx / CHK, c = (idx % CHK) * 8;
-        if (n0 + r < N)
-          cp_async16(xs + r * LDK + c, xb + (size_t)(n0 + r) * C + k0 + c);
-        else
-          *reinterpret_cast<uint4*>(xs + r * LDK + c) = zero_pack();
-      }
-      const bf16* src = pass2 ? w + (size_t)c_lo * C : q + (size_t)q_lo * C;
-      const int rows = pass2 ? COLS : QG;
-      const int real = pass2 ? QC - c_lo : Q - q_lo;  // rows that exist
-      for (int idx = tid; idx < rows * CHK; idx += THREADS) {
-        const int r = idx / CHK, c = (idx % CHK) * 8;
-        if (r < real)
-          cp_async16(bs + r * LDK + c, src + (size_t)r * C + k0 + c);
-        else
-          *reinterpret_cast<uint4*>(bs + r * LDK + c) = zero_pack();
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count uniform
-  };
-
-#pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) prefetch(i);
-
-  // Rows 16*mi + g and + 8 of the warp's 32 tokens: the tile's x @ W^T in
-  // pass 2; acc[mi][0] the logits in pass 1.
-  float acc[2][NTW][4];
-  float osum[NTW][2];   // this thread's share of out, by column pair
-#pragma unroll
-  for (int n = 0; n < NTW; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[0][n][e] = acc[1][n][e] = 0.f;
-    osum[n][0] = osum[n][1] = 0.f;
-  }
-
-  for (int i = 0; i < total; ++i) {
-    cp_async_wait<STAGES - 2>();  // item i has landed (this thread's copies)
-    __syncthreads();  // everyone's copies; and item i-1 has been consumed
-    prefetch(i + STAGES - 1);  // into the stage that item i-1 used
-
-    if (i == items1) {
-      // Between the passes: f32 softmax over the N real tokens, a warp per
-      // query; the probabilities replace the logits, rounded to bf16, and are
-      // zero on the padded tokens.
-      float* srow = S + warp * Np;  // 8 warps, QG = 8 rows
-      float mx = -INFINITY;
-      for (int n = lane; n < N; n += 32) mx = fmaxf(mx, srow[n]);
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int n = lane; n < N; n += 32) sum += expf(srow[n] - mx);
-      sum = warp_sum(sum);
-      for (int n = lane; n < Np; n += 32)
-        srow[n] = n < N ? __bfloat162float(__float2bfloat16_rn(
-                              expf(srow[n] - mx) / sum))
-                        : 0.f;
-      __syncthreads();
-    }
-
-    const bf16* xs = ring + (i % STAGES) * STAGE;
-    const bool last_slice = i % n_slices == n_slices - 1;
-
-    if (i < items1) {
-      // Pass 1: logits of this warp's 32 tokens x the 8 queries.
-      const bf16* qs = xs + TN1 * LDK;
-      const int n0 = i / n_slices * TN1 + warp * 32;
-#pragma unroll
-      for (int kd = 0; kd < KS / 16; kd += 2) {
-        // four 8x8 matrices: the 8 queries x channels 0-7, 8-15, 16-23, 24-31
-        unsigned qb[4];
-        ldmatrix_x4(qb, qs + (lane & 7) * LDK + kd * 16 + (lane >> 3) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          unsigned xa0[4], xa1[4];
-          const bf16* row = xs + (warp * 32 + mi * 16 + (lane & 15)) * LDK +
-                            (lane >> 4) * 8;
-          ldmatrix_x4(xa0, row + kd * 16);
-          ldmatrix_x4(xa1, row + (kd + 1) * 16);
-          mma_bf16_16816(acc[mi][0], xa0, qb[0], qb[1]);
-          mma_bf16_16816(acc[mi][0], xa1, qb[2], qb[3]);
-        }
-      }
-      if (last_slice) {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          // rows g, g+8 are tokens, columns 2*t4, 2*t4+1 queries
-          float* s0 = S + (2 * t4) * Np + n0 + mi * 16 + g;
-          s0[0] = acc[mi][0][0];
-          s0[Np] = acc[mi][0][1];
-          s0[8] = acc[mi][0][2];
-          s0[Np + 8] = acc[mi][0][3];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][0][e] = 0.f;
-        }
-      }
-      continue;
-    }
-
-    // Pass 2: this warp's 32 tokens x 2*CQ columns of x @ W^T.
-    const bf16* ws = xs + TN * LDK;
-#pragma unroll
-    for (int kd = 0; kd < KS / 16; ++kd) {
-      unsigned xa[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(xa[mi], xs + (wm * 32 + mi * 16 + (lane & 15)) * LDK +
-                                kd * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int j2 = 0; j2 < NTW / 2; ++j2) {
-        unsigned wb[4];
-        ldmatrix_x4(wb, ws + (wn * 2 * CQ + j2 * 16 + (lane & 7) +
-                              (lane >> 4) * 8) * LDK +
-                            kd * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16_16816(acc[mi][2 * j2], xa[mi], wb[0], wb[1]);
-          mma_bf16_16816(acc[mi][2 * j2 + 1], xa[mi], wb[2], wb[3]);
-        }
-      }
-    }
-    if (last_slice) {
-      // v = bf16(x @ W^T); weight rows g and g+8 (tokens) by p of the column
-      // pair's query (cq is even, so a pair never straddles two queries).
-      const int tok = (i - items1) / n_slices * TN + wm * 32 + g;
-#pragma unroll
-      for (int n = 0; n < NTW; ++n) {
-        const float* prow = S + (wn * 2 * CQ + n * 8 + 2 * t4) / CQ * Np + tok;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const float p0 = prow[mi * 16], p1 = prow[mi * 16 + 8];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float v0 =
-                __bfloat162float(__float2bfloat16_rn(acc[mi][n][e]));
-            const float v1 =
-                __bfloat162float(__float2bfloat16_rn(acc[mi][n][2 + e]));
-            osum[n][e] = fmaf(p1, v1, fmaf(p0, v0, osum[n][e]));
-            acc[mi][n][e] = acc[mi][n][2 + e] = 0.f;
-          }
-        }
-      }
-    }
-  }
-
-  // Fold the sums: over the 8 row lanes of a warp, then over the 2 token warps.
-#pragma unroll
-  for (int n = 0; n < NTW; ++n)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1)
-        osum[n][e] += __shfl_xor_sync(0xffffffffu, osum[n][e], o);
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free
-  float* R = reinterpret_cast<float*>(smem);  // [2][COLS]
-  if (g == 0) {
-#pragma unroll
-    for (int n = 0; n < NTW; ++n) {
-      float* r = R + wm * COLS + wn * 2 * CQ + n * 8 + 2 * t4;
-      r[0] = osum[n][0];
-      r[1] = osum[n][1];
-    }
-  }
+  if (tid == 0) ring_init(ring);
   __syncthreads();
-  for (int j = tid; j < COLS; j += THREADS)
-    if (c_lo + j < QC)
-      out[(size_t)b * QC + c_lo + j] = __float2bfloat16_rn(R[j] + R[COLS + j]);
+  // every peer has started before a block writes into its shared memory (the
+  // wait comes before the first exchange)
+  cluster_arrive();
+
+  if (tid >= CONSUMERS) {
+    setmaxnreg_dec<40>();
+    RingPos pos;
+    // the slices of one tile: tokens with W's rows (PROJ), the query bank's
+    // (LOGITS) or both
+    auto tile = [&](int panel, int n0, bool proj, bool logits) {
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(ring.empty + pos.stage, pos.phase ^ 1);
+        unsigned char* s = ring.a(pos.stage);
+        uint64_t* full = ring.full + pos.stage;
+        mbar_expect_tx(full, X_BYTES + (proj ? W_BYTES : 0) +
+                                 (logits ? QN * SLICE_BYTES : 0));
+        tma_load_3d(s, &map_x, full, kt * 64, (first_panel + panel) * BT, b);
+        if (proj) tma_load_2d(s + X_BYTES, &map_w, full, kt * 64, n0);
+        if (logits)
+          tma_load_2d(s + X_BYTES + W_BYTES, &map_q, full, kt * 64, 0);
+        pos.advance(STAGES);
+      }
+    };
+    // three stretches of loads, each followed by the cluster barrier the
+    // consumers meet after them: the max exchange, the sum exchange and the
+    // partial sums (the first two both follow the first tile of one panel)
+    for (int stretch = 0; stretch < 3; ++stretch) {
+      if (tid == CONSUMERS) {
+        if (multi) {
+          for (int panel = 0; panel < my_panels; ++panel) {
+            if (stretch < 2) {
+              tile(panel, 0, false, true);
+            } else {
+              for (int n = 0; n < n_tiles; ++n)
+                tile(panel, n * BJ, true, n == 0);
+            }
+          }
+        } else if (stretch == 0) {
+          tile(0, 0, true, true);
+        } else if (stretch == 2) {
+          for (int n = 1; n < n_tiles; ++n) tile(0, n * BJ, true, false);
+        }
+      }
+      __syncwarp();
+      cluster_wait();
+      cluster_arrive();
+    }
+    cluster_wait();
+    cluster_arrive();  // the exit barrier
+    cluster_wait();
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = wg * 64 + warp * 16 + g;  // this thread's tokens r0, r0 + 8
+  RingPos pos;
+  float acc[2][BT / 2];
+  float lacc[QN / 2];  // 4*jj + 2*h + e: token r0 + 8*h, query 8*jj + 2*t + e
+  float colv[QN / 4];  // this thread's max or sum a query column: 2*jj + e
+
+  // rows of panel `panel` that lie before N
+  auto valid_rows = [&](int panel) { return N - (first_panel + panel) * BT; };
+
+  if (multi) {
+    // the max and then the sums over all of the block's panels
+#pragma unroll
+    for (int i = 0; i < QN / 4; ++i) colv[i] = -INFINITY;
+    for (int panel = 0; panel < my_panels; ++panel) {
+      k_loop<QN, false, true>(ring, pos, nk, wg, lane, acc, lacc);
+      const int valid = valid_rows(panel);
+#pragma unroll
+      for (int i = 0; i < QN / 2; ++i)
+        if (r0 + 8 * ((i >> 1) & 1) < valid)
+          colv[2 * (i >> 2) + (i & 1)] = fmaxf(colv[2 * (i >> 2) + (i & 1)],
+                                               lacc[i]);
+    }
+    cluster_wait();
+    cluster_reduce<QN, true>(colv, wred, xmax, stat_m, rank, CL, tid, lane);
+#pragma unroll
+    for (int i = 0; i < QN / 4; ++i) colv[i] = 0.f;
+    for (int panel = 0; panel < my_panels; ++panel) {
+      k_loop<QN, false, true>(ring, pos, nk, wg, lane, acc, lacc);
+      const int valid = valid_rows(panel);
+#pragma unroll
+      for (int i = 0; i < QN / 2; ++i) {
+        const int c = 2 * (i >> 2) + (i & 1);
+        if (r0 + 8 * ((i >> 1) & 1) < valid)
+          colv[c] += expf(lacc[i] - stat_m[8 * (i >> 2) + 2 * t + (i & 1)]);
+      }
+    }
+    cluster_reduce<QN, false>(colv, wred, xsum, stat_s, rank, CL, tid, lane);
+  }
+
+  for (int panel = 0; panel < my_panels; ++panel) {
+    const int valid = valid_rows(panel);
+    k_loop<QN, true, true>(ring, pos, nk, wg, lane, acc, lacc);
+    if (!multi) {
+#pragma unroll
+      for (int i = 0; i < QN / 4; ++i) colv[i] = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < QN / 2; ++i)
+        if (r0 + 8 * ((i >> 1) & 1) < valid)
+          colv[2 * (i >> 2) + (i & 1)] = fmaxf(colv[2 * (i >> 2) + (i & 1)],
+                                               lacc[i]);
+      cluster_wait();
+      cluster_reduce<QN, true>(colv, wred, xmax, stat_m, rank, CL, tid, lane);
+    }
+    // e = exp(l - max), zero past N (beside lacc: only wgmma writes that)
+    float ev[QN / 2];
+#pragma unroll
+    for (int i = 0; i < QN / 2; ++i)
+      ev[i] = r0 + 8 * ((i >> 1) & 1) < valid
+                  ? expf(lacc[i] - stat_m[8 * (i >> 2) + 2 * t + (i & 1)])
+                  : 0.f;
+    if (!multi) {
+#pragma unroll
+      for (int i = 0; i < QN / 4; ++i)
+        colv[i] = ev[4 * (i >> 1) + (i & 1)] + ev[4 * (i >> 1) + 2 + (i & 1)];
+      cluster_reduce<QN, false>(colv, wred, xsum, stat_s, rank, CL, tid, lane);
+    }
+    // p = bf16(e / sum), once every warp's epilogue has read the panel before's
+    named_barrier(1, CONSUMERS);
+    bf16* p16 = reinterpret_cast<bf16*>(p_s);
+#pragma unroll
+    for (int jj = 0; jj < QN / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * jj + 2 * t + e;
+        if (q < Q) {
+          const float s = stat_s[q];
+          p16[q * P_STRIDE + r0] = __float2bfloat16_rn(__fdiv_rn(ev[4 * jj + e], s));
+          p16[q * P_STRIDE + r0 + 8] =
+              __float2bfloat16_rn(__fdiv_rn(ev[4 * jj + 2 + e], s));
+        }
+      }
+    named_barrier(1, CONSUMERS);  // p of all 128 tokens is in
+    pool_epilogue(acc, p_s, partial, 0, QC, Q, cq, wg, warp, lane, panel == 0);
+    for (int n = 1; n < n_tiles; ++n) {
+      k_loop<QN, true, false>(ring, pos, nk, wg, lane, acc, lacc);
+      pool_epilogue(acc, p_s, partial, n * BJ, QC, Q, cq, wg, warp, lane,
+                    panel == 0);
+    }
+  }
+
+  // the partial sums of the cluster, in rank order
+  cluster_arrive();
+  cluster_wait();
+  for (int j = (int)rank * CONSUMERS + tid; j < QC; j += CL * CONSUMERS) {
+    float total = ld_cluster(cluster_addr(partial + j, 0));
+    for (int r = 1; r < CL; ++r)
+      total += ld_cluster(cluster_addr(partial + j, r));
+    out[(size_t)b * QC + j] = __float2bfloat16_rn(total);
+  }
+  // no block leaves while a peer reads its partial sums
+  cluster_arrive();
+  cluster_wait();
 }
 
-template <int CQ>
-int launch(const void* q, const void* x, const void* w, void* out, int B, int N,
-           int C, int Q, int x_bstride, cudaStream_t s) {
-  const int bytes = proj_smem_bytes(N, CQ);
-  cudaFuncSetAttribute(ep_pool_proj_kernel<CQ>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  ep_pool_proj_kernel<CQ><<<dim3(B, (Q + QG - 1) / QG), THREADS, bytes, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(w), static_cast<bf16*>(out), N, C, Q, x_bstride);
-  return (int)cudaGetLastError();
+// Map of the (B, N, C) bf16 tokens at ptr, rows C and images `image_stride`
+// elements apart, with boxes of 128 rows x 64 channels in the 128-byte
+// swizzle and zero fill past N and C. Returns 0 or a cudaError_t.
+int make_token_map(CUtensorMap* map, const void* ptr, int B, int N, int C,
+                   long long image_stride) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 2,
+                                 (cuuint64_t)image_stride * 2};
+  const cuuint32_t box[3] = {64, BT, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(ptr), dims, strides, box,
+                         elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The launch's configuration but its grid, after setting the kernel's
+// attributes for it.
+template <int QN>
+cudaLaunchConfig_t configure(int Q, int QC, int CL, cudaLaunchAttribute* attr,
+                             cudaStream_t stream) {
+  const int smem = layout(Q, QC, CL).bytes;
+  cudaFuncSetAttribute(ep_pool_proj_kernel<QN>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (CL > 8)
+    cudaFuncSetAttribute(ep_pool_proj_kernel<QN>,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int QN>
+int resident_clusters(int Q, int QC, int CL) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = configure<QN>(Q, QC, CL, &attr, 0);
+  cfg.gridDim = dim3(CL * sm_count());
+  int n = 0;
+  const cudaError_t rc =
+      cudaOccupancyMaxActiveClusters(&n, ep_pool_proj_kernel<QN>, &cfg);
+  return rc == cudaSuccess ? n : -(int)rc;
+}
+
+template <int QN>
+int launch(const bf16* q, const bf16* x, const bf16* w, bf16* out, int B,
+           int N, int C, int Q, int cq, int x_bstride, int CL, int panels,
+           cudaStream_t stream) {
+  const int QC = Q * cq;
+  CUtensorMap map_x, map_w, map_q;
+  int rc = make_token_map(&map_x, x, B, N, C, x_bstride);
+  if (rc == 0) rc = make_map(&map_w, w, 2, QC, C, BJ);
+  if (rc == 0) rc = make_map(&map_q, q, 2, Q, C, QN);
+  if (rc != 0) return rc;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = configure<QN>(Q, QC, CL, &attr, stream);
+  cfg.gridDim = dim3(B * CL);
+  rc = (int)cudaLaunchKernelEx(&cfg, ep_pool_proj_kernel<QN>, map_x, map_w,
+                               map_q, out, N, C, Q, cq, CL, panels);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace ep
 
-// Dynamic shared memory of one block; 0 when there is no instantiation for
-// this cq (built: 16, 24, 32, 40) or C is not a multiple of the 64-channel
-// slice.
-EP_EXPORT int ep_pool_proj_smem_bytes(int N, int C, int cq) {
-  if (N < 1 || C % ep::KS || (cq != 16 && cq != 24 && cq != 32 && cq != 40))
-    return 0;
-  return ep::proj_smem_bytes(N, cq);
+// Shared memory of one block for Q queries, Q*cq = QC value columns and a
+// cluster of `cluster` blocks (ops/pool_attn.py::ep_pool_proj_smem_bytes
+// computes the same); it does not depend on N.
+EP_EXPORT int ep_pool_proj_smem_bytes(int Q, int QC, int cluster) {
+  return ep::layout(Q, QC, cluster).bytes;
+}
+
+// Clusters of `cluster` blocks that the card holds at once (a negative
+// cudaError_t where the query fails).
+EP_EXPORT int ep_pool_proj_resident_clusters(int Q, int QC, int cluster) {
+  using namespace ep;
+  if (Q < 1 || Q > 64 || cluster < 1 || cluster > MAX_CLUSTER)
+    return -(int)cudaErrorInvalidValue;
+  return Q <= 8    ? resident_clusters<8>(Q, QC, cluster)
+         : Q <= 16 ? resident_clusters<16>(Q, QC, cluster)
+         : Q <= 32 ? resident_clusters<32>(Q, QC, cluster)
+                   : resident_clusters<64>(Q, QC, cluster);
 }
 
 // q_scaled (Q, C), tokens (B, N, C), w (Q*cq, C), all bf16 -> out (B, Q*cq).
-// The tokens' rows are contiguous; images are x_bstride elements apart.
+// The tokens' rows are contiguous; images are x_bstride elements apart, so the
+// patch tokens can be a view that skips the [CLS] row. A cluster of `cluster`
+// blocks an image, `panels` panels of 128 tokens a block
+// (ops/pool_attn.py::ep_pool_proj_tiling).
 EP_EXPORT int ep_pool_proj(const void* q, const void* x, const void* w,
                            void* out, int B, int N, int C, int Q, int cq,
-                           int x_bstride, void* stream) {
+                           int x_bstride, int cluster, int panels,
+                           void* stream) {
   using namespace ep;
-  const int bytes = ep_pool_proj_smem_bytes(N, C, cq);
-  if (bytes == 0 || bytes > 232448 || B < 1 || Q < 1)
+  const int span = panels * BT;  // tokens a block
+  if (B < 1 || N < 1 || Q < 1 || Q > 64 || cq < 1 || C % 8 || (Q * cq) % 8 ||
+      x_bstride % 8 || cluster < 1 || cluster > MAX_CLUSTER || panels < 1 ||
+      cluster * span < N || (cluster - 1) * span >= N ||
+      layout(Q, Q * cq, cluster).bytes > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cq) {
-    case 16: return launch<16>(q, x, w, out, B, N, C, Q, x_bstride, s);
-    case 24: return launch<24>(q, x, w, out, B, N, C, Q, x_bstride, s);
-    case 32: return launch<32>(q, x, w, out, B, N, C, Q, x_bstride, s);
-    default: return launch<40>(q, x, w, out, B, N, C, Q, x_bstride, s);
-  }
+  const auto fn = Q <= 8 ? launch<8> : Q <= 16 ? launch<16>
+                : Q <= 32 ? launch<32> : launch<64>;
+  return fn(static_cast<const bf16*>(q), static_cast<const bf16*>(x),
+            static_cast<const bf16*>(w), static_cast<bf16*>(out), B, N, C, Q,
+            cq, x_bstride, cluster, panels, static_cast<cudaStream_t>(stream));
 }

@@ -83,23 +83,35 @@ def ep_pool_smem_bytes(Q: int, QC: int, cluster: int, tiles: int) -> int:
     return 1024 + end
 
 
+def _check_pool_widths(kernel: str, C: int, Q: int, QC: int) -> None:
+    """The widths kernels D and G take: at most 64 queries (the N of their
+    logits' wgmma), and rows of 16 bytes for TMA."""
+    if Q > EP_POOL_QUERY_ROWS[-1]:
+        raise NotImplementedError(
+            f"{kernel} takes at most {EP_POOL_QUERY_ROWS[-1]} queries (the N "
+            f"of its wgmma); got Q={Q}")
+    if C % 16 or QC % 8:
+        raise NotImplementedError(
+            f"{kernel} streams 16-byte rows by TMA: it needs C % 16 == 0 and "
+            f"Q*cq % 8 == 0; got C={C}, Q*cq={QC}")
+
+
+def _cluster_split(n_tiles: int, max_cluster: int) -> tuple[int, int]:
+    """(cluster size, tiles a block): one tile a block while the cluster
+    stays within max_cluster, else the fewest tiles a block that keep it
+    there. Every block has at least one tile."""
+    tiles = -(-n_tiles // max_cluster)
+    return -(-n_tiles // tiles), tiles
+
+
 def ep_pool_tiling(N: int, C: int, Q: int, QC: int) -> tuple[int, int]:
     """(cluster size, tiles a block) of kernel D for N tokens of width C, Q
     queries and QC = Q*cq value columns: one tile a block and a cluster of
     ceil(N / 64) blocks up to 16 (N <= 1024), else the fewest tiles a block
     that keep the cluster within 16. Every block has at least one tile.
     Raises NotImplementedError for a shape the kernel does not take."""
-    if Q > EP_POOL_QUERY_ROWS[-1]:
-        raise NotImplementedError(
-            f"ep_pool takes at most {EP_POOL_QUERY_ROWS[-1]} queries (the N of "
-            f"its wgmma); got Q={Q}")
-    if C % 16 or QC % 8:
-        raise NotImplementedError(
-            f"ep_pool streams 16-byte rows by TMA: it needs C % 16 == 0 and "
-            f"Q*cq % 8 == 0; got C={C}, Q*cq={QC}")
-    n_tiles = -(-N // EP_POOL_TILE)
-    tiles = -(-n_tiles // EP_POOL_MAX_CLUSTER)
-    cluster = -(-n_tiles // tiles)
+    _check_pool_widths("ep_pool", C, Q, QC)
+    cluster, tiles = _cluster_split(-(-N // EP_POOL_TILE), EP_POOL_MAX_CLUSTER)
     smem = ep_pool_smem_bytes(Q, QC, cluster, tiles)
     if smem > MAX_SMEM:
         raise NotImplementedError(
@@ -165,22 +177,69 @@ def ep_pool_proj_attend_ref(q_scaled: torch.Tensor, tokens: torch.Tensor,
     return ep_pool_attend_ref(q_scaled, tokens, v.reshape(B, N, Q, -1))
 
 
+# Kernel G's tiling (csrc/ep_pool_proj.cu): an image's tokens in panels of
+# 128, a cluster of blocks an image, `panels` consecutive panels a block; W's
+# Q*cq rows in tiles of 256; a ring of 3 TMA slots, each a 64-channel slice of
+# the panel, of the tile's rows of W and of the query bank padded to
+# EP_POOL_QUERY_ROWS.
+EP_PROJ_PANEL = 128
+EP_PROJ_ROWS = 256
+EP_PROJ_STAGES = 3
+EP_PROJ_MAX_CLUSTER = 16
+
+
+def ep_pool_proj_smem_bytes(Q: int, QC: int, cluster: int) -> int:
+    """Shared memory of one block of kernel G (``csrc/ep_pool_proj.cu::
+    layout``): the ring, p of one panel (bf16, Q rows of 136), the 8 warps'
+    per-query statistics, the partial sums of the QC columns, the cluster's
+    maxima and sums, the global statistics, the barriers and the 1024-byte
+    alignment. It does not depend on N: a block with several panels
+    computes their logits again where it needs them."""
+    qn = next(r for r in EP_POOL_QUERY_ROWS if r >= Q)
+    p = EP_PROJ_STAGES * (EP_PROJ_PANEL + EP_PROJ_ROWS + qn) * 128
+    wred = p + Q * (EP_PROJ_PANEL + 8) * 2
+    partial = wred + 8 * qn * 4
+    xmax = partial + -(-QC // 4) * 16
+    bars = xmax + 2 * cluster * qn * 4 + 2 * qn * 4
+    return 1024 + bars + 2 * EP_PROJ_STAGES * 8
+
+
+def ep_pool_proj_tiling(N: int, C: int, Q: int, QC: int) -> tuple[int, int]:
+    """(cluster size, panels a block) of kernel G for N tokens of width C, Q
+    queries and QC = Q*cq value columns: one panel of 128 tokens a block and a
+    cluster of ceil(N / 128) blocks up to 16 (N <= 2048), else the fewest
+    panels a block that keep the cluster within 16. The widths are kernel
+    D's (any cq); raises NotImplementedError where they are not, or where
+    the block's shared memory cannot hold the query bank and the columns."""
+    _check_pool_widths("ep_pool_proj", C, Q, QC)
+    cluster, panels = _cluster_split(-(-N // EP_PROJ_PANEL),
+                                     EP_PROJ_MAX_CLUSTER)
+    smem = ep_pool_proj_smem_bytes(Q, QC, cluster)
+    if smem > MAX_SMEM:
+        raise NotImplementedError(
+            f"ep_pool_proj keeps its ring, p of a panel and the partial sums "
+            f"of all Q*cq columns in shared memory: Q={Q}, Q*cq={QC} needs "
+            f"{smem} bytes, more than {MAX_SMEM}")
+    return cluster, panels
+
+
 def _ep_pool_proj_kernel(q_scaled, tokens, w):
     B, N, C = tokens.shape
     Q, QC = q_scaled.shape[0], w.shape[0]
+    if QC % Q:
+        raise ValueError(f"w has {QC} rows, not a multiple of the {Q} queries")
     cq = QC // Q
     _check_pool_inputs(q_scaled, tokens)
     w = w.to(tokens.dtype)
-    check(w, "w", (Q * cq, C), torch.bfloat16)
-    smem = query("ep_pool_proj_smem_bytes", N, C, cq)
-    if smem == 0 or smem > MAX_SMEM:
-        raise NotImplementedError(
-            f"ep_pool_proj is built for cq in (16, 24, 32, 40) and C a "
-            f"multiple of 64, and keeps 8 queries' N logits beside its ring "
-            f"in shared memory; got cq={cq}, C={C}, N={N} ({smem} bytes)")
+    check(w, "w", (QC, C), torch.bfloat16)
+    cluster, panels = ep_pool_proj_tiling(N, C, Q, QC)
+    smem = ep_pool_proj_smem_bytes(Q, QC, cluster)
+    if query("ep_pool_proj_smem_bytes", Q, QC, cluster) != smem:
+        raise RuntimeError("ep_pool_proj_smem_bytes is not the kernel's layout")
     out = torch.empty(B, Q, cq, device=tokens.device, dtype=tokens.dtype)
     call("ep_pool_proj", q_scaled.data_ptr(), tokens.data_ptr(), w.data_ptr(),
-         out.data_ptr(), B, N, C, Q, cq, tokens.stride(0), stream_ptr(tokens))
+         out.data_ptr(), B, N, C, Q, cq, tokens.stride(0), cluster, panels,
+         stream_ptr(tokens))
     LAUNCHES["ep_pool_proj"] += 1
     return out
 

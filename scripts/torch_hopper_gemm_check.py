@@ -2,7 +2,7 @@
 """Quick check of ep_tpu_torch's wgmma + TMA kernels on one H100.
 
     python3 scripts/torch_hopper_gemm_check.py [--no-time] [--big]
-                               [--only gemm fc1 fc2 flash core bwd pool lnq]
+                               [--only gemm fc1 fc2 flash core bwd pool lnq proj]
                                [--root DIR]
 
 Builds ep_tpu_torch/csrc, prints ptxas' lines for the wgmma kernels
@@ -20,8 +20,11 @@ with 8 stripes: the same work without clusters. Then kernel D (ep_pool: N
 from 1 to 1025, Q from 4 to 64, the patch-token view) and the int8 ln_quant
 (D from 128 to 2176, past the rows held in registers; a zero row; codes at
 exact halves), each twice, to be equal bit for bit, and each timed beside its
-bound (and D beside SDPA). Half a minute of card time: the first thing to run
-after a change to hopper.cuh.
+bound (and D beside SDPA). Then kernel G (ep_pool_proj: N at its panels' edges
+and past 16 panels, cq of 8 to 40, Q from 4 to 64), twice, to be equal bit
+for bit, and timed at the paths' shapes beside its bound and the unfused pair
+it replaces (F.linear, then kernel D). Half a minute of card time: the first
+thing to run after a change to hopper.cuh.
 
 --root DIR imports ep_tpu_torch from another checkout (an earlier commit
 unpacked beside this one) and builds that tree's kernels, so that one call can
@@ -40,7 +43,8 @@ import torch.nn.functional as F
 
 
 ATOL = RTOL = 1e-2
-GROUPS = ("gemm", "fc1", "fc2", "flash", "core", "bwd", "pool", "lnq")
+GROUPS = ("gemm", "fc1", "fc2", "flash", "core", "bwd", "pool", "lnq", "proj")
+PEAK_BF16 = 989e12  # dense bf16 operations a second, an H100 SXM
 HBM_RATE = 3.35e12  # bytes a second, an H100 SXM's memory
 
 
@@ -99,10 +103,10 @@ def main() -> int:
             show = any(k in line for k in (
                 "gemm_kernel", "fc1_kernel", "fc2_kernel", "attn_flash_kernel",
                 "attn_core_kernel", "attn_core_bwd_kernel", "ep_pool_kernel",
-                "ln_quant"))
+                "ep_pool_proj_kernel", "ln_quant"))
         if show and any(k in line for k in ("registers", "Compiling", "spill")) or (
                 "warning" in line.lower() or "serializ" in line.lower()):
-            print("  " + line.strip()[:200])
+            print("  " + line.strip()[:320])
     _build.library()
     rng = np.random.default_rng(0)
     ok = True
@@ -287,6 +291,8 @@ def main() -> int:
         ok &= check_pool(rng, args)
     if "lnq" in args.only:
         ok &= check_ln_quant(rng, args, m)
+    if "proj" in args.only:
+        ok &= check_proj(rng, args)
     print("ALL OK" if ok else "FAILED")
     return 0 if ok else 1
 
@@ -332,6 +338,69 @@ def check_pool(rng, args) -> bool:
             print(f"  time: D {tk:.3f} ms, bound {bound:.3f} ms (bytes, "
                   f"{bound / tk:.0%}), SDPA {tl:.3f} ms", flush=True)
         del qs, tok, v, out, again
+        torch.cuda.empty_cache()
+    return ok
+
+
+def check_proj(rng, args) -> bool:
+    """Kernel G against its plain version (ATOL, RTOL), twice (equal bit for
+    bit), and its time beside its bound (operations), the unfused pair
+    (F.linear, then kernel D) and F.linear alone at the paths' shapes. A
+    checkout whose G refuses a shape says so and goes on."""
+    from ep_tpu_torch.ops import _build
+    from ep_tpu_torch.ops import pool_attn as pa
+    print("G ep_pool_proj (the patch-token view x[:, 1:]; twice, equal)")
+    ok = True
+    # (B, N, C, Q, QC): N at the edges of the 128-token panels and past 16 of
+    # them (2100: two panels a block), cq = 12 and 20 (d_out 2 at ViT-B and
+    # ViT-H), 33 and 8, Q of 4, 33 and 64; then the paths' shapes
+    for b, n, c, q, qc in ((3, 1, 128, 4, 128), (3, 127, 128, 4, 128),
+                           (2, 128, 768, 32, 768), (2, 129, 768, 32, 768),
+                           (2, 1025, 1280, 32, 1280), (2, 2100, 768, 32, 768),
+                           (4, 196, 768, 32, 384), (2, 256, 1280, 32, 640),
+                           (2, 70, 128, 33, 264), (2, 100, 1280, 64, 1280),
+                           (3, 37, 192, 12, 192), (512, 196, 768, 32, 768),
+                           (128, 256, 1280, 32, 1280), (64, 1024, 1280, 32, 1280)):
+        if args.big and b < 16:
+            continue
+        qs = rand(rng, (q, c), c ** -0.5)
+        tok = rand(rng, (b, n + 1, c))[:, 1:]
+        w = rand(rng, (qc, c), c ** -0.5)
+        tiling, resident = "", 0
+        if hasattr(pa, "ep_pool_proj_tiling"):
+            cl, panels = pa.ep_pool_proj_tiling(n, c, q, qc)
+            resident = cl * _build.query("ep_pool_proj_resident_clusters", q,
+                                         qc, cl)
+            tiling = (f" tiling {(cl, panels)}, "
+                      f"{pa.ep_pool_proj_smem_bytes(q, qc, cl)} bytes a block, "
+                      f"{resident} blocks resident")
+        try:
+            out = pa.ep_pool_proj_attend(qs, tok, w)
+        except NotImplementedError as e:
+            print(f"  G ({b},{n},{c},{q},{qc}): refused: {e}", flush=True)
+            continue
+        again = pa.ep_pool_proj_attend(qs, tok, w)
+        same = bool(torch.equal(out, again))
+        ok &= close(f"G ({b},{n},{c},{q},{qc}){tiling}, repeat equal {same}", out,
+                    pa.ep_pool_proj_attend_ref(qs, tok, w)) and same
+        if b >= 16 and not args.no_time:
+            flop = 2 * b * n * c * (qc + q)
+            tk = time_ms(lambda: pa.ep_pool_proj_attend(qs, tok, w))
+            tu = time_ms(lambda: pa.ep_pool_attend(
+                qs, tok, F.linear(tok, w).view(b, n, q, -1)))
+            tl = time_ms(lambda: F.linear(tok, w))
+            bound = flop / PEAK_BF16 * 1e3
+            print(f"  time: G {tk:.3f} ms ({flop / tk / 1e9:.0f} TFLOP/s), bound "
+                  f"{bound:.3f} ms (operations, {bound / tk:.0%}); unfused pair "
+                  f"{tu:.3f} ms, F.linear {tl:.3f} ms", flush=True)
+            if resident:
+                # what the resident blocks read again for each column tile
+                # (a panel each) and all of them for every tile (W), beside
+                # the 50 MB L2; computed from the shapes, not measured
+                mb = (resident * 128 * c * 2 + qc * c * 2) / 1e6
+                print(f"  re-read working set: {mb:.1f} MB (the resident "
+                      f"blocks' panels and W) of the 50 MB L2", flush=True)
+        del qs, tok, w, out, again
         torch.cuda.empty_cache()
     return ok
 

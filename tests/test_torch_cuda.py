@@ -316,12 +316,22 @@ def test_ep_pool_tiling_is_the_kernels(dev, N, C, Q, QC):
 @pytest.mark.parametrize("B, N, C, Q, d_out", [
     (3, 37, 128, 8, 1), (3, 37, 128, 4, 2), (2, 70, 192, 12, 1),
     (2, 196, 768, 32, 1), (2, 256, 1280, 32, 1), (2, 1024, 1280, 32, 1),
-    (2, 196, 1024, 32, 1)])
+    (2, 196, 1024, 32, 1),
+    # --d_out 2 at ViT-B and ViT-H: cq = 12 and 20
+    (2, 196, 768, 32, 2), (2, 256, 1280, 32, 2),
+    # N at the edges of G's 128-token panels, and past 16 of them
+    (2, 1, 768, 32, 1), (2, 127, 768, 32, 1), (2, 128, 768, 32, 1),
+    (2, 129, 768, 32, 1), (2, 1025, 1280, 32, 1), (2, 2100, 768, 32, 1),
+    # Q of 4 (the bank padded to 8 rows), 33 (to 64) and 64; cq = 6
+    (2, 196, 128, 4, 1), (2, 196, 528, 33, 1), (2, 196, 1280, 64, 1),
+    (1, 9, 192, 32, 1)])
 def test_ep_pool_proj_forward_and_grad(dev, B, N, C, Q, d_out):
     """Kernel G against its plain version at ViT-B, ViT-H (224 and 448 px) and
-    ViT-L widths and at small ragged shapes (Q below and past a group of 8),
-    on the patch-token view the model hands it, with the f32 master weight;
-    the gradients are autograd through the plain version on both sides."""
+    ViT-L widths, at d_out 2, at the edges of its panels and of its query
+    bank, and at small ragged shapes, on the patch-token view the model hands
+    it, with the f32 master weight; a second call equal bit for bit (the
+    cluster's partial sums are added in rank order, without atomics); the
+    gradients are autograd through the plain version on both sides."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.pool_attn import (ep_pool_proj_attend,
                                             ep_pool_proj_attend_ref)
@@ -339,11 +349,53 @@ def test_ep_pool_proj_forward_and_grad(dev, B, N, C, Q, d_out):
         outs.append(out)
         grads.append((qg.grad, wg.grad))
     assert outs[0].shape == (B, Q, C // d_out // Q)
+    assert torch.equal(ep_pool_proj_attend(q, x, w), outs[0])
     torch.testing.assert_close(outs[0], outs[1], **TOL)
     for a, b in zip(*grads):
         assert a.dtype == b.dtype
         scale = float(b.float().abs().max())
         torch.testing.assert_close(a, b, rtol=1e-2, atol=1e-2 * scale)
+
+
+@pytest.mark.parametrize("N, C, Q, QC", [
+    (196, 768, 32, 768), (256, 1280, 32, 1280), (1024, 1280, 32, 1280),
+    (196, 768, 32, 384), (256, 1280, 32, 640), (37, 128, 4, 128),
+    (1025, 1280, 32, 1280), (2100, 768, 32, 768), (100, 1280, 64, 1280),
+    (70, 528, 33, 528), (70, 192, 12, 192)])
+def test_ep_pool_proj_tiling_is_the_kernels(dev, N, C, Q, QC):
+    """ops/pool_attn.py's copy of kernel G's shared-memory layout is the
+    kernel's own, and the card holds at least one cluster of the tiling."""
+    from ep_tpu_torch.ops._build import query
+    from ep_tpu_torch.ops.pool_attn import (ep_pool_proj_smem_bytes,
+                                            ep_pool_proj_tiling)
+    cluster, _ = ep_pool_proj_tiling(N, C, Q, QC)
+    assert (query("ep_pool_proj_smem_bytes", Q, QC, cluster)
+            == ep_pool_proj_smem_bytes(Q, QC, cluster))
+    assert query("ep_pool_proj_resident_clusters", Q, QC, cluster) >= 1
+
+
+def test_ep_head_fused_route_at_d_out_2(dev, monkeypatch):
+    """EfficientProbing with --d_out 2 at ViT-B's width (cq = 12) and ViT-H's
+    (cq = 20) takes kernel G with EP_TPU_EP_FUSED set, once and without
+    calling the value projection, and agrees with the unfused route."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.poolings.ep import EfficientProbing
+    for C, N in ((768, 196), (1280, 256)):
+        torch.manual_seed(0)
+        mod = EfficientProbing(C, num_queries=32, d_out=2).to(dev)
+        assert mod.cq == C // 64
+        x = _rand((4, N, C), dev, seed=54)
+        unfused = mod(x)
+        monkeypatch.setenv("EP_TPU_EP_FUSED", "1")
+        calls = []
+        hook = mod.v.register_forward_hook(lambda *_: calls.append(1))
+        reset_launches()
+        fused = mod(x)
+        assert dict(LAUNCHES) == _counts(ep_pool_proj=1) and not calls
+        hook.remove()
+        monkeypatch.delenv("EP_TPU_EP_FUSED")
+        assert fused.shape == (4, C // 2)
+        torch.testing.assert_close(fused, unfused, **TOL)
 
 
 def test_ep_head_routes(dev, monkeypatch):
@@ -402,9 +454,14 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(NotImplementedError, match="head width 32"):
         attention_qkv_fused(_rand((1, 273, 3 * 64), dev), 2, 0.125)  # F's widths
     from ep_tpu_torch.ops.pool_attn import ep_pool_proj_attend
-    with pytest.raises(NotImplementedError, match="cq=6"):
-        ep_pool_proj_attend(_rand((32, 192), dev), _rand((1, 9, 192), dev),
-                            _rand((192, 192), dev))
+    # kernel G takes kernel D's widths (any cq; cq = 6 is a case of
+    # test_ep_pool_proj_forward_and_grad) and refuses the others
+    with pytest.raises(NotImplementedError, match="64 queries"):
+        ep_pool_proj_attend(_rand((65, 192), dev), _rand((1, 9, 192), dev),
+                            _rand((130, 192), dev))
+    with pytest.raises(NotImplementedError, match=r"Q\*cq % 8"):
+        ep_pool_proj_attend(_rand((4, 128), dev), _rand((1, 9, 128), dev),
+                            _rand((12, 128), dev))
     with pytest.raises(ValueError, match="mix"):
         ep_pool_proj_attend(_rand((8, 128), dev), _rand((1, 9, 128), dev),
                             _rand((128, 128), dev).cpu())

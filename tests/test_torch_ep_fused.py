@@ -163,6 +163,23 @@ def test_ep_module_fused_route_matches_flax(monkeypatch, dtype, d_out):
     assert set(mod.state_dict()) == {"cls_token", "v.weight"}
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ep_module_fused_route_at_d_out_2_matches_flax(monkeypatch, dtype):
+    """``--d_out 2`` at ViT-B's width with 32 queries: cq = 12, a width kernel
+    G takes like any other. EfficientProbing with EP_TPU_EP_FUSED=1 on both
+    sides (the flax module's fused kernel in interpret mode), the same weights
+    through ``flax_to_torch``."""
+    flax_mod, params, mod, x = _ep_modules(dtype, C=768, Q=32, d_out=2)
+    assert mod.cq == 12
+    xt = torch.from_numpy(x).to(DT[dtype][1])
+    monkeypatch.setenv("EP_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("EP_TPU_EP_FUSED", "1")
+    out_t = mod(xt)
+    out_j = flax_mod.apply(params, jnp.asarray(x, DT[dtype][0]))
+    assert out_t.shape == (5, 384)
+    _close(out_t, out_j, dtype)
+
+
 def test_fused_route_with_bias_raises(monkeypatch):
     """The fused kernel has no bias. The JAX package prints a line and runs
     the unfused route; the port raises."""

@@ -23,7 +23,10 @@ from ep_tpu_torch.ops import (LAUNCHES, MAX_SMEM, check, reset_launches,
 from ep_tpu_torch.ops.attn_block import attn_supercell, attn_supercell_ref
 from ep_tpu_torch.ops.attn_fused import attention_qkv_fused
 from ep_tpu_torch.ops.pool_attn import (EP_POOL_MAX_CLUSTER, EP_POOL_TILE,
+                                        EP_PROJ_MAX_CLUSTER, EP_PROJ_PANEL,
                                         ep_pool_attend, ep_pool_attend_ref,
+                                        ep_pool_proj_smem_bytes,
+                                        ep_pool_proj_tiling,
                                         ep_pool_smem_bytes, ep_pool_tiling)
 
 F32_TOL = 1e-5
@@ -171,6 +174,64 @@ def test_ep_pool_smem_grows_with_tiles_and_queries():
     assert ep_pool_smem_bytes(64, 768, 4, 1) > base
     assert ep_pool_smem_bytes(32, 1280, 4, 1) > base
     assert ep_pool_smem_bytes(32, 768, 16, 1) > base
+
+
+@pytest.mark.parametrize("N", [1, 127, 128, 129, 196, 256, 1024, 2100])
+def test_ep_pool_proj_tiling_takes_every_token_once(N):
+    """Kernel G's blocks cover the image's panels of 128 tokens once, each
+    block at least one of them, in a cluster the card schedules (at most 16);
+    up to N = 2048 a block takes one panel, past it several."""
+    cluster, panels = ep_pool_proj_tiling(N, 768, 32, 768)
+    span = panels * EP_PROJ_PANEL
+    assert 1 <= cluster <= EP_PROJ_MAX_CLUSTER and panels >= 1
+    assert (cluster - 1) * span < N <= cluster * span
+    if N <= EP_PROJ_PANEL * EP_PROJ_MAX_CLUSTER:
+        assert (cluster, panels) == (-(-N // EP_PROJ_PANEL), 1)
+    else:
+        assert panels > 1
+
+
+@pytest.mark.parametrize("N, C, Q, QC", EP_POOL_SHAPES)
+def test_ep_pool_proj_takes_every_shape_kernel_d_takes(N, C, Q, QC):
+    """Every shape kernel D takes, kernel G takes too (any cq), within a
+    block's shared memory."""
+    ep_pool_tiling(N, C, Q, QC)
+    cluster, _ = ep_pool_proj_tiling(N, C, Q, QC)
+    assert ep_pool_proj_smem_bytes(Q, QC, cluster) <= MAX_SMEM
+
+
+@pytest.mark.parametrize("N, C, Q, QC, what", [
+    (196, 768, 65, 780, "64 queries"), (196, 776, 8, 776, "C % 16"),
+    (37, 128, 4, 12, r"Q\*cq % 8")])
+def test_ep_pool_proj_refuses_the_widths_kernel_d_refuses(N, C, Q, QC, what):
+    """The widths D refuses, G refuses with the same reason. (D's fourth
+    refusal, a long image whose logits overflow D's shared memory, has no
+    counterpart: G's shared memory does not grow with N, see the next
+    test.)"""
+    for tiling in (ep_pool_tiling, ep_pool_proj_tiling):
+        with pytest.raises(NotImplementedError, match=what):
+            tiling(N, C, Q, QC)
+
+
+def test_ep_pool_proj_smem_grows_with_queries_and_columns_not_tokens():
+    """G's layout holds the ring (its query slice grows with the padded
+    bank), p of one panel, the partial sums of the columns and the cluster's
+    exchange; a block with more panels recomputes their logits instead of
+    keeping them, so N does not enter. It fits a block at every path's shape
+    and at the long image kernel D refuses."""
+    base = ep_pool_proj_smem_bytes(32, 768, 2)
+    assert ep_pool_proj_smem_bytes(33, 768, 2) > base
+    assert ep_pool_proj_smem_bytes(64, 768, 2) > ep_pool_proj_smem_bytes(33, 768, 2)
+    assert ep_pool_proj_smem_bytes(32, 1280, 2) > base
+    assert ep_pool_proj_smem_bytes(32, 768, 16) > base
+    for N, C, QC in ((196, 768, 768), (256, 1280, 1280), (1024, 1280, 1280),
+                     (196, 768, 384), (256, 1280, 640), (196, 1024, 1024),
+                     (256, 1408, 1408), (16 * 64 * 48, 768, 768)):
+        cluster, panels = ep_pool_proj_tiling(N, C, 32, QC)
+        assert ep_pool_proj_smem_bytes(32, QC, cluster) <= MAX_SMEM
+    with pytest.raises(NotImplementedError, match="bytes"):
+        ep_pool_tiling(16 * 64 * 48, 768, 32, 768)
+    assert ep_pool_proj_tiling(16 * 64 * 48, 768, 32, 768) == (16, 24)
 
 
 def test_dispatch_by_device():
