@@ -42,7 +42,10 @@ Phases, each of which must pass (any failure exits non-zero):
              ViT-H at 448 px beside the unfused pair (F.linear, then D), and
              at the edges of its panels and query bank and at cq 12 and 20
              (each also twice: equal bit for bit), then through the EP head
-             at --d_out 2 (ViT-B and ViT-H widths) against its unfused route.
+             at --d_out 2 (ViT-B and ViT-H widths) against its unfused route;
+             D and G at 128 queries at ViT-B, batch 512 (a launch for each
+             group of 64 queries; twice, equal bit for bit), each beside its
+             time at 32 queries.
 4. train   — the probe-training main path as bench.py builds it: frozen
              ViT-B/16 (random weights from seed 0) + EP-32 head, BN, fc, LARS
              with the warmup-cosine LR; a few steps at --batch. Checks a finite
@@ -77,6 +80,19 @@ Phases, each of which must pass (any failure exits non-zero):
              + EP-32, batch 128, bf16 LARS momentum, the same flags and checks.
 8. finetune-grads — every parameter's gradient for 4 images at ViT-B, the
              card's kernel path against the port's plain path on the CPU.
+9. driver  — main_linprobe_torch.py's main, as a user runs it, in a temporary
+             directory: ViT-B/16 at 224 px, EP-32, batch 128, bf16, the fake
+             dataset (512 train and 128 val images made in memory), random
+             weights from seed 0. Two epochs (the second profiled: the
+             device's idle share), then --auto_resume to a third (from the
+             saved global step), --eval from its checkpoint (epoch 2's val
+             numbers exactly), one epoch at --ep_queries 128, --knn_eval on
+             pooled patch tokens, and --eval with --finetune of a timm-layout
+             .pth written from another seed's backbone (the logits of the
+             model it was written from). Checks finite losses, a head-only
+             checkpoint and each run's launch counters (A, B and C 12x a
+             forward, D once, or twice at 128 queries); prints each epoch's
+             wall img/s beside phase 4's step at batch 128.
 
 Before the last line come the card's name and power limit and a JSON summary
 of the kernels; the last line is {"ok": true, "device": {...}}. It imports
@@ -174,7 +190,10 @@ HBM_RATE = 3.35e12
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # not print: the driver phase's main replaces print with a timestamped
+    # one (setup_for_distributed), and the last line must stay bare JSON
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
 
 
 def card_line() -> str:
@@ -759,6 +778,50 @@ def check_long_kernels(rng) -> tuple[list[dict], list[dict]]:
         (on_path if name == "ep_pool_proj" else others).append(r)
         del qs, tok, w
         torch.cuda.empty_cache()
+
+    log("[kernels] D and G at 128 queries (--ep_queries 128, cq 6) at ViT-B, "
+        "batch 512: a launch for each group of 64 queries; beside each, its "
+        "time at 32 queries on the same tokens")
+    b, n, c = 512, 196, 768
+    tok = rand(rng, (b, n + 1, c))[:, 1:]
+    w = rand(rng, (c, c), c ** -0.5)
+    qs = rand(rng, (32, c), c ** -0.5)
+    v = F.linear(tok, w).view(b, n, 32, -1)
+    d32 = time_ms(lambda: ep_pool_attend(qs, tok, v))
+    g32 = time_ms(lambda: ep_pool_proj_attend(qs, tok, w))
+    q = 128
+    qs = rand(rng, (q, c), c ** -0.5)
+    v = F.linear(tok, w).view(b, n, q, -1)
+    ref = ep_pool_attend_ref(qs, tok, v)
+    out = ep_pool_attend(qs, tok, v)
+    e_d = compare_steps(f"ep_pool B={b} N={n} C={c} Q={q}", out, ref)
+    repeat_equal(f"ep_pool B={b} N={n} C={c} Q={q}", out,
+                 ep_pool_attend(qs, tok, v))
+    compare(f"ep_pool Q={q} as one SDPA call (library_ms)",
+            pool_sdpa(qs, tok, v), ref)
+    out = ep_pool_proj_attend(qs, tok, w)
+    e_g = compare_steps(f"ep_pool_proj B={b} N={n} C={c} Q={q}", out,
+                        ep_pool_proj_attend_ref(qs, tok, w))
+    repeat_equal(f"ep_pool_proj B={b} N={n} C={c} Q={q}", out,
+                 ep_pool_proj_attend(qs, tok, w))
+    del out, ref
+    d_ms = (time_ms(lambda: ep_pool_attend(qs, tok, v)),
+            time_ms(lambda: ep_pool_attend_ref(qs, tok, v), 3),
+            time_ms(lambda: pool_sdpa(qs, tok, v), 3))
+    g_ms = (time_ms(lambda: ep_pool_proj_attend(qs, tok, w)),
+            time_ms(lambda: ep_pool_proj_attend_ref(qs, tok, w), 3))
+    r_d = entry("ep_pool_q128", e_d, *d_ms,
+                bound(2 * b * n * (128 * c + c), "bf16",
+                      2 * (b * n * c * 2) + 128 * c * 2 + b * c * 2),
+                q32_ms=d32)
+    r_g = entry("ep_pool_proj_q128", e_g, *g_ms, None,
+                bound(2 * b * n * c * (c + 128), "bf16",
+                      b * n * c * 2 + c * c * 2 + 128 * c * 2 + b * c * 2),
+                q32_ms=g32)
+    on_path.append(r_d)
+    others.append(r_g)
+    del tok, w, qs, v
+    torch.cuda.empty_cache()
     return on_path, others
 
 
@@ -1154,20 +1217,13 @@ def finetune_config(kind: str, B: int):
                        **FT_CONFIGS[kind][1])
 
 
-def device_time(step, card: str) -> None:
-    """One step under torch.profiler: device time by kernel over wall time."""
+def device_rows(prof) -> list[tuple[float, int, str]]:
+    """(device ms, count, name) of every kernel and copy a profile saw on the
+    card; not the ranges that user annotations (such as the optimizer's step)
+    mirror onto the device."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
-        # kernels and copies on the card; not the ranges user annotations
-        # (such as the optimizer's step) mirror onto the device
         if (e.device_type != DeviceType.CUDA
                 or getattr(e, "is_user_annotation", False)):
             continue
@@ -1175,6 +1231,19 @@ def device_time(step, card: str) -> None:
         if us is None:
             us = e.self_cuda_time_total
         rows.append((us / 1e3, e.count, e.key))
+    return rows
+
+
+def device_time(step, card: str) -> None:
+    """One step under torch.profiler: device time by kernel over wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
     if not rows:
         log("  profiler: no device time recorded")
         return
@@ -1311,6 +1380,195 @@ def finetune_grads(n: int = 4) -> None:
         raise RuntimeError(f"gradients outside the tolerance: {bad}")
 
 
+# The driver phase: main_linprobe_torch.py's main on the fake dataset (512
+# train and 128 val images made in memory), ViT-B/16 at 224 px, EP-32,
+# batch 128, bf16, random weights from --seed 0: 4 steps an epoch (the last
+# train batch is dropped, as the reference does) and 1 val batch.
+DRIVER_FLAGS = dict(dataset_name="fake", nb_classes=10, image_size=224,
+                    model="vit_base_patch16", cls_features="ep",
+                    ep_queries=32, batch_size=128, amp="bfloat16", epochs=2,
+                    warmup_epochs=1, blr=0.1, num_workers=8, seed=0)
+DRIVER_STEPS, DRIVER_EVAL_BATCHES = 4, 1
+
+
+def driver(card: str, paths: dict) -> list[dict]:
+    """Run the probe-training driver as a user runs it and check what it
+    writes. Adds each run's launch counts to ``paths``; returns each epoch's
+    wall time and img/s, and the device's idle share over one profiled
+    epoch."""
+    import tempfile
+    from pathlib import Path
+
+    import ep_tpu_torch.cli.linprobe as linprobe
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.pool_attn import query_groups
+    from ep_tpu_torch.train.state import cast_frozen
+    from torch.profiler import ProfilerActivity, profile
+
+    epochs, built = [], []
+    profiled = {"at": None}
+    run_epoch, build_model = linprobe.train_one_epoch, linprobe.init_probe_model
+
+    def timed_epoch(train_step, step, loader, device, epoch, cfg, writer):
+        """The driver's train_one_epoch on the host clock (and once under
+        the profiler), with the global step it was handed."""
+        prof = None
+        if profiled["at"] == (cfg.output_dir, epoch):
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_epoch(train_step, step, loader, device, epoch, cfg, writer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = len(loader) * cfg.batch_size
+        rec = dict(run=Path(cfg.output_dir).name, epoch=epoch,
+                   first_step=step, images=n, wall_s=wall, img_s=n / wall)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            busy = sum(r[0] for r in device_rows(prof))
+            rec.update(busy_ms=busy, idle_share=1 - busy / (wall * 1e3))
+        epochs.append(rec)
+        log(f"  epoch {epoch} of {rec['run']}: {n} images in {wall:.3f} s, "
+            f"{rec['img_s']:.1f} img/s"
+            + (f"; profiled: device busy {rec['busy_ms']:.1f} ms of "
+               f"{wall * 1e3:.1f}, idle share {rec['idle_share']:.3f}"
+               if prof is not None else ""))
+        return out
+
+    def keep_model(*a, **kw):
+        built.append(build_model(*a, **kw))
+        return built[-1]
+
+    def lines(out):
+        rows = (out / "training_log.txt").read_text().splitlines()
+        return {int(r.split(",")[0]): [float(v) for v in r.split(", ")[1:]]
+                for r in rows if r[:1].isdigit()}
+
+    def run(name, out, **kw):
+        cfg = TrainConfig(**{**DRIVER_FLAGS, "output_dir": str(out), **kw})
+        out.mkdir(parents=True, exist_ok=True)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = linprobe.main(cfg)
+        torch.cuda.synchronize()
+        paths[name] = dict(LAUNCHES)
+        log(f"  [{name}] {time.perf_counter() - t0:.1f} s, launches "
+            f"{ {k: v for k, v in paths[name].items() if v} }")
+        return res
+
+    def expect(name, forwards, pool="ep_pool", per_forward=1):
+        want = dict.fromkeys(LAUNCHES, 0)
+        want.update(ln_qkv_gemm=12 * forwards, attn_core=12 * forwards,
+                    proj_residual_gemm=12 * forwards)
+        if pool:
+            want[pool] = per_forward * forwards
+        if paths[name] != want:
+            raise RuntimeError(f"{name}: launches {paths[name]}, expected {want}")
+
+    per_epoch = DRIVER_STEPS + DRIVER_EVAL_BATCHES
+    with mock.patch.object(linprobe, "train_one_epoch", timed_epoch), \
+            mock.patch.object(linprobe, "init_probe_model", keep_model), \
+            tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        log("[driver] main_linprobe_torch.py's main: ViT-B/16, 224 px, EP-32, "
+            "batch 128, bf16, the fake dataset (512 train, 128 val images), "
+            f"on {card}")
+        # 1. two epochs, the second one profiled
+        profiled["at"] = (str(tmp / "train"), 1)
+        res = run("driver", tmp / "train")
+        expect("driver", 2 * per_epoch)
+        first = lines(tmp / "train")
+        if list(first) != [0, 1] or not all(
+                math.isfinite(v) for row in first.values() for v in row):
+            raise RuntimeError(f"driver: epoch lines {first}")
+        ckpt = torch.load(tmp / "train" / "checkpoint-.pth", weights_only=True)
+        if not ckpt["model"] or not all(k.startswith("head.")
+                                        for k in ckpt["model"]):
+            raise RuntimeError("driver: the checkpoint holds more than the head")
+        if (ckpt["epoch"], ckpt["step"]) != (1, 2 * DRIVER_STEPS):
+            raise RuntimeError(f"driver: checkpoint at epoch {ckpt['epoch']}, "
+                               f"step {ckpt['step']}")
+        log(f"  epoch lines {first}; the checkpoint holds "
+            f"{len(ckpt['model'])} head.* entries, epoch 1, step "
+            f"{ckpt['step']}; max accuracy {res['max_accuracy']:.2f}% (random "
+            "weights: no accuracy gate)")
+
+        # 2. --auto_resume to 3 epochs: epoch 2 from the saved global step
+        run("driver-resume", tmp / "train", epochs=3, auto_resume=True)
+        expect("driver-resume", per_epoch)
+        resumed = lines(tmp / "train")
+        last = epochs[-1]
+        if list(resumed) != [2] or (last["epoch"], last["first_step"]) != (
+                2, 2 * DRIVER_STEPS):
+            raise RuntimeError(f"driver-resume: lines {resumed}, epoch "
+                               f"{last['epoch']} from step {last['first_step']}")
+        after = torch.load(tmp / "train" / "checkpoint-.pth", weights_only=True)
+        if (after["epoch"], after["step"]) != (2, 3 * DRIVER_STEPS):
+            raise RuntimeError("driver-resume: the checkpoint did not advance")
+        log(f"  resumed at epoch 2 from global step {last['first_step']}: "
+            f"{resumed[2]}")
+
+        # 3. --eval from the checkpoint: epoch 2's val numbers as printed
+        stats = run("driver-eval", tmp / "eval", eval=True,
+                    resume=str(tmp / "train" / "checkpoint-.pth"))
+        expect("driver-eval", DRIVER_EVAL_BATCHES)
+        got = [round(stats["loss"], 4), round(stats["acc1"], 2),
+               round(stats["acc5"], 2)]
+        log(f"  --eval: {got}; epoch 2's line {resumed[2][2:]}")
+        if got != resumed[2][2:]:
+            raise RuntimeError("driver-eval: not epoch 2's val numbers")
+
+        # 4. one epoch at --ep_queries 128: kernel D in groups of 64 queries
+        groups = len(query_groups(128))
+        run("driver-q128", tmp / "q128", ep_queries=128, epochs=1)
+        expect("driver-q128", per_epoch, per_forward=groups)
+        q128 = lines(tmp / "q128")
+        if not all(math.isfinite(v) for v in q128[0]):
+            raise RuntimeError(f"driver-q128: {q128}")
+        log(f"  --ep_queries 128: {q128[0]}; kernel D {groups} launches a "
+            "forward, one a group of 64 queries")
+
+        # 5. --knn_eval on the mean of the patch tokens
+        knn = run("driver-knn", tmp / "knn", knn_eval=True,
+                  cls_features="pos")["knn"]
+        expect("driver-knn", (512 + 128) // 128, pool=None)
+        if sorted(knn) != [5, 10, 15, 20, 50, 100, 200] or not all(
+                0 <= t1 <= t5 <= 100 for t1, t5 in knn.values()):
+            raise RuntimeError(f"driver-knn: {knn}")
+        log(f"  --knn_eval: {knn}")
+
+        # 6. --finetune of a timm-layout .pth written from seed 1's backbone:
+        # the driver's model (seed 0's head) gives the logits of the model
+        # the file was written from, with seed 0's head
+        cfg = TrainConfig(**DRIVER_FLAGS)
+        bcfg = linprobe.build_backbone_config(cfg)
+        source = build_model(cfg, 1, bcfg)
+        source.head.load_state_dict(build_model(cfg, 0, bcfg).head.state_dict())
+        pth = tmp / "mae_vit_base.pth"
+        torch.save({"model": {
+            **{f"module.{k}": v.cpu()
+               for k, v in source.backbone.state_dict().items()},
+            "module.decoder_embed.weight": torch.zeros(8, 768),
+            "module.mask_token": torch.zeros(1, 1, 768)}}, pth)
+        built.clear()
+        run("driver-finetune", tmp / "finetune", finetune=str(pth), eval=True)
+        expect("driver-finetune", DRIVER_EVAL_BATCHES)
+        cast_frozen(source, torch.bfloat16)
+        images = rand(np.random.default_rng(3), (8, 224, 224, 3),
+                      dtype=torch.float32)
+        with torch.no_grad():
+            got, ref = built[0].eval()(images), source.eval()(images)
+        compare("--finetune: the driver's logits against the written model's",
+                got, ref)
+        del source, built[:]
+    torch.cuda.empty_cache()
+    return epochs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=512)
@@ -1377,6 +1635,16 @@ def main() -> int:
     for kind, (B, _) in FT_CONFIGS.items():
         paths[kind] = finetune(kind, B, FT_STEPS, card)
     finetune_grads()
+    driver_epochs = driver(card, paths)
+    # phase 4's step at the driver's batch, beside the driver's epochs
+    *_, med, _ = train("train", DRIVER_FLAGS["batch_size"], args.steps, card)
+    step_b = dict(batch=DRIVER_FLAGS["batch_size"], step_ms=med * 1e3,
+                  img_s=DRIVER_FLAGS["batch_size"] / med)
+    for e in driver_epochs:
+        log(f"[steps] driver {e['run']} epoch {e['epoch']}: "
+            f"{e['img_s']:.1f} img/s on the wall clock; the train step at "
+            f"batch {step_b['batch']} (same run): {step_b['img_s']:.1f} img/s "
+            f"({step_b['step_ms']:.2f} ms) on {card}")
 
     if "jax" in sys.modules or any(
             k == "ep_tpu" or k.startswith("ep_tpu.") for k in sys.modules):
@@ -1415,6 +1683,8 @@ def main() -> int:
                                "probe-h-rowtile"),
         "ep_pool_n1024": (csrc + "ep_pool.cu",
                           "ep_tpu/ops/pool_attn_pallas.py:30", "probe-h448"),
+        "ep_pool_q128": (csrc + "ep_pool.cu",
+                         "ep_tpu/ops/pool_attn_pallas.py:30", "driver-q128"),
         "ep_pool_proj": (csrc + "ep_pool_proj.cu",
                          "ep_tpu/ops/pool_attn_pallas.py:194",
                          "probe-h448-fused"),
@@ -1423,7 +1693,8 @@ def main() -> int:
     for r in results:
         src, tpu, path_name = replaces[r["name"]]
         counter = r["name"]  # the wrapper's entry in LAUNCHES
-        for shape_tag in ("_dh80", "_two_kernel", "_rowtile", "_n1024"):
+        for shape_tag in ("_dh80", "_two_kernel", "_rowtile", "_n1024",
+                          "_q128"):
             counter = counter.replace(shape_tag, "")
         launches = paths[path_name][counter]
         if launches == 0:
@@ -1441,7 +1712,9 @@ def main() -> int:
             "launches_by_path": {k: v[counter] for k, v in paths.items()}})
     log(card)
     log(json.dumps({"kernels": kernels, "int8_mlp_halves": int8_halves,
-                    "other_shapes": other_shapes, "probe_steps": steps_ms}))
+                    "other_shapes": other_shapes, "probe_steps": steps_ms,
+                    "driver": {"epochs": driver_epochs,
+                               "train_step": step_b}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,258 @@
+"""Linear/attentive-probe driver — the main_linprobe.py equivalent.
+
+Counterpart of ``ep_tpu/cli/linprobe.py`` for one process (reference
+main_linprobe.py:184-777), step by step: transforms and datasets, the
+loaders, the backbone with ``--finetune`` loading, the freeze rule, the
+optimizer, resume, the LR schedule, the epoch loop with evaluation,
+head-only checkpoints and the early stop, and the four logging sinks.
+``--knn_eval`` and ``--eval`` short-circuit as in the reference.
+
+It runs on the card unless ``--device cpu`` is given: ``cpu`` is the CPU,
+any other value (the flag's default is the JAX package's ``tpu``) the CUDA
+device, and without one the driver raises rather than run on the CPU.
+
+Flags of slices that are not ported raise ``NotImplementedError`` with their
+ROADMAP item: ``--cache_features`` (module item 2), ``--device_aug`` (item
+4), ``--oracle_ckpt`` (item 7), more than one device or process (item 9).
+``--aot_cache`` (the JAX package's store of compiled programs) changes no
+result and is ignored; ``--debug_nans`` runs under
+``torch.autograd.detect_anomaly``.
+"""
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ep_tpu_torch.configs import TrainConfig, config_from_args, get_args_parser
+from ep_tpu_torch.data.datasets import build_datasets
+from ep_tpu_torch.data.loader import build_loaders
+from ep_tpu_torch.data.transforms import build_transforms
+from ep_tpu_torch.models.assembly import build_backbone_config, init_probe_model
+from ep_tpu_torch.ops import default_device
+from ep_tpu_torch.runtime.checkpoint import (find_auto_resume, load_model,
+                                             save_model)
+from ep_tpu_torch.runtime.profiler import trace
+from ep_tpu_torch.train.engine import (evaluate, extract_features,
+                                       knn_classifier_multi, train_one_epoch)
+from ep_tpu_torch.train.lars import build_optimizer
+from ep_tpu_torch.train.schedule import make_lr_fn, resolve_lr
+from ep_tpu_torch.train.state import cast_frozen, freeze
+from ep_tpu_torch.train.steps import (make_eval_step, make_extract_step,
+                                      make_train_step)
+from ep_tpu_torch.utils.logging import (TrainingLogFile, is_main_process,
+                                        make_tb_writer, maybe_setup_wandb,
+                                        setup_for_distributed)
+
+
+def run_device(cfg: TrainConfig) -> torch.device:
+    """``--device cpu`` is the CPU; anything else the card (raises without
+    one)."""
+    return torch.device("cpu") if cfg.device == "cpu" else default_device(None)
+
+
+def check_ported(cfg: TrainConfig) -> None:
+    """Raise for the flags whose slices are not ported yet."""
+    todo = {
+        "--cache_features": (cfg.cache_features, "module item 2"),
+        "--device_aug": (cfg.device_aug, "module item 4"),
+        "--oracle_ckpt": (bool(cfg.oracle_ckpt), "module item 7"),
+        "--mesh_data above 1": (cfg.mesh_data > 1, "module item 9"),
+        "--mesh_model above 1": (cfg.mesh_model > 1, "module item 9"),
+        "WORLD_SIZE above 1": (int(os.environ.get("WORLD_SIZE", "1")) > 1,
+                               "module item 9"),
+    }
+    for flag, (given, item) in todo.items():
+        if given:
+            raise NotImplementedError(
+                f"{flag} is not ported yet (ROADMAP {item}); ep_tpu_torch "
+                "runs one process on one card")
+
+
+def main(cfg: TrainConfig) -> dict:
+    check_ported(cfg)
+    device = run_device(cfg)
+    with contextlib.ExitStack() as stack:
+        if cfg.debug_nans:
+            # pinpoints the op that produced a NaN, instead of the loss-level
+            # abort
+            stack.enter_context(torch.autograd.detect_anomaly())
+        return _main(cfg, device)
+
+
+def _main(cfg: TrainConfig, device: torch.device) -> dict:
+    setup_for_distributed(is_main_process())
+
+    log_file = TrainingLogFile(cfg.output_dir)
+    log_file.write_header(cfg)
+
+    print(f"config: {cfg}")
+    if cfg.aot_cache:
+        print("| --aot_cache names the JAX package's store of compiled "
+              "programs; PyTorch runs eagerly, so it is ignored")
+
+    np.random.seed(cfg.seed)
+
+    # --- data ----------------------------------------------------------------
+    transform_train, transform_val = build_transforms(cfg)
+    dataset_train, dataset_val = build_datasets(cfg)
+    print(dataset_train)
+    print(dataset_val)
+    loader_train, loader_val = build_loaders(
+        cfg, dataset_train, dataset_val, transform_train, transform_val)
+
+    eff_batch_size = cfg.batch_size * cfg.accum_iter
+    cfg = cfg.replace(eff_batch_size=eff_batch_size)
+
+    if is_main_process() and cfg.output_dir and not cfg.eval and not cfg.knn_eval:
+        maybe_setup_wandb(cfg.output_dir, cfg, job_type="linprobe_v1",
+                          run_name_suffix=cfg.suffix)
+    log_writer = (make_tb_writer(cfg.output_dir)
+                  if not cfg.eval and not cfg.knn_eval else None)
+
+    # --- model ---------------------------------------------------------------
+    backbone_cfg = build_backbone_config(cfg)
+    # the weights are drawn from an explicit CPU generator seeded by --seed
+    model = init_probe_model(cfg, cfg.seed, backbone_cfg, device=device)
+    if cfg.finetune:
+        from ep_tpu_torch.convert.torch_vit import load_pretrained_backbone
+        load_pretrained_backbone(cfg, backbone_cfg, model)
+
+    trainable = freeze(model, cfg.finetuning)
+    optimizer = build_optimizer(
+        cfg.optimizer, trainable, cfg.weight_decay,
+        mu_dtype=torch.bfloat16 if cfg.mu_bf16 else torch.float32,
+        accum_iter=cfg.accum_iter)
+    if cfg.int8_mlp:
+        from ep_tpu_torch.models.vit import int8_mlp_inactive_reason
+        reason = int8_mlp_inactive_reason(backbone_cfg)
+        if reason is not None:
+            print(f"| WARNING: --int8_mlp is a NO-OP for this run — {reason}"
+                  "; the MLP stays bf16")
+    if not cfg.finetuning and cfg.amp == "bfloat16":
+        # probing never updates the backbone: keep it in the compute dtype
+        cast_frozen(model, torch.bfloat16)
+
+    n_parameters = sum(p.numel() for p in trainable)
+    print("number of params (M): %.2f" % (n_parameters / 1.0e6))
+    print("base lr: %.2e" % cfg.blr)
+    print("actual lr: %.2e" % resolve_lr(cfg))
+    print("effective batch size: %d" % eff_batch_size)
+    log_file.write_setup(eff_batch_size, n_parameters)
+
+    # --- resume --------------------------------------------------------------
+    if cfg.auto_resume and not cfg.resume and cfg.output_dir:
+        found = find_auto_resume(cfg.output_dir)
+        if found:
+            cfg = cfg.replace(resume=found)
+            print(f"[auto-resume] Will load {found}")
+        else:
+            print("[auto-resume] No checkpoint found - starting fresh")
+    start_epoch, step, _ = load_model(cfg, model, optimizer)
+
+    lr_fn = make_lr_fn(cfg, steps_per_epoch=max(len(loader_train), 1))
+    train_step = make_train_step(model, optimizer, lr_fn)
+    eval_step = make_eval_step(model)
+
+    # --- kNN / eval-only modes -------------------------------------------------
+    if cfg.knn_eval:
+        extract_step = make_extract_step(model)
+        train_feats, train_labels = extract_features(
+            extract_step, loader_train, device, cfg)
+        test_feats, test_labels = extract_features(
+            extract_step, loader_val, device, cfg)
+        print(f"Train features shape: {train_feats.shape}")
+        print(f"Test features shape: {test_feats.shape}")
+        train_feats /= np.linalg.norm(train_feats, axis=1, keepdims=True) + 1e-12
+        test_feats /= np.linalg.norm(test_feats, axis=1, keepdims=True) + 1e-12
+        ks = [k for k in [5, 10, 15, 20, 50, 100, 200]
+              if k <= len(train_labels)]
+        # one device pass computes the top-max(k) neighbour list; the vote
+        # for each k runs on the host
+        results = knn_classifier_multi(
+            train_feats, train_labels, test_feats, test_labels, ks,
+            T=cfg.T, num_classes=cfg.nb_classes, device=device)
+        for k in ks:
+            top1, top5 = results[k]
+            print(f"{k}-NN classifier result: Top1: {top1}, Top5: {top5}")
+        return {"knn": results}
+
+    if cfg.eval:
+        test_stats = evaluate(eval_step, loader_val, device, cfg)
+        print(f"Accuracy of the network on the {len(dataset_val)} "
+              f"test images: {test_stats['acc1']:.1f}%")
+        return test_stats
+
+    # --- training loop ---------------------------------------------------------
+    print(f"Start training for {cfg.epochs} epochs")
+    start_time = time.time()
+    max_accuracy = 0.0
+    es_best, es_stale = -1.0, 0
+    test_stats = {"acc1": 0.0, "acc5": 0.0, "loss": float("inf")}
+
+    for epoch in range(start_epoch, cfg.epochs):
+        loader_train.set_epoch(epoch)
+        with trace(cfg.profile_dir if epoch == start_epoch else ""):
+            step, train_stats = train_one_epoch(
+                train_step, step, loader_train, device, epoch, cfg, log_writer)
+        test_stats = evaluate(eval_step, loader_val, device, cfg)
+
+        log_stats = {**{f"train_{k}": v for k, v in train_stats.items()},
+                     **{f"test_{k}": v for k, v in test_stats.items()},
+                     "epoch": epoch, "n_parameters": n_parameters}
+        if cfg.output_dir:
+            save_model(cfg, epoch, model, optimizer, step, log_stats)
+
+        print(f"Accuracy of the network on the {len(dataset_val)} "
+              f"test images: {test_stats['acc1']:.1f}%")
+        max_accuracy = max(max_accuracy, test_stats["acc1"])
+        print(f"Max accuracy: {max_accuracy:.2f}%")
+
+        log_file.write_epoch(epoch, train_stats, test_stats)
+        if log_writer is not None:
+            pf = f"test_v1_{cfg.cls_features}"
+            log_writer.add_scalar(f"{pf}/train_acc1", train_stats["acc1"], epoch)
+            log_writer.add_scalar(f"{pf}/train_loss", train_stats["loss"], epoch)
+            log_writer.add_scalar(f"{pf}/test_acc1", test_stats["acc1"], epoch)
+            log_writer.add_scalar(f"{pf}/test_acc5", test_stats["acc5"], epoch)
+            log_writer.add_scalar(f"{pf}/test_loss", test_stats["loss"], epoch)
+
+        # early stop on a validation plateau (main_linprobe.py:731-747)
+        if cfg.early_stop:
+            if test_stats["acc1"] > es_best + cfg.early_stop_min_delta:
+                es_best, es_stale = test_stats["acc1"], 0
+            else:
+                es_stale += 1
+            if (epoch + 1) >= cfg.early_stop_min_epochs and \
+                    es_stale >= cfg.early_stop_patience:
+                msg = (f"[early-stop] no gain > {cfg.early_stop_min_delta} pts "
+                       f"for {es_stale} epochs (best {es_best:.2f}%); "
+                       f"stopping at epoch {epoch} of {cfg.epochs}")
+                print(msg)
+                log_file.write_line(msg)
+                break
+
+    total_time = time.time() - start_time
+    total_time_str = str(datetime.timedelta(seconds=int(total_time)))
+    print(f"Training time {total_time_str}")
+    log_file.write_final(max_accuracy, test_stats, total_time_str)
+    return {"max_accuracy": max_accuracy, **test_stats}
+
+
+def cli():
+    import argparse
+    parser = argparse.ArgumentParser(parents=[get_args_parser()])
+    args = parser.parse_args()
+    cfg = config_from_args(args)
+    if cfg.output_dir:
+        Path(cfg.output_dir).mkdir(parents=True, exist_ok=True)
+    main(cfg)
+
+
+if __name__ == "__main__":
+    cli()

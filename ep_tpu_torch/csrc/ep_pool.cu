@@ -104,8 +104,8 @@ __global__ void __launch_bounds__(THREADS)
 ep_pool_kernel(const __grid_constant__ CUtensorMap map_x,
                const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_v,
-               bf16* __restrict__ out, int N, int C, int Q, int cq, int CL,
-               int tiles) {
+               bf16* __restrict__ out, int out_stride, int N, int C, int Q,
+               int cq, int CL, int tiles) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   const int QC = Q * cq;
@@ -278,7 +278,7 @@ ep_pool_kernel(const __grid_constant__ CUtensorMap map_x,
   for (int j = (int)rank * THREADS + tid; j < QC; j += CL * THREADS) {
     float total = ld_cluster(cluster_addr(partial + j, 0));
     for (int r = 1; r < CL; ++r) total += ld_cluster(cluster_addr(partial + j, r));
-    out[(size_t)b * QC + j] = __float2bfloat16_rn(total);
+    out[(size_t)b * out_stride + j] = __float2bfloat16_rn(total);
   }
   // no block leaves while a peer reads its partial sums
   cluster_arrive();
@@ -343,19 +343,20 @@ int resident_clusters(int Q, int QC, int CL, int tiles) {
 
 template <int QN>
 int launch(const bf16* q, const bf16* x, const bf16* v, bf16* out, int B,
-           int N, int C, int Q, int cq, int x_bstride, int CL, int tiles,
-           cudaStream_t stream) {
+           int N, int C, int Q, int cq, int x_bstride, int v_stride,
+           int out_stride, int CL, int tiles, cudaStream_t stream) {
   const int QC = Q * cq;
   CUtensorMap map_x, map_q, map_v;
   int rc = make_tile_map(&map_x, x, B, N, C, C, x_bstride);
   if (rc == 0) rc = make_map(&map_q, q, 2, Q, C, QN);
-  if (rc == 0) rc = make_tile_map(&map_v, v, B, N, QC, QC, (long long)N * QC);
+  if (rc == 0)
+    rc = make_tile_map(&map_v, v, B, N, QC, v_stride, (long long)N * v_stride);
   if (rc != 0) return rc;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = configure<QN>(Q, QC, CL, tiles, &attr, stream);
   cfg.gridDim = dim3(B * CL);
   rc = (int)cudaLaunchKernelEx(&cfg, ep_pool_kernel<QN>, map_x, map_q, map_v,
-                               out, N, C, Q, cq, CL, tiles);
+                               out, out_stride, N, C, Q, cq, CL, tiles);
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
@@ -384,16 +385,21 @@ EP_EXPORT int ep_pool_resident_clusters(int Q, int QC, int cluster, int tiles) {
 
 // q_scaled (Q, C), tokens (B, N, C), v (B, N, Q*cq), all bf16 -> out (B, Q*cq).
 // The tokens' rows are contiguous; images are x_bstride elements apart, so the
-// patch tokens can be a view that skips the [CLS] row. A cluster of `cluster`
-// blocks an image, `tiles` tiles of 64 tokens a block
+// patch tokens can be a view that skips the [CLS] row. v's rows are v_stride
+// elements apart and out's images out_stride apart, so that a bank of more
+// than 64 queries runs as groups of at most 64, each launch on its group's
+// rows of q_scaled and columns of v and out (ops/pool_attn.py::query_groups).
+// A cluster of `cluster` blocks an image, `tiles` tiles of 64 tokens a block
 // (ops/pool_attn.py::ep_pool_tiling).
 EP_EXPORT int ep_pool(const void* q, const void* x, const void* v, void* out,
                       int B, int N, int C, int Q, int cq, int x_bstride,
-                      int cluster, int tiles, void* stream) {
+                      int v_stride, int out_stride, int cluster, int tiles,
+                      void* stream) {
   using namespace ep;
   const int span = tiles * TN;  // tokens a block
   if (B < 1 || N < 1 || Q < 1 || Q > 64 || cq < 1 || C % 8 || (Q * cq) % 8 ||
-      x_bstride % 8 || cluster < 1 || cluster > MAX_CLUSTER || tiles < 1 ||
+      x_bstride % 8 || v_stride % 8 || v_stride < Q * cq ||
+      out_stride < Q * cq || cluster < 1 || cluster > MAX_CLUSTER || tiles < 1 ||
       cluster * span < N || (cluster - 1) * span >= N ||
       layout(Q, Q * cq, cluster, tiles).bytes > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
@@ -401,5 +407,6 @@ EP_EXPORT int ep_pool(const void* q, const void* x, const void* v, void* out,
                 : Q <= 32 ? launch<32> : launch<64>;
   return fn(static_cast<const bf16*>(q), static_cast<const bf16*>(x),
             static_cast<const bf16*>(v), static_cast<bf16*>(out), B, N, C, Q,
-            cq, x_bstride, cluster, tiles, static_cast<cudaStream_t>(stream));
+            cq, x_bstride, v_stride, out_stride, cluster, tiles,
+            static_cast<cudaStream_t>(stream));
 }

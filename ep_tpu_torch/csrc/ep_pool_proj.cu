@@ -231,8 +231,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 ep_pool_proj_kernel(const __grid_constant__ CUtensorMap map_x,
                     const __grid_constant__ CUtensorMap map_w,
                     const __grid_constant__ CUtensorMap map_q,
-                    bf16* __restrict__ out, int N, int C, int Q, int cq, int CL,
-                    int panels) {
+                    bf16* __restrict__ out, int out_stride, int N, int C, int Q,
+                    int cq, int CL, int panels) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   const int QC = Q * cq;
@@ -411,7 +411,7 @@ ep_pool_proj_kernel(const __grid_constant__ CUtensorMap map_x,
     float total = ld_cluster(cluster_addr(partial + j, 0));
     for (int r = 1; r < CL; ++r)
       total += ld_cluster(cluster_addr(partial + j, r));
-    out[(size_t)b * QC + j] = __float2bfloat16_rn(total);
+    out[(size_t)b * out_stride + j] = __float2bfloat16_rn(total);
   }
   // no block leaves while a peer reads its partial sums
   cluster_arrive();
@@ -476,8 +476,8 @@ int resident_clusters(int Q, int QC, int CL) {
 
 template <int QN>
 int launch(const bf16* q, const bf16* x, const bf16* w, bf16* out, int B,
-           int N, int C, int Q, int cq, int x_bstride, int CL, int panels,
-           cudaStream_t stream) {
+           int N, int C, int Q, int cq, int x_bstride, int out_stride, int CL,
+           int panels, cudaStream_t stream) {
   const int QC = Q * cq;
   CUtensorMap map_x, map_w, map_q;
   int rc = make_token_map(&map_x, x, B, N, C, x_bstride);
@@ -488,7 +488,8 @@ int launch(const bf16* q, const bf16* x, const bf16* w, bf16* out, int B,
   cudaLaunchConfig_t cfg = configure<QN>(Q, QC, CL, &attr, stream);
   cfg.gridDim = dim3(B * CL);
   rc = (int)cudaLaunchKernelEx(&cfg, ep_pool_proj_kernel<QN>, map_x, map_w,
-                               map_q, out, N, C, Q, cq, CL, panels);
+                               map_q, out, out_stride, N, C, Q, cq, CL,
+                               panels);
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
@@ -516,17 +517,21 @@ EP_EXPORT int ep_pool_proj_resident_clusters(int Q, int QC, int cluster) {
 
 // q_scaled (Q, C), tokens (B, N, C), w (Q*cq, C), all bf16 -> out (B, Q*cq).
 // The tokens' rows are contiguous; images are x_bstride elements apart, so the
-// patch tokens can be a view that skips the [CLS] row. A cluster of `cluster`
+// patch tokens can be a view that skips the [CLS] row. out's images are
+// out_stride elements apart, so that a bank of more than 64 queries runs as
+// groups of at most 64, each launch on its group's rows of q_scaled and w and
+// its columns of out (ops/pool_attn.py::query_groups). A cluster of `cluster`
 // blocks an image, `panels` panels of 128 tokens a block
 // (ops/pool_attn.py::ep_pool_proj_tiling).
 EP_EXPORT int ep_pool_proj(const void* q, const void* x, const void* w,
                            void* out, int B, int N, int C, int Q, int cq,
-                           int x_bstride, int cluster, int panels,
-                           void* stream) {
+                           int x_bstride, int out_stride, int cluster,
+                           int panels, void* stream) {
   using namespace ep;
   const int span = panels * BT;  // tokens a block
   if (B < 1 || N < 1 || Q < 1 || Q > 64 || cq < 1 || C % 8 || (Q * cq) % 8 ||
-      x_bstride % 8 || cluster < 1 || cluster > MAX_CLUSTER || panels < 1 ||
+      x_bstride % 8 || out_stride < Q * cq || cluster < 1 ||
+      cluster > MAX_CLUSTER || panels < 1 ||
       cluster * span < N || (cluster - 1) * span >= N ||
       layout(Q, Q * cq, cluster).bytes > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
@@ -534,5 +539,6 @@ EP_EXPORT int ep_pool_proj(const void* q, const void* x, const void* w,
                 : Q <= 32 ? launch<32> : launch<64>;
   return fn(static_cast<const bf16*>(q), static_cast<const bf16*>(x),
             static_cast<const bf16*>(w), static_cast<bf16*>(out), B, N, C, Q,
-            cq, x_bstride, cluster, panels, static_cast<cudaStream_t>(stream));
+            cq, x_bstride, out_stride, cluster, panels,
+            static_cast<cudaStream_t>(stream));
 }

@@ -29,7 +29,7 @@ def build_backbone_config(cfg: TrainConfig) -> ViTConfig:
     if cfg.simmim or cfg.openclip or name.startswith(("mae_vit", "capi",
                                                         "dinov2")):
         raise NotImplementedError(
-            f"backbone {name!r} is not ported yet (ROADMAP module item 12)")
+            f"backbone {name!r} is not ported yet (ROADMAP module item 7)")
     if name not in VIT_CONFIGS:
         raise ValueError(f"unknown model {name}")
     extra = {}
@@ -49,19 +49,24 @@ class ProbeModel(nn.Module):
         super().__init__()
         if cfg.return_block is not None:
             raise NotImplementedError(
-                "return_block is not ported yet (ROADMAP module item 12)")
+                "return_block is not ported yet (ROADMAP module item 7)")
         self.finetuning = cfg.finetuning
         self.mode = remap_features(cfg.cls_features)
         self.backbone = VisionTransformer(backbone_cfg)
         self.head = ProbeHead(cfg, backbone_cfg.embed_dim, backbone_cfg.dtype)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images (B, H, W, 3) NHWC -> f32 logits (B, nb_classes)."""
+    def forward(self, images: torch.Tensor,
+                return_backbone_features: bool = False):
+        """images (B, H, W, 3) NHWC -> f32 logits (B, nb_classes); with
+        ``return_backbone_features`` (logits, the backbone's features), the
+        descriptors kNN evaluation reads (``ep_tpu/models/assembly.py``)."""
         if self.finetuning:
-            return self.head(self.backbone(images, self.mode))
-        with torch.no_grad():
             feats = self.backbone(images, self.mode)
-        return self.head(feats)
+        else:
+            with torch.no_grad():
+                feats = self.backbone(images, self.mode)
+        logits = self.head(feats)
+        return (logits, feats) if return_backbone_features else logits
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

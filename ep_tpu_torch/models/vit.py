@@ -25,7 +25,7 @@ Parameter names follow timm/MAE (``patch_embed.proj``, ``blocks.{i}.attn.qkv``,
 Parameters are created in float32; ``train/state.py::cast_frozen`` stores a
 frozen encoder in the compute dtype, as the JAX package does.
 
-Not ported yet (ROADMAP module item 12): relative-position bias, LayerScale,
+Not ported yet (ROADMAP module item 7): relative-position bias, LayerScale,
 registers, SwiGLU, the OpenCLIP tower, ``return_block``, ``shuffle_subsets``
 and attention capture; each raises ``NotImplementedError``.
 """
@@ -54,7 +54,7 @@ ATTENTIVE_POOLINGS = [
 ATTENTIVE_POOLINGS_ALL = [f"{n}_all" for n in ATTENTIVE_POOLINGS]
 FEATURE_MODES = ("cls", "pos", "gap")
 
-_TODO_BACKBONE = "is not ported yet (ROADMAP module item 12, backbone variants)"
+_TODO_BACKBONE = "is not ported yet (ROADMAP module item 7, backbone variants)"
 
 
 def remap_features(return_features: str) -> str:

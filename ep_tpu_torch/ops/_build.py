@@ -38,10 +38,11 @@ SIGNATURES = {
     "ep_attn_core_bwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "ep_attn_core_bwd_smem_bytes": [_I, _I],
     "ep_attn_flash": [_P, _P, _I, _I, _I, _I, _F, _P],
-    "ep_pool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ep_pool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ep_pool_smem_bytes": [_I, _I, _I, _I],
     "ep_pool_resident_clusters": [_I, _I, _I, _I],
-    "ep_pool_proj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ep_pool_proj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P],
     "ep_pool_proj_smem_bytes": [_I, _I, _I],
     "ep_pool_proj_resident_clusters": [_I, _I, _I],
     "ep_mlp_int8_ln_quant": [_P, _P, _P, _P, _P, _I, _I, _F, _P],

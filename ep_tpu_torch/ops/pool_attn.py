@@ -6,8 +6,9 @@ Counterpart of ``ep_tpu/ops/pool_attn_pallas.py::ep_pool_attend``:
     attn   = softmax_N(logits)          f32, cast to the value dtype
     out[q] = attn[q] @ v[:, q, :]       f32 sums, cast once -> (B, Q, cq)
 
-On CUDA tensors the forward is kernel D (``csrc/ep_pool.cu``); on CPU tensors
-it is :func:`ep_pool_attend_ref`. The backward is autograd through the plain
+On CUDA tensors the forward is kernel D (``csrc/ep_pool.cu``), one launch for
+each group of at most 64 queries (:func:`query_groups`); on CPU tensors it is
+:func:`ep_pool_attend_ref`. The backward is autograd through the plain
 version on the same device, as the JAX package's ``_ep_bwd`` is the VJP of
 ``ep_pool_attend_xla``.
 
@@ -83,17 +84,33 @@ def ep_pool_smem_bytes(Q: int, QC: int, cluster: int, tiles: int) -> int:
     return 1024 + end
 
 
-def _check_pool_widths(kernel: str, C: int, Q: int, QC: int) -> None:
-    """The widths kernels D and G take: at most 64 queries (the N of their
-    logits' wgmma), and rows of 16 bytes for TMA."""
-    if Q > EP_POOL_QUERY_ROWS[-1]:
-        raise NotImplementedError(
-            f"{kernel} takes at most {EP_POOL_QUERY_ROWS[-1]} queries (the N "
-            f"of its wgmma); got Q={Q}")
+def query_groups(Q: int) -> list[tuple[int, int]]:
+    """(first, last + 1) of each group of queries that one launch of kernel D
+    or G takes: 64 at a time (the N of their logits' wgmma), the rest in the
+    last group. Each group is a softmax of its own over the tokens, so the
+    groups are independent launches on their slices of the query bank, of
+    v's or W's columns and of the output. A group of 64 starts its columns
+    at a multiple of 64*cq, 16-byte aligned, and where Q*cq % 8 == 0 the last
+    group's Q_g*cq % 8 == 0 too."""
+    step = EP_POOL_QUERY_ROWS[-1]
+    return [(q0, min(q0 + step, Q)) for q0 in range(0, Q, step)]
+
+
+def _check_pool_widths(kernel: str, C: int, Q: int, QC: int) -> tuple[int, int]:
+    """The widths kernels D and G take: rows of 16 bytes for TMA and, past 64
+    queries, Q*cq columns (cq a whole number) split by :func:`query_groups`.
+    Returns the largest group's (queries, columns), which sets the layout."""
     if C % 16 or QC % 8:
         raise NotImplementedError(
             f"{kernel} streams 16-byte rows by TMA: it needs C % 16 == 0 and "
             f"Q*cq % 8 == 0; got C={C}, Q*cq={QC}")
+    if Q <= EP_POOL_QUERY_ROWS[-1]:
+        return Q, QC
+    if QC % Q:
+        raise ValueError(f"{kernel}: Q*cq={QC} columns are not a whole number "
+                         f"of columns for each of the {Q} queries")
+    q = EP_POOL_QUERY_ROWS[-1]
+    return q, q * (QC // Q)
 
 
 def _cluster_split(n_tiles: int, max_cluster: int) -> tuple[int, int]:
@@ -108,15 +125,17 @@ def ep_pool_tiling(N: int, C: int, Q: int, QC: int) -> tuple[int, int]:
     """(cluster size, tiles a block) of kernel D for N tokens of width C, Q
     queries and QC = Q*cq value columns: one tile a block and a cluster of
     ceil(N / 64) blocks up to 16 (N <= 1024), else the fewest tiles a block
-    that keep the cluster within 16. Every block has at least one tile.
-    Raises NotImplementedError for a shape the kernel does not take."""
-    _check_pool_widths("ep_pool", C, Q, QC)
+    that keep the cluster within 16. Every block has at least one tile. Past
+    64 queries every group of :func:`query_groups` is launched with this
+    tiling. Raises NotImplementedError for a shape the kernel does not
+    take."""
+    Qg, QCg = _check_pool_widths("ep_pool", C, Q, QC)
     cluster, tiles = _cluster_split(-(-N // EP_POOL_TILE), EP_POOL_MAX_CLUSTER)
-    smem = ep_pool_smem_bytes(Q, QC, cluster, tiles)
+    smem = ep_pool_smem_bytes(Qg, QCg, cluster, tiles)
     if smem > MAX_SMEM:
         raise NotImplementedError(
             f"ep_pool keeps the logits and p of its {tiles} tiles of 64 tokens "
-            f"a block in shared memory: N={N}, Q={Q}, Q*cq={QC} needs {smem} "
+            f"a block in shared memory: N={N}, Q={Qg}, Q*cq={QCg} needs {smem} "
             f"bytes, more than {MAX_SMEM}")
     return cluster, tiles
 
@@ -128,10 +147,12 @@ def _ep_pool_kernel(q_scaled, tokens, v):
     check(v, "v", (B, N, Q, cq), torch.bfloat16)
     cluster, tiles = ep_pool_tiling(N, C, Q, Q * cq)
     out = torch.empty(B, Q, cq, device=v.device, dtype=v.dtype)
-    call("ep_pool", q_scaled.data_ptr(), tokens.data_ptr(), v.data_ptr(),
-         out.data_ptr(), B, N, C, Q, cq, tokens.stride(0), cluster, tiles,
-         stream_ptr(v))
-    LAUNCHES["ep_pool"] += 1
+    for q0, q1 in query_groups(Q):
+        call("ep_pool", q_scaled[q0].data_ptr(), tokens.data_ptr(),
+             v[0, 0, q0].data_ptr(), out[0, q0].data_ptr(), B, N, C, q1 - q0,
+             cq, tokens.stride(0), Q * cq, Q * cq, cluster, tiles,
+             stream_ptr(v))
+        LAUNCHES["ep_pool"] += 1
     return out
 
 
@@ -209,16 +230,17 @@ def ep_pool_proj_tiling(N: int, C: int, Q: int, QC: int) -> tuple[int, int]:
     queries and QC = Q*cq value columns: one panel of 128 tokens a block and a
     cluster of ceil(N / 128) blocks up to 16 (N <= 2048), else the fewest
     panels a block that keep the cluster within 16. The widths are kernel
-    D's (any cq); raises NotImplementedError where they are not, or where
-    the block's shared memory cannot hold the query bank and the columns."""
-    _check_pool_widths("ep_pool_proj", C, Q, QC)
+    D's (any cq, any Q, past 64 in the groups of :func:`query_groups`);
+    raises NotImplementedError where they are not, or where the block's
+    shared memory cannot hold the query bank and the columns."""
+    Qg, QCg = _check_pool_widths("ep_pool_proj", C, Q, QC)
     cluster, panels = _cluster_split(-(-N // EP_PROJ_PANEL),
                                      EP_PROJ_MAX_CLUSTER)
-    smem = ep_pool_proj_smem_bytes(Q, QC, cluster)
+    smem = ep_pool_proj_smem_bytes(Qg, QCg, cluster)
     if smem > MAX_SMEM:
         raise NotImplementedError(
             f"ep_pool_proj keeps its ring, p of a panel and the partial sums "
-            f"of all Q*cq columns in shared memory: Q={Q}, Q*cq={QC} needs "
+            f"of all Q*cq columns in shared memory: Q={Qg}, Q*cq={QCg} needs "
             f"{smem} bytes, more than {MAX_SMEM}")
     return cluster, panels
 
@@ -233,14 +255,17 @@ def _ep_pool_proj_kernel(q_scaled, tokens, w):
     w = w.to(tokens.dtype)
     check(w, "w", (QC, C), torch.bfloat16)
     cluster, panels = ep_pool_proj_tiling(N, C, Q, QC)
-    smem = ep_pool_proj_smem_bytes(Q, QC, cluster)
-    if query("ep_pool_proj_smem_bytes", Q, QC, cluster) != smem:
-        raise RuntimeError("ep_pool_proj_smem_bytes is not the kernel's layout")
     out = torch.empty(B, Q, cq, device=tokens.device, dtype=tokens.dtype)
-    call("ep_pool_proj", q_scaled.data_ptr(), tokens.data_ptr(), w.data_ptr(),
-         out.data_ptr(), B, N, C, Q, cq, tokens.stride(0), cluster, panels,
-         stream_ptr(tokens))
-    LAUNCHES["ep_pool_proj"] += 1
+    for q0, q1 in query_groups(Q):
+        Qg = q1 - q0
+        smem = ep_pool_proj_smem_bytes(Qg, Qg * cq, cluster)
+        if query("ep_pool_proj_smem_bytes", Qg, Qg * cq, cluster) != smem:
+            raise RuntimeError(
+                "ep_pool_proj_smem_bytes is not the kernel's layout")
+        call("ep_pool_proj", q_scaled[q0].data_ptr(), tokens.data_ptr(),
+             w[q0 * cq].data_ptr(), out[0, q0].data_ptr(), B, N, C, Qg, cq,
+             tokens.stride(0), QC, cluster, panels, stream_ptr(tokens))
+        LAUNCHES["ep_pool_proj"] += 1
     return out
 
 

@@ -4,6 +4,9 @@ Counterpart of ``ep_tpu/poolings/batchnorm.py::TorchBatchNorm``, which exists
 to reproduce exactly this rule in flax: normalise with the biased batch
 variance, fold the Bessel-corrected variance into the running average. Here
 it is ``nn.BatchNorm1d`` itself, fed f32 and cast back to the compute dtype.
+As there, the features are the last axis and the statistics reduce over all
+the others, at any rank: the input is flattened to (-1, C) around
+``BatchNorm1d``, so the Bessel count is the product of the reduced axes.
 
 ``momentum`` keeps the JAX package's (flax) convention, the weight of the old
 running value: flax's 0.9 is torch's 0.1.
@@ -25,5 +28,5 @@ class TorchBatchNorm(nn.BatchNorm1d):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(x.float())
-        return y.to(self.compute_dtype or x.dtype)
+        y = super().forward(x.float().reshape(-1, x.shape[-1]))
+        return y.reshape(x.shape).to(self.compute_dtype or x.dtype)

@@ -2,7 +2,7 @@
 
 Counterpart of ``ep_tpu/poolings/registry.py::ProbeHead``. This slice covers
 the EP pool and plain linear probing (``cls``/``gap`` features: BN + Linear).
-Every other pooling of the zoo is ROADMAP module item 11 and raises.
+Every other pooling of the zoo is ROADMAP module item 6 and raises.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ def build_pooling(cfg: TrainConfig, dim: int,
                                 d_out=cfg.d_out, dtype=dtype)
     if name in ATTENTIVE_POOLINGS:
         raise NotImplementedError(
-            f"pooling {name!r} is not ported yet (ROADMAP module item 11, "
+            f"pooling {name!r} is not ported yet (ROADMAP module item 6, "
             "the rest of the pooling zoo)")
     return None
 

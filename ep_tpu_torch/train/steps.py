@@ -14,7 +14,7 @@ from typing import Callable, Dict, Iterable
 import torch
 import torch.nn as nn
 
-from .lars import LARS
+from .lars import RawUpdateOptimizer
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -32,13 +32,16 @@ def global_grad_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(g.float().square().sum() for g in grads))
 
 
-def make_train_step(model: nn.Module, optimizer: LARS,
+def make_train_step(model: nn.Module, optimizer: RawUpdateOptimizer,
                     lr_fn: Callable[[int], float]):
     """Returns train_step(step, images, labels) -> metrics.
 
-    ``step`` is the global iteration index that drives the LR schedule; the
-    batch-norm running statistics and the optimizer's momentum advance in
-    place."""
+    ``step`` is the global iteration index that drives the LR schedule: it
+    counts micro-steps, as the JAX state's step does, and the caller carries
+    it across a resume. The batch-norm running statistics and the optimizer's
+    state advance in place; under ``accum_iter`` k the optimizer applies the
+    mean of k micro-steps' gradients at the k-th, with that micro-step's
+    LR (``optax.MultiSteps`` inside the JAX step)."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def train_step(step: int, images: torch.Tensor,
@@ -85,3 +88,16 @@ def make_eval_step(model: nn.Module):
         }, logits.argmax(dim=-1)
 
     return eval_step
+
+
+def make_extract_step(model: nn.Module):
+    """extract_step(images) -> the backbone's pooled descriptors, in eval
+    mode and without autograd (``ep_tpu/train/steps.py::make_extract_step``,
+    the features kNN evaluation reads)."""
+
+    @torch.no_grad()
+    def extract_step(images):
+        model.eval()
+        return model(images, return_backbone_features=True)[1]
+
+    return extract_step

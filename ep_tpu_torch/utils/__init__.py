@@ -1,1 +1,2 @@
-"""Position-embedding helpers (counterpart of ``ep_tpu.utils``)."""
+"""Position-embedding helpers and the training log (counterpart of
+``ep_tpu.utils``)."""

@@ -455,8 +455,9 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         attention_qkv_fused(_rand((1, 273, 3 * 64), dev), 2, 0.125)  # F's widths
     from ep_tpu_torch.ops.pool_attn import ep_pool_proj_attend
     # kernel G takes kernel D's widths (any cq; cq = 6 is a case of
-    # test_ep_pool_proj_forward_and_grad) and refuses the others
-    with pytest.raises(NotImplementedError, match="64 queries"):
+    # test_ep_pool_proj_forward_and_grad; any Q, past 64 in groups) and
+    # refuses the others: 65 queries of cq 2 are 130 columns
+    with pytest.raises(NotImplementedError, match=r"Q\*cq % 8"):
         ep_pool_proj_attend(_rand((65, 192), dev), _rand((1, 9, 192), dev),
                             _rand((130, 192), dev))
     with pytest.raises(NotImplementedError, match=r"Q\*cq % 8"):
@@ -731,3 +732,108 @@ def test_mlp_int8_fused_backward_is_the_bf16_half(dev):
         grads.append(torch.autograd.grad(out, ins, g))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# More than 64 queries: --ep_queries 96, 128 and 768 at ViT-B's width (cq 8,
+# 6 and 1), 1280 at ViT-H's (cq 1), 65 (a last group of one query; cq 16)
+# and 128 at cq 10 (ViT-H, --ep_queries 128).
+MANY_QUERIES = [(2, 196, 768, 96), (2, 196, 768, 128), (2, 196, 768, 768),
+                (2, 256, 1280, 1280), (2, 196, 1040, 65), (2, 256, 1280, 128)]
+
+
+@pytest.mark.parametrize("B, N, C, Q", MANY_QUERIES)
+def test_ep_pool_takes_more_than_64_queries(dev, B, N, C, Q):
+    """Kernel D past 64 queries: one launch for each group of at most 64,
+    against its plain version on the patch-token view, and two calls equal
+    bit for bit."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.pool_attn import (ep_pool_attend, ep_pool_attend_ref,
+                                            query_groups)
+    q = _rand((Q, C), dev, C ** -0.5, seed=60)
+    x = _rand((B, N + 1, C), dev, seed=61)[:, 1:]
+    v = _rand((B, N, Q, C // Q), dev, seed=62)
+    reset_launches()
+    out = ep_pool_attend(q, x, v)
+    assert dict(LAUNCHES) == _counts(ep_pool=len(query_groups(Q)))
+    assert torch.equal(out, ep_pool_attend(q, x, v))
+    torch.testing.assert_close(out, ep_pool_attend_ref(q, x, v), **TOL)
+
+
+@pytest.mark.parametrize("B, N, C, Q", MANY_QUERIES)
+def test_ep_pool_proj_takes_more_than_64_queries(dev, B, N, C, Q):
+    """Kernel G past 64 queries: one launch for each group of at most 64 on
+    its rows of W, against its plain version, and two calls equal bit for
+    bit."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.pool_attn import (ep_pool_proj_attend,
+                                            ep_pool_proj_attend_ref,
+                                            query_groups)
+    q = _rand((Q, C), dev, C ** -0.5, seed=63)
+    x = _rand((B, N + 1, C), dev, seed=64)[:, 1:]
+    w = _rand((C, C), dev, C ** -0.5, torch.float32, seed=65)
+    reset_launches()
+    out = ep_pool_proj_attend(q, x, w)
+    assert dict(LAUNCHES) == _counts(ep_pool_proj=len(query_groups(Q)))
+    assert torch.equal(out, ep_pool_proj_attend(q, x, w))
+    torch.testing.assert_close(out, ep_pool_proj_attend_ref(q, x, w), **TOL)
+
+
+# The driver on the card: ViT-B's width at depth 2, 64 px images (16 patch
+# tokens) of the fake dataset, EP-32, bf16, one epoch of 4 steps at batch
+# 128. The CPU run of the same seed goes through the plain versions; both
+# round to bf16 at the same points and sum in another order, so the losses
+# of the log line agree within DRIVER_LOSS_TOL (absolute, plus the same
+# share of the CPU's loss).
+DRIVER_LOSS_TOL = 2e-2
+
+
+def _driver_cfg(tmp_path, **kw):
+    from ep_tpu_torch.configs import TrainConfig
+    base = dict(dataset_name="fake", nb_classes=10, image_size=64,
+                batch_size=128, model="vit_base_patch16", cls_features="ep",
+                ep_queries=32, epochs=1, warmup_epochs=1, blr=0.1,
+                num_workers=4, amp="bfloat16", seed=0,
+                output_dir=str(tmp_path))
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+@pytest.fixture
+def depth2(monkeypatch):
+    import ep_tpu_torch.cli.linprobe as linprobe
+    from ep_tpu_torch.models.assembly import build_backbone_config
+    monkeypatch.setattr(linprobe, "build_backbone_config",
+                        lambda cfg: build_backbone_config(cfg).replace(depth=2))
+
+
+def _epoch_line(path):
+    return [float(v) for v in (path / "training_log.txt").read_text()
+            .splitlines()[10].split(", ")]
+
+
+def test_driver_one_epoch_on_the_card_matches_cpu(dev, tmp_path, depth2):
+    from ep_tpu_torch.cli.linprobe import main
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    reset_launches()
+    main(_driver_cfg(tmp_path / "card", device="cuda"))
+    launched = dict(LAUNCHES)
+    main(_driver_cfg(tmp_path / "cpu", device="cpu"))
+    # 4 train steps and 1 eval batch of 128, each a forward through 2 blocks
+    assert launched == _counts(ln_qkv_gemm=10, attn_core=10,
+                               proj_residual_gemm=10, ep_pool=5)
+    card, cpu = _epoch_line(tmp_path / "card"), _epoch_line(tmp_path / "cpu")
+    assert card[0] == cpu[0] == 0
+    for i in (1, 3):  # train loss, val loss
+        assert abs(card[i] - cpu[i]) <= DRIVER_LOSS_TOL * (1 + abs(cpu[i]))
+
+
+def test_driver_builds_on_the_card_by_default(dev, tmp_path, depth2):
+    """Without --device cpu (the flag's default is the JAX package's "tpu")
+    the driver trains on the card, through the kernels."""
+    from ep_tpu_torch.cli.linprobe import main, run_device
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    assert run_device(TrainConfig()).type == "cuda"
+    reset_launches()
+    main(_driver_cfg(tmp_path))
+    assert LAUNCHES["ep_pool"] == 5 and LAUNCHES["attn_core"] == 10

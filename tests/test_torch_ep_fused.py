@@ -180,6 +180,25 @@ def test_ep_module_fused_route_at_d_out_2_matches_flax(monkeypatch, dtype):
     _close(out_t, out_j, dtype)
 
 
+@pytest.mark.parametrize("dtype, fused", [("float32", False),
+                                          ("bfloat16", False),
+                                          ("float32", True)])
+def test_ep_module_at_128_queries_matches_flax(monkeypatch, dtype, fused):
+    """``--ep_queries 128`` at ViT-B's width (cq = 6): past the 64 queries one
+    launch of kernel D or G takes, the port runs groups of 64 on the card;
+    the module on the CPU (the plain versions) against the flax module (its
+    kernels in interpret mode), on both routes, with the same weights."""
+    flax_mod, params, mod, x = _ep_modules(dtype, C=768, Q=128)
+    assert mod.cq == 6
+    monkeypatch.setenv("EP_TPU_PALLAS_INTERPRET", "1")
+    if fused:
+        monkeypatch.setenv("EP_TPU_EP_FUSED", "1")
+    out_t = mod(torch.from_numpy(x).to(DT[dtype][1]))
+    out_j = flax_mod.apply(params, jnp.asarray(x, DT[dtype][0]))
+    assert out_t.shape == (5, 768)
+    _close(out_t, out_j, dtype)
+
+
 def test_fused_route_with_bias_raises(monkeypatch):
     """The fused kernel has no bias. The JAX package prints a line and runs
     the unfused route; the port raises."""

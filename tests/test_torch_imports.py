@@ -20,7 +20,10 @@ from ep_tpu_torch.utils.pos_embed import bicubic_weight_matrix
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "ep_tpu")
 PORT_FILES = sorted((ROOT / "ep_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "main_linprobe_torch.py"]
+# The port's copies of the JAX package's host data pipeline (numpy and PIL):
+# the same text, with the package's own imports pointed at ep_tpu_torch.data.
+DATA_COPIES = ("datasets", "transforms", "autoaugment", "loader", "_native")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -44,7 +47,13 @@ def test_the_walk_sees_the_port():
     assert {"chip_smoke.py", "ep_tpu_torch/configs.py",
             "ep_tpu_torch/ops/mlp_int8.py", "ep_tpu_torch/ops/flash_attn.py",
             "ep_tpu_torch/utils/pos_embed.py",
-            "ep_tpu_torch/models/assembly.py"} <= names
+            "ep_tpu_torch/models/assembly.py", "main_linprobe_torch.py",
+            "ep_tpu_torch/cli/linprobe.py", "ep_tpu_torch/train/engine.py",
+            "ep_tpu_torch/runtime/checkpoint.py",
+            "ep_tpu_torch/runtime/profiler.py",
+            "ep_tpu_torch/utils/logging.py",
+            "ep_tpu_torch/convert/torch_vit.py"} <= names
+    assert {f"ep_tpu_torch/data/{f}.py" for f in DATA_COPIES} <= names
     assert _forbidden("ep_tpu") and _forbidden("ep_tpu.configs")
     assert _forbidden("jax.numpy") and not _forbidden("ep_tpu_torch.configs")
 
@@ -119,3 +128,24 @@ def test_constructors_build_on_the_card_unless_asked():
     state, _ = flax_to_torch(variables, device="cpu")
     assert state["head.fc.bias"].device.type == "cpu"
     assert default_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", DATA_COPIES)
+def test_data_package_is_a_faithful_copy(name):
+    """Each copy of ``ep_tpu/data`` is the JAX package's file with its own
+    imports renamed; the loader alone differs where the JAX package would
+    import the grain-backed loader, which the port refuses."""
+    jax_text = (ROOT / "ep_tpu" / "data" / f"{name}.py").read_text()
+    port_text = (ROOT / "ep_tpu_torch" / "data" / f"{name}.py").read_text()
+    expected = jax_text.replace("ep_tpu.data", "ep_tpu_torch.data")
+    if name == "loader":
+        grain = ("        from .grain_loader import GrainDataLoader\n"
+                 "        loader_cls = GrainDataLoader\n")
+        assert grain in expected
+        head, tail = expected.split(grain)
+        assert port_text.startswith(head) and port_text.endswith(tail)
+        middle = port_text[len(head):len(port_text) - len(tail)]
+        assert middle.lstrip().startswith("raise NotImplementedError(")
+        assert "grain" in middle
+    else:
+        assert port_text == expected

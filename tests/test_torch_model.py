@@ -143,13 +143,13 @@ def test_patch_embed_matmul_equals_conv():
     dict(mlp_type="swiglu"), dict(pre_norm=True), dict(proj_dim=512),
 ])
 def test_unported_backbone_variants_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP module item 7"):
         VisionTransformer(ViTConfig(embed_dim=64, depth=1, num_heads=2, **kw))
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(return_block=5), "item 12"), (dict(cls_features="aim"), "item 11"),
-    (dict(model="dinov2_vitb14"), "item 12"),
+    (dict(return_block=5), "item 7"), (dict(cls_features="aim"), "item 6"),
+    (dict(model="dinov2_vitb14"), "item 7"),
 ])
 def test_unported_configs_raise(kw, item):
     cfg = PortTrainConfig(**{**dict(model="vit_tiny_patch16",

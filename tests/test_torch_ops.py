@@ -27,7 +27,8 @@ from ep_tpu_torch.ops.pool_attn import (EP_POOL_MAX_CLUSTER, EP_POOL_TILE,
                                         ep_pool_attend, ep_pool_attend_ref,
                                         ep_pool_proj_smem_bytes,
                                         ep_pool_proj_tiling,
-                                        ep_pool_smem_bytes, ep_pool_tiling)
+                                        ep_pool_smem_bytes, ep_pool_tiling,
+                                        query_groups)
 
 F32_TOL = 1e-5
 BF16_RTOL = 2.0 ** -7
@@ -159,11 +160,55 @@ def test_ep_pool_tiling_takes_every_token_once(N, C, Q, QC):
 
 
 @pytest.mark.parametrize("N, C, Q, QC, what", [
-    (196, 768, 65, 780, "64 queries"), (196, 776, 8, 776, "C % 16"),
+    (196, 768, 65, 780, r"Q\*cq % 8"), (196, 776, 8, 776, "C % 16"),
     (37, 128, 4, 12, r"Q\*cq % 8"), (16 * 64 * 48, 768, 32, 768, "bytes")])
 def test_ep_pool_tiling_refuses_what_kernel_d_does_not_take(N, C, Q, QC, what):
+    """65 queries are taken (in two groups), but not at 780 columns: 12 a
+    query, and 780 % 8 != 0."""
     with pytest.raises(NotImplementedError, match=what):
         ep_pool_tiling(N, C, Q, QC)
+
+
+# More than 64 queries at ViT-B's token width: 65 (cq 8; a last group of
+# one), 96 (cq 8), 128 (cq 6), 768 (cq 1), and ViT-H's 1280 (cq 1).
+MANY_QUERIES = [(196, 768, 65, 520), (196, 768, 96, 768), (196, 768, 128, 768),
+                (196, 768, 768, 768), (256, 1280, 1280, 1280),
+                (1024, 1280, 128, 1280)]
+
+
+@pytest.mark.parametrize("N, C, Q, QC", MANY_QUERIES)
+def test_pool_kernels_take_more_than_64_queries(N, C, Q, QC):
+    """Past 64 queries kernels D and G run one launch a group of at most 64
+    (the N of their logits' wgmma): every query in one group, each group's
+    columns starting 16-byte aligned with a whole number of 16-byte rows
+    (Q_g*cq % 8 == 0), and both tilings those of a full group of 64."""
+    groups = query_groups(Q)
+    assert [q for q0, q1 in groups for q in range(q0, q1)] == list(range(Q))
+    assert all(1 <= q1 - q0 <= 64 for q0, q1 in groups)
+    cq = QC // Q
+    assert all((q0 * cq * 2) % 16 == 0 and ((q1 - q0) * cq) % 8 == 0
+               for q0, q1 in groups)
+    assert ep_pool_tiling(N, C, Q, QC) == ep_pool_tiling(N, C, 64, 64 * cq)
+    assert (ep_pool_proj_tiling(N, C, Q, QC)
+            == ep_pool_proj_tiling(N, C, 64, 64 * cq))
+
+
+def test_query_groups():
+    assert query_groups(1) == [(0, 1)]
+    assert query_groups(64) == [(0, 64)]
+    assert query_groups(65) == [(0, 64), (64, 65)]
+    assert query_groups(96) == [(0, 64), (64, 96)]
+    assert query_groups(768) == [(i, i + 64) for i in range(0, 768, 64)]
+
+
+@pytest.mark.parametrize("tiling", ["ep_pool_tiling", "ep_pool_proj_tiling"])
+def test_pool_kernels_refuse_columns_not_a_multiple_of_the_queries(tiling):
+    """Past 64 queries the groups split the columns by query, so Q*cq must
+    hold a whole number of columns for each query."""
+    fn = dict(ep_pool_tiling=ep_pool_tiling,
+              ep_pool_proj_tiling=ep_pool_proj_tiling)[tiling]
+    with pytest.raises(ValueError, match="whole number"):
+        fn(196, 768, 96, 776)
 
 
 def test_ep_pool_smem_grows_with_tiles_and_queries():
@@ -201,7 +246,7 @@ def test_ep_pool_proj_takes_every_shape_kernel_d_takes(N, C, Q, QC):
 
 
 @pytest.mark.parametrize("N, C, Q, QC, what", [
-    (196, 768, 65, 780, "64 queries"), (196, 776, 8, 776, "C % 16"),
+    (196, 768, 65, 780, r"Q\*cq % 8"), (196, 776, 8, 776, "C % 16"),
     (37, 128, 4, 12, r"Q\*cq % 8")])
 def test_ep_pool_proj_refuses_the_widths_kernel_d_refuses(N, C, Q, QC, what):
     """The widths D refuses, G refuses with the same reason. (D's fourth

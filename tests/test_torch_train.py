@@ -188,3 +188,68 @@ def test_freeze_cast_and_eval_step():
                                         valid)
     assert float(sums["count"]) == B - 3 and preds.shape == (B,)
     assert 0.0 <= float(sums["acc1_sum"]) <= 100.0 * (B - 3)
+
+
+@pytest.mark.parametrize("shape", [(8, 16), (4, 5, 16), (2, 3, 4, 16)])
+def test_batchnorm_over_the_last_axis_matches_flax(shape):
+    """The port's TorchBatchNorm normalises the last axis over all the others
+    at any rank, as the flax TorchBatchNorm does: two training steps, then an
+    eval step, with the running statistics compared after each (their Bessel
+    count is the product of the reduced axes)."""
+    from ep_tpu.poolings.batchnorm import TorchBatchNorm as FlaxBN
+    from ep_tpu_torch.poolings.batchnorm import TorchBatchNorm
+    rng = np.random.default_rng(7)
+    xs = [(rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+          for _ in range(3)]
+    fbn = FlaxBN(momentum=0.9, epsilon=1e-6, use_bias=False, use_scale=False)
+    variables = fbn.init(jax.random.key(0), jnp.asarray(xs[0]))
+    tbn = TorchBatchNorm(16, momentum=0.9, epsilon=1e-6)
+    for i, x in enumerate(xs):
+        train = i < 2
+        tbn.train(train)
+        out_t = tbn(torch.from_numpy(x))
+        if train:
+            out_j, upd = fbn.apply(variables, jnp.asarray(x),
+                                   mutable=["batch_stats"])
+            variables = {**variables, **upd}
+        else:
+            out_j = fbn.clone(use_running_average=True).apply(
+                variables, jnp.asarray(x))
+        assert out_t.shape == shape
+        np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                                   rtol=1e-5, atol=1e-5)
+        stats = variables["batch_stats"]
+        np.testing.assert_allclose(tbn.running_mean.numpy(),
+                                   np.asarray(stats["mean"]), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(tbn.running_var.numpy(),
+                                   np.asarray(stats["var"]), rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.05])
+def test_lars_updates_a_parameter_outside_the_graph(wd):
+    """A trainable parameter that gets no gradient is updated with a zero
+    gradient, as optax updates every leaf: its momentum decays, and a 2-D
+    parameter gets the weight decay scaled by the trust ratio."""
+    rng = np.random.default_rng(3)
+    shapes = [(6, 4), (4,), (3, 5)]
+    ps = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    tx = jax_lars.scaled_lars(weight_decay=wd)
+    st = tx.init([jnp.asarray(p) for p in ps])
+    tp = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in ps]
+    opt = LARS(tp, weight_decay=wd)
+    for step in range(3):
+        gs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+        if step:  # the third parameter leaves the graph after step 0
+            gs[2] = np.zeros(shapes[2], np.float32)
+        upd, st = tx.update([jnp.asarray(g) for g in gs], st,
+                            [jnp.asarray(p) for p in ps])
+        ps = [p - 0.5 * np.asarray(u) for p, u in zip(ps, upd)]
+        for i, (p, g) in enumerate(zip(tp, gs)):
+            p.grad = None if (step and i == 2) else torch.from_numpy(g)
+        opt.step(0.5)
+        for p, ref in zip(tp, ps):
+            np.testing.assert_allclose(p.detach().numpy(), ref, rtol=1e-5,
+                                       atol=1e-6)
+    assert not torch.equal(opt.state[tp[2]]["mu"], torch.zeros(3, 5))
