@@ -68,6 +68,19 @@ Phases, each of which must pass (any failure exits non-zero):
              at 448 px through a ViT-H/14-width model of depth 4 built at 224
              px (the position embedding is interpolated), fused EP route: the
              card's kernels against the plain path on the CPU.
+   device-aug — phase 4 on u8 staged input (512, 256, 256, 3) with the
+             --device_aug crop, flip and normalize inside the step
+             (bench.py::_bench_device_aug): its img/s beside train's; then the
+             crop alone at batch 512 (ms beside its bound) and the card's crop
+             against the CPU's on the same step's draws.
+   cached  — the --cache_features head-only step (bench.py::
+             _bench_cached_mode) on device-resident ViT-B/16 tokens (512, 196,
+             768) bf16: chains of 32 steps, the median of 3 gives
+             cached_mode_img_s, and effective_90ep_img_s = 90 / (1/train +
+             90/cached); kernel D once a step, and again with
+             EP_TPU_EP_FUSED=1 (cached-fused: kernel G, D never); each
+             route's head forward and gradients on 64 of the tokens against
+             the CPU plain path.
 6. finetune-b — full fine-tuning as bench.py's ft_b row builds it: ViT-B/16 +
              EP-32, batch 512, --finetuning --remat_blocks --remat_policy
              attn_out, LARS and the warmup-cosine LR (at its peak, the end of
@@ -91,17 +104,27 @@ Phases, each of which must pass (any failure exits non-zero):
              .pth written from another seed's backbone (the logits of the
              model it was written from). Checks finite losses, a head-only
              checkpoint and each run's launch counters (A, B and C 12x a
-             forward, D once, or twice at 128 queries); prints each epoch's
-             wall img/s beside phase 4's step at batch 128.
+             forward, D once, or twice at 128 queries); then --cache_features
+             over 2 epochs and --cache_augs 2 over 3 (the extraction's img/s
+             per split, the '[cache] train (512, 196, 768)' line, head-only
+             epochs: D once a step, A, B and C only in the extraction), and
+             --device_aug --device_aug_cache over 2 epochs (the staged memmap
+             files); prints each epoch's wall img/s beside phase 4's step at
+             batch 128, and the idle share of a profiled epoch of each mode.
 
-Before the last line come the card's name and power limit and a JSON summary
-of the kernels; the last line is {"ok": true, "device": {...}}. It imports
+Before the last line come the card's name and power limit, a JSON line with
+cached_mode_img_s, effective_90ep_img_s and device_aug_img_s (bench.py's keys)
+beside them, and a JSON summary of the kernels; the last line is
+{"ok": true, "device": {...}}. It imports
 nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import dataclasses
+import io
 import json
 import math
 import os
@@ -1051,6 +1074,10 @@ PROBE_CONFIGS = {
     "probe-h-rowtile": (128, dict(model="vit_huge_patch14"), 3,
                         {"EP_TPU_ATTN_VARIANT": "rowtile"}, "attn_flash",
                         "ep_pool"),
+    # bench.py::_bench_device_aug: u8 (512, 256, 256, 3) staged input, the
+    # crop, flip and normalize inside the step
+    "device-aug": (None, dict(model="vit_base_patch16", device_aug=True),
+                   *_USUAL),
 }
 INT8_KERNELS = ("mlp_int8_ln_quant", "mlp_int8_fc1", "mlp_int8_fc2")
 
@@ -1087,7 +1114,11 @@ def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel):
     trainable = freeze(model, cfg.finetuning)
     cast_frozen(model, torch.bfloat16)
     opt = LARS(trainable, weight_decay=0.0)
-    step_fn = make_train_step(model, opt, make_lr_fn(cfg, 1000))
+    device_aug = None
+    if cfg.device_aug:
+        from ep_tpu_torch.data.device_aug import DeviceAug
+        device_aug = DeviceAug.from_cfg(cfg)
+    step_fn = make_train_step(model, opt, make_lr_fn(cfg, 1000), device_aug)
     # calls of the bf16 MLP half (models/vit.py::Mlp), which the int8 half
     # must never reach
     bf16_mlp_calls = [0]
@@ -1099,8 +1130,13 @@ def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel):
         blk.mlp.register_forward_hook(count_call)
 
     rng = np.random.default_rng(0)
-    images = torch.from_numpy(rng.standard_normal(
-        (B, bcfg.img_size, bcfg.img_size, 3), dtype=np.float32)).cuda()
+    if device_aug is None:
+        images = torch.from_numpy(rng.standard_normal(
+            (B, bcfg.img_size, bcfg.img_size, 3), dtype=np.float32)).cuda()
+    else:
+        S = device_aug.stage_size
+        images = torch.from_numpy(rng.integers(
+            0, 256, (B, S, S, 3), dtype=np.uint8)).cuda()
     labels = torch.from_numpy(rng.integers(0, 1000, size=(B,))).cuda()
 
     train_p, frozen_p = split_params(model, cfg.finetuning)
@@ -1108,7 +1144,9 @@ def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel):
     before_f = {k: p.detach().clone() for k, p in frozen_p.items()}
     log(f"[{kind}] {cfg.model} (D={bcfg.embed_dim}, depth {bcfg.depth}, "
         f"T={bcfg.num_patches + bcfg.num_prefix_tokens}) + EP32, "
-        f"int8_mlp={bcfg.int8_mlp}, batch {B}, {bcfg.img_size} px, {steps} "
+        f"int8_mlp={bcfg.int8_mlp}, batch {B}, {bcfg.img_size} px"
+        + (f" cropped on the card from u8 staged {tuple(images.shape)}"
+           if device_aug is not None else "") + f", {steps} "
         f"steps, attention through {attn_kernel}, pool through {pool_kernel}, "
         f"{sum(p.numel() for p in trainable)} trainable / "
         f"{sum(p.numel() for p in frozen_p.values())} frozen parameters")
@@ -1151,7 +1189,8 @@ def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel):
     med = statistics.median(times[1:]) if steps > 1 else times[0]
     log(f"  median step {med * 1e3:.2f} ms (steps 1..{steps - 1}), "
         f"{B / med:.1f} img/s at batch {B} on {card}")
-    device_time(lambda: step_fn(steps, images, labels), card)
+    device_time(lambda: step_fn(steps, images, labels), card,
+                host_rows=10 if device_aug is not None else 0)
     return model, images, counts, med, losses
 
 
@@ -1234,8 +1273,10 @@ def device_rows(prof) -> list[tuple[float, int, str]]:
     return rows
 
 
-def device_time(step, card: str) -> None:
-    """One step under torch.profiler: device time by kernel over wall time."""
+def device_time(step, card: str, host_rows: int = 0) -> None:
+    """One step under torch.profiler: device time by kernel over wall time;
+    with ``host_rows``, also that many host operators by their own CPU
+    time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1265,6 +1306,15 @@ def device_time(step, card: str) -> None:
     # the 12 longest, then every other hand-written kernel
     for i, (ms, n, key) in enumerate(rows):
         if i < 12 or "ep::" in key.lower():
+            log(f"    {ms:9.3f} ms  x{n:<4d} {key[:110]}")
+    if host_rows:
+        from torch.autograd import DeviceType
+        cpu = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CPU), reverse=True)
+        log(f"  host: {sum(r[0] for r in cpu):.1f} ms of operators' own CPU "
+            f"time in {sum(r[1] for r in cpu)} calls; the longest:")
+        for ms, n, key in cpu[:host_rows]:
             log(f"    {ms:9.3f} ms  x{n:<4d} {key[:110]}")
 
 
@@ -1354,11 +1404,17 @@ def finetune_grads(n: int = 4) -> None:
         freeze(m, True)
         cross_entropy(m(x.to(dev)), y.to(dev)).mean().backward()
         grads.append({k: p.grad.float().cpu() for k, p in m.named_parameters()})
-    card, cpu = grads
+    compare_grads(f"[finetune-grads] {len(grads[1])} gradients of {n} images",
+                  *grads)
+
+
+def compare_grads(what: str, card: dict, cpu: dict) -> None:
+    """Each gradient of the card's kernel path against the CPU plain path's:
+    GRAD_TOL of its scale at every element, GRAD_COS in direction."""
     top = max(float(g.abs().max()) for g in cpu.values())
-    log(f"[finetune-grads] {len(cpu)} gradients of {n} images, card kernel path "
-        f"vs CPU plain path (tol {GRAD_TOL:g} of max(|grad|, "
-        f"{GRAD_FLOOR:g} x model max {top:.3e}); cosine >= {GRAD_COS:g})")
+    log(f"{what}, card kernel path vs CPU plain path (tol {GRAD_TOL:g} of "
+        f"max(|grad|, {GRAD_FLOOR:g} x model max {top:.3e}); cosine >= "
+        f"{GRAD_COS:g})")
     rows, bad = [], []
     for k, ref in cpu.items():
         own = float(ref.abs().max())
@@ -1378,6 +1434,151 @@ def finetune_grads(n: int = 4) -> None:
         f"{[r[2] for r in rows if r[3]]}")
     if bad:
         raise RuntimeError(f"gradients outside the tolerance: {bad}")
+
+
+# bench.py::_bench_cached_mode: chains of CACHED_CHAIN head steps on
+# device-resident tokens, the median of CACHED_CHAINS chains; the card's head
+# step against the CPU plain path's on CACHED_CHECK images of the same tokens
+CACHED_CHAIN, CACHED_CHAINS, CACHED_CHECK = 32, 3, 64
+
+
+def cached_steps(card: str, paths: dict, train_img_s: float) -> dict:
+    """The head-only train step of --cache_features on ViT-B/16's tokens
+    (512, 196, 768) bf16 and random labels, through F.linear + kernel D and
+    through kernel G (EP_TPU_EP_FUSED=1). Adds the chains' launch counts to
+    ``paths``; returns the img/s of both routes and effective_90ep_img_s."""
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.models.assembly import init_probe_model
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.train.feature_cache import make_head_steps
+    from ep_tpu_torch.train.lars import build_optimizer
+    from ep_tpu_torch.train.schedule import make_lr_fn
+    from ep_tpu_torch.train.steps import cross_entropy
+
+    B, N, D = 512, 196, 768
+    cfg = TrainConfig(model="vit_base_patch16", cls_features="ep",
+                      ep_queries=32, d_out=1, nb_classes=1000, amp="bfloat16",
+                      epochs=90, warmup_epochs=10, blr=0.1, batch_size=B,
+                      eff_batch_size=B)
+    head0 = init_probe_model(cfg, seed=1).head  # on the card
+    rng = np.random.default_rng(1)
+    tokens = rand(rng, (B, N, D))
+    labels = torch.from_numpy(rng.integers(0, 1000, size=(B,))).cuda()
+    first = int(cfg.warmup_epochs * 1000)  # the LR at its peak
+    out = {}
+    for name, env, kernel in (("cached", {}, "ep_pool"),
+                              ("cached-fused", {"EP_TPU_EP_FUSED": "1"},
+                               "ep_pool_proj")):
+        head = copy.deepcopy(head0)
+        opt = build_optimizer("lars", list(head.parameters()), 0.0)
+        step_fn, _ = make_head_steps(head, opt, make_lr_fn(cfg, 1000))
+        with environment(**env):
+            for i in range(2):
+                float(step_fn(first + i, tokens, labels)["loss"])
+            torch.cuda.synchronize()
+            reset_launches()
+            chains, step = [], first + 2
+            for _ in range(CACHED_CHAINS):
+                t0 = time.perf_counter()
+                for _ in range(CACHED_CHAIN):
+                    m = step_fn(step, tokens, labels)
+                    step += 1
+                loss = float(m["loss"])  # synchronises
+                chains.append((time.perf_counter() - t0) / CACHED_CHAIN)
+            paths[name] = dict(LAUNCHES)
+            want = dict.fromkeys(LAUNCHES, 0)
+            want[kernel] = CACHED_CHAIN * CACHED_CHAINS
+            log(f"[{name}] head-only step of --cache_features, tokens "
+                f"{tuple(tokens.shape)} bf16, EP-32 + BN + fc + LARS, pool "
+                f"through {kernel}: chains of {CACHED_CHAIN} steps "
+                f"{[round(c * 1e3, 3) for c in chains]} ms a step, loss "
+                f"{loss:.5f}; launches {paths[name]} (expected {want})")
+            if paths[name] != want or not math.isfinite(loss):
+                raise RuntimeError(f"{name}: the head step did not go "
+                                   "through its kernel as expected")
+            med = statistics.median(chains)
+            out[name] = dict(step_ms=med * 1e3, img_s=B / med)
+            log(f"  median step {med * 1e3:.3f} ms, {B / med:.1f} img/s at "
+                f"batch {B} on {card}")
+            device_time(lambda: step_fn(step, tokens, labels), card,
+                        host_rows=10)
+
+            # the card's head step against the CPU plain path's
+            n = CACHED_CHECK
+            grads, logits = [], []
+            for dev in ("cuda", "cpu"):
+                h = copy.deepcopy(head0).to(dev).train()
+                lg = h(tokens[:n].to(dev))
+                cross_entropy(lg, labels[:n].to(dev)).mean().backward()
+                logits.append(lg.detach().float().cpu())
+                grads.append({k: p.grad.float().cpu()
+                              for k, p in h.named_parameters()})
+            log(f"[{name}] the head's forward and backward on {n} of the "
+                "tokens, card kernel path vs CPU plain path")
+            compare("logits", logits[0], logits[1], MODEL_ATOL, MODEL_RTOL)
+            compare_grads(f"  {len(grads[1])} head gradients", *grads)
+    a, b = out["cached"], out["cached-fused"]
+    log(f"[steps] cached-fused (G): {b['step_ms']:.3f} ms, {b['img_s']:.1f} "
+        f"img/s; cached (F.linear + D, same run): {a['step_ms']:.3f} ms, "
+        f"{a['img_s']:.1f} img/s at batch {B} on {card}")
+    eff = 90.0 / (1.0 / train_img_s + 90.0 / a["img_s"])
+    return dict(cached_mode_img_s=a["img_s"],
+                cached_mode_fused_img_s=b["img_s"],
+                cached_step_ms=a["step_ms"], cached_fused_step_ms=b["step_ms"],
+                effective_90ep_img_s=eff, train_img_s=train_img_s)
+
+
+# The device crop against its CPU plain version: f32 output, so that the
+# comparison sees the crop and not the final bf16 rounding. Both sum f32
+# products of bf16 values in another order; where a y-pass sum lies within
+# that difference of a bf16 rounding boundary, its bf16 value moves by one
+# step (1.0 up to 256, 2.0 where the bicubic lobes overshoot past it), which
+# the x-pass carries to the output elements that read it, times their weights
+# (at most about 1.2 in all) over 255*std (0.225 at the least): under 0.042.
+# A magnified crop spreads one source column over up to 45 outputs, so the
+# moved elements are a share of a percent (measured on an H100: 0.74% past
+# AUG_CLOSE, at most 3.4e-2). AUG_TOL bounds every element, at most AUG_SHARE
+# of them may lie past AUG_CLOSE, and the mean |d| stays under AUG_MEAN: a
+# wrong box or flip moves most elements by tenths.
+AUG_TOL, AUG_CLOSE, AUG_SHARE, AUG_MEAN = 5e-2, 1e-3, 2e-2, 1e-4
+
+
+def device_aug_check(card: str, n_check: int = 128) -> dict:
+    """The --device_aug train transform at batch 512 (u8 (512, 256, 256, 3) to
+    (512, 224, 224, 3)): its time on the card, and the card's output against
+    the CPU's on the same step's draws."""
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.data.device_aug import DeviceAug
+
+    cfg = TrainConfig(model="vit_base_patch16", image_size=224,
+                      amp="bfloat16", device_aug=True, seed=0)
+    aug = DeviceAug.from_cfg(cfg)
+    S, out, B = aug.stage_size, aug.out_size, 512
+    images = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (B, S, S, 3), dtype=np.uint8)).cuda()
+    ms = time_ms(lambda: aug.train_fn(7, images))
+    flops = 2 * B * out * S * (S * 3 + out * 3)
+    moved = images.numel() + B * out * out * 3 * 2
+    bnd = bound(flops, "bf16", moved)
+    log(f"[device-aug] the train transform (crop, flip, normalize) at batch "
+        f"{B}, u8 {tuple(images.shape)} to bf16 ({B}, {out}, {out}, 3): "
+        f"{ms:.3f} ms ({flops / 1e9:.1f} GFLOP of products on bf16 values "
+        f"in f32; bound {bnd['bound_ms']:.3f} ms by {bnd['bound_by']} at the "
+        f"bf16 peak) on {card}")
+    f32 = dataclasses.replace(aug, dtype=torch.float32)
+    got = f32.train_fn(7, images[:n_check]).cpu()
+    ref = f32.train_fn(7, images[:n_check].cpu())
+    d = (got - ref).abs()
+    past = int((d > AUG_CLOSE).sum())
+    ok = (float(d.max()) <= AUG_TOL and past <= AUG_SHARE * d.numel()
+          and float(d.mean()) <= AUG_MEAN)
+    log(f"  card vs CPU on the same draws ({n_check} images, f32 out): max "
+        f"|d| {float(d.max()):.3e} (tol {AUG_TOL:g}), {past} of {d.numel()} "
+        f"past {AUG_CLOSE:g} (tol a share of {AUG_SHARE:g}), mean |d| "
+        f"{float(d.mean()):.3e} (tol {AUG_MEAN:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the card's crop disagrees with the CPU's")
+    return dict(crop_ms=ms, crop_max_abs_err=float(d.max()), **bnd)
 
 
 # The driver phase: main_linprobe_torch.py's main on the fake dataset (512
@@ -1406,9 +1607,26 @@ def driver(card: str, paths: dict) -> list[dict]:
     from ep_tpu_torch.train.state import cast_frozen
     from torch.profiler import ProfilerActivity, profile
 
-    epochs, built = [], []
+    epochs, built, extracted = [], [], []
     profiled = {"at": None}
     run_epoch, build_model = linprobe.train_one_epoch, linprobe.init_probe_model
+    run_extract = linprobe.extract_split
+
+    def timed_extract(backbone_apply, loader, device, cache_dir, name, **kw):
+        """The driver's extract_split on the host clock."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats, labels = run_extract(backbone_apply, loader, device, cache_dir,
+                                    name, **kw)
+        wall = time.perf_counter() - t0
+        rec = dict(run=Path(cache_dir).name, split=name,
+                   shape=list(feats.shape), dtype=str(feats.dtype),
+                   wall_s=wall, img_s=len(feats) / wall)
+        extracted.append(rec)
+        log(f"  extraction of {rec['run']}'s {name}: {len(feats)} images to "
+            f"{tuple(feats.shape)} {feats.dtype} in {wall:.3f} s, "
+            f"{rec['img_s']:.1f} img/s")
+        return feats, labels
 
     def timed_epoch(train_step, step, loader, device, epoch, cfg, writer):
         """The driver's train_one_epoch on the host clock (and once under
@@ -1451,27 +1669,52 @@ def driver(card: str, paths: dict) -> list[dict]:
         cfg = TrainConfig(**{**DRIVER_FLAGS, "output_dir": str(out), **kw})
         out.mkdir(parents=True, exist_ok=True)
         torch.cuda.synchronize()
+        said = io.StringIO()
         reset_launches()
         t0 = time.perf_counter()
-        res = linprobe.main(cfg)
+        with contextlib.redirect_stdout(_Tee(sys.stdout, said)):
+            res = linprobe.main(cfg)
         torch.cuda.synchronize()
+        printed[name] = said.getvalue()
         paths[name] = dict(LAUNCHES)
         log(f"  [{name}] {time.perf_counter() - t0:.1f} s, launches "
             f"{ {k: v for k, v in paths[name].items() if v} }")
         return res
 
-    def expect(name, forwards, pool="ep_pool", per_forward=1):
+    def expect(name, forwards, pool="ep_pool", per_forward=1, pools=None):
+        """A, B and C 12 times a forward; the pool per_forward times a
+        forward, or ``pools`` times in all (cached epochs pool without a
+        forward)."""
         want = dict.fromkeys(LAUNCHES, 0)
         want.update(ln_qkv_gemm=12 * forwards, attn_core=12 * forwards,
                     proj_residual_gemm=12 * forwards)
         if pool:
-            want[pool] = per_forward * forwards
+            want[pool] = per_forward * forwards if pools is None else pools
         if paths[name] != want:
             raise RuntimeError(f"{name}: launches {paths[name]}, expected {want}")
 
+    def check_run(name, out, epoch_lines, ckpt_epoch_step):
+        """Finite epoch lines, and a head-only checkpoint at the epoch and
+        global step given."""
+        got = lines(out)
+        if list(got) != epoch_lines or not all(
+                math.isfinite(v) for row in got.values() for v in row):
+            raise RuntimeError(f"{name}: epoch lines {got}")
+        ckpt = torch.load(out / "checkpoint-.pth", weights_only=True)
+        if not ckpt["model"] or not all(k.startswith("head.")
+                                        for k in ckpt["model"]):
+            raise RuntimeError(f"{name}: the checkpoint holds more than the "
+                               "head")
+        if (ckpt["epoch"], ckpt["step"]) != ckpt_epoch_step:
+            raise RuntimeError(f"{name}: checkpoint at epoch {ckpt['epoch']}, "
+                               f"step {ckpt['step']}")
+        return got, ckpt
+
+    printed = {}
     per_epoch = DRIVER_STEPS + DRIVER_EVAL_BATCHES
     with mock.patch.object(linprobe, "train_one_epoch", timed_epoch), \
             mock.patch.object(linprobe, "init_probe_model", keep_model), \
+            mock.patch.object(linprobe, "extract_split", timed_extract), \
             tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         log("[driver] main_linprobe_torch.py's main: ViT-B/16, 224 px, EP-32, "
@@ -1481,17 +1724,8 @@ def driver(card: str, paths: dict) -> list[dict]:
         profiled["at"] = (str(tmp / "train"), 1)
         res = run("driver", tmp / "train")
         expect("driver", 2 * per_epoch)
-        first = lines(tmp / "train")
-        if list(first) != [0, 1] or not all(
-                math.isfinite(v) for row in first.values() for v in row):
-            raise RuntimeError(f"driver: epoch lines {first}")
-        ckpt = torch.load(tmp / "train" / "checkpoint-.pth", weights_only=True)
-        if not ckpt["model"] or not all(k.startswith("head.")
-                                        for k in ckpt["model"]):
-            raise RuntimeError("driver: the checkpoint holds more than the head")
-        if (ckpt["epoch"], ckpt["step"]) != (1, 2 * DRIVER_STEPS):
-            raise RuntimeError(f"driver: checkpoint at epoch {ckpt['epoch']}, "
-                               f"step {ckpt['step']}")
+        first, ckpt = check_run("driver", tmp / "train", [0, 1],
+                                (1, 2 * DRIVER_STEPS))
         log(f"  epoch lines {first}; the checkpoint holds "
             f"{len(ckpt['model'])} head.* entries, epoch 1, step "
             f"{ckpt['step']}; max accuracy {res['max_accuracy']:.2f}% (random "
@@ -1565,8 +1799,60 @@ def driver(card: str, paths: dict) -> list[dict]:
         compare("--finetune: the driver's logits against the written model's",
                 got, ref)
         del source, built[:]
+
+        # 7. --cache_features: the encoder once over each split (4 train and
+        # 1 val batches), then head-only epochs on the cached tokens (kernel
+        # D once a step); the second epoch profiled. Then --cache_augs 2
+        # over 3 epochs: two train draws, epochs 0 and 2 on the first.
+        for name, K, n_epochs in (("driver-cached", 1, 2),
+                                  ("driver-cached-augs", 2, 3)):
+            out = tmp / name
+            profiled["at"] = (str(out), 1)
+            run(name, out, cache_features=True, cache_augs=K, epochs=n_epochs)
+            expect(name, K * DRIVER_STEPS + DRIVER_EVAL_BATCHES,
+                   pools=n_epochs * per_epoch)
+            got, _ = check_run(name, out, list(range(n_epochs)),
+                               (n_epochs - 1, n_epochs * DRIVER_STEPS))
+            said = ("[cache] train (512, 196, 768)"
+                    + (f" x{K} augs" if K > 1 else "") + " val (128, 196, 768)")
+            if said not in printed[name]:
+                raise RuntimeError(f"{name}: no line '{said}'")
+            log(f"  {name}: '{said}'; epoch lines {got}; a head-only "
+                f"checkpoint at step {n_epochs * DRIVER_STEPS}")
+
+        # 8. --device_aug --device_aug_cache: u8 staged images, the crop on
+        # the card; epoch 0 stages into the cache, epoch 1 (profiled) reads it
+        out = tmp / "driver-device-aug"
+        profiled["at"] = (str(out), 1)
+        run("driver-device-aug", out, device_aug=True,
+            device_aug_cache=str(tmp / "staged"))
+        expect("driver-device-aug", 2 * per_epoch)
+        got, _ = check_run("driver-device-aug", out, [0, 1],
+                           (1, 2 * DRIVER_STEPS))
+        staged = sorted(p.name for p in (tmp / "staged").glob("staged_*.npy"))
+        if staged != ["staged_train_512x256x256x3.npy",
+                      "staged_val_128x224x224x3.npy"]:
+            raise RuntimeError(f"driver-device-aug: staged files {staged}")
+        log(f"  --device_aug: epoch lines {got}; staged {staged}")
     torch.cuda.empty_cache()
-    return epochs
+    return epochs, extracted
+
+
+class _Tee(io.TextIOBase):
+    """Writes to two streams: the driver's printed lines to the log and to
+    a buffer the checks read."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
 
 
 def main() -> int:
@@ -1619,6 +1905,13 @@ def main() -> int:
         log(f"[steps] {int8}: {b['step_ms']:.2f} ms, {b['img_s']:.1f} img/s; "
             f"{bf16} (bf16 MLP half, same run): {a['step_ms']:.2f} ms, "
             f"{a['img_s']:.1f} img/s at batch {a['batch']} on {card}")
+    a, b = steps_ms["device-aug"], steps_ms["train"]
+    log(f"[steps] device-aug: {a['step_ms']:.2f} ms, {a['img_s']:.1f} img/s "
+        f"(u8 staged input, the crop on the card); train (same run): "
+        f"{b['step_ms']:.2f} ms, {b['img_s']:.1f} img/s at batch {a['batch']} "
+        f"on {card}")
+    crop = device_aug_check(card)
+    cached = cached_steps(card, paths, steps_ms["train"]["img_s"])
     for route, usual in (("probe-h448-fused", "probe-h448"),
                          ("probe-h-rowtile", "probe-h")):
         a, b = steps_ms[route], steps_ms[usual]
@@ -1635,7 +1928,7 @@ def main() -> int:
     for kind, (B, _) in FT_CONFIGS.items():
         paths[kind] = finetune(kind, B, FT_STEPS, card)
     finetune_grads()
-    driver_epochs = driver(card, paths)
+    driver_epochs, extracted = driver(card, paths)
     # phase 4's step at the driver's batch, beside the driver's epochs
     *_, med, _ = train("train", DRIVER_FLAGS["batch_size"], args.steps, card)
     step_b = dict(batch=DRIVER_FLAGS["batch_size"], step_ms=med * 1e3,
@@ -1661,7 +1954,7 @@ def main() -> int:
         "proj_residual_gemm": (csrc + "attn_block_gemm.cu",
                                "ep_tpu/ops/attn_block_pallas.py:30", "finetune-b"),
         "ep_pool": (csrc + "ep_pool.cu",
-                    "ep_tpu/ops/pool_attn_pallas.py:30", "finetune-b"),
+                    "ep_tpu/ops/pool_attn_pallas.py:30", "driver-cached"),
         "attn_core_bwd": (csrc + "attn_core_bwd.cu",
                           "ep_tpu/ops/attn_fused_pallas.py:334", "finetune-b"),
         "attn_core_bwd_dh80": (csrc + "attn_core_bwd.cu",
@@ -1710,10 +2003,21 @@ def main() -> int:
                 "plain_ms", "bound_ms", "library_ms")},
             "launches_path": path_name,
             "launches_by_path": {k: v[counter] for k, v in paths.items()}})
+    # bench.py's three keys of the two input modes (BENCH_r05.json)
+    modes = dict(cached_mode_img_s=cached["cached_mode_img_s"],
+                 effective_90ep_img_s=cached["effective_90ep_img_s"],
+                 device_aug_img_s=steps_ms["device-aug"]["img_s"])
     log(card)
+    log(json.dumps({**modes, "card": card, "batch": args.batch,
+                    "train_img_s": steps_ms["train"]["img_s"],
+                    "cached_mode_fused_img_s": cached[
+                        "cached_mode_fused_img_s"]}))
     log(json.dumps({"kernels": kernels, "int8_mlp_halves": int8_halves,
                     "other_shapes": other_shapes, "probe_steps": steps_ms,
+                    "input_modes": {**cached, "device_aug_img_s": modes[
+                        "device_aug_img_s"], "device_aug_crop": crop},
                     "driver": {"epochs": driver_epochs,
+                               "extraction": extracted,
                                "train_step": step_b}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Linear/attentive-probe driver — the main_linprobe.py equivalent.
 
 Counterpart of ``ep_tpu/cli/linprobe.py`` for one process (reference
-main_linprobe.py:184-777), step by step: transforms and datasets, the
-loaders, the backbone with ``--finetune`` loading, the freeze rule, the
-optimizer, resume, the LR schedule, the epoch loop with evaluation,
+main_linprobe.py:184-777), step by step: transforms and datasets (staged u8
+under ``--device_aug``, with the crop on the card), the loaders, the
+backbone with ``--finetune`` loading, the freeze rule, the optimizer,
+resume, the LR schedule, the ``--cache_features`` branch (the frozen encoder
+once per split, then head-only epochs), the epoch loop with evaluation,
 head-only checkpoints and the early stop, and the four logging sinks.
 ``--knn_eval`` and ``--eval`` short-circuit as in the reference.
 
@@ -12,8 +14,8 @@ any other value (the flag's default is the JAX package's ``tpu``) the CUDA
 device, and without one the driver raises rather than run on the CPU.
 
 Flags of slices that are not ported raise ``NotImplementedError`` with their
-ROADMAP item: ``--cache_features`` (module item 2), ``--device_aug`` (item
-4), ``--oracle_ckpt`` (item 7), more than one device or process (item 9).
+ROADMAP item: ``--oracle_ckpt`` (module item 7), more than one device or
+process (item 9).
 ``--aot_cache`` (the JAX package's store of compiled programs) changes no
 result and is ignored; ``--debug_nans`` runs under
 ``torch.autograd.detect_anomaly``.
@@ -31,7 +33,10 @@ import torch
 
 from ep_tpu_torch.configs import TrainConfig, config_from_args, get_args_parser
 from ep_tpu_torch.data.datasets import build_datasets
-from ep_tpu_torch.data.loader import build_loaders
+from ep_tpu_torch.data.device_aug import (DeviceAug, IdentityTransform,
+                                          StagedImageCache,
+                                          build_staging_transforms)
+from ep_tpu_torch.data.loader import DataLoader, build_loaders
 from ep_tpu_torch.data.transforms import build_transforms
 from ep_tpu_torch.models.assembly import build_backbone_config, init_probe_model
 from ep_tpu_torch.ops import default_device
@@ -40,6 +45,8 @@ from ep_tpu_torch.runtime.checkpoint import (find_auto_resume, load_model,
 from ep_tpu_torch.runtime.profiler import trace
 from ep_tpu_torch.train.engine import (evaluate, extract_features,
                                        knn_classifier_multi, train_one_epoch)
+from ep_tpu_torch.train.feature_cache import (CachedFeatureLoader,
+                                              extract_split, make_head_steps)
 from ep_tpu_torch.train.lars import build_optimizer
 from ep_tpu_torch.train.schedule import make_lr_fn, resolve_lr
 from ep_tpu_torch.train.state import cast_frozen, freeze
@@ -59,8 +66,6 @@ def run_device(cfg: TrainConfig) -> torch.device:
 def check_ported(cfg: TrainConfig) -> None:
     """Raise for the flags whose slices are not ported yet."""
     todo = {
-        "--cache_features": (cfg.cache_features, "module item 2"),
-        "--device_aug": (cfg.device_aug, "module item 4"),
         "--oracle_ckpt": (bool(cfg.oracle_ckpt), "module item 7"),
         "--mesh_data above 1": (cfg.mesh_data > 1, "module item 9"),
         "--mesh_model above 1": (cfg.mesh_model > 1, "module item 9"),
@@ -99,8 +104,36 @@ def _main(cfg: TrainConfig, device: torch.device) -> dict:
     np.random.seed(cfg.seed)
 
     # --- data ----------------------------------------------------------------
-    transform_train, transform_val = build_transforms(cfg)
+    device_aug = None
+    if cfg.device_aug:
+        if cfg.train_aug == "aimv2":
+            raise ValueError("--device_aug implements the default RRC+flip "
+                             "recipe only; --train_aug aimv2 (jitter + "
+                             "AutoAugment) needs the host pipeline")
+        if cfg.cache_features:
+            # cached mode encodes each image once (or K times): the host
+            # aug cost is already amortized away, so device aug buys
+            # nothing there; keep the host transforms
+            print("| --device_aug is a no-op with --cache_features; "
+                  "using host transforms")
+            cfg = cfg.replace(device_aug=False)
+    if cfg.device_aug:
+        device_aug = DeviceAug.from_cfg(cfg)
+        transform_train, transform_val = build_staging_transforms(cfg)
+        print(f"| device-side augmentation: stage {device_aug.stage_size} -> "
+              f"crop {device_aug.out_size} on the {device.type} device "
+              "(u8 host transfer)")
+    else:
+        transform_train, transform_val = build_transforms(cfg)
     dataset_train, dataset_val = build_datasets(cfg)
+    if cfg.device_aug and cfg.device_aug_cache:
+        # stage-once memmap cache: epochs after the first never re-decode
+        # (data/device_aug.py::StagedImageCache)
+        dataset_train = StagedImageCache(
+            dataset_train, transform_train, cfg.device_aug_cache, "train")
+        dataset_val = StagedImageCache(
+            dataset_val, transform_val, cfg.device_aug_cache, "val")
+        transform_train = transform_val = IdentityTransform()
     print(dataset_train)
     print(dataset_val)
     loader_train, loader_val = build_loaders(
@@ -156,12 +189,47 @@ def _main(cfg: TrainConfig, device: torch.device) -> dict:
     start_epoch, step, _ = load_model(cfg, model, optimizer)
 
     lr_fn = make_lr_fn(cfg, steps_per_epoch=max(len(loader_train), 1))
-    train_step = make_train_step(model, optimizer, lr_fn)
-    eval_step = make_eval_step(model)
+    train_step = make_train_step(model, optimizer, lr_fn, device_aug)
+    eval_step = make_eval_step(model, device_aug)
+
+    # --- feature-cache fast path ----------------------------------------------
+    if cfg.cache_features and not cfg.finetuning and not cfg.eval \
+            and not cfg.knn_eval:
+        def backbone_apply(images):
+            return model.backbone(images, model.mode)
+
+        K = max(1, cfg.cache_augs)
+        print(f"[cache] extracting frozen features (train x{K} aug "
+              f"draw{'s' if K > 1 else ''} + val)")
+        ex_train = DataLoader(dataset_train, cfg.batch_size, transform_train,
+                              shuffle=False, drop_last=False,
+                              num_workers=cfg.num_workers)
+        # K epoch-seeded augmentation draws per image (--cache_augs): the
+        # loader iterates in dataset order (shuffle=False), so labels align
+        # across variants and only the crop rng changes with the epoch
+        variants = []
+        for k in range(K):
+            ex_train.set_epoch(k)
+            f_k, labels_tr = extract_split(
+                backbone_apply, ex_train, device, cfg.output_dir,
+                "train" if K == 1 else f"train_aug{k}", cfg=cfg)
+            variants.append(f_k)
+        feats_tr = variants if K > 1 else variants[0]
+        feats_va, labels_va = extract_split(
+            backbone_apply, loader_val, device, cfg.output_dir, "val", cfg=cfg)
+        print(f"[cache] train {variants[0].shape}"
+              f"{f' x{K} augs' if K > 1 else ''} val {feats_va.shape}")
+        loader_train = CachedFeatureLoader(feats_tr, labels_tr, cfg.batch_size,
+                                           shuffle=True, drop_last=True,
+                                           seed=cfg.seed)
+        loader_val = CachedFeatureLoader(feats_va, labels_va, cfg.batch_size,
+                                         shuffle=False, drop_last=False)
+        lr_fn = make_lr_fn(cfg, steps_per_epoch=max(len(loader_train), 1))
+        train_step, eval_step = make_head_steps(model.head, optimizer, lr_fn)
 
     # --- kNN / eval-only modes -------------------------------------------------
     if cfg.knn_eval:
-        extract_step = make_extract_step(model)
+        extract_step = make_extract_step(model, device_aug)
         train_feats, train_labels = extract_features(
             extract_step, loader_train, device, cfg)
         test_feats, test_labels = extract_features(

@@ -6,6 +6,11 @@ head), the backward, the LARS update with the per-iteration warmup-cosine LR,
 and the same metrics. PyTorch runs
 eagerly, so a step is a plain function over the module; metrics stay on the
 device until the caller reads them.
+
+With ``device_aug`` (``data/device_aug.py::DeviceAug``) the images arrive as
+u8 staged batches: the train step crops, flips and normalizes them on their
+device, its draws seeded by the global step; the eval and extract steps
+normalize them.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ def global_grad_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 def make_train_step(model: nn.Module, optimizer: RawUpdateOptimizer,
-                    lr_fn: Callable[[int], float]):
+                    lr_fn: Callable[[int], float], device_aug=None):
     """Returns train_step(step, images, labels) -> metrics.
 
     ``step`` is the global iteration index that drives the LR schedule: it
@@ -41,12 +46,15 @@ def make_train_step(model: nn.Module, optimizer: RawUpdateOptimizer,
     it across a resume. The batch-norm running statistics and the optimizer's
     state advance in place; under ``accum_iter`` k the optimizer applies the
     mean of k micro-steps' gradients at the k-th, with that micro-step's
-    LR (``optax.MultiSteps`` inside the JAX step)."""
+    LR (``optax.MultiSteps`` inside the JAX step). ``device_aug`` augments
+    u8 images, keyed by ``step``, so a resumed run draws the same crops."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def train_step(step: int, images: torch.Tensor,
                    labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         model.train()
+        if device_aug is not None:
+            images = device_aug.train_fn(step, images)
         logits = model(images)
         loss = cross_entropy(logits, labels).mean()
         optimizer.zero_grad(set_to_none=True)
@@ -66,7 +74,7 @@ def make_train_step(model: nn.Module, optimizer: RawUpdateOptimizer,
     return train_step
 
 
-def make_eval_step(model: nn.Module):
+def make_eval_step(model: nn.Module, device_aug=None):
     """eval_step(images, labels, valid) -> (summed metrics, predictions).
 
     ``valid`` masks padding rows of a padded final batch; sums are weighted
@@ -75,6 +83,8 @@ def make_eval_step(model: nn.Module):
     @torch.no_grad()
     def eval_step(images, labels, valid):
         model.eval()
+        if device_aug is not None:
+            images = device_aug.eval_fn(images)
         logits = model(images)
         valid = valid.float()
         loss = cross_entropy(logits, labels)
@@ -90,7 +100,7 @@ def make_eval_step(model: nn.Module):
     return eval_step
 
 
-def make_extract_step(model: nn.Module):
+def make_extract_step(model: nn.Module, device_aug=None):
     """extract_step(images) -> the backbone's pooled descriptors, in eval
     mode and without autograd (``ep_tpu/train/steps.py::make_extract_step``,
     the features kNN evaluation reads)."""
@@ -98,6 +108,8 @@ def make_extract_step(model: nn.Module):
     @torch.no_grad()
     def extract_step(images):
         model.eval()
+        if device_aug is not None:
+            images = device_aug.eval_fn(images)
         return model(images, return_backbone_features=True)[1]
 
     return extract_step

@@ -837,3 +837,69 @@ def test_driver_builds_on_the_card_by_default(dev, tmp_path, depth2):
     reset_launches()
     main(_driver_cfg(tmp_path))
     assert LAUNCHES["ep_pool"] == 5 and LAUNCHES["attn_core"] == 10
+
+
+@pytest.mark.parametrize("flags", [dict(cache_features=True),
+                                   dict(device_aug=True)],
+                         ids=["cache_features", "device_aug"])
+def test_driver_input_modes_on_the_card_match_cpu(dev, tmp_path, depth2,
+                                                  flags):
+    """--cache_features (the encoder over 4 train and 1 val batches, then a
+    head-only epoch: kernel D 4 + 1 times) and --device_aug (the crop on the
+    card, drawn as on the CPU for the same step) against their CPU runs."""
+    from ep_tpu_torch.cli.linprobe import main
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    reset_launches()
+    main(_driver_cfg(tmp_path / "card", device="cuda", **flags))
+    launched = dict(LAUNCHES)
+    main(_driver_cfg(tmp_path / "cpu", device="cpu", **flags))
+    assert launched == _counts(ln_qkv_gemm=10, attn_core=10,
+                               proj_residual_gemm=10, ep_pool=5)
+    card, cpu = _epoch_line(tmp_path / "card"), _epoch_line(tmp_path / "cpu")
+    assert card[0] == cpu[0] == 0
+    for i in (1, 3):  # train loss, val loss
+        assert abs(card[i] - cpu[i]) <= DRIVER_LOSS_TOL * (1 + abs(cpu[i]))
+
+
+def test_extract_split_reads_each_batch_from_a_side_stream(dev):
+    """The card's features reach the host through pinned memory on a side
+    stream, one batch late: the same arrays as a blocking copy."""
+    from ep_tpu_torch.train.feature_cache import extract_split
+
+    class Loader:
+        dataset = range(20)
+
+        def __iter__(self):
+            rng = np.random.default_rng(0)
+            for b in range(3):
+                x = rng.standard_normal((8, 6, 4)).astype(np.float32)
+                valid = np.ones(8, np.float32)
+                if b == 2:
+                    valid[4:] = 0
+                yield x, np.arange(8 * b, 8 * b + 8), valid
+
+    def apply(x):
+        return (x * 2).to(torch.bfloat16)[:, 1:]  # a view, as "pos" is
+
+    feats, labels = extract_split(apply, Loader(), dev, "", "t")
+    ref = np.concatenate([apply(torch.from_numpy(x)).float().numpy()[v > 0]
+                          for x, _, v in Loader()])
+    assert feats.dtype == np.float32 and feats.shape == (20, 5, 4)
+    np.testing.assert_array_equal(feats, ref)
+    np.testing.assert_array_equal(labels, np.arange(20))
+
+
+def test_device_aug_draws_on_the_card_what_it_draws_on_the_cpu(dev):
+    """The same step's crop on the card and on the CPU: the same boxes and
+    flips; the f32 outputs within chip_smoke.py's AUG_* bounds (a y-pass
+    bf16 step carried through the x-pass)."""
+    from ep_tpu_torch.data.device_aug import DeviceAug
+    aug = DeviceAug(out_size=224, stage_size=256, dtype=torch.float32)
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (16, 256, 256, 3), dtype=np.uint8))
+    got = aug.train_fn(3, x.to(dev)).cpu()
+    ref = aug.train_fn(3, x)
+    assert got.shape == (16, 224, 224, 3)
+    d = (got - ref).abs()
+    assert float(d.max()) <= 5e-2 and int((d > 1e-3).sum()) <= 2e-2 * d.numel()
+    assert float(d.mean()) <= 1e-4

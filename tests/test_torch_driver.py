@@ -6,7 +6,8 @@ against the JAX package's, on the CPU.
   against the optax chains over three steps, as the JAX step applies them
   (``p + -lr * u``), to 1e-6.
 * ``knn_classifier_multi`` against the JAX version on seeded features.
-* The flags whose slices are not ported raise, and so does ``main`` without
+* The flags whose slices are not ported raise (and ``--device_aug`` with
+  ``--train_aug aimv2``, as in the JAX driver), and so does ``main`` without
   a card unless ``--device cpu`` is given.
 * The slice as a whole: the JAX driver trains epoch 0 of a tiny model from a
   test-written ``--finetune`` checkpoint; its ``checkpoint-.msgpack`` (head,
@@ -172,12 +173,16 @@ def test_knn_classifier_multi_matches_jax():
 
 # ---- flags and devices -------------------------------------------------------
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(cache_features=True), "item 2"), (dict(device_aug=True), "item 4"),
-    (dict(oracle_ckpt="dino.pth"), "item 7"), (dict(mesh_data=2), "item 9"),
-    (dict(mesh_model=2), "item 9")])
-def test_unported_flags_raise(tmp_path, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("kw, error, match", [
+    (dict(oracle_ckpt="dino.pth"), NotImplementedError, "item 7"),
+    (dict(mesh_data=2), NotImplementedError, "item 9"),
+    (dict(mesh_model=2), NotImplementedError, "item 9"),
+    (dict(device_aug=True, train_aug="aimv2"), ValueError, "aimv2")])
+def test_unported_flags_raise(tmp_path, kw, error, match):
+    """Flags of slices not ported yet raise with their ROADMAP item; the
+    JAX driver's own refusal of ``--device_aug --train_aug aimv2`` carries
+    over."""
+    with pytest.raises(error, match=match):
         linprobe.main(_p(_cfg(tmp_path, **kw)))
 
 

@@ -52,7 +52,9 @@ def test_the_walk_sees_the_port():
             "ep_tpu_torch/runtime/checkpoint.py",
             "ep_tpu_torch/runtime/profiler.py",
             "ep_tpu_torch/utils/logging.py",
-            "ep_tpu_torch/convert/torch_vit.py"} <= names
+            "ep_tpu_torch/convert/torch_vit.py",
+            "ep_tpu_torch/train/feature_cache.py",
+            "ep_tpu_torch/data/device_aug.py"} <= names
     assert {f"ep_tpu_torch/data/{f}.py" for f in DATA_COPIES} <= names
     assert _forbidden("ep_tpu") and _forbidden("ep_tpu.configs")
     assert _forbidden("jax.numpy") and not _forbidden("ep_tpu_torch.configs")
