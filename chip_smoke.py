@@ -81,6 +81,23 @@ Phases, each of which must pass (any failure exits non-zero):
              EP_TPU_EP_FUSED=1 (cached-fused: kernel G, D never); each
              route's head forward and gradients on 64 of the tokens against
              the CPU plain path.
+   zoo     — every --cls_features pooling head (the 14 of the zoo, plain
+             torch as in the JAX package) and ep_all and aim_all ([CLS] +
+             patch tokens) on the frozen ViT-B/16 of phase 4 at batch 512: a
+             warm-up step and --steps steps at the peak LR; a finite loss,
+             every head parameter moved (but for gradients that are rounding
+             noise), the pools' BatchNorm statistics moved (aim, cbam, dolg),
+             the frozen encoder untouched, and the launch counters (A, B and C
+             12x a forward, D once for ep and ep_all, never for another head).
+             Then each head's --cache_features step on device-resident tokens
+             (512, 196 or 197, 768) bf16 (chains as in cached, D for ep and
+             ep_all only) with its device busy time, and the head on 8 images'
+             tokens, card against CPU: bf16 logits and return_attn maps within
+             5e-2 of their largest magnitude, gradients to cosine 0.9999
+             (zoo_head_check says which). zoo-driver: main_linprobe_torch.py
+             --cls_features dolg (ViT-B/16, batch 128, the fake dataset) for
+             one epoch, its checkpoint with the pool's BatchNorm, then --eval
+             from it printing epoch 0's val numbers.
 6. finetune-b — full fine-tuning as bench.py's ft_b row builds it: ViT-B/16 +
              EP-32, batch 512, --finetuning --remat_blocks --remat_policy
              attn_out, LARS and the warmup-cosine LR (at its peak, the end of
@@ -112,7 +129,9 @@ Phases, each of which must pass (any failure exits non-zero):
              files); prints each epoch's wall img/s beside phase 4's step at
              batch 128, and the idle share of a profiled epoch of each mode.
 
-Before the last line come the card's name and power limit, a JSON line with
+The zoo's per-head table (train step ms and img/s, head-only step ms, img/s
+and device busy ms) follows its phase. Before the last line come the card's
+name and power limit, a JSON line with
 cached_mode_img_s, effective_90ep_img_s and device_aug_img_s (bench.py's keys)
 beside them, and a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. It imports
@@ -1408,32 +1427,41 @@ def finetune_grads(n: int = 4) -> None:
                   *grads)
 
 
-def compare_grads(what: str, card: dict, cpu: dict) -> None:
+def compare_grads(what: str, card: dict, cpu: dict,
+                  min_cos: float = GRAD_COS, floor: float = GRAD_FLOOR,
+                  noise: set | None = None) -> float:
     """Each gradient of the card's kernel path against the CPU plain path's:
-    GRAD_TOL of its scale at every element, GRAD_COS in direction."""
+    GRAD_TOL of its scale at every element, ``min_cos`` in direction; a
+    gradient under ``floor`` of the largest is rounding noise, held to the
+    elementwise bound only. Where ``noise`` names the gradients that are zero
+    in exact arithmetic, those are not compared and the rest are held to
+    both bounds. Returns the smallest cosine."""
     top = max(float(g.abs().max()) for g in cpu.values())
     log(f"{what}, card kernel path vs CPU plain path (tol {GRAD_TOL:g} of "
-        f"max(|grad|, {GRAD_FLOOR:g} x model max {top:.3e}); cosine >= "
-        f"{GRAD_COS:g})")
+        f"max(|grad|, {floor:g} x model max {top:.3e}); cosine >= "
+        f"{min_cos:g})")
     rows, bad = [], []
     for k, ref in cpu.items():
         own = float(ref.abs().max())
-        scale = max(own, GRAD_FLOOR * top)
+        scale = max(own, floor * top)
         d = float((card[k] - ref).abs().max())
         cos = float(torch.nn.functional.cosine_similarity(
             card[k].flatten().double(), ref.flatten().double(), dim=0))
-        noise = own < GRAD_FLOOR * top
-        rows.append((d / scale, cos, k, noise))
-        if d > GRAD_TOL * scale or (not noise and cos < GRAD_COS):
+        is_noise = own < floor * top if noise is None else k in noise
+        rows.append((d / scale, cos, k, is_noise))
+        if noise is not None and is_noise:
+            continue
+        if d > GRAD_TOL * scale or (not is_noise and cos < min_cos):
             bad.append(k)
     rows.sort(reverse=True)
     for r, cos, k, _ in rows[:5]:
         log(f"  {k}: max |d| {r:.3e} of its scale, cosine {cos:.6f}")
-    log(f"  smallest cosine {min(r[1] for r in rows if not r[3]):.6f}; "
-        f"under the floor (rounding noise): "
-        f"{[r[2] for r in rows if r[3]]}")
+    smallest = min(r[1] for r in rows if not r[3])
+    log(f"  smallest cosine {smallest:.6f}; under the floor (rounding "
+        f"noise): {[r[2] for r in rows if r[3]]}")
     if bad:
         raise RuntimeError(f"gradients outside the tolerance: {bad}")
+    return smallest
 
 
 # bench.py::_bench_cached_mode: chains of CACHED_CHAIN head steps on
@@ -1526,6 +1554,349 @@ def cached_steps(card: str, paths: dict, train_img_s: float) -> dict:
                 cached_mode_fused_img_s=b["img_s"],
                 cached_step_ms=a["step_ms"], cached_fused_step_ms=b["step_ms"],
                 effective_90ep_img_s=eff, train_img_s=train_img_s)
+
+
+# The zoo phase: every --cls_features head, and ep_all and aim_all (an _all
+# variant through a BatchNorm pool), on the frozen ViT-B/16 of the train path
+# (random weights from seed 0). The heads are plain torch, as the JAX package
+# leaves them to XLA; A, B and C run in the encoder, D in ep and ep_all only.
+# Card against CPU on ZOO_CHECK images' tokens: the bf16 logits and maps within
+# ZOO_TOL of their largest magnitude (the cached phase's 5e-2), the gradients
+# of the head computing in f32 to ZOO_COS in direction (zoo_head_check).
+ZOO_HEADS = ("abmilp", "simpool", "esimpool", "clip", "siglip", "aim", "ep",
+             "cbam", "coca", "cait", "dinovit", "jepa", "dolg", "cae",
+             "ep_all", "aim_all")
+ZOO_BN = ("aim", "cbam", "dolg")
+ZOO_BATCH, ZOO_CHECK, ZOO_TOL, ZOO_COS, ZOO_FLOOR = 512, 8, 5e-2, 0.9999, 1e-5
+
+
+def grad_of(p: torch.Tensor) -> torch.Tensor:
+    """p's gradient, zeros where the step left it none."""
+    return p.grad if p.grad is not None else torch.zeros_like(p)
+
+
+def compare_scaled(name: str, out: torch.Tensor, ref: torch.Tensor,
+                   tol: float) -> float:
+    """max |out - ref| <= tol * max |ref|; returns the ratio."""
+    out, ref = out.float(), ref.float()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise RuntimeError(f"{name}: shape {tuple(out.shape)} against "
+                           f"{tuple(ref.shape)}, or non-finite values")
+    r = float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+    log(f"    {name}: max |d| / max |ref| = {r:.3e} (tol {tol:g}) "
+        f"{'ok' if r <= tol else 'FAIL'}")
+    if r > tol:
+        raise RuntimeError(f"{name}: the card disagrees with the CPU")
+    return r
+
+
+def zoo_head_check(name: str, cfg, head0, tokens: torch.Tensor,
+                   num_patches: int) -> dict:
+    """The head on ZOO_CHECK images' tokens, card against CPU, from the same
+    weights: the bf16 head's (the trained path) train-mode logits, its
+    eval-mode logits and attention map (``return_attn``), and the gradients
+    of the bf16 head and of the same head computing in f32, each with its
+    pool in train mode and the descriptor BN in eval mode.
+
+    In train mode that BN normalises the images' descriptors together and
+    cancels any shift common to all of them, so a bias added to every token
+    before a weighted mean whose weights sum to one (abmilp's
+    ``self_attn.proj.bias``, whose only other path is the attention
+    predictor) keeps a gradient that is mostly rounding noise: card against
+    CPU its cosine measured 0.857 in bf16 and 0.998 in f32 on an H100. The
+    f32 gradients (not for ep and ep_all: kernel D takes bf16 only) are held
+    to ZOO_COS over ZOO_FLOOR of the largest; those under it are zero in
+    exact arithmetic (a k bias under the softmax's shift invariance, dolg's
+    conv1 bias under its BN), and the bf16 gradients are held to ZOO_COS but
+    for those, whose bf16 values are rounding noise (dolg's conv1 bias:
+    cosine 0.975)."""
+    from ep_tpu_torch.poolings.registry import ProbeHead, base_name
+    from ep_tpu_torch.train.steps import cross_entropy
+
+    x = tokens[:ZOO_CHECK]
+    labels = torch.arange(ZOO_CHECK) % 1000
+    head32 = ProbeHead(cfg, x.shape[-1], num_patches, torch.float32)
+    head32.load_state_dict(head0.state_dict())
+    logits, evals, grads16, grads32 = [], [], [], []
+    for dev in ("cuda", "cpu"):
+        h = copy.deepcopy(head0).to(dev).train()
+        with torch.no_grad():
+            logits.append(h(x.to(dev)).float().cpu())
+            out, attn = h.eval()(x.to(dev), return_attn=True)
+        evals.append((out.float().cpu(),
+                      None if attn is None else attn.float().cpu()))
+        for head, grads in ((head0, grads16), (head32, grads32)):
+            if head is head32 and dev == "cuda" and base_name(name) == "ep":
+                continue
+            h = copy.deepcopy(head).to(dev).train()
+            h.bn.eval()
+            cross_entropy(h(x.to(dev)), labels.to(dev)).mean().backward()
+            grads.append({k: grad_of(p).float().cpu()
+                          for k, p in h.named_parameters()})
+    log(f"  [zoo {name}] head on {ZOO_CHECK} images' tokens, card vs CPU")
+    res = dict(logits_rel=compare_scaled("bf16 train-mode logits", *logits,
+                                         ZOO_TOL))
+    compare_scaled("bf16 eval-mode logits", evals[0][0], evals[1][0], ZOO_TOL)
+    if (evals[0][1] is None) != (evals[1][1] is None):
+        raise RuntimeError(f"{name}: a map on one device only")
+    if evals[1][1] is None:
+        log("    return_attn: None on both (cait keeps no map)")
+    else:
+        log(f"    return_attn: {tuple(evals[1][1].shape)}")
+        res["attn_rel"] = compare_scaled("bf16 attention map", evals[0][1],
+                                         evals[1][1], ZOO_TOL)
+    exact = grads32[-1]  # the CPU's f32 gradients
+    top = max(float(g.abs().max()) for g in exact.values())
+    zero = {k for k, g in exact.items() if float(g.abs().max()) < ZOO_FLOOR * top}
+    if len(grads32) == 2:
+        res["min_cos_f32"] = compare_grads(
+            f"    {len(exact)} head gradients, f32 head", *grads32,
+            min_cos=ZOO_COS, floor=ZOO_FLOOR)
+    res["min_cos_bf16"] = compare_grads(
+        f"    {len(exact)} head gradients, bf16 head (not compared: the "
+        f"f32 zeros {sorted(zero)})", *grads16, min_cos=ZOO_COS, noise=zero)
+    return res
+
+
+def zoo(card: str, paths: dict, steps: int, train_ms: float) -> dict:
+    """Each head of ZOO_HEADS on the train path at batch 512 (a warm-up step,
+    then ``steps`` timed steps at the peak LR), its head-only step on
+    device-resident tokens (chains as ``cached_steps``), and its card-vs-CPU
+    check. Adds the launch counts to ``paths``; returns the times."""
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.models.assembly import init_probe_model
+    from ep_tpu_torch.models.vit import remap_features
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.poolings.registry import ProbeHead, base_name
+    from ep_tpu_torch.train.feature_cache import make_head_steps
+    from ep_tpu_torch.train.lars import LARS
+    from ep_tpu_torch.train.schedule import make_lr_fn
+    from ep_tpu_torch.train.state import cast_frozen, freeze
+    from ep_tpu_torch.train.steps import make_train_step
+
+    B = ZOO_BATCH
+    base = TrainConfig(model="vit_base_patch16", cls_features="ep",
+                       ep_queries=32, d_out=1, nb_classes=1000,
+                       amp="bfloat16", epochs=90, warmup_epochs=10, blr=0.1,
+                       batch_size=B, eff_batch_size=B)
+    model = init_probe_model(base, seed=0)  # on the card
+    bcfg = model.backbone.cfg
+    D, N, img = bcfg.embed_dim, bcfg.num_patches, bcfg.img_size
+    freeze(model, False)
+    cast_frozen(model, torch.bfloat16)
+    frozen = {k: p.detach().clone() for k, p in model.backbone.named_parameters()}
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.standard_normal(
+        (B, img, img, 3), dtype=np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 1000, size=(B,))).cuda()
+    tokens = {N: rand(rng, (B, N, D)), N + 1: rand(rng, (B, N + 1, D))}
+    first = int(base.warmup_epochs * 1000)  # the LR at its peak
+    lr_fn = make_lr_fn(base, 1000)
+    out = {}
+    for name in ZOO_HEADS:
+        cfg = base.replace(cls_features=name)
+        head0 = ProbeHead(cfg, D, N, torch.bfloat16)
+        head0.init_weights(torch.Generator().manual_seed(0))
+        model.head = copy.deepcopy(head0).cuda()
+        model.mode = remap_features(name)
+        head = model.head
+        before = {k: v.detach().clone() for k, v in head.state_dict().items()}
+        step_fn = make_train_step(
+            model, LARS(list(head.parameters()), weight_decay=0.0), lr_fn)
+        float(step_fn(first, images, labels)["loss"])  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        times, losses = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step_fn(first + 1 + i, images, labels)["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        paths[f"zoo-{name}"] = counts = dict(LAUNCHES)
+        want = dict.fromkeys(LAUNCHES, 0)
+        want.update(ln_qkv_gemm=12 * steps, attn_core=12 * steps,
+                    proj_residual_gemm=12 * steps)
+        if base_name(name) == "ep":
+            want["ep_pool"] = steps
+        med = statistics.median(times)
+        log(f"[zoo {name}] ViT-B/16 + {name} head "
+            f"({sum(p.numel() for p in head.parameters())} trainable), "
+            f"{'[CLS] + ' if name.endswith('_all') else ''}patch tokens, "
+            f"batch {B}: losses {[round(v, 5) for v in losses]}, steps "
+            f"{[round(t * 1e3, 2) for t in times]} ms; launches "
+            f"{ {k: v for k, v in counts.items() if v} } (expected "
+            f"{ {k: v for k, v in want.items() if v} })")
+        if counts != want or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"zoo {name}: a non-finite loss or launches "
+                               "other than expected")
+        # every head parameter moved, but for those whose gradient is zero
+        # in exact arithmetic (a k bias under the softmax's shift
+        # invariance): rounding noise under GRAD_FLOOR of the largest
+        top = max(float(grad_of(p).abs().max()) for p in head.parameters())
+        still = [k for k, p in head.named_parameters()
+                 if torch.equal(p, before[k])
+                 and float(grad_of(p).abs().max()) >= GRAD_FLOOR * top]
+        if still:
+            raise RuntimeError(f"zoo {name}: parameters did not move: {still}")
+        if base_name(name) in ZOO_BN:
+            stats = [k for k in before if "pool." in k and "running_" in k]
+            if not stats or any(torch.equal(head.state_dict()[k], before[k])
+                                for k in stats):
+                raise RuntimeError(f"zoo {name}: the pool's BatchNorm "
+                                   f"statistics did not move: {stats}")
+        rec = dict(train_ms=med * 1e3, train_img_s=B / med, losses=losses)
+
+        # the head-only step on device-resident tokens
+        x = tokens[N + name.endswith("_all")]
+        h = copy.deepcopy(head0).cuda()
+        hstep, _ = make_head_steps(
+            h, LARS(list(h.parameters()), weight_decay=0.0), lr_fn)
+        for i in range(2):
+            float(hstep(first + i, x, labels)["loss"])
+        torch.cuda.synchronize()
+        reset_launches()
+        chains, step = [], first + 2
+        for _ in range(CACHED_CHAINS):
+            t0 = time.perf_counter()
+            for _ in range(CACHED_CHAIN):
+                m = hstep(step, x, labels)
+                step += 1
+            loss = float(m["loss"])
+            chains.append((time.perf_counter() - t0) / CACHED_CHAIN)
+        paths[f"zoo-cached-{name}"] = counts = dict(LAUNCHES)
+        want = dict.fromkeys(LAUNCHES, 0)
+        if base_name(name) == "ep":
+            want["ep_pool"] = CACHED_CHAIN * CACHED_CHAINS
+        if counts != want or not math.isfinite(loss):
+            raise RuntimeError(f"zoo {name}: the head-only step launched "
+                               f"{counts}, expected {want}")
+        split = zoo_busy_ms(lambda: hstep(step, x, labels))
+        busy = split["busy"]
+        hmed = statistics.median(chains)
+        rec.update(head_ms=hmed * 1e3, head_img_s=B / hmed,
+                   head_busy_ms=busy,
+                   head_split_ms={k: v for k, v in split.items() if k != "busy"})
+        log(f"  train step {rec['train_ms']:.2f} ms ({rec['train_img_s']:.1f} "
+            f"img/s; train, EP-32 at bs {B} earlier in this run: "
+            f"{train_ms:.2f} ms); head-only step on {tuple(x.shape)} tokens: "
+            f"chains {[round(c * 1e3, 3) for c in chains]} ms a step, median "
+            f"{rec['head_ms']:.3f} ms ({rec['head_img_s']:.1f} img/s), "
+            f"device busy {busy:.3f} ms of a profiled step (products "
+            f"{split['products']:.3f}, copies and casts {split['copies']:.3f}, "
+            f"D {split['ours']:.3f}, the rest {split['rest']:.3f}), on {card}")
+        rec.update(zoo_head_check(name, cfg, head0, x, N))
+        out[name] = rec
+        del h, hstep, step_fn, head
+        torch.cuda.empty_cache()
+    moved = [k for k, p in model.backbone.named_parameters()
+             if not torch.equal(p, frozen[k])]
+    if moved:
+        raise RuntimeError(f"zoo: frozen parameters changed: {moved[:5]}")
+    log(f"[zoo] per head at batch {B} on {card} (train ms, img/s; head-only "
+        "ms, img/s, device busy ms of which products, copies and casts):")
+    for name, r in out.items():
+        sp = r["head_split_ms"]
+        log(f"  {name:9s} {r['train_ms']:8.2f} {r['train_img_s']:9.1f}  "
+            f"{r['head_ms']:8.3f} {r['head_img_s']:10.1f} "
+            f"{r['head_busy_ms']:8.3f} {sp['products']:7.3f} "
+            f"{sp['copies']:7.3f}")
+    del model, images, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_busy_ms(step) -> dict:
+    """Device ms of one step under the profiler: busy, and split into
+    products (cuBLAS in bf16 or f32, cuDNN), copies and casts (``copy`` in
+    the kernel's name), our kernels (``ep::``) and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    split = dict(busy=0.0, products=0.0, copies=0.0, ours=0.0, rest=0.0)
+    for ms, _, key in device_rows(prof):
+        k = key.lower()
+        split["busy"] += ms
+        if "ep::" in k:
+            split["ours"] += ms
+        elif any(n in k for n in ("gemm", "nvjet", "xmma", "cutlass", "sm90",
+                                  "cudnn", "conv")):
+            split["products"] += ms
+        elif "copy" in k:
+            split["copies"] += ms
+        else:
+            split["rest"] += ms
+    return split
+
+
+def zoo_driver(card: str, paths: dict) -> dict:
+    """main_linprobe_torch.py with --cls_features dolg (1x1 convolutions and
+    an affine BatchNorm in the pool) on DRIVER_FLAGS for one epoch, then
+    --eval from its checkpoint: the pool's BatchNorm parameters and moved
+    running statistics in checkpoint-.pth, and --eval printing epoch 0's val
+    numbers."""
+    import tempfile
+    from pathlib import Path
+
+    import ep_tpu_torch.cli.linprobe as linprobe
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+
+    log(f"[zoo-driver] main_linprobe_torch.py --cls_features dolg: ViT-B/16, "
+        f"batch 128, bf16, the fake dataset, 1 epoch, then --eval, on {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        runs = {}
+        for name, kw in (("zoo-driver", {}),
+                         ("zoo-driver-eval", dict(
+                             eval=True,
+                             resume=str(tmp / "train" / "checkpoint-.pth")))):
+            out = tmp / ("train" if not kw else "eval")
+            out.mkdir()
+            cfg = TrainConfig(**{**DRIVER_FLAGS, "cls_features": "dolg",
+                                 "epochs": 1, "output_dir": str(out), **kw})
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            runs[name] = linprobe.main(cfg)
+            torch.cuda.synchronize()
+            paths[name] = dict(LAUNCHES)
+            forwards = DRIVER_STEPS + DRIVER_EVAL_BATCHES if not kw \
+                else DRIVER_EVAL_BATCHES
+            want = dict.fromkeys(LAUNCHES, 0)
+            want.update(ln_qkv_gemm=12 * forwards, attn_core=12 * forwards,
+                        proj_residual_gemm=12 * forwards)
+            log(f"  [{name}] {time.perf_counter() - t0:.1f} s, launches "
+                f"{ {k: v for k, v in paths[name].items() if v} }")
+            if paths[name] != want:
+                raise RuntimeError(f"{name}: launches {paths[name]}, expected "
+                                   f"{want}")
+        rows = (tmp / "train" / "training_log.txt").read_text().splitlines()
+        line = [float(v) for r in rows if r.startswith("0,")
+                for v in r.split(", ")[1:]]
+        ckpt = torch.load(tmp / "train" / "checkpoint-.pth", weights_only=True)
+        model = ckpt["model"]
+    bn = {k: model.get(f"head.pool.bn.{k}") for k in (
+        "weight", "bias", "running_mean", "running_var")}
+    if (len(line) != 5 or not all(math.isfinite(v) for v in line)
+            or any(v is None for v in bn.values())
+            or not all(k.startswith("head.") for k in model)
+            or torch.equal(bn["running_mean"], torch.zeros_like(
+                bn["running_mean"]))
+            or torch.equal(bn["running_var"], torch.ones_like(
+                bn["running_var"]))):
+        raise RuntimeError(f"zoo-driver: epoch line {line}, checkpoint "
+                           f"entries {sorted(model)[:8]}")
+    stats = runs["zoo-driver-eval"]
+    got = [round(stats["loss"], 4), round(stats["acc1"], 2),
+           round(stats["acc5"], 2)]
+    log(f"  epoch 0: {line}; the checkpoint holds {len(model)} head.* "
+        f"entries with the pool's BN weight, bias and moved running "
+        f"statistics; --eval: {got}")
+    if got != line[2:]:
+        raise RuntimeError("zoo-driver-eval: not epoch 0's val numbers")
+    return dict(epoch0=line, eval=got)
 
 
 # The device crop against its CPU plain version: f32 output, so that the
@@ -1912,6 +2283,8 @@ def main() -> int:
         f"on {card}")
     crop = device_aug_check(card)
     cached = cached_steps(card, paths, steps_ms["train"]["img_s"])
+    zoo_steps = zoo(card, paths, args.steps, steps_ms["train"]["step_ms"])
+    zoo_run = zoo_driver(card, paths)
     for route, usual in (("probe-h448-fused", "probe-h448"),
                          ("probe-h-rowtile", "probe-h")):
         a, b = steps_ms[route], steps_ms[usual]
@@ -2016,6 +2389,7 @@ def main() -> int:
                     "other_shapes": other_shapes, "probe_steps": steps_ms,
                     "input_modes": {**cached, "device_aug_img_s": modes[
                         "device_aug_img_s"], "device_aug_crop": crop},
+                    "zoo": {"heads": zoo_steps, "driver_dolg": zoo_run},
                     "driver": {"epochs": driver_epochs,
                                "extraction": extracted,
                                "train_step": step_b}}))

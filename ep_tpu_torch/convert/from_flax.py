@@ -6,9 +6,12 @@
 
 * one layout rule for dense kernels: flax (in, out) -> ``nn.Linear`` (out, in),
   including the supercell's qkv and proj weights (its kernels read the
-  ``nn.Linear`` layout);
-* the patch-embed kernel (ph, pw, Cin, D) -> ``nn.Conv2d`` (D, Cin, ph, pw);
-* LayerNorm ``scale`` -> ``weight``; ``blocks_{i}`` -> ``blocks.{i}``;
+  ``nn.Linear`` layout) and clip's fused qkv;
+* every convolution kernel (kh, kw, Cin, Cout) -> ``nn.Conv2d`` (Cout, Cin,
+  kh, kw): the patch embedding's and the pooling heads' (cbam, dolg);
+* LayerNorm and BatchNorm ``scale`` -> ``weight`` (``bias`` keeps its name);
+  ``blocks_{i}`` -> ``blocks.{i}``; a module's own parameters (cait's
+  ``blocks_token_only_0_gamma_1``, the extras' 0-d ones) keep name and shape;
 * BatchNorm ``mean``/``var`` -> ``running_mean``/``running_var``.
 
 Both block layouts are read: the loop layout ``blocks_{i}`` and the scan
@@ -60,13 +63,13 @@ def _param(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
         leaf = "weight"
         if arr.ndim == 4:  # conv (ph, pw, Cin, D) -> (D, Cin, ph, pw)
             arr = arr.transpose(3, 2, 0, 1)
-            if mods[-1] == "patch_embed":
+            if mods[-1:] == ["patch_embed"]:
                 mods.append("proj")
         elif arr.ndim == 2:  # dense (in, out) -> (out, in)
             arr = arr.T
-    elif leaf == "scale":  # LayerNorm
+    elif leaf == "scale":  # LayerNorm, BatchNorm
         leaf = "weight"
-    elif leaf == "bias" and mods[-1] == "patch_embed":
+    elif leaf == "bias" and mods[-1:] == ["patch_embed"]:
         mods.append("proj")
     return ".".join(mods + [leaf]), arr
 
@@ -75,7 +78,7 @@ def flax_to_torch(variables: dict, device=None) -> tuple[dict, dict]:
     """(state_dict of parameters, dict of buffers) for ``ProbeModel``, as
     tensors on ``device`` (None: the card; raises where there is none)."""
     device = default_device(device)
-    params = dict(variables["params"])
+    params = dict(variables.get("params", {}))
     if "backbone" in params:
         params["backbone"] = unstack_block_params(params["backbone"])
     state = {}

@@ -15,9 +15,10 @@ import torch.nn as nn
 
 from ep_tpu_torch.configs import TrainConfig
 from ep_tpu_torch.ops import default_device
-from ep_tpu_torch.poolings.common import normal_, torch_bias_init_, torch_linear_init_
+from ep_tpu_torch.poolings.common import normal_
 from ep_tpu_torch.poolings.registry import ProbeHead
-from .vit import VIT_CONFIGS, ViTConfig, VisionTransformer, remap_features
+from .vit import (_TODO_BACKBONE, FEATURE_MODES, VIT_CONFIGS, ViTConfig,
+                  VisionTransformer, remap_features)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "none": torch.float32, "float16": torch.bfloat16}
@@ -52,38 +53,45 @@ class ProbeModel(nn.Module):
                 "return_block is not ported yet (ROADMAP module item 7)")
         self.finetuning = cfg.finetuning
         self.mode = remap_features(cfg.cls_features)
+        if self.mode not in FEATURE_MODES:
+            raise NotImplementedError(
+                f"--cls_features {cfg.cls_features} (feature mode "
+                f"{self.mode!r}) {_TODO_BACKBONE}")
         self.backbone = VisionTransformer(backbone_cfg)
-        self.head = ProbeHead(cfg, backbone_cfg.embed_dim, backbone_cfg.dtype)
+        self.head = ProbeHead(cfg, backbone_cfg.embed_dim,
+                              backbone_cfg.num_patches, backbone_cfg.dtype)
 
     def forward(self, images: torch.Tensor,
-                return_backbone_features: bool = False):
-        """images (B, H, W, 3) NHWC -> f32 logits (B, nb_classes); with
-        ``return_backbone_features`` (logits, the backbone's features), the
-        descriptors kNN evaluation reads (``ep_tpu/models/assembly.py``)."""
+                return_backbone_features: bool = False,
+                return_attn: bool = False):
+        """images (B, H, W, 3) NHWC -> f32 logits (B, nb_classes). With
+        ``return_backbone_features`` also the backbone's features (the
+        descriptors kNN evaluation reads), with ``return_attn`` also the
+        pool's attention map, in the JAX package's order: (logits, feats,
+        attn), (logits, feats) or (logits, attn)
+        (``ep_tpu/models/assembly.py``)."""
         if self.finetuning:
             feats = self.backbone(images, self.mode)
         else:
             with torch.no_grad():
                 feats = self.backbone(images, self.mode)
-        logits = self.head(feats)
-        return (logits, feats) if return_backbone_features else logits
+        out = self.head(feats, return_attn=return_attn)
+        if not return_backbone_features:
+            return out
+        if return_attn:
+            logits, attn = out
+            return logits, feats, attn
+        return out, feats
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw every parameter from ``generator``, with the JAX package's
         initial distributions: lecun-normal dense kernels and zero biases in
-        the backbone, pos-embed N(0, 0.02), EP queries N(0, 0.02), torch-Linear
-        uniform for the head's projections."""
-        for name, p in self.named_parameters():
+        the backbone, pos-embed N(0, 0.02); the head by its modules' own
+        initializers (``ProbeHead.init_weights``), after the backbone."""
+        for name, p in self.backbone.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if name.startswith("head."):
-                if name == "head.pool.cls_token":
-                    normal_(p, 0.02, generator)
-                elif leaf == "weight":
-                    torch_linear_init_(p, generator)
-                else:  # the classifier's bias
-                    torch_bias_init_(p, self.head.fc.in_features, generator)
-            elif name.endswith("pos_embed"):
+            if name.endswith("pos_embed"):
                 normal_(p, 0.02, generator)
             elif "norm" in name:
                 p.fill_(1.0 if leaf == "weight" else 0.0)
@@ -91,6 +99,7 @@ class ProbeModel(nn.Module):
                 normal_(p, p[0].numel() ** -0.5, generator)
             else:  # biases and the [CLS] token
                 p.zero_()
+        self.head.init_weights(generator)
 
 
 def init_probe_model(cfg: TrainConfig, seed: int = 0,

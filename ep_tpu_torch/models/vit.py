@@ -7,7 +7,8 @@ attention half is the attention supercell (``ops/attn_block.py``: kernels A, B
 or, at long sequences, F, and C on the card, E in its backward) and whose MLP half is plain torch (LN2,
 fc1, GELU, fc2, residual) or, with ``int8_mlp=True`` (``--int8_mlp``, opt-in
 and approximate), the int8 half of ``ops/mlp_int8.py`` (its own kernels on the
-card); no final norm, and the feature modes ``cls``, ``pos`` and ``gap``. An
+card); no final norm, and the feature modes ``cls``, ``pos``, ``gap`` and
+``both`` ([CLS] + patch tokens, for the ``_all`` poolings). An
 image of another size than the model's gets the position embedding resized
 to its patch grid (``utils/pos_embed.py``).
 
@@ -52,7 +53,7 @@ ATTENTIVE_POOLINGS = [
     "coca", "cait", "dinovit", "jepa", "dolg", "cae",
 ]
 ATTENTIVE_POOLINGS_ALL = [f"{n}_all" for n in ATTENTIVE_POOLINGS]
-FEATURE_MODES = ("cls", "pos", "gap")
+FEATURE_MODES = ("cls", "pos", "gap", "both")
 
 _TODO_BACKBONE = "is not ported yet (ROADMAP module item 7, backbone variants)"
 
@@ -295,9 +296,11 @@ class VisionTransformer(nn.Module):
             return x_pos
         if return_features == "gap":
             return x_pos.mean(dim=1)
-        if c.class_token:
-            return x[:, 0]
-        return torch.zeros(B, c.embed_dim, dtype=dt, device=x.device)
+        x_cls = (x[:, 0] if c.class_token
+                 else torch.zeros(B, c.embed_dim, dtype=dt, device=x.device))
+        if return_features == "both":
+            return torch.cat([x_cls[:, None], x_pos], dim=1)
+        return x_cls
 
 
 # --- size constructors --------------------------------------------------------

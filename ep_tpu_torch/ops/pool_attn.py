@@ -36,17 +36,19 @@ def block_mask(Q: int, cq: int, device=None) -> torch.Tensor:
 
 
 def ep_pool_attend_ref(q_scaled: torch.Tensor, tokens: torch.Tensor,
-                       v: torch.Tensor) -> torch.Tensor:
+                       v: torch.Tensor, return_attn: bool = False):
     """Plain version (``ep_pool_attend_xla``): the masked-full form, one
     (B,Q,N)@(B,N,Q*cq) product and a block-diagonal mask-reduce. Every output
-    element equals one element of the full product."""
+    element equals one element of the full product. With ``return_attn``
+    also the f32 probabilities (B, Q, N), which no kernel computes."""
     B, N, Q, cq = v.shape
     logits = torch.einsum("qc,bnc->bqn", q_scaled.float(), tokens.float())
     attn = torch.softmax(logits, dim=-1)
     full = torch.einsum("bqn,bnm->bqm", attn.to(v.dtype).float(),
                         v.reshape(B, N, Q * cq).float())
     out = (full * block_mask(Q, cq, v.device)).sum(dim=1)
-    return out.reshape(B, Q, cq).to(v.dtype)
+    out = out.reshape(B, Q, cq).to(v.dtype)
+    return (out, attn) if return_attn else out
 
 
 def _check_pool_inputs(q_scaled, tokens) -> None:

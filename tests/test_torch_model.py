@@ -148,7 +148,7 @@ def test_unported_backbone_variants_raise(kw):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(return_block=5), "item 7"), (dict(cls_features="aim"), "item 6"),
+    (dict(return_block=5), "item 7"), (dict(cls_features="raw"), "item 7"),
     (dict(model="dinov2_vitb14"), "item 7"),
 ])
 def test_unported_configs_raise(kw, item):
@@ -157,6 +157,14 @@ def test_unported_configs_raise(kw, item):
                                     image_size=IMG), **kw})
     with pytest.raises(NotImplementedError, match=item):
         ProbeModel(build_backbone_config(cfg), cfg)
+
+
+@pytest.mark.parametrize("mode", ["raw", "dino", "cp4"])
+def test_unported_feature_modes_raise_in_the_backbone(mode):
+    vit = VisionTransformer(ViTConfig(img_size=IMG, embed_dim=64, depth=1,
+                                      num_heads=2, dtype=torch.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP module item 7"):
+        vit(torch.from_numpy(images()[:2]), mode)
 
 
 def test_init_is_seeded():
