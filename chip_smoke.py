@@ -36,8 +36,9 @@ Phases, each of which must pass (any failure exits non-zero):
              ViT-B/16 at 448 px (T=1025 and 785) and at the row-tiled variant's
              shape (T=257, head width 80) beside kernel B, and at the edges of
              its tiles (T of 1 to 1025 at both head widths, more (image, head)
-             pairs than SMs, temperature 1.5); D at N=1024, at ViT-H's N=256
-             and at ViT-L's width (D at every shape, and ln_quant, also
+             pairs than SMs, temperature 1.5); D at N=1024, at ViT-H's N=256,
+             at ViT-L's width and at the zoo's ep_all shape (512, 197, 768:
+             [CLS] + patch tokens) (D at every shape, and ln_quant, also
              twice: equal bit for bit); G (ep_pool_proj) at ViT-B, ViT-H and
              ViT-H at 448 px beside the unfused pair (F.linear, then D), and
              at the edges of its panels and query bank and at cq 12 and 20
@@ -93,11 +94,12 @@ Phases, each of which must pass (any failure exits non-zero):
              (512, 196 or 197, 768) bf16 (chains as in cached, D for ep and
              ep_all only) with its device busy time, and the head on 8 images'
              tokens, card against CPU: bf16 logits and return_attn maps within
-             5e-2 of their largest magnitude, gradients to cosine 0.9999
-             (zoo_head_check says which). zoo-driver: main_linprobe_torch.py
-             --cls_features dolg (ViT-B/16, batch 128, the fake dataset) for
-             one epoch, its checkpoint with the pool's BatchNorm, then --eval
-             from it printing epoch 0's val numbers.
+             5e-2 of their largest magnitude, gradients with the descriptor BN
+             in eval mode and in train mode (the trained function) to cosine
+             0.9999 (zoo_head_check says which). zoo-driver:
+             main_linprobe_torch.py --cls_features dolg (ViT-B/16, batch 128,
+             the fake dataset) for one epoch, its checkpoint with the pool's
+             BatchNorm, then --eval from it printing epoch 0's val numbers.
 6. finetune-b — full fine-tuning as bench.py's ft_b row builds it: ViT-B/16 +
              EP-32, batch 512, --finetuning --remat_blocks --remat_policy
              attn_out, LARS and the warmup-cosine LR (at its peak, the end of
@@ -698,15 +700,22 @@ def check_long_kernels(rng) -> tuple[list[dict], list[dict]]:
         del qkv
         torch.cuda.empty_cache()
 
-    log("[kernels] D at ViT-H (N=256), at N=1024 (448 px) and at ViT-L's "
-        "width (C=1024)")
+    log("[kernels] D at ViT-H (N=256), at N=1024 (448 px), at ViT-L's "
+        "width (C=1024) and at ep_all's N=197 ([CLS] + patch tokens, the zoo "
+        "phase's ViT-B at batch 512)")
     Q = 32
     for name, b, n, c in (("ep_pool_vith", 128, 256, 1280),
                           ("ep_pool_n1024", 64, 1024, 1280),
-                          ("ep_pool_vitl", 16, 196, 1024)):
-        qs = rand(rng, (Q, c), c ** -0.5)
-        tok = rand(rng, (b, n + 1, c))[:, 1:]
-        v = rand(rng, (b, n, Q, c // Q))
+                          ("ep_pool_vitl", 16, 196, 1024),
+                          ("ep_pool_n197", 512, 197, 768)):
+        if name == "ep_pool_n197":  # every token, so no slice; its own draws
+            g = np.random.default_rng(9)
+            qs, tok = rand(g, (Q, c), c ** -0.5), rand(g, (b, n, c))
+            v = rand(g, (b, n, Q, c // Q))
+        else:
+            qs = rand(rng, (Q, c), c ** -0.5)
+            tok = rand(rng, (b, n + 1, c))[:, 1:]
+            v = rand(rng, (b, n, Q, c // Q))
         cluster, tiles = ep_pool_tiling(n, c, Q, c)
         log(f"  {name}: clusters of {cluster} block(s) an image, {tiles} tile(s) "
             f"of 64 tokens a block, {ep_pool_smem_bytes(Q, c, cluster, tiles)} "
@@ -726,7 +735,8 @@ def check_long_kernels(rng) -> tuple[list[dict], list[dict]]:
                   time_ms(lambda: pool_sdpa(qs, tok, v), 3),
                   bound(2 * b * n * (Q * c + c), "bf16",
                         nbytes(qs, v) + b * n * c * 2 + b * c * 2))
-        (on_path if name == "ep_pool_n1024" else others).append(r)
+        (on_path if name in ("ep_pool_n1024", "ep_pool_n197")
+         else others).append(r)
 
     log("[kernels] G: ep_pool_proj (ep_pool_proj_attend), forward and "
         "gradients; the unfused pair is F.linear, then kernel D")
@@ -1428,37 +1438,34 @@ def finetune_grads(n: int = 4) -> None:
 
 
 def compare_grads(what: str, card: dict, cpu: dict,
-                  min_cos: float = GRAD_COS, floor: float = GRAD_FLOOR,
-                  noise: set | None = None) -> float:
+                  min_cos: float = GRAD_COS, zero: set | None = None) -> float:
     """Each gradient of the card's kernel path against the CPU plain path's:
-    GRAD_TOL of its scale at every element, ``min_cos`` in direction; a
-    gradient under ``floor`` of the largest is rounding noise, held to the
-    elementwise bound only. Where ``noise`` names the gradients that are zero
-    in exact arithmetic, those are not compared and the rest are held to
-    both bounds. Returns the smallest cosine."""
+    GRAD_TOL at every element of max(its largest magnitude, GRAD_FLOOR of the
+    largest gradient's), and ``min_cos`` in direction but for the gradients
+    named in ``zero``: those that are zero in exact arithmetic, whose values
+    are rounding noise (by default those under GRAD_FLOOR of the largest).
+    Returns the smallest cosine of the others."""
     top = max(float(g.abs().max()) for g in cpu.values())
+    if zero is None:
+        zero = {k for k, g in cpu.items()
+                if float(g.abs().max()) < GRAD_FLOOR * top}
     log(f"{what}, card kernel path vs CPU plain path (tol {GRAD_TOL:g} of "
-        f"max(|grad|, {floor:g} x model max {top:.3e}); cosine >= "
-        f"{min_cos:g})")
+        f"max(|grad|, {GRAD_FLOOR:g} x model max {top:.3e}); cosine >= "
+        f"{min_cos:g} but for the zeros {sorted(zero)})")
     rows, bad = [], []
     for k, ref in cpu.items():
-        own = float(ref.abs().max())
-        scale = max(own, floor * top)
+        scale = max(float(ref.abs().max()), GRAD_FLOOR * top)
         d = float((card[k] - ref).abs().max())
         cos = float(torch.nn.functional.cosine_similarity(
             card[k].flatten().double(), ref.flatten().double(), dim=0))
-        is_noise = own < floor * top if noise is None else k in noise
-        rows.append((d / scale, cos, k, is_noise))
-        if noise is not None and is_noise:
-            continue
-        if d > GRAD_TOL * scale or (not is_noise and cos < min_cos):
+        rows.append((d / scale, cos, k, k in zero))
+        if d > GRAD_TOL * scale or (k not in zero and cos < min_cos):
             bad.append(k)
     rows.sort(reverse=True)
     for r, cos, k, _ in rows[:5]:
         log(f"  {k}: max |d| {r:.3e} of its scale, cosine {cos:.6f}")
     smallest = min(r[1] for r in rows if not r[3])
-    log(f"  smallest cosine {smallest:.6f}; under the floor (rounding "
-        f"noise): {[r[2] for r in rows if r[3]]}")
+    log(f"  smallest cosine {smallest:.6f}")
     if bad:
         raise RuntimeError(f"gradients outside the tolerance: {bad}")
     return smallest
@@ -1562,7 +1569,8 @@ def cached_steps(card: str, paths: dict, train_img_s: float) -> dict:
 # leaves them to XLA; A, B and C run in the encoder, D in ep and ep_all only.
 # Card against CPU on ZOO_CHECK images' tokens: the bf16 logits and maps within
 # ZOO_TOL of their largest magnitude (the cached phase's 5e-2), the gradients
-# of the head computing in f32 to ZOO_COS in direction (zoo_head_check).
+# of the bf16 head and of the head computing in f32 to ZOO_COS in direction,
+# with the descriptor BN in eval and in train mode (zoo_head_check).
 ZOO_HEADS = ("abmilp", "simpool", "esimpool", "clip", "siglip", "aim", "ep",
              "cbam", "coca", "cait", "dinovit", "jepa", "dolg", "cae",
              "ep_all", "aim_all")
@@ -1590,34 +1598,54 @@ def compare_scaled(name: str, out: torch.Tensor, ref: torch.Tensor,
     return r
 
 
+def zoo_grads(head, x: torch.Tensor, labels: torch.Tensor, dev: str,
+              bn_train: bool) -> dict:
+    """The head's parameter gradients of the mean cross-entropy on ``dev``,
+    the pool in train mode and the descriptor BN in train or eval mode."""
+    from ep_tpu_torch.train.steps import cross_entropy
+    h = copy.deepcopy(head).to(dev).train()
+    h.bn.train(bn_train)
+    cross_entropy(h(x.to(dev)), labels.to(dev)).mean().backward()
+    return {k: grad_of(p).float().cpu() for k, p in h.named_parameters()}
+
+
 def zoo_head_check(name: str, cfg, head0, tokens: torch.Tensor,
                    num_patches: int) -> dict:
     """The head on ZOO_CHECK images' tokens, card against CPU, from the same
     weights: the bf16 head's (the trained path) train-mode logits, its
-    eval-mode logits and attention map (``return_attn``), and the gradients
-    of the bf16 head and of the same head computing in f32, each with its
-    pool in train mode and the descriptor BN in eval mode.
+    eval-mode logits and attention map (``return_attn``), and the gradients,
+    the pool in train mode: with the descriptor BN in eval mode those of the
+    bf16 head and of the same head computing in f32 (not for ep and ep_all:
+    kernel D takes bf16 only); with that BN in train mode (the function
+    trained) those of the f32 head, of the bf16 head for ep and ep_all.
 
-    In train mode that BN normalises the images' descriptors together and
-    cancels any shift common to all of them, so a bias added to every token
-    before a weighted mean whose weights sum to one (abmilp's
-    ``self_attn.proj.bias``, whose only other path is the attention
-    predictor) keeps a gradient that is mostly rounding noise: card against
-    CPU its cosine measured 0.857 in bf16 and 0.998 in f32 on an H100. The
-    f32 gradients (not for ep and ep_all: kernel D takes bf16 only) are held
-    to ZOO_COS over ZOO_FLOOR of the largest; those under it are zero in
-    exact arithmetic (a k bias under the softmax's shift invariance, dolg's
-    conv1 bias under its BN), and the bf16 gradients are held to ZOO_COS but
-    for those, whose bf16 values are rounding noise (dolg's conv1 bias:
-    cosine 0.975)."""
+    Each pass's gradients that are zero in exact arithmetic, those under
+    ZOO_FLOOR of the largest of the same head's gradients computing in f64 on
+    the CPU, are held to the elementwise bound only (compare_grads), the rest
+    to ZOO_COS too. They are
+    a k bias under the softmax's shift invariance, dolg's conv1 bias under its
+    BN and, with the descriptor BN in train mode, what that BN cancels: it
+    normalises the images' descriptors together, so a shift or a per-channel
+    scale common to all of them (a LayerNorm's affine before it, a bias added
+    to every token before a weighted mean whose weights sum to one) does not
+    reach the loss. What it cancels leaves rounding in f32 well over
+    ZOO_FLOOR of the largest gradient (abmilp's ``self_attn.proj.bias``),
+    hence the f64 reference; a gradient it cancels in part keeps the rest,
+    but in bf16 that is largely rounding, on the CPU as on the card: so in
+    train mode the gradients are those of the head computing in f32. There
+    cait's LayerScale gammas are grown from their initial 1e-5 to
+    0.5 on both devices, as tests/test_torch_all_variants.py grows them: at
+    1e-5 all 8 descriptors are nearly cait's class token, and that BN divides
+    their rounding-sized differences by a deviation of the same size."""
     from ep_tpu_torch.poolings.registry import ProbeHead, base_name
-    from ep_tpu_torch.train.steps import cross_entropy
 
     x = tokens[:ZOO_CHECK]
     labels = torch.arange(ZOO_CHECK) % 1000
     head32 = ProbeHead(cfg, x.shape[-1], num_patches, torch.float32)
     head32.load_state_dict(head0.state_dict())
-    logits, evals, grads16, grads32 = [], [], [], []
+    head64 = ProbeHead(cfg, x.shape[-1], num_patches, torch.float64)
+    head64.load_state_dict(head0.state_dict())
+    logits, evals = [], []
     for dev in ("cuda", "cpu"):
         h = copy.deepcopy(head0).to(dev).train()
         with torch.no_grad():
@@ -1625,14 +1653,6 @@ def zoo_head_check(name: str, cfg, head0, tokens: torch.Tensor,
             out, attn = h.eval()(x.to(dev), return_attn=True)
         evals.append((out.float().cpu(),
                       None if attn is None else attn.float().cpu()))
-        for head, grads in ((head0, grads16), (head32, grads32)):
-            if head is head32 and dev == "cuda" and base_name(name) == "ep":
-                continue
-            h = copy.deepcopy(head).to(dev).train()
-            h.bn.eval()
-            cross_entropy(h(x.to(dev)), labels.to(dev)).mean().backward()
-            grads.append({k: grad_of(p).float().cpu()
-                          for k, p in h.named_parameters()})
     log(f"  [zoo {name}] head on {ZOO_CHECK} images' tokens, card vs CPU")
     res = dict(logits_rel=compare_scaled("bf16 train-mode logits", *logits,
                                          ZOO_TOL))
@@ -1645,16 +1665,30 @@ def zoo_head_check(name: str, cfg, head0, tokens: torch.Tensor,
         log(f"    return_attn: {tuple(evals[1][1].shape)}")
         res["attn_rel"] = compare_scaled("bf16 attention map", evals[0][1],
                                          evals[1][1], ZOO_TOL)
-    exact = grads32[-1]  # the CPU's f32 gradients
-    top = max(float(g.abs().max()) for g in exact.values())
-    zero = {k for k, g in exact.items() if float(g.abs().max()) < ZOO_FLOOR * top}
-    if len(grads32) == 2:
-        res["min_cos_f32"] = compare_grads(
-            f"    {len(exact)} head gradients, f32 head", *grads32,
-            min_cos=ZOO_COS, floor=ZOO_FLOOR)
-    res["min_cos_bf16"] = compare_grads(
-        f"    {len(exact)} head gradients, bf16 head (not compared: the "
-        f"f32 zeros {sorted(zero)})", *grads16, min_cos=ZOO_COS, noise=zero)
+    for bn in ("eval", "train"):
+        heads = dict(bf16=head0, f32=head32, f64=head64)
+        if bn == "train" and name == "cait":
+            heads = {k: copy.deepcopy(h) for k, h in heads.items()}
+            for h in heads.values():
+                with torch.no_grad():
+                    for k, p in h.named_parameters():
+                        if "_gamma_" in k:
+                            p.fill_(0.5)
+        exact = zoo_grads(heads.pop("f64"), x.double(), labels, "cpu",
+                          bn == "train")
+        top = max(float(g.abs().max()) for g in exact.values())
+        zero = {k for k, g in exact.items()
+                if float(g.abs().max()) < ZOO_FLOOR * top}
+        for prec, head in heads.items():
+            if prec == "f32" and base_name(name) == "ep" or (
+                    bn == "train" and prec == "bf16"
+                    and base_name(name) != "ep"):
+                continue
+            cpu = zoo_grads(head, x, labels, "cpu", bn == "train")
+            res[f"min_cos_{prec}_bn_{bn}"] = compare_grads(
+                f"    {len(cpu)} head gradients, {prec} head, descriptor BN in "
+                f"{bn} mode", zoo_grads(head, x, labels, "cuda", bn == "train"),
+                cpu, min_cos=ZOO_COS, zero=zero)
     return res
 
 
@@ -2349,6 +2383,8 @@ def main() -> int:
                                "probe-h-rowtile"),
         "ep_pool_n1024": (csrc + "ep_pool.cu",
                           "ep_tpu/ops/pool_attn_pallas.py:30", "probe-h448"),
+        "ep_pool_n197": (csrc + "ep_pool.cu",
+                         "ep_tpu/ops/pool_attn_pallas.py:30", "zoo-ep_all"),
         "ep_pool_q128": (csrc + "ep_pool.cu",
                          "ep_tpu/ops/pool_attn_pallas.py:30", "driver-q128"),
         "ep_pool_proj": (csrc + "ep_pool_proj.cu",
@@ -2360,7 +2396,7 @@ def main() -> int:
         src, tpu, path_name = replaces[r["name"]]
         counter = r["name"]  # the wrapper's entry in LAUNCHES
         for shape_tag in ("_dh80", "_two_kernel", "_rowtile", "_n1024",
-                          "_q128"):
+                          "_n197", "_q128"):
             counter = counter.replace(shape_tag, "")
         launches = paths[path_name][counter]
         if launches == 0:

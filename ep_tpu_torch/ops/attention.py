@@ -11,7 +11,14 @@ from typing import Optional
 
 import torch
 
-from ep_tpu_torch.poolings.common import scaled
+
+
+def scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """``x * scale`` as JAX computes it for a weakly typed Python float: the
+    constant in x's dtype first. The constant is a 0-d CPU tensor, which a
+    card's tensor takes by value: made on the card, it would be a copy from
+    pageable memory that waits for the work queued before it."""
+    return x * torch.tensor(scale, dtype=x.dtype)
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,

@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .common import Dense, LayerNorm, normal_, scaled
+from ep_tpu_torch.ops.attention import scaled
+from .common import Dense, LayerNorm, normal_
 
 
 class CoCaCrossAttnPooling(nn.Module):

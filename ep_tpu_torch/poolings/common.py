@@ -32,6 +32,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ep_tpu_torch.ops.attention import scaled
+
 # deviation of a standard normal cut at ±2 (flax's variance_scaling constant)
 _TRUNC_STD = 0.87962566103423978
 
@@ -126,14 +128,6 @@ class LayerNorm(nn.LayerNorm):
 def mean_f32(x: torch.Tensor, dim, keepdim: bool = False) -> torch.Tensor:
     """``jnp.mean`` of a bf16 array: summed in f32, cast back."""
     return x.float().mean(dim=dim, keepdim=keepdim).to(x.dtype)
-
-
-def scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
-    """``x * scale`` as JAX computes it for a weakly typed Python float: the
-    constant in x's dtype first. The constant is a 0-d CPU tensor, which a
-    card's tensor takes by value: made on the card, it would be a copy from
-    pageable memory that waits for the work queued before it."""
-    return x * torch.tensor(scale, dtype=x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
