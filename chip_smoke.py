@@ -46,7 +46,11 @@ Phases, each of which must pass (any failure exits non-zero):
              at --d_out 2 (ViT-B and ViT-H widths) against its unfused route;
              D and G at 128 queries at ViT-B, batch 512 (a launch for each
              group of 64 queries; twice, equal bit for bit), each beside its
-             time at 32 queries.
+             time at 32 queries. Then the backbone family's shapes: B at
+             (512, 261, 16x64) and (512, 272, 16x64), D at (512, 256, 1024,
+             32) and (64, 256, 1536, 32) (each twice, equal bit for bit), and
+             the attention backward past kernel E's limit (plain torch, tiled
+             over query rows) at (32, 1025, 16x80) against the CPU's.
 4. train   — the probe-training main path as bench.py builds it: frozen
              ViT-B/16 (random weights from seed 0) + EP-32 head, BN, fc, LARS
              with the warmup-cosine LR; a few steps at --batch. Checks a finite
@@ -100,6 +104,29 @@ Phases, each of which must pass (any failure exits non-zero):
              main_linprobe_torch.py --cls_features dolg (ViT-B/16, batch 128,
              the fake dataset) for one epoch, its checkpoint with the pool's
              BatchNorm, then --eval from it printing epoch 0's val numbers.
+   The backbone family (ROADMAP module item 7), at published widths and
+   depths, bf16, random weights from seed 0, EP-32 but where named:
+   probe-dinov2-l — frozen DINOv2-L/14 with 4 registers (D=1024, depth 24,
+             LayerScale, final LN, T=261), batch 512: B 24 times a forward on
+             the plain Attention route (LN1 and qkv in torch), A and C never,
+             D once at (512, 256, 1024, 32); then its logits of 4 images
+             against the CPU plain path. probe-dinov2-g — the SwiGLU giant
+             (D=1536, depth 40, 24 heads), batch 64: B 40 times, D once.
+             probe-capi — CAPI-L/14 (16 registers, no [CLS], T=272: B's last
+             key bin): A, B and C 24 times; then a cls-mode model (the
+             register mean) against the CPU's. probe-clip-b — OpenCLIP
+             ViT-B-16, openai (QuickGELU, ln_pre, ln_post), --cls_features
+             cls: A, B and C 12 times, D never, a head 512 (proj_dim) wide.
+             probe-simmim — SimMIM ViT-B (shared rel-pos bias, q/v bias,
+             LayerScale): no attention kernel (the bias goes through the
+             plain mha, as in the JAX package), D once. probe-mae-l — the MAE
+             ViT-L/16 encoder's latent: A, B and C 24 times, D once.
+   features-b — frozen ViT-B/16 with cp1-cp4, ca1-ca4, attn-mn, attn-lcte,
+             raw, dino (the ViT-B/16 oracle) and --return_block 6: each mode's
+             features of 4 images card against CPU plain path, with its
+             launches (A, B, C 11 times and a plain last block for ca*/attn-*,
+             23 for dino, 7 for --return_block 6), and its forward at batch
+             512 timed.
 6. finetune-b — full fine-tuning as bench.py's ft_b row builds it: ViT-B/16 +
              EP-32, batch 512, --finetuning --remat_blocks --remat_policy
              attn_out, LARS and the warmup-cosine LR (at its peak, the end of
@@ -110,8 +137,17 @@ Phases, each of which must pass (any failure exits non-zero):
              median step time, img/s and a profiled step's device time.
 7. finetune-h — the ft_h row: ViT-H/14 (D=1280, 16 heads of width 80, T=257)
              + EP-32, batch 128, bf16 LARS momentum, the same flags and checks.
+   finetune-dinov2-l — DINOv2-L/14 with registers, batch 128, the same
+             flags: B and E 24 times a step (the plain route's attention is
+             outside the recomputed MLP half), A and C never; the LayerScale
+             gammas and registers move with every other parameter.
+   finetune-h448 — ViT-H/14 at 448 px (T=1025), batch 32: A and F 64 times
+             a step (forward, and again in each supercell backward), C 32,
+             the tiled plain backward past kernel E's limit 32, E never.
 8. finetune-grads — every parameter's gradient for 4 images at ViT-B, the
-             card's kernel path against the port's plain path on the CPU.
+             card's kernel path against the port's plain path on the CPU;
+             then at DINOv2-L's width, depth 2 (LayerScale at 0.5, the
+             head's BN in eval mode).
 9. driver  — main_linprobe_torch.py's main, as a user runs it, in a temporary
              directory: ViT-B/16 at 224 px, EP-32, batch 128, bf16, the fake
              dataset (512 train and 128 val images made in memory), random
@@ -130,9 +166,17 @@ Phases, each of which must pass (any failure exits non-zero):
              --device_aug --device_aug_cache over 2 epochs (the staged memmap
              files); prints each epoch's wall img/s beside phase 4's step at
              batch 128, and the idle share of a profiled epoch of each mode.
+   driver-dinov2 — main_linprobe_torch.py --model dinov2_vitb14_reg for one
+             epoch (B 12 times a forward, D once); --eval --finetune of a
+             DINOv2-hub-layout .pth (register_tokens, blocks.i.ls1.gamma, a
+             mask_token) written from seed 1's backbone, whose logits the
+             driver's model must give; --cls_features dino --oracle_ckpt of a
+             timm-layout ViT-B/16 .pth on ViT-B/16 for one epoch (A, B and C
+             23 times a forward), the oracle holding the file's weights.
 
 The zoo's per-head table (train step ms and img/s, head-only step ms, img/s
-and device busy ms) follows its phase. Before the last line come the card's
+and device busy ms) follows its phase. Before the last line come the whole
+run's wall seconds, the card's
 name and power limit, a JSON line with
 cached_mode_img_s, effective_90ep_img_s and device_aug_img_s (bench.py's keys)
 beside them, and a JSON summary of the kernels; the last line is
@@ -182,6 +226,11 @@ ATOL, RTOL = 1e-2, 1e-2
 STEP, STEP_SHARE, STEP_FLOOR = 2.0 ** -7, 1e-5, 4
 # Whole model, 12 blocks of bf16 rounding differences on random weights.
 MODEL_ATOL, MODEL_RTOL = 5e-2, 5e-2
+# A backbone's features (features-b), against the largest magnitude of the
+# plain path's: ViT-B/16's tokens reach about 16 with no final norm, where
+# one bf16 step is 0.125, so MODEL_ATOL would hold single tokens (cp1) to
+# under a step; 2**-5 of the largest is the CPU tests' bf16 bound.
+FEATURE_TOL = 2.0 ** -5
 # Gradients, each against its tensor's largest magnitude: the attention
 # backward's dq and dk sum T products of a bf16-rounded dL (E: 1e-2); the
 # supercell's weight gradients sum B*T bf16 products (2e-2). A whole model's
@@ -1125,7 +1174,11 @@ def train(kind: str, B: int, steps: int, card: str):
                       pool_kernel)
 
 
-def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel):
+def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel,
+           per_forward=None):
+    """``per_forward`` (the backbone family's paths): the launches of one
+    forward, every other count zero, in place of A, the attention kernel
+    and C depth times and the pool once."""
     from ep_tpu_torch.configs import TrainConfig
     from ep_tpu_torch.models.assembly import build_backbone_config, init_probe_model
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
@@ -1134,12 +1187,14 @@ def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel):
     from ep_tpu_torch.train.state import cast_frozen, freeze, split_params
     from ep_tpu_torch.train.steps import make_train_step
 
-    cfg = TrainConfig(cls_features="ep", ep_queries=32, d_out=1,
-                      nb_classes=1000, amp="bfloat16", pallas_pool=True,
-                      epochs=90, warmup_epochs=10, blr=0.1, batch_size=B,
-                      eff_batch_size=B, **flags)
+    cfg = TrainConfig(**{**dict(
+        cls_features="ep", ep_queries=32, d_out=1, nb_classes=1000,
+        amp="bfloat16", pallas_pool=True, epochs=90, warmup_epochs=10, blr=0.1,
+        batch_size=B, eff_batch_size=B), **flags})
     bcfg = build_backbone_config(cfg)
+    t_init = time.perf_counter()
     model = init_probe_model(cfg, seed=0, backbone_cfg=bcfg)  # on the card
+    t_init = time.perf_counter() - t_init
     trainable = freeze(model, cfg.finetuning)
     cast_frozen(model, torch.bfloat16)
     opt = LARS(trainable, weight_decay=0.0)
@@ -1171,14 +1226,18 @@ def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel):
     train_p, frozen_p = split_params(model, cfg.finetuning)
     before_t = {k: p.detach().clone() for k, p in train_p.items()}
     before_f = {k: p.detach().clone() for k, p in frozen_p.items()}
-    log(f"[{kind}] {cfg.model} (D={bcfg.embed_dim}, depth {bcfg.depth}, "
-        f"T={bcfg.num_patches + bcfg.num_prefix_tokens}) + EP32, "
-        f"int8_mlp={bcfg.int8_mlp}, batch {B}, {bcfg.img_size} px"
+    route = (f"launches a forward {per_forward}" if per_forward else
+             f"attention through {attn_kernel}, pool through {pool_kernel}")
+    name = "simmim_vit_base_patch16" if cfg.simmim else cfg.model
+    log(f"[{kind}] {name} (D={bcfg.embed_dim}, depth {bcfg.depth}, "
+        f"T={bcfg.num_patches + getattr(bcfg, 'num_prefix_tokens', 1)}) + "
+        f"{cfg.cls_features} head, int8_mlp={getattr(bcfg, 'int8_mlp', False)}, "
+        f"batch {B}, {bcfg.img_size} px"
         + (f" cropped on the card from u8 staged {tuple(images.shape)}"
            if device_aug is not None else "") + f", {steps} "
-        f"steps, attention through {attn_kernel}, pool through {pool_kernel}, "
-        f"{sum(p.numel() for p in trainable)} trainable / "
-        f"{sum(p.numel() for p in frozen_p.values())} frozen parameters")
+        f"steps, {route}, {sum(p.numel() for p in trainable)} trainable / "
+        f"{sum(p.numel() for p in frozen_p.values())} frozen parameters, "
+        f"built in {t_init:.1f} s")
 
     torch.cuda.synchronize()
     reset_launches()
@@ -1204,11 +1263,15 @@ def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel):
         raise RuntimeError(f"frozen parameters changed: {moved[:5]}")
     d = bcfg.depth
     expect = dict.fromkeys(LAUNCHES, 0)
-    expect.update({"ln_qkv_gemm": d * steps, attn_kernel: d * steps,
-                   "proj_residual_gemm": d * steps, pool_kernel: steps})
-    if bcfg.int8_mlp:
+    if per_forward:
+        expect.update({k: n * steps for k, n in per_forward.items()})
+    else:
+        expect.update({"ln_qkv_gemm": d * steps, attn_kernel: d * steps,
+                       "proj_residual_gemm": d * steps, pool_kernel: steps})
+    int8 = getattr(bcfg, "int8_mlp", False)
+    if int8:
         expect.update(dict.fromkeys(INT8_KERNELS, d * steps))
-    expect_bf16 = 0 if bcfg.int8_mlp else d * steps
+    expect_bf16 = 0 if int8 else d * steps
     log(f"  launches over {steps} forwards: {counts} (expected {expect}); "
         f"calls of the bf16 MLP half: {bf16_mlp_calls[0]} (expected "
         f"{expect_bf16})")
@@ -1271,6 +1334,18 @@ def logits_448() -> None:
 FT_CONFIGS = {
     "finetune-b": (512, dict(model="vit_base_patch16")),
     "finetune-h": (128, dict(model="vit_huge_patch14", mu_bf16=True)),
+    # the backbone family: DINOv2-L's LayerScale blocks on the plain route
+    # (B, then E, 24 times a step; A and C never), and ViT-H/14 at 448 px
+    # (T=1025) past kernel E's limit: F forward and again in each supercell
+    # backward's recompute, the tiled plain backward, E never
+    "finetune-dinov2-l": (128, dict(model="dinov2_vitl14_reg")),
+    "finetune-h448": (32, dict(model="vit_huge_patch14", image_size=448)),
+}
+# launches a step where they are not A and B twice a block, C and E once
+FT_LAUNCHES = {
+    "finetune-dinov2-l": dict(attn_core=24, attn_core_bwd=24, ep_pool=1),
+    "finetune-h448": dict(ln_qkv_gemm=64, attn_flash=64, proj_residual_gemm=32,
+                          attn_bwd_long=32, ep_pool=1),
 }
 FT_STEPS = 4
 
@@ -1401,9 +1476,9 @@ def finetune(kind: str, B: int, steps: int, card: str):
         raise RuntimeError(f"parameters that did not change: {same[:8]}")
     d = bcfg.depth
     expect = dict.fromkeys(LAUNCHES, 0)
-    expect.update(ln_qkv_gemm=2 * d * steps, attn_core=2 * d * steps,
-                  proj_residual_gemm=d * steps, ep_pool=steps,
-                  attn_core_bwd=d * steps)
+    expect.update({k: n * steps for k, n in FT_LAUNCHES.get(kind, dict(
+        ln_qkv_gemm=2 * d, attn_core=2 * d, proj_residual_gemm=d, ep_pool=1,
+        attn_core_bwd=d)).items()})
     log(f"  launches over {steps} steps: {counts} (expected {expect})")
     if counts != expect:
         raise RuntimeError("the fine-tuning path did not go through every "
@@ -1417,24 +1492,45 @@ def finetune(kind: str, B: int, steps: int, card: str):
     return counts
 
 
-def finetune_grads(n: int = 4) -> None:
-    """Every parameter's gradient at ViT-B: card kernel path vs CPU plain path."""
-    from ep_tpu_torch.models.assembly import init_probe_model
+def finetune_grads(n: int = 4, kind: str = "finetune-b",
+                   depth: int | None = None) -> None:
+    """Every parameter's gradient (at ViT-B, or another path's model cut to
+    ``depth`` blocks at full width): card kernel path vs CPU plain path.
+    LayerScale gammas start at 1e-5, which would leave every block's
+    gradients under the floor of the comparison; both sides take them at
+    0.5, as training grows them. A model with a final norm (``depth`` given:
+    DINOv2) runs its head's BN in eval mode: in train mode the BN over 4
+    images cancels a shift or a scale common to the batch, so the final
+    norm's bias has a gradient that is zero in exact arithmetic and those of
+    the biases before it are mostly rounding (ROADMAP section 3, traps)."""
+    from ep_tpu_torch.models.assembly import build_backbone_config, init_probe_model
     from ep_tpu_torch.train.state import freeze
     from ep_tpu_torch.train.steps import cross_entropy
 
-    cfg = finetune_config("finetune-b", n)
+    cfg = finetune_config(kind, n)
+    bcfg = build_backbone_config(cfg)
+    if depth is not None:
+        bcfg = bcfg.replace(depth=depth)
     rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.standard_normal((n, 224, 224, 3), dtype=np.float32))
+    x = torch.from_numpy(rng.standard_normal(
+        (n, bcfg.img_size, bcfg.img_size, 3), dtype=np.float32))
     y = torch.from_numpy(rng.integers(0, 1000, size=(n,)))
     grads = []
     for dev in ("cuda", "cpu"):  # the same seed gives both the same weights
-        m = init_probe_model(cfg, seed=1, device=dev).train()
+        m = init_probe_model(cfg, seed=1, backbone_cfg=bcfg, device=dev).train()
+        if depth is not None:
+            m.head.bn.eval()
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if name.endswith(".gamma"):
+                    p.fill_(0.5)
         freeze(m, True)
         cross_entropy(m(x.to(dev)), y.to(dev)).mean().backward()
         grads.append({k: p.grad.float().cpu() for k, p in m.named_parameters()})
-    compare_grads(f"[finetune-grads] {len(grads[1])} gradients of {n} images",
-                  *grads)
+    tag = "finetune-grads" if depth is None else f"{kind}-grads"
+    compare_grads(f"[{tag}] {len(grads[1])} gradients of {n} images"
+                  + ("" if depth is None else
+                     f", {cfg.model} at depth {depth}"), *grads)
 
 
 def compare_grads(what: str, card: dict, cpu: dict,
@@ -2243,6 +2339,362 @@ def driver(card: str, paths: dict) -> list[dict]:
     return epochs, extracted
 
 
+# --- the backbone family (DINOv2, CAPI, OpenCLIP, SimMIM, MAE) ---------------
+
+def check_backbone_kernels(rng) -> list[dict]:
+    """Phase 3 at the backbone family's shapes: B at DINOv2-L's T=261 and
+    CAPI's T=272 (batch 512, 16 heads of width 64), D at DINOv2-L's (512, 256,
+    1024, 32) and DINOv2-g's (64, 256, 1536, 32; cq 48) on the patch-token
+    view past five prefix tokens, each twice (equal bit for bit); and the
+    attention backward past kernel E's limit (ops/attn_fused.py::
+    attention_qkv_fused_bwd_long, plain torch, as the JAX package leaves it to
+    XLA) at ViT-H/14 448 px's (32, 1025, 16x80), against the CPU's run of the
+    same function on two of the images."""
+    from ep_tpu_torch.ops.attn_fused import (attention_core,
+                                             attention_qkv_fused_bwd_long,
+                                             attention_qkv_fused_bwd_ref,
+                                             attention_qkv_fused_ref)
+    from ep_tpu_torch.ops.pool_attn import ep_pool_attend, ep_pool_attend_ref
+    sdpa = F.scaled_dot_product_attention
+    results = []
+
+    def entry(name, err, t_k, t_p, t_lib, bnd):
+        log(f"  time {name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
+            f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']}, library "
+            f"{t_lib if t_lib is None else round(t_lib, 3)} ms")
+        results.append(dict(name=name, err=err, ms=t_k, plain_ms=t_p,
+                            library_ms=t_lib, **bnd))
+
+    log("[kernels] B at the backbone family's sequences: DINOv2-L (T = 1 + 4 "
+        "registers + 256 = 261) and CAPI (16 registers + 256 = 272, B's last "
+        "key bin), batch 512, 16 heads of width 64")
+    h, dh = 16, 64
+    sc = dh ** -0.5
+    for name, b, t in (("attn_core_t261", 512, 261), ("attn_core_t272", 512, 272)):
+        qkv = rand(rng, (b, t, 3 * h * dh))
+        out = attention_core(qkv, h, sc, variant="core")
+        e = compare(f"{name} B={b} T={t} H={h}", out,
+                    attention_qkv_fused_ref(qkv, h, sc))
+        repeat_equal(f"{name} B={b} T={t} H={h}", out,
+                     attention_core(qkv, h, sc, variant="core"))
+        del out
+        t_k = time_ms(lambda: attention_core(qkv, h, sc, variant="core"))
+        t_p = time_ms(lambda: attention_qkv_fused_ref(qkv, h, sc), 2)
+        q, k, v = split_heads(qkv, h)
+        t_lib = time_ms(lambda: sdpa(q, k, v, scale=sc))
+        del q, k, v
+        entry(name, e, t_k, t_p, t_lib, bound(4 * b * h * t * t * dh, "bf16",
+                                              nbytes(qkv) + nbytes(qkv) // 3))
+        del qkv
+        torch.cuda.empty_cache()
+
+    log("[kernels] D at DINOv2-L's (512, 256, 1024, 32) and DINOv2-g's (64, "
+        "256, 1536, 32: cq 48), the patch tokens a view past the prefix "
+        "tokens ([CLS] and 4 registers; the giant has no registers)")
+    Q = 32
+    for name, b, n, c, pre in (("ep_pool_dinov2_l", 512, 256, 1024, 5),
+                               ("ep_pool_dinov2_g", 64, 256, 1536, 1)):
+        qs = rand(rng, (Q, c), c ** -0.5)
+        tok = rand(rng, (b, n + pre, c))[:, pre:]
+        v = rand(rng, (b, n, Q, c // Q))
+        ref = ep_pool_attend_ref(qs, tok, v)
+        out = ep_pool_attend(qs, tok, v)
+        e = compare_steps(f"{name} B={b} N={n} C={c} Q={Q}", out, ref)
+        repeat_equal(f"{name} B={b} N={n} C={c} Q={Q}", out,
+                     ep_pool_attend(qs, tok, v))
+        compare(f"{name} as one SDPA call (library_ms)", pool_sdpa(qs, tok, v),
+                ref)
+        del out, ref
+        entry(name, e, time_ms(lambda: ep_pool_attend(qs, tok, v)),
+              time_ms(lambda: ep_pool_attend_ref(qs, tok, v), 3),
+              time_ms(lambda: pool_sdpa(qs, tok, v), 3),
+              bound(2 * b * n * (Q * c + c), "bf16",
+                    nbytes(qs, v) + b * n * c * 2 + b * c * 2))
+        del qs, tok, v
+
+    log("[kernels] the attention backward past kernel E's limit "
+        "(attention_qkv_fused_bwd_long: 128 query rows a tile, bf16 products "
+        "with f32 sums) at ViT-H/14 448 px, (32, 1025, 16x80)")
+    b, t, h, dh = 32, 1025, 16, 80
+    sc = dh ** -0.5
+    qkv = rand(rng, (b, t, 3 * h * dh))
+    g = rand(rng, (b, t, h * dh))
+    out = attention_qkv_fused_bwd_long(qkv, g, h, sc)
+    ref = attention_qkv_fused_bwd_long(qkv[:2].cpu(), g[:2].cpu(), h, sc)
+    e = compare(f"attn_bwd_long B={b} T={t} H={h} Dh={dh}, images 0-1 against "
+                "the CPU's", out[:2].cpu(), ref,
+                atol=BWD_TOL * float(ref.float().abs().max()), rtol=BWD_TOL)
+    e_ref = attention_qkv_fused_bwd_ref(qkv[:2], g[:2], h, sc)
+    compare("attn_bwd_long against kernel E's plain version (another cast "
+            "order: dL and the scale)", out[:2], e_ref,
+            atol=BWD_TOL * float(e_ref.float().abs().max()), rtol=BWD_TOL)
+    del out, ref, e_ref
+    qkv_l = [a.detach().requires_grad_(True) for a in split_heads(qkv, h)]
+    out_l = sdpa(*qkv_l, scale=sc)
+    g_l = g.view(b, t, h, dh).transpose(1, 2)
+    t_lib = time_ms(lambda: torch.autograd.grad(out_l, qkv_l, g_l,
+                                                retain_graph=True), 3)
+    del qkv_l, out_l, g_l
+    entry("attn_bwd_long", e,
+          time_ms(lambda: attention_qkv_fused_bwd_long(qkv, g, h, sc), 3),
+          time_ms(lambda: attention_qkv_fused_bwd_ref(qkv, g, h, sc), 2),
+          t_lib, bound(10 * b * h * t * t * dh, "bf16",
+                       2 * nbytes(qkv) + nbytes(g)))
+    del qkv, g
+    torch.cuda.empty_cache()
+    return results
+
+
+# The backbone family's probe paths at published widths and depths: batch,
+# TrainConfig flags, the launches of one forward (every other count zero)
+_DINOV2_L = dict(model="dinov2_vitl14_reg")
+BACKBONE_CONFIGS = {
+    "probe-dinov2-l": (512, _DINOV2_L, dict(attn_core=24, ep_pool=1)),
+    "probe-dinov2-g": (64, dict(model="dinov2_vitg14"),
+                       dict(attn_core=40, ep_pool=1)),
+    "probe-capi": (512, dict(model="capi_vitl14"),
+                   dict(ln_qkv_gemm=24, attn_core=24, proj_residual_gemm=24,
+                        ep_pool=1)),
+    "probe-clip-b": (512, dict(model="ViT-B-16", openclip=True,
+                               cls_features="cls"),
+                     dict(ln_qkv_gemm=12, attn_core=12, proj_residual_gemm=12)),
+    "probe-simmim": (512, dict(simmim=True), dict(ep_pool=1)),
+    "probe-mae-l": (512, dict(model="mae_vit_large_patch16"),
+                    dict(ln_qkv_gemm=24, attn_core=24, proj_residual_gemm=24,
+                         ep_pool=1)),
+}
+
+
+def backbone_probes(card: str, paths: dict, steps: int) -> dict:
+    """The probe-training step of each backbone family (``_train`` with the
+    family's launches), and the logits of 4 images against the CPU plain
+    path for DINOv2-L and, in cls mode (the register mean), CAPI."""
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.models.assembly import init_probe_model
+    from ep_tpu_torch.train.state import cast_frozen, freeze
+    out = {}
+    for kind, (B, flags, per_forward) in BACKBONE_CONFIGS.items():
+        model, images, paths[kind], med, _ = _train(
+            kind, B, steps, card, flags, None, None, per_forward=per_forward)
+        out[kind] = dict(batch=B, step_ms=med * 1e3, img_s=B / med)
+        if kind == "probe-dinov2-l":
+            cross_check(model, images, "DINOv2-L/14 with registers, the plain "
+                        "route (B), EP-32")
+        if kind == "probe-clip-b" and model.head.fc.weight.shape[1] != 512:
+            raise RuntimeError("probe-clip-b: the head is not proj_dim wide")
+        if kind == "probe-capi":
+            cfg = TrainConfig(cls_features="cls", nb_classes=1000,
+                              amp="bfloat16", **flags)
+            cls_model = init_probe_model(cfg, seed=0)
+            freeze(cls_model, False)
+            cast_frozen(cls_model, torch.bfloat16)
+            cross_check(cls_model, images, "CAPI-L/14 cls mode (the mean of "
+                        "16 registers), A, B, C")
+            del cls_model
+        del model, images
+        torch.cuda.empty_cache()
+    return out
+
+
+FEATURE_MODES = ("cp1", "cp2", "cp3", "cp4", "ca1", "ca2", "ca3", "ca4",
+                 "attn-mn", "attn-lcte", "raw", "dino", "rb6")
+
+
+def features_b(card: str, paths: dict) -> dict:
+    """Every feature mode past cls/pos/gap on frozen ViT-B/16 (seed 0) and
+    the DINO oracle (a ViT-B/16, seed 0's draw after the backbone):
+    ``cp*``, ``ca*``, ``attn-*``, ``raw``, ``dino`` and ``--return_block 6``
+    (``rb6``, cls features). Each mode's features of 4 images on the card
+    against the CPU plain path (one CPU forward of the backbone with its last
+    block's probabilities, the oracle's, and 7 blocks for rb6), with its
+    launches; then its forward at batch 512 timed. The capturing modes take
+    A, B and C 11 times and the last block on the plain route; dino adds the
+    oracle's forward (its last block captured); rb6 runs 7 blocks. The 4
+    images are the first of 16 whose two lowest head entropies (attn-lcte's
+    argmin) differ by 1e-3 or more on the card. Each mode's features are held
+    to FEATURE_TOL of their largest magnitude."""
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.models.assembly import init_probe_model
+    from ep_tpu_torch.models.vit import select_features
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.poolings.common import mean_f32
+    from ep_tpu_torch.train.state import cast_frozen, freeze
+
+    cfg = TrainConfig(model="vit_base_patch16", cls_features="dino",
+                      nb_classes=1000, amp="bfloat16")
+    pm = init_probe_model(cfg, seed=0)
+    freeze(pm, False)
+    cast_frozen(pm, torch.bfloat16)
+    pm.eval()
+    rng = np.random.default_rng(4)
+    pool = torch.from_numpy(rng.standard_normal((16, 224, 224, 3),
+                                                dtype=np.float32)).cuda()
+    with torch.no_grad():
+        _, (probs, _) = pm.backbone(pool, "cls", return_final_attn=True)
+        cls_pos = probs[:, :, 0, 1:]
+        wo = cls_pos / (cls_pos.sum(2, keepdim=True) + 1e-6)
+        ent = (-(wo * torch.log(wo + 1e-6)).sum(2)).sort(dim=1).values
+        gap = (ent[:, 1] - ent[:, 0]).cpu()
+    keep = [i for i in range(16) if gap[i] >= 1e-3][:4]
+    if len(keep) < 4:
+        raise RuntimeError(f"features-b: entropy gaps {gap.tolist()}")
+    x = pool[keep]
+    log(f"[features-b] ViT-B/16 + the ViT-B/16 oracle, bf16, images {keep} "
+        f"of 16 (entropy gaps {[round(float(gap[i]), 4) for i in keep]}) "
+        f"on {card}")
+    cpu = copy.deepcopy(pm).cpu()
+    xc = x.cpu()
+    with torch.no_grad():
+        _, (p_c, tok_c) = cpu.backbone(xc, "cls", return_final_attn=True)
+        _, (d_c, _) = cpu.oracle(xc, "cls", return_final_attn=True)
+        rb_c = cpu.backbone(xc, "cls", 6)
+    fm = tok_c[:, 1:]
+    ref = {m: select_features(m, tok_c, tok_c[:, 0], fm, p_c)
+           for m in FEATURE_MODES[:11]}
+    ref["dino"] = mean_f32(fm[:, None] * d_c[:, :, 0, 1:, None].to(fm.dtype),
+                           (1, 2))
+    ref["rb6"] = rb_c
+    per_forward = {m: dict(ln_qkv_gemm=11, attn_core=11, proj_residual_gemm=11)
+                   for m in FEATURE_MODES[4:10]}  # ca*, attn-*
+    per_forward.update({m: dict(ln_qkv_gemm=12, attn_core=12,
+                                proj_residual_gemm=12)
+                        for m in FEATURE_MODES[:4] + ("raw",)})
+    per_forward.update(
+                       dino=dict(ln_qkv_gemm=23, attn_core=23,
+                                 proj_residual_gemm=23),
+                       rb6=dict(ln_qkv_gemm=7, attn_core=7,
+                                proj_residual_gemm=7))
+    big = torch.from_numpy(rng.standard_normal((512, 224, 224, 3),
+                                               dtype=np.float32)).cuda()
+    out = {}
+    for m in FEATURE_MODES:
+        pm.mode, pm.return_block = ("cls", 6) if m == "rb6" else (m, None)
+        reset_launches()
+        with torch.no_grad():
+            got = pm.features(x)
+        counts = dict(LAUNCHES)
+        want = {**dict.fromkeys(LAUNCHES, 0), **per_forward[m]}
+        log(f"  {m}: launches {({k: v for k, v in counts.items() if v})} "
+            f"(expected {per_forward[m]})")
+        if counts != want:
+            raise RuntimeError(f"features-b {m}: launches {counts}")
+        compare(f"{m} features {tuple(got.shape)}", got.cpu(), ref[m],
+                atol=FEATURE_TOL * float(ref[m].float().abs().max()), rtol=0)
+        with torch.no_grad():
+            ms = time_ms(lambda: pm.features(big), 3)
+        out[m] = dict(batch=512, forward_ms=ms, img_s=512e3 / ms)
+        log(f"    forward at batch 512: {ms:.2f} ms, {512e3 / ms:.1f} img/s "
+            f"on {card}")
+    del pm, cpu, pool, big
+    torch.cuda.empty_cache()
+    return out
+
+
+def driver_backbones(card: str, paths: dict) -> list[dict]:
+    """main_linprobe_torch.py's main on the backbone family: --model
+    dinov2_vitb14_reg --cls_features ep for one epoch (B 12 times a forward,
+    A and C never); --eval --finetune of a DINOv2-hub-layout .pth
+    (``register_tokens``, ``blocks.i.ls1.gamma``, a ``mask_token``) written
+    from seed 1's backbone, whose logits the driver's model must give; then
+    --cls_features dino --oracle_ckpt of a timm-layout ViT-B/16 .pth written
+    from seed 2's backbone, one epoch on ViT-B/16 (A, B and C 23 times a
+    forward: 12 for the backbone, 11 for the oracle)."""
+    import tempfile
+    from pathlib import Path
+
+    import ep_tpu_torch.cli.linprobe as linprobe
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.train.state import cast_frozen
+
+    built, runs = [], []
+    build_model = linprobe.init_probe_model
+
+    def keep_model(*a, **kw):
+        built.append(build_model(*a, **kw))
+        return built[-1]
+
+    def run(name, out, **kw):
+        cfg = TrainConfig(**{**DRIVER_FLAGS, "epochs": 1,
+                             "output_dir": str(out), **kw})
+        out.mkdir(parents=True, exist_ok=True)
+        built.clear()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = linprobe.main(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths[name] = dict(LAUNCHES)
+        runs.append(dict(run=name, wall_s=wall))
+        log(f"  [{name}] {wall:.1f} s, launches "
+            f"{ {k: v for k, v in paths[name].items() if v} }")
+        return res
+
+    def expect(name, forwards, **per_forward):
+        want = dict.fromkeys(LAUNCHES, 0)
+        want.update({k: n * forwards for k, n in per_forward.items()})
+        if paths[name] != want:
+            raise RuntimeError(f"{name}: launches {paths[name]}, expected {want}")
+
+    per_epoch = DRIVER_STEPS + DRIVER_EVAL_BATCHES
+    images = rand(np.random.default_rng(3), (8, 224, 224, 3),
+                  dtype=torch.float32)
+    with mock.patch.object(linprobe, "init_probe_model", keep_model), \
+            tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        log(f"[driver-dinov2] main_linprobe_torch.py's main: "
+            f"dinov2_vitb14_reg, EP-32, batch 128, the fake dataset, on {card}")
+        res = run("driver-dinov2", tmp / "dinov2", model="dinov2_vitb14_reg")
+        expect("driver-dinov2", per_epoch, attn_core=12, ep_pool=1)
+        if not math.isfinite(res["loss"]):
+            raise RuntimeError(f"driver-dinov2: {res}")
+        log(f"  one epoch: {res}")
+
+        cfg = TrainConfig(**{**DRIVER_FLAGS, "model": "dinov2_vitb14_reg"})
+        bcfg = linprobe.build_backbone_config(cfg)
+        source = build_model(cfg, 1, bcfg)
+        source.head.load_state_dict(build_model(cfg, 0, bcfg).head.state_dict())
+        hub = {("register_tokens" if k == "reg_token" else k): v.cpu()
+               for k, v in source.backbone.state_dict().items()}
+        hub["mask_token"] = torch.zeros(1, 768)
+        if "blocks.0.ls1.gamma" not in hub:
+            raise RuntimeError("driver-dinov2: no hub LayerScale names")
+        pth = tmp / "dinov2_vitb14_reg4_pretrain.pth"
+        torch.save(hub, pth)
+        run("driver-dinov2-finetune", tmp / "dinov2-ft", model="dinov2_vitb14_reg",
+            finetune=str(pth), eval=True)
+        expect("driver-dinov2-finetune", DRIVER_EVAL_BATCHES, attn_core=12,
+               ep_pool=1)
+        cast_frozen(source, torch.bfloat16)
+        with torch.no_grad():
+            got, ref = built[0].eval()(images), source.eval()(images)
+        compare("--finetune of the hub layout: the driver's logits against "
+                "the written model's", got, ref)
+        del source, built[:]
+
+        cfg = TrainConfig(**DRIVER_FLAGS)
+        oracle_src = build_model(cfg, 2, linprobe.build_backbone_config(cfg))
+        written = {k: v.cpu() for k, v in oracle_src.backbone.state_dict().items()}
+        pth = tmp / "dino_vitb16.pth"
+        torch.save({"model": written}, pth)
+        del oracle_src
+        res = run("driver-dino", tmp / "dino", cls_features="dino",
+                  oracle_ckpt=str(pth))
+        expect("driver-dino", per_epoch, ln_qkv_gemm=23, attn_core=23,
+               proj_residual_gemm=23)
+        held = built[0].oracle.state_dict()  # cast to bf16 for probing
+        same = all(torch.equal(held[k].cpu(), v.to(held[k].dtype))
+                   for k, v in written.items())
+        if not same or not math.isfinite(res["loss"]):
+            raise RuntimeError(f"driver-dino: oracle loaded {same}, {res}")
+        log(f"  --cls_features dino --oracle_ckpt: the oracle holds the "
+            f"file's {len(written)} tensors; one epoch: {res}")
+        del built[:]
+    torch.cuda.empty_cache()
+    return runs
+
+
 class _Tee(io.TextIOBase):
     """Writes to two streams: the driver's printed lines to the log and to
     a buffer the checks read."""
@@ -2266,6 +2718,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2291,6 +2744,7 @@ def main() -> int:
     results += int8_results
     long_results, other_shapes = check_long_kernels(rng)
     results += long_results
+    results += check_backbone_kernels(rng)
     other_shapes = gemm_shapes + other_shapes
 
     paths, steps_ms, first_loss = {}, {}, {}
@@ -2319,6 +2773,8 @@ def main() -> int:
     cached = cached_steps(card, paths, steps_ms["train"]["img_s"])
     zoo_steps = zoo(card, paths, args.steps, steps_ms["train"]["step_ms"])
     zoo_run = zoo_driver(card, paths)
+    backbone_steps = backbone_probes(card, paths, args.steps)
+    feature_modes = features_b(card, paths)
     for route, usual in (("probe-h448-fused", "probe-h448"),
                          ("probe-h-rowtile", "probe-h")):
         a, b = steps_ms[route], steps_ms[usual]
@@ -2335,7 +2791,9 @@ def main() -> int:
     for kind, (B, _) in FT_CONFIGS.items():
         paths[kind] = finetune(kind, B, FT_STEPS, card)
     finetune_grads()
+    finetune_grads(kind="finetune-dinov2-l", depth=2)
     driver_epochs, extracted = driver(card, paths)
+    backbone_runs = driver_backbones(card, paths)
     # phase 4's step at the driver's batch, beside the driver's epochs
     *_, med, _ = train("train", DRIVER_FLAGS["batch_size"], args.steps, card)
     step_b = dict(batch=DRIVER_FLAGS["batch_size"], step_ms=med * 1e3,
@@ -2390,13 +2848,30 @@ def main() -> int:
         "ep_pool_proj": (csrc + "ep_pool_proj.cu",
                          "ep_tpu/ops/pool_attn_pallas.py:194",
                          "probe-h448-fused"),
+        "attn_core_t261": (csrc + "attn_core.cu",
+                           "ep_tpu/ops/attn_fused_pallas.py:31",
+                           "probe-dinov2-l"),
+        "attn_core_t272": (csrc + "attn_core.cu",
+                           "ep_tpu/ops/attn_fused_pallas.py:31", "probe-capi"),
+        "ep_pool_dinov2_l": (csrc + "ep_pool.cu",
+                             "ep_tpu/ops/pool_attn_pallas.py:30",
+                             "probe-dinov2-l"),
+        "ep_pool_dinov2_g": (csrc + "ep_pool.cu",
+                             "ep_tpu/ops/pool_attn_pallas.py:30",
+                             "probe-dinov2-g"),
+        # not a TPU kernel: _bwd_xla, which the JAX package runs past its
+        # backward kernel's memory (attn_fused_pallas.py:469-471)
+        "attn_bwd_long": ("ep_tpu_torch/ops/attn_fused.py",
+                          "ep_tpu/ops/attn_fused_pallas.py:536",
+                          "finetune-h448"),
     }
     kernels = []
     for r in results:
         src, tpu, path_name = replaces[r["name"]]
         counter = r["name"]  # the wrapper's entry in LAUNCHES
         for shape_tag in ("_dh80", "_two_kernel", "_rowtile", "_n1024",
-                          "_n197", "_q128"):
+                          "_n197", "_q128", "_t261", "_t272", "_dinov2_l",
+                          "_dinov2_g"):
             counter = counter.replace(shape_tag, "")
         launches = paths[path_name][counter]
         if launches == 0:
@@ -2416,6 +2891,7 @@ def main() -> int:
     modes = dict(cached_mode_img_s=cached["cached_mode_img_s"],
                  effective_90ep_img_s=cached["effective_90ep_img_s"],
                  device_aug_img_s=steps_ms["device-aug"]["img_s"])
+    log(f"[wall] the whole run: {time.perf_counter() - t_start:.1f} s on {card}")
     log(card)
     log(json.dumps({**modes, "card": card, "batch": args.batch,
                     "train_img_s": steps_ms["train"]["img_s"],
@@ -2426,6 +2902,9 @@ def main() -> int:
                     "input_modes": {**cached, "device_aug_img_s": modes[
                         "device_aug_img_s"], "device_aug_crop": crop},
                     "zoo": {"heads": zoo_steps, "driver_dolg": zoo_run},
+                    "backbones": {"probe_steps": backbone_steps,
+                                  "feature_modes": feature_modes,
+                                  "driver": backbone_runs},
                     "driver": {"epochs": driver_epochs,
                                "extraction": extracted,
                                "train_step": step_b}}))

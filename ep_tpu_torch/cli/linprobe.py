@@ -14,8 +14,8 @@ any other value (the flag's default is the JAX package's ``tpu``) the CUDA
 device, and without one the driver raises rather than run on the CPU.
 
 Flags of slices that are not ported raise ``NotImplementedError`` with their
-ROADMAP item: ``--oracle_ckpt`` (module item 7), more than one device or
-process (item 9).
+ROADMAP item: more than one device or process (item 9). ``--oracle_ckpt``
+is read after ``--finetune``, as in the JAX driver.
 ``--aot_cache`` (the JAX package's store of compiled programs) changes no
 result and is ignored; ``--debug_nans`` runs under
 ``torch.autograd.detect_anomaly``.
@@ -66,7 +66,6 @@ def run_device(cfg: TrainConfig) -> torch.device:
 def check_ported(cfg: TrainConfig) -> None:
     """Raise for the flags whose slices are not ported yet."""
     todo = {
-        "--oracle_ckpt": (bool(cfg.oracle_ckpt), "module item 7"),
         "--mesh_data above 1": (cfg.mesh_data > 1, "module item 9"),
         "--mesh_model above 1": (cfg.mesh_model > 1, "module item 9"),
         "WORLD_SIZE above 1": (int(os.environ.get("WORLD_SIZE", "1")) > 1,
@@ -155,6 +154,9 @@ def _main(cfg: TrainConfig, device: torch.device) -> dict:
     if cfg.finetune:
         from ep_tpu_torch.convert.torch_vit import load_pretrained_backbone
         load_pretrained_backbone(cfg, backbone_cfg, model)
+    if cfg.oracle_ckpt:
+        from ep_tpu_torch.convert.torch_vit import load_oracle
+        load_oracle(cfg, backbone_cfg, model)
 
     trainable = freeze(model, cfg.finetuning)
     optimizer = build_optimizer(
@@ -195,8 +197,7 @@ def _main(cfg: TrainConfig, device: torch.device) -> dict:
     # --- feature-cache fast path ----------------------------------------------
     if cfg.cache_features and not cfg.finetuning and not cfg.eval \
             and not cfg.knn_eval:
-        def backbone_apply(images):
-            return model.backbone(images, model.mode)
+        backbone_apply = model.features
 
         K = max(1, cfg.cache_augs)
         print(f"[cache] extracting frozen features (train x{K} aug "

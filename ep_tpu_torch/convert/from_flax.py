@@ -10,8 +10,15 @@
 * every convolution kernel (kh, kw, Cin, Cout) -> ``nn.Conv2d`` (Cout, Cin,
   kh, kw): the patch embedding's and the pooling heads' (cbam, dolg);
 * LayerNorm and BatchNorm ``scale`` -> ``weight`` (``bias`` keeps its name);
-  ``blocks_{i}`` -> ``blocks.{i}``; a module's own parameters (cait's
-  ``blocks_token_only_0_gamma_1``, the extras' 0-d ones) keep name and shape;
+  ``blocks_{i}`` and MAE's ``decoder_blocks_{i}`` -> ``blocks.{i}`` and
+  ``decoder_blocks.{i}``; a module's own parameters (cait's
+  ``blocks_token_only_0_gamma_1``, the extras' 0-d ones, ``q_bias``,
+  ``v_bias``, the rel-pos tables, MAE's tokens, the oracle's tree under
+  ``oracle``) keep name and shape;
+* the backbone's names that timm spells otherwise: LayerScale's
+  ``ls1/gamma_1`` -> ``ls1.gamma``, ``reg_tokens`` -> ``reg_token``;
+  OpenCLIP's ``proj`` (D, proj_dim) keeps its layout (it is no dense
+  kernel);
 * BatchNorm ``mean``/``var`` -> ``running_mean``/``running_var``.
 
 Both block layouts are read: the loop layout ``blocks_{i}`` and the scan
@@ -58,7 +65,12 @@ def _flatten(tree, prefix=()) -> dict:
 
 def _param(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
     *mods, leaf = path
-    mods = [re.sub(r"^blocks_(\d+)$", r"blocks.\1", m) for m in mods]
+    mods = [re.sub(r"^((?:decoder_)?blocks)_(\d+)$", r"\1.\2", m)
+            for m in mods]
+    if mods[-1:] in (["ls1"], ["ls2"]) and leaf in ("gamma_1", "gamma_2"):
+        leaf = "gamma"  # LayerScale: flax ls1/gamma_1 -> timm ls1.gamma
+    elif leaf == "reg_tokens":
+        leaf = "reg_token"
     if leaf == "kernel":
         leaf = "weight"
         if arr.ndim == 4:  # conv (ph, pw, Cin, D) -> (D, Cin, ph, pw)

@@ -1,20 +1,28 @@
-"""``--finetune <path>``: a timm/MAE-layout ViT checkpoint into the backbone.
+"""``--finetune <path>`` and ``--oracle_ckpt <path>``: a torch ViT checkpoint
+into the backbone or the DINO oracle.
 
-Counterpart of ``ep_tpu/convert/torch_vit.py`` (``load_torch_state_dict``
-and ``load_pretrained_backbone``, the reference's main_linprobe.py:373-411)
-for the plain ViT. The port's backbone already uses timm's names and the
-``nn.Linear``/``nn.Conv2d`` layouts, so the conversion is:
-  * the ``model`` (or ``state_dict``) entry of the file; the ``encoder.``,
-    ``module.`` and ``backbone.`` prefixes stripped; ``decoder*`` and
-    ``mask_token`` dropped;
-  * split q/k/v weights concatenated into qkv;
+Counterpart of ``ep_tpu/convert/torch_vit.py`` (the reference's
+main_linprobe.py:373-411). The port's backbone already uses timm's names and
+the ``nn.Linear``/``nn.Conv2d`` layouts, so the conversion is:
+  * the ``model`` (or ``state_dict``) entry of the file; a full CLIP
+    checkpoint's vision tower (``visual.``); the ``encoder.``, ``module.`` and
+    ``backbone.`` prefixes stripped; ``decoder*`` and ``mask_token`` dropped;
+  * OpenCLIP's names (``conv1``, ``class_embedding``,
+    ``positional_embedding``, ``ln_pre``, ``transformer.resblocks.{i}``,
+    ``ln_post``, ``proj``) mapped to timm's (:func:`_remap_openclip`);
+  * CAPI's ``storage_tokens`` and DINOv2's ``register_tokens`` into
+    ``reg_token``;
+  * split q/k/v weights and biases concatenated into qkv;
+  * BEiT/SimMIM's ``gamma_1``/``gamma_2`` into ``ls1.gamma``/``ls2.gamma``
+    (DINOv2's ``ls1.gamma`` is already the port's name), its per-block
+    ``attn.relative_position_bias_table`` into ``rel_pos_bias_{i}``;
   * the position embedding bicubic-resized (``utils/pos_embed.py``) when the
     checkpoint's grid is not the model's;
   * the classifier (``head``, ``fc_norm``, ``fc.``) dropped: the probe head
     stays as initialised.
 A backbone entry the file does not hold is an error, as is an entry of the
-wrong shape. The OpenCLIP, CAPI and BEiTv2 layouts are ROADMAP module item 7
-and raise.
+wrong shape; but for the patch embedding's bias (CLIP's conv1 has none),
+which keeps its initialisation, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,8 +34,9 @@ import torch.nn as nn
 
 from ep_tpu_torch.utils.pos_embed import interpolate_pos_embed
 
-_TODO = "is not ported yet (ROADMAP module item 7, backbone variants)"
-_DROPPED = ("head", "fc_norm", "oracle", "fc.", "visual_proj")
+_DROPPED = ("head", "fc_norm", "oracle", "fc.")
+# backbone entries a checkpoint may lack; they keep their initialisation
+_OPTIONAL = ("patch_embed.proj.bias",)
 
 
 def load_torch_state_dict(path: str, checkpoint_key: str = "model"
@@ -37,6 +46,11 @@ def load_torch_state_dict(path: str, checkpoint_key: str = "model"
         ckpt = ckpt[checkpoint_key]
     elif isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
+    if any(k.startswith("visual.") for k in ckpt):
+        # a full CLIP checkpoint: the vision tower only (the text tower has
+        # its own transformer.resblocks)
+        ckpt = {k[len("visual."):]: v for k, v in ckpt.items()
+                if k.startswith("visual.")}
     sd = {}
     for k, v in ckpt.items():
         for pref in ("encoder.", "module.", "backbone."):
@@ -48,27 +62,82 @@ def load_torch_state_dict(path: str, checkpoint_key: str = "model"
     return sd
 
 
+def _remap_openclip(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """OpenCLIP visual-tower keys -> timm's (``ep_tpu/convert/torch_vit.py::
+    _remap_openclip``); ``proj`` becomes ``visual_proj``."""
+    top = {"conv1.weight": "patch_embed.proj.weight",
+           "ln_pre.weight": "norm_pre.weight", "ln_pre.bias": "norm_pre.bias",
+           "ln_post.weight": "norm.weight", "ln_post.bias": "norm.bias",
+           "proj": "visual_proj"}
+    block = {"ln_1.weight": "norm1.weight", "ln_1.bias": "norm1.bias",
+             "attn.in_proj_weight": "attn.qkv.weight",
+             "attn.in_proj_bias": "attn.qkv.bias",
+             "attn.out_proj.weight": "attn.proj.weight",
+             "attn.out_proj.bias": "attn.proj.bias",
+             "ln_2.weight": "norm2.weight", "ln_2.bias": "norm2.bias",
+             "mlp.c_fc.weight": "mlp.fc1.weight",
+             "mlp.c_fc.bias": "mlp.fc1.bias",
+             "mlp.c_proj.weight": "mlp.fc2.weight",
+             "mlp.c_proj.bias": "mlp.fc2.bias"}
+    out = {}
+    for k, v in sd.items():
+        if k == "class_embedding":
+            out["cls_token"] = v.reshape(1, 1, -1)
+        elif k == "positional_embedding":
+            out["pos_embed"] = v[None]
+        elif k in top:
+            out[top[k]] = v
+        elif k.startswith("transformer.resblocks."):
+            parts = k.split(".")
+            rest = ".".join(parts[3:])
+            out[f"blocks.{parts[2]}.{block[rest]}" if rest in block else k] = v
+        else:
+            out[k] = v
+    return out
+
+
+def _to_port_names(sd: Dict[str, torch.Tensor], depth: int
+                   ) -> Dict[str, torch.Tensor]:
+    """Every supported layout's names -> the port's (timm's)."""
+    if any(k.startswith("transformer.resblocks.") or k == "class_embedding"
+           for k in sd):
+        sd = _remap_openclip(sd)
+    sd = dict(sd)
+    for name in ("storage_tokens", "register_tokens"):  # CAPI, DINOv2
+        if name in sd:
+            sd["reg_token"] = sd.pop(name)
+    if "visual_proj" in sd:  # (D, proj_dim), used as x @ proj: no transpose
+        sd["proj"] = sd.pop("visual_proj")
+    for i in range(depth):
+        tp = f"blocks.{i}."
+        a = tp + "attn."
+        if a + "qkv.weight" not in sd and a + "q.weight" in sd:
+            for leaf in ("weight", "bias"):
+                parts = [sd.pop(f"{a}{n}.{leaf}", None) for n in "qkv"]
+                if all(p is not None for p in parts):
+                    sd[f"{a}qkv.{leaf}"] = torch.cat(parts, 0)
+        for g, ls in (("gamma_1", "ls1"), ("gamma_2", "ls2")):
+            if tp + g in sd:
+                sd[f"{tp}{ls}.gamma"] = sd.pop(tp + g)
+        if a + "relative_position_bias_table" in sd:
+            sd[f"rel_pos_bias_{i}.relative_position_bias_table"] = sd.pop(
+                a + "relative_position_bias_table")
+    return sd
+
+
 def torch_vit_to_backbone(sd: Dict[str, torch.Tensor], backbone: nn.Module,
                           backbone_cfg) -> Dict[str, torch.Tensor]:
-    """The backbone's state dict filled from a timm-layout ``sd``."""
-    if any(k.startswith(("visual.", "transformer.resblocks.", "conv1."))
-           or k in ("class_embedding", "storage_tokens", "register_tokens")
-           or k.startswith("rel_pos_bias") or ".attn.q_bias" in k for k in sd):
-        raise NotImplementedError(
-            f"an OpenCLIP, CAPI, DINOv2 or BEiT checkpoint layout {_TODO}")
-    sd = dict(sd)
-    for i in range(backbone_cfg.depth):
-        tp = f"blocks.{i}.attn."
-        if tp + "qkv.weight" not in sd and tp + "q.weight" in sd:
-            for leaf in ("weight", "bias"):
-                parts = [sd.pop(f"{tp}{n}.{leaf}", None) for n in "qkv"]
-                if all(p is not None for p in parts):
-                    sd[f"{tp}qkv.{leaf}"] = torch.cat(parts, 0)
+    """The backbone's state dict filled from a torch checkpoint ``sd`` of any
+    of the supported layouts."""
+    sd = _to_port_names(sd, backbone_cfg.depth)
     template = backbone.state_dict()
     out, missing = {}, []
     for name, tgt in template.items():
         if name not in sd:
-            missing.append(name)
+            if name.startswith(_OPTIONAL):
+                out[name] = tgt
+            else:
+                missing.append(name)
             continue
         v = sd[name]
         if name == "pos_embed" and v.shape != tgt.shape:
@@ -90,15 +159,33 @@ def torch_vit_to_backbone(sd: Dict[str, torch.Tensor], backbone: nn.Module,
     return out
 
 
+def _check_exists(path: str, flag: str) -> None:
+    if not Path(path).exists():
+        raise FileNotFoundError(
+            f"{flag} {path}: timm-hub name resolution needs network "
+            f"access; convert the checkpoint to a local .pth first")
+
+
 def load_pretrained_backbone(cfg, backbone_cfg, model: nn.Module) -> None:
     """Load ``cfg.finetune`` into ``model.backbone`` in place of its random
     initialisation (main_linprobe.py:373-411)."""
-    path = cfg.finetune
-    if not Path(path).exists():
-        raise FileNotFoundError(
-            f"--finetune {path}: timm-hub name resolution needs network "
-            f"access; convert the checkpoint to a local .pth first")
-    print(f"Interpreting {path} as path")
-    sd = load_torch_state_dict(path, cfg.checkpoint_key)
+    _check_exists(cfg.finetune, "--finetune")
+    print(f"Interpreting {cfg.finetune} as path")
+    sd = load_torch_state_dict(cfg.finetune, cfg.checkpoint_key)
     state = torch_vit_to_backbone(sd, model.backbone, backbone_cfg)
     model.backbone.load_state_dict(state, strict=True)
+
+
+def load_oracle(cfg, backbone_cfg, model: nn.Module) -> None:
+    """Load ``cfg.oracle_ckpt`` (a timm/DINO-layout ViT) into ``model.oracle``,
+    the frozen DINO teacher of ``--cls_features dino``
+    (``ep_tpu/convert/torch_vit.py::load_oracle``)."""
+    from ep_tpu_torch.models.assembly import oracle_config
+    if getattr(model, "oracle", None) is None:
+        raise ValueError("--oracle_ckpt given but the model has no oracle "
+                         "(use --cls_features dino)")
+    _check_exists(cfg.oracle_ckpt, "--oracle_ckpt")
+    sd = load_torch_state_dict(cfg.oracle_ckpt, cfg.checkpoint_key)
+    state = torch_vit_to_backbone(sd, model.oracle, oracle_config(backbone_cfg))
+    model.oracle.load_state_dict(state, strict=True)
+    print(f"[convert] loaded oracle weights from {cfg.oracle_ckpt}")

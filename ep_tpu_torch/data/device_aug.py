@@ -46,6 +46,7 @@ from typing import Any, Sequence, Tuple
 import numpy as np
 import torch
 
+from ep_tpu_torch.ops.attention import mm_f32
 from .transforms import (CLIP_MEAN, CLIP_STD, IMAGENET_MEAN, IMAGENET_STD,
                          ValTransform)
 
@@ -262,16 +263,6 @@ def sample_flips(generator: torch.Generator, batch: int) -> torch.Tensor:
     return torch.rand(batch, generator=generator, dtype=torch.float32) < 0.5
 
 
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(B,m,k) @ (B,k,n) of bf16 tensors with f32 sums and an f32 result:
-    on the card the bf16 product with an f32 output; on the CPU (which has
-    no such product) the operands widened to f32, where every product of two
-    bf16 values is exact."""
-    if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
-
-
 def resample_crop(images_u8: torch.Tensor, i, j, h, w, out: int,
                   flip=None) -> torch.Tensor:
     """Batched separable bicubic crop-resize: (B,H,W,3) u8 + per-image
@@ -293,10 +284,10 @@ def resample_crop(images_u8: torch.Tensor, i, j, h, w, out: int,
     wx = _dense(ix, wx.to(torch.bfloat16), W_src)
     x = images_u8.to(torch.bfloat16).reshape(B, H_src, W_src * C)
     # y-pass: contract source rows -> (B, out, W, C), rounded to bf16
-    y = _bmm_f32(wy, x).to(torch.bfloat16).reshape(B, out, W_src, C)
+    y = mm_f32(wy, x).to(torch.bfloat16).reshape(B, out, W_src, C)
     # x-pass: contract source cols -> (B, out, out, C)
     y = y.permute(0, 2, 1, 3).reshape(B, W_src, out * C)  # (B, W, out*C)
-    x = _bmm_f32(wx, y).reshape(B, out, out, C)  # (B, out_x, out_y, C)
+    x = mm_f32(wx, y).reshape(B, out, out, C)  # (B, out_x, out_y, C)
     return x.permute(0, 2, 1, 3)
 
 

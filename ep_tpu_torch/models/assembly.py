@@ -1,65 +1,140 @@
 """Backbone + probe-head assembly.
 
-Counterpart of ``ep_tpu/models/assembly.py``. In probing mode the backbone
-runs under ``torch.no_grad()``, the counterpart of the JAX package's
-``stop_gradient`` on the features: the encoder is an inference subgraph that
-autograd never records. With ``--finetuning`` it runs under autograd and
-trains with the head.
+Counterpart of ``ep_tpu/models/assembly.py``: the model-name dispatch over
+the whole backbone family (``build_backbone_config``), the frozen DINO
+oracle of the ``dino`` feature mode (``oracle_config``), and ``ProbeModel``.
+In probing mode the backbone runs under ``torch.no_grad()``, the counterpart
+of the JAX package's ``stop_gradient`` on the features: the encoder is an
+inference subgraph that autograd never records. With ``--finetuning`` it runs
+under autograd and trains with the head; the oracle's attention never takes a
+gradient.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
 
 from ep_tpu_torch.configs import TrainConfig
 from ep_tpu_torch.ops import default_device
-from ep_tpu_torch.poolings.common import normal_
+from ep_tpu_torch.poolings.common import mean_f32, normal_
 from ep_tpu_torch.poolings.registry import ProbeHead
-from .vit import (_TODO_BACKBONE, FEATURE_MODES, VIT_CONFIGS, ViTConfig,
-                  VisionTransformer, remap_features)
+from .mae import (MAEConfig, MaskedAutoencoderViT, mae_vit_base_patch16,
+                  mae_vit_huge_patch14, mae_vit_large_patch16)
+from .vit import (VIT_CONFIGS, ViTConfig, VisionTransformer, remap_features,
+                  select_features, simmim_vit_base_patch16)
+from .wrappers import capi_config, dinov2_config, openclip_vit_config
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "none": torch.float32, "float16": torch.bfloat16}
+_MAE = {"mae_vit_base_patch16": mae_vit_base_patch16,
+        "mae_vit_large_patch16": mae_vit_large_patch16,
+        "mae_vit_huge_patch14": mae_vit_huge_patch14}
 
 
-def build_backbone_config(cfg: TrainConfig) -> ViTConfig:
-    """Model-name dispatch for the plain ``vit_*`` backbones."""
+def build_backbone_config(cfg: TrainConfig) -> Union[ViTConfig, MAEConfig]:
+    """Model-name dispatch (``ep_tpu/models/assembly.py::
+    build_backbone_config``, the reference's main_linprobe.py:338-371)."""
+    dtype = _DTYPES[cfg.amp]
+    flags = dict(scan_blocks=cfg.scan_blocks, remat_blocks=cfg.remat_blocks,
+                 remat_policy=cfg.remat_policy)
+    kw = dict(img_size=cfg.image_size, dtype=dtype, int8_mlp=cfg.int8_mlp,
+              **flags)
+    if cfg.simmim:
+        return simmim_vit_base_patch16(**kw)
+    if cfg.openclip:
+        return openclip_vit_config(cfg.model, cfg.image_size, dtype,
+                                   pretrain=cfg.openclip_pretrain)
     name = cfg.model
-    if cfg.simmim or cfg.openclip or name.startswith(("mae_vit", "capi",
-                                                        "dinov2")):
-        raise NotImplementedError(
-            f"backbone {name!r} is not ported yet (ROADMAP module item 7)")
+    if name.startswith("mae_vit"):
+        # the encoder's latent, a full-token pass (mask_ratio=0)
+        if name not in _MAE:
+            raise ValueError(f"unknown MAE model {name}")
+        return _MAE[name](img_size=cfg.image_size, dtype=dtype)
+    if name.startswith("capi"):
+        return capi_config(cfg.image_size, dtype).replace(**flags)
+    if name.startswith("dinov2"):
+        return dinov2_config(name, cfg.image_size, dtype).replace(**flags)
     if name not in VIT_CONFIGS:
         raise ValueError(f"unknown model {name}")
     extra = {}
     if "huge" in name:
         extra["class_token"] = not cfg.no_cls_token
-    return VIT_CONFIGS[name](**extra).replace(
-        img_size=cfg.image_size, dtype=_DTYPES[cfg.amp],
-        scan_blocks=cfg.scan_blocks, remat_blocks=cfg.remat_blocks,
-        remat_policy=cfg.remat_policy, int8_mlp=cfg.int8_mlp)
+    return VIT_CONFIGS[name](**extra).replace(**kw)
+
+
+def oracle_config(backbone_cfg: ViTConfig) -> ViTConfig:
+    """The frozen DINO teacher of the ``dino`` feature mode: a plain ViT-B/16
+    (timm's vit_base_patch16_224.dino) for a backbone 384 or more wide, else a
+    plain twin of the backbone (``ep_tpu/models/assembly.py::oracle_config``)."""
+    cfg = backbone_cfg.replace(
+        init_values=None, rel_pos_bias="none", use_abs_pos_emb=True,
+        qkv_bias_mode="full", class_token=True, reg_tokens=0,
+        cls_from_registers=False, pre_norm=False, proj_dim=None,
+        scan_blocks=False)  # the oracle needs its final attention
+    if backbone_cfg.embed_dim >= 384:
+        cfg = cfg.replace(embed_dim=768, depth=12, num_heads=12,
+                          patch_size=16)
+    return cfg
+
+
+def head_width(backbone_cfg, mode: str) -> int:
+    """The width of the features the head gets: OpenCLIP's cls descriptors
+    are ``proj_dim`` wide, every other mode the backbone's."""
+    proj_dim = getattr(backbone_cfg, "proj_dim", None)
+    return proj_dim if proj_dim and mode == "cls" else backbone_cfg.embed_dim
 
 
 class ProbeModel(nn.Module):
     """backbone(features mode) -> head(pool, BN, linear). Batch statistics in
     the head's BN follow the module's ``train()``/``eval()`` mode."""
 
-    def __init__(self, backbone_cfg: ViTConfig, cfg: TrainConfig):
+    def __init__(self, backbone_cfg: Union[ViTConfig, MAEConfig],
+                 cfg: TrainConfig):
         super().__init__()
-        if cfg.return_block is not None:
-            raise NotImplementedError(
-                "return_block is not ported yet (ROADMAP module item 7)")
         self.finetuning = cfg.finetuning
+        self.return_block = cfg.return_block
         self.mode = remap_features(cfg.cls_features)
-        if self.mode not in FEATURE_MODES:
-            raise NotImplementedError(
-                f"--cls_features {cfg.cls_features} (feature mode "
-                f"{self.mode!r}) {_TODO_BACKBONE}")
-        self.backbone = VisionTransformer(backbone_cfg)
-        self.head = ProbeHead(cfg, backbone_cfg.embed_dim,
+        self.mae = isinstance(backbone_cfg, MAEConfig)
+        if self.mae:
+            self.backbone = MaskedAutoencoderViT(backbone_cfg, decoder=False)
+        else:
+            # hold what the JAX package creates for this feature mode: the
+            # blocks up to return_block, OpenCLIP's proj on the cls path only
+            self.backbone = VisionTransformer(backbone_cfg)
+            if cfg.return_block is not None:
+                self.backbone.keep_blocks(cfg.return_block + 1)
+            if self.mode != "cls":
+                self.backbone.proj = None
+        self.oracle = (VisionTransformer(oracle_config(backbone_cfg))
+                       if self.mode == "dino" and not self.mae else None)
+        self.num_prefix_tokens = (1 if self.mae
+                                  else backbone_cfg.num_prefix_tokens)
+        self.head = ProbeHead(cfg, head_width(backbone_cfg, self.mode),
                               backbone_cfg.num_patches, backbone_cfg.dtype)
+
+    def features(self, images: torch.Tensor) -> torch.Tensor:
+        """The backbone's features for the head (``ProbeModel.__call__``
+        before the head in the JAX package)."""
+        if self.mae:
+            latent, _, _ = self.backbone(images, mask_ratio=0.0,
+                                         return_latent=True)
+            return select_features(self.mode, latent, latent[:, 0],
+                                   latent[:, 1:], None)
+        if self.mode == "dino":
+            # patch tokens of the probed backbone weighted by the oracle's
+            # last cls-to-patch attention, which takes no gradient
+            raw = self.backbone(images, "raw", self.return_block)
+            fm = raw[:, self.num_prefix_tokens:]
+            with torch.no_grad():
+                _, (d_attn, _) = self.oracle(images, "cls",
+                                             return_final_attn=True)
+            d_attn = d_attn[:, :, 0, 1:]  # (B, H, N) f32
+            return mean_f32(fm[:, None] * d_attn[..., None].to(fm.dtype),
+                            (1, 2))
+        return self.backbone(images, self.mode, self.return_block)
 
     def forward(self, images: torch.Tensor,
                 return_backbone_features: bool = False,
@@ -70,11 +145,9 @@ class ProbeModel(nn.Module):
         pool's attention map, in the JAX package's order: (logits, feats,
         attn), (logits, feats) or (logits, attn)
         (``ep_tpu/models/assembly.py``)."""
-        if self.finetuning:
-            feats = self.backbone(images, self.mode)
-        else:
-            with torch.no_grad():
-                feats = self.backbone(images, self.mode)
+        grad = contextlib.nullcontext() if self.finetuning else torch.no_grad()
+        with grad:
+            feats = self.features(images)
         out = self.head(feats, return_attn=return_attn)
         if not return_backbone_features:
             return out
@@ -87,17 +160,27 @@ class ProbeModel(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw every parameter from ``generator``, with the JAX package's
         initial distributions: lecun-normal dense kernels and zero biases in
-        the backbone, pos-embed N(0, 0.02); the head by its modules' own
-        initializers (``ProbeHead.init_weights``), after the backbone."""
-        for name, p in self.backbone.named_parameters():
+        the backbone and the oracle, pos-embed N(0, 0.02), LayerScale at its
+        constant, zero registers and bias tables, OpenCLIP's ``proj``
+        N(0, 1/D), MAE's ``cls_token`` and ``mask_token`` N(0, 0.02); the head
+        by its modules' own initializers (``ProbeHead.init_weights``), after
+        the backbone."""
+        mods = [(n, p) for m in (self.backbone, self.oracle) if m is not None
+                for n, p in m.named_parameters()]
+        for name, p in mods:
             leaf = name.rsplit(".", 1)[-1]
-            if name.endswith("pos_embed"):
+            if name.endswith("pos_embed") or (
+                    self.mae and leaf in ("cls_token", "mask_token")):
                 normal_(p, 0.02, generator)
+            elif leaf == "gamma":  # LayerScale
+                p.fill_(self.backbone.cfg.init_values)
+            elif leaf == "proj":  # OpenCLIP's (D, proj_dim) projection
+                normal_(p, p.shape[0] ** -0.5, generator)
             elif "norm" in name:
                 p.fill_(1.0 if leaf == "weight" else 0.0)
             elif leaf == "weight":
                 normal_(p, p[0].numel() ** -0.5, generator)
-            else:  # biases and the [CLS] token
+            else:  # biases, the [CLS] token, registers, rel-pos tables
                 p.zero_()
         self.head.init_weights(generator)
 

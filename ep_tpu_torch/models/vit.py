@@ -1,50 +1,69 @@
-"""The plain Vision Transformer of the probing and fine-tuning paths, in
+"""One configurable Vision Transformer for the whole backbone family, in
 PyTorch.
 
-Counterpart of ``ep_tpu/models/vit.py`` for the slice the main paths run:
-patch embedding, [CLS] token and absolute position embedding, blocks whose
-attention half is the attention supercell (``ops/attn_block.py``: kernels A, B
-or, at long sequences, F, and C on the card, E in its backward) and whose MLP half is plain torch (LN2,
-fc1, GELU, fc2, residual) or, with ``int8_mlp=True`` (``--int8_mlp``, opt-in
-and approximate), the int8 half of ``ops/mlp_int8.py`` (its own kernels on the
-card); no final norm, and the feature modes ``cls``, ``pos``, ``gap`` and
-``both`` ([CLS] + patch tokens, for the ``_all`` poolings). An
-image of another size than the model's gets the position embedding resized
-to its patch grid (``utils/pos_embed.py``).
+Counterpart of ``ep_tpu/models/vit.py``: patch embedding, an optional [CLS]
+token and register tokens, an absolute position embedding or none, an
+optional ``norm_pre`` (OpenCLIP's ln_pre), blocks, an optional final norm and
+OpenCLIP's cls projection, and every feature mode of
+``VisionTransformer._select_features``.
+
+A block takes one of two routes, by the JAX package's gate
+(``ep_tpu/models/vit.py:406-409``):
+
+* the attention supercell (``ops/attn_block.py``: kernels A, B or, at long
+  sequences, F, and C on the card; E in its backward) where the block has a
+  full qkv bias, no LayerScale and no relative-position bias, and does not
+  capture its probabilities;
+* otherwise the plain ``Attention`` route: LN1, the qkv product, the
+  ``qv_only`` bias, then ``ops/attn_fused.py::attention_qkv_fused`` (kernel B
+  or F on the card, E or the tiled long-T backward) where there is no bias
+  and no capture, else ``ops/attention.py::mha`` (plain torch, as the JAX
+  package leaves it to XLA), the projection and LayerScale.
+
+The MLP half is plain torch (GELU, QuickGELU or SwiGLU) or, with
+``int8_mlp=True`` on a supercell block (``--int8_mlp``, opt-in and
+approximate), the int8 half of ``ops/mlp_int8.py``.
 
 Block rematerialisation for fine-tuning (``remat_blocks``) is
 ``torch.utils.checkpoint`` with the JAX package's four policies
 (``_remat_policy``): ``none`` recomputes the whole block; ``attn_out`` keeps
-the supercell's output and recomputes the MLP half; ``attn_fc1`` also keeps
-fc1's output; ``dots`` recomputes the whole block but keeps every matrix
-product's output (fc1's and fc2's; the supercell's products are kernels).
-``scan_blocks`` is accepted for the same flag surface (``remat_blocks`` needs
-it, as in the JAX package) but the port always loops over the blocks.
+the attention half's output and recomputes the MLP half; ``attn_fc1`` also
+keeps fc1's output; ``dots`` recomputes the whole block but keeps every matrix
+product's output. ``scan_blocks`` is flag surface (``remat_blocks`` needs it,
+and the configurations the JAX package's scan refuses raise ``ValueError``),
+but the port always loops over the blocks.
 
-Parameter names follow timm/MAE (``patch_embed.proj``, ``blocks.{i}.attn.qkv``,
-...) and every weight is in the ``nn.Linear``/``nn.Conv2d`` layout.
-Parameters are created in float32; ``train/state.py::cast_frozen`` stores a
-frozen encoder in the compute dtype, as the JAX package does.
+Parameter names follow timm (``patch_embed.proj``, ``blocks.{i}.attn.qkv``,
+``blocks.{i}.ls1.gamma``, ``reg_token``, ``norm``, ``norm_pre``,
+``attn.q_bias``, ``mlp.w12``, ``rel_pos_bias.relative_position_bias_table``;
+a per-block table is ``rel_pos_bias_{i}``, as in the flax tree) and every
+weight is in the ``nn.Linear``/``nn.Conv2d`` layout but OpenCLIP's ``proj``
+(D, proj_dim), used as ``x @ proj`` as open_clip does. Parameters are
+created in float32; ``train/state.py::cast_frozen`` stores a frozen encoder
+in the compute dtype, as the JAX package does.
 
-Not ported yet (ROADMAP module item 7): relative-position bias, LayerScale,
-registers, SwiGLU, the OpenCLIP tower, ``return_block``, ``shuffle_subsets``
-and attention capture; each raises ``NotImplementedError``.
+The capture of every block's attention statistics (``capture_stats``, the
+attention-statistics CLI) is ROADMAP module item 8 and raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
+from ep_tpu_torch.ops.attention import mha, scaled
 from ep_tpu_torch.ops.attn_block import attn_supercell
+from ep_tpu_torch.ops.attn_fused import attention_qkv_fused
 from ep_tpu_torch.ops.mlp_int8 import mlp_int8_fused
-from ep_tpu_torch.poolings.common import Dense
+from ep_tpu_torch.poolings.common import Dense, mean_f32
 from ep_tpu_torch.utils.pos_embed import interpolate_pos_embed
 
 # Pooled-feature names that consume patch tokens only / [CLS]+patch tokens.
@@ -53,9 +72,6 @@ ATTENTIVE_POOLINGS = [
     "coca", "cait", "dinovit", "jepa", "dolg", "cae",
 ]
 ATTENTIVE_POOLINGS_ALL = [f"{n}_all" for n in ATTENTIVE_POOLINGS]
-FEATURE_MODES = ("cls", "pos", "gap", "both")
-
-_TODO_BACKBONE = "is not ported yet (ROADMAP module item 7, backbone variants)"
 
 
 def remap_features(return_features: str) -> str:
@@ -78,15 +94,19 @@ class ViTConfig:
     depth: int = 12
     num_heads: int = 12
     mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    qkv_bias_mode: str = "full"  # full | qv_only (BEiT/SimMIM)
     class_token: bool = True
-    norm_eps: float = 1e-6
-    # variants of the JAX backbone that this slice refuses (check_ported)
     reg_tokens: int = 0
-    rel_pos_bias: str = "none"
-    init_values: Optional[float] = None
-    mlp_type: str = "gelu"
-    pre_norm: bool = False
-    proj_dim: Optional[int] = None
+    cls_from_registers: bool = False  # CAPI: the register mean is the cls
+    use_abs_pos_emb: bool = True
+    rel_pos_bias: str = "none"  # none | shared | per_block
+    init_values: Optional[float] = None  # LayerScale
+    final_norm: str = "none"  # none | ln
+    norm_eps: float = 1e-6
+    mlp_type: str = "gelu"  # gelu | swiglu | quick_gelu (OpenAI CLIP)
+    pre_norm: bool = False  # OpenCLIP ln_pre
+    proj_dim: Optional[int] = None  # OpenCLIP's cls projection
     dtype: torch.dtype = torch.bfloat16  # compute dtype; parameters are f32
     scan_blocks: bool = False  # flag surface only: the port loops
     remat_blocks: bool = False  # recompute blocks in the backward
@@ -105,33 +125,32 @@ class ViTConfig:
     def num_prefix_tokens(self) -> int:
         return (1 if self.class_token else 0) + self.reg_tokens
 
+    @property
+    def supercell(self) -> bool:
+        """Whether a block may take the attention supercell: the static half
+        of the JAX package's gate (``ep_tpu/models/vit.py:406-409``)."""
+        return (self.rel_pos_bias == "none" and self.init_values is None
+                and self.qkv_bias and self.qkv_bias_mode == "full")
+
     def replace(self, **kw) -> "ViTConfig":
         return dataclasses.replace(self, **kw)
-
-    def check_ported(self) -> None:
-        """Raise for the backbone variants this slice does not cover."""
-        unported = {
-            "rel_pos_bias": self.rel_pos_bias != "none",
-            "init_values (LayerScale)": self.init_values is not None,
-            "reg_tokens": self.reg_tokens != 0,
-            "mlp_type": self.mlp_type != "gelu",
-            "pre_norm / proj_dim (OpenCLIP)": self.pre_norm or bool(self.proj_dim),
-        }
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(f"{', '.join(bad)} {_TODO_BACKBONE}")
 
 
 def int8_mlp_inactive_reason(c: ViTConfig) -> Optional[str]:
     """Why a requested ``int8_mlp`` would leave the MLP half in bf16, else
-    None (``ep_tpu/models/vit.py::int8_mlp_inactive_reason``). Of the JAX
-    package's reasons only the MLP type exists here: the other backbones it
-    names are refused by ``check_ported``, and the port's kernels are taken by
-    device, not by a backend switch."""
+    None (``ep_tpu/models/vit.py::int8_mlp_inactive_reason``): the int8 half
+    runs only on a supercell block. The JAX package's backend and mesh
+    reasons have no counterpart: the port takes its kernels by device."""
     if not c.int8_mlp:
         return None
     if c.mlp_type != "gelu":
         return f"mlp_type={c.mlp_type!r} (SwiGLU/QuickGELU MLPs stay bf16)"
+    if c.rel_pos_bias != "none":
+        return "rel-pos-bias backbones take the plain attention path"
+    if c.init_values is not None:
+        return "LayerScale backbones take the plain attention path"
+    if not (c.qkv_bias and c.qkv_bias_mode == "full"):
+        return "qkv_bias mode is not 'full' (supercell needs fused qkv bias)"
     return None
 
 
@@ -169,6 +188,51 @@ def _remat_policy(name: str, hidden: int):
                      f"({' | '.join(REMAT_POLICIES)})")
 
 
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """``norm`` in x's dtype (f32 statistics inside), its weights cast."""
+    return F.layer_norm(x, norm.normalized_shape, norm.weight.to(x.dtype),
+                        norm.bias.to(x.dtype), norm.eps)
+
+
+def _rel_pos_index(grid: Tuple[int, int]) -> np.ndarray:
+    """BEiT relative-position index over a (H, W) grid + [CLS]
+    (``ep_tpu/models/vit.py::_rel_pos_index``), shape (T, T), T = H*W+1."""
+    wh, ww = grid
+    coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = flat[:, :, None] - flat[:, None, :]
+    rel = rel.transpose(1, 2, 0).astype(np.int64)
+    rel[:, :, 0] += wh - 1
+    rel[:, :, 1] += ww - 1
+    rel[:, :, 0] *= 2 * ww - 1
+    num_rel = (2 * wh - 1) * (2 * ww - 1) + 3
+    idx = np.zeros((wh * ww + 1, wh * ww + 1), dtype=np.int64)
+    idx[1:, 1:] = rel.sum(-1)
+    idx[0, 0:] = num_rel - 3
+    idx[0:, 0] = num_rel - 2
+    idx[0, 0] = num_rel - 1
+    return idx
+
+
+class RelPosBias(nn.Module):
+    """Relative-position bias table (zeros at init) -> (1, H, T, T) f32."""
+
+    def __init__(self, grid: Tuple[int, int], num_heads: int):
+        super().__init__()
+        wh, ww = grid
+        num_rel = (2 * wh - 1) * (2 * ww - 1) + 3
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros(num_rel, num_heads))
+        self.register_buffer("index", torch.from_numpy(_rel_pos_index(grid)),
+                             persistent=False)
+
+    def forward(self) -> torch.Tensor:
+        T = self.index.shape[0]
+        table = self.relative_position_bias_table.float()
+        return table[self.index.reshape(-1)].reshape(T, T, -1).permute(
+            2, 0, 1)[None]
+
+
 class PatchEmbed(nn.Module):
     """Conv2d(kernel = stride = patch) computed as reshape plus one matmul,
     which is exact when the stride equals the kernel."""
@@ -188,25 +252,92 @@ class PatchEmbed(nn.Module):
 
 
 class Attention(nn.Module):
-    """Parameter holder of the attention half; the supercell runs it."""
+    """The attention half's parameters, and the plain route through them
+    (``ep_tpu/models/vit.py::Attention``); the supercell reads the same
+    ``qkv`` and ``proj``."""
 
-    def __init__(self, dim: int):
+    def __init__(self, cfg: ViTConfig):
         super().__init__()
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        D = cfg.embed_dim
+        self.num_heads = cfg.num_heads
+        self.scale = (D // cfg.num_heads) ** -0.5
+        self.qv_only = cfg.qkv_bias and cfg.qkv_bias_mode == "qv_only"
+        self.qkv = Dense(D, 3 * D, bias=cfg.qkv_bias and not self.qv_only,
+                         dtype=cfg.dtype)
+        if self.qv_only:
+            self.q_bias = nn.Parameter(torch.zeros(D))
+            self.v_bias = nn.Parameter(torch.zeros(D))
+        self.proj = Dense(D, D, dtype=cfg.dtype)
+
+    def forward(self, x: torch.Tensor, temperature: float = 1.0,
+                rel_bias: Optional[torch.Tensor] = None,
+                return_probs: bool = False):
+        B, T, D = x.shape
+        H = self.num_heads
+        qkv = self.qkv(x)
+        if self.qv_only:
+            bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
+                              self.v_bias])
+            qkv = qkv + bias.to(qkv.dtype)
+        probs = None
+        if not return_probs and rel_bias is None:
+            # natural layout: kernel B or F on the card, no head split
+            out = attention_qkv_fused(qkv, H, self.scale, temperature)
+        else:
+            q, k, v = qkv.reshape(B, T, 3, H, D // H).permute(2, 0, 3, 1, 4)
+            out = mha(q, k, v, self.scale, temperature=temperature,
+                      bias=rel_bias, return_probs=return_probs)
+            if return_probs:
+                out, probs = out
+            out = out.transpose(1, 2).reshape(B, T, D)
+        out = self.proj(out)
+        return (out, probs) if return_probs else out
+
+
+class LayerScale(nn.Module):
+    """``x * gamma`` in x's dtype (``ep_tpu/models/vit.py::LayerScale``)."""
+
+    def __init__(self, dim: int, init_values: float):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma.to(x.dtype)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype,
+                 act: str = "gelu"):
         super().__init__()
         self.fc1 = Dense(dim, hidden, dtype=dtype)
         self.fc2 = Dense(hidden, dim, dtype=dtype)
+        self.act = act
         # exact (erf) GELU when computing in f32, tanh-approximate in bf16, as
         # the JAX package does (its tanh error is far below bf16's step)
         self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        x = self.fc1(x)
+        if self.act == "quick_gelu":
+            # x * sigmoid(1.702 x), the constant in x's dtype as JAX rounds it
+            x = x * torch.sigmoid(scaled(x, 1.702))
+        else:
+            x = F.gelu(x, approximate=self.approximate)
+        return self.fc2(x)
+
+
+class SwiGLUMlp(nn.Module):
+    """silu(x1) * x2 on w12's two halves, then w3 (DINOv2-giant)."""
+
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
+        super().__init__()
+        self.w12 = Dense(dim, 2 * hidden, dtype=dtype)
+        self.w3 = Dense(hidden, dim, dtype=dtype)
+
+    def forward(self, x):
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        # silu as JAX computes it: the sigmoid rounded, then the products
+        return self.w3(x1 * torch.sigmoid(x1) * x2)
 
 
 class Block(nn.Module):
@@ -216,49 +347,137 @@ class Block(nn.Module):
         self.num_heads = cfg.num_heads
         self.scale = (D // cfg.num_heads) ** -0.5
         self.eps = cfg.norm_eps
+        self.supercell = cfg.supercell
         self.norm1 = nn.LayerNorm(D, eps=cfg.norm_eps)
-        self.attn = Attention(D)
+        self.attn = Attention(cfg)
         self.norm2 = nn.LayerNorm(D, eps=cfg.norm_eps)
         hidden = int(D * cfg.mlp_ratio)
-        self.mlp = Mlp(D, hidden, cfg.dtype)
-        self.int8_mlp = cfg.int8_mlp and cfg.mlp_type == "gelu"
+        if cfg.mlp_type == "swiglu":
+            self.mlp = SwiGLUMlp(D, hidden, cfg.dtype)
+        else:
+            self.mlp = Mlp(D, hidden, cfg.dtype, act=cfg.mlp_type)
+        if cfg.init_values is not None:
+            self.ls1 = LayerScale(D, cfg.init_values)
+            self.ls2 = LayerScale(D, cfg.init_values)
+        else:
+            self.ls1 = self.ls2 = None
+        self.int8_mlp = (cfg.int8_mlp and cfg.mlp_type == "gelu"
+                         and self.supercell)
         self.remat = (_remat_policy(cfg.remat_policy, hidden)
                       if cfg.remat_blocks else None)
 
-    def attn_half(self, x: torch.Tensor) -> torch.Tensor:
-        a = self.attn
-        return attn_supercell(x, a.qkv.weight, a.qkv.bias, self.norm1.weight,
-                              self.norm1.bias, a.proj.weight, a.proj.bias,
-                              self.num_heads, self.scale, 1.0, self.eps)
+    def attn_half(self, x: torch.Tensor, temperature: float = 1.0,
+                  rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.supercell:
+            a = self.attn
+            return attn_supercell(x, a.qkv.weight, a.qkv.bias,
+                                  self.norm1.weight, self.norm1.bias,
+                                  a.proj.weight, a.proj.bias, self.num_heads,
+                                  self.scale, temperature, self.eps)
+        return self._attn_plain(x, temperature, rel_bias, False)[0]
 
-    def mlp_half(self, x: torch.Tensor) -> torch.Tensor:
+    def _attn_plain(self, x, temperature, rel_bias, return_probs):
+        y = self.attn(layer_norm(x, self.norm1), temperature, rel_bias,
+                      return_probs)
+        y, probs = y if return_probs else (y, None)
+        if self.ls1 is not None:
+            y = self.ls1(y)
+        return x + y, probs
+
+    def mlp_half(self, x: torch.Tensor, int8: bool = True) -> torch.Tensor:
+        """LN2, the MLP, LayerScale and the residual; the int8 half where the
+        block runs it (a supercell block; ``int8=False`` on the plain route,
+        as the JAX package's capture takes it)."""
         n2 = self.norm2
-        if self.int8_mlp:
+        if self.int8_mlp and int8:
             m = self.mlp
             return mlp_int8_fused(x, m.fc1.weight, m.fc1.bias, m.fc2.weight,
                                   m.fc2.bias, n2.weight, n2.bias, self.eps)
-        h = F.layer_norm(x, n2.normalized_shape, n2.weight.to(x.dtype),
-                         n2.bias.to(x.dtype), self.eps)
-        return x + self.mlp(h)
+        m = self.mlp(layer_norm(x, n2))
+        if self.ls2 is not None:
+            m = self.ls2(m)
+        return x + m
 
-    def whole(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mlp_half(self.attn_half(x))
+    def whole(self, x: torch.Tensor, temperature: float = 1.0,
+              rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.mlp_half(self.attn_half(x, temperature, rel_bias))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def capture(self, x: torch.Tensor, temperature: float = 1.0,
+                rel_bias: Optional[torch.Tensor] = None):
+        """The block on the plain route, with its attention probabilities:
+        (x, probs f32 (B, H, T, T))."""
+        x, probs = self._attn_plain(x, temperature, rel_bias, True)
+        return self.mlp_half(x, int8=False), probs
+
+    def forward(self, x: torch.Tensor, temperature: float = 1.0,
+                rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.remat is None or not torch.is_grad_enabled():
-            return self.whole(x)
+            return self.whole(x, temperature, rel_bias)
         whole_block, context_fn = self.remat
         if whole_block:
-            return checkpoint(self.whole, x, use_reentrant=False,
-                              context_fn=context_fn)
-        return checkpoint(self.mlp_half, self.attn_half(x), use_reentrant=False,
-                          context_fn=context_fn)
+            return checkpoint(self.whole, x, temperature, rel_bias,
+                              use_reentrant=False, context_fn=context_fn)
+        return checkpoint(self.mlp_half, self.attn_half(x, temperature, rel_bias),
+                          use_reentrant=False, context_fn=context_fn)
+
+
+def _center_slice(hw: int, n: int) -> slice:
+    ctr = hw // 2
+    return slice(ctr - math.ceil(n / 2), ctr + math.floor(n / 2))
+
+
+def select_features(mode: str, x: torch.Tensor, x_cls: torch.Tensor,
+                    x_pos: torch.Tensor,
+                    final_probs: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token-level feature selection
+    (``ep_tpu/models/vit.py::VisionTransformer._select_features``): sums and
+    means of the compute dtype run in f32 and are cast back, as ``jnp``'s;
+    the probabilities are f32."""
+    if mode == "cls":
+        return x_cls
+    if mode == "pos":
+        return x_pos
+    if mode == "gap":
+        return x_pos.mean(dim=1)
+    if mode == "raw":
+        return x
+    if mode == "both":
+        return torch.cat([x_cls[:, None], x_pos], dim=1)
+    dt = x_pos.dtype
+    B, T, D = x_pos.shape
+    if mode.startswith("cp"):
+        hw = math.isqrt(T)
+        assert hw * hw == T
+        s = _center_slice(hw, int(mode[2:]))
+        return mean_f32(x_pos.reshape(B, hw, hw, D)[:, s, s], (1, 2))
+    if mode.startswith("ca"):
+        hw = math.isqrt(T)
+        s = _center_slice(hw, int(mode[2:]))
+        attn = final_probs.mean(dim=1)[:, 1:, 1:].reshape(B, hw, hw, hw * hw)
+        attn_ss = attn[:, s, s].mean(dim=(1, 2))
+        attn_ss = attn_ss / (attn_ss.sum(dim=1, keepdim=True) + 1e-6)
+        return mean_f32(x_pos * attn_ss[:, :, None].to(dt), 1)
+    if mode.startswith("attn"):
+        kind = mode.split("attn-")[1]
+        cls_pos = final_probs[:, :, 0, 1:]  # (B, H, N)
+        if kind == "mn":
+            m = cls_pos.mean(dim=1)[:, :, None]
+            m = m / m.sum(dim=1, keepdim=True)
+        elif kind == "lcte":  # the head of lowest class-token entropy
+            wo = cls_pos / (cls_pos.sum(dim=2, keepdim=True) + 1e-6)
+            ent = -(wo * torch.log(wo + 1e-6)).sum(dim=2)  # (B, H)
+            idx = ent.argmin(dim=1)
+            m = cls_pos[torch.arange(B, device=idx.device), idx][:, :, None]
+            m = m / m.sum(dim=1, keepdim=True)
+        else:
+            raise NotImplementedError(mode)
+        return (m.to(dt) * x_pos).float().sum(dim=1).to(dt)
+    raise NotImplementedError(mode)
 
 
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        cfg.check_ported()
         if cfg.remat_blocks and not cfg.scan_blocks:
             raise ValueError("remat_blocks=True requires scan_blocks=True")
         self.cfg = cfg
@@ -266,41 +485,146 @@ class VisionTransformer(nn.Module):
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, D)
         self.cls_token = (nn.Parameter(torch.zeros(1, 1, D))
                           if cfg.class_token else None)
-        self.pos_embed = nn.Parameter(
-            torch.zeros(1, cfg.num_prefix_tokens + cfg.num_patches, D))
+        self.reg_token = (nn.Parameter(torch.zeros(1, cfg.reg_tokens, D))
+                          if cfg.reg_tokens else None)
+        self.pos_embed = (nn.Parameter(torch.zeros(
+            1, cfg.num_prefix_tokens + cfg.num_patches, D))
+            if cfg.use_abs_pos_emb else None)
+        self.norm_pre = (nn.LayerNorm(D, eps=cfg.norm_eps) if cfg.pre_norm
+                         else None)
+        grid = (cfg.grid_size, cfg.grid_size)
+        self.rel_pos_bias = (RelPosBias(grid, cfg.num_heads)
+                             if cfg.rel_pos_bias == "shared" else None)
+        if cfg.rel_pos_bias == "per_block":
+            for i in range(cfg.depth):
+                self.add_module(f"rel_pos_bias_{i}",
+                                RelPosBias(grid, cfg.num_heads))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.norm = (nn.LayerNorm(D, eps=cfg.norm_eps)
+                     if cfg.final_norm == "ln" else None)
+        self.proj = (nn.Parameter(torch.zeros(D, cfg.proj_dim))
+                     if cfg.proj_dim else None)
 
-    def forward(self, x: torch.Tensor, return_features: str = "cls") -> torch.Tensor:
-        """x (B, H, W, 3) NHWC -> features of ``return_features`` mode."""
-        if return_features not in FEATURE_MODES:
+    def keep_blocks(self, n: int) -> None:
+        """Drop the blocks past the first ``n`` (and their per-block bias
+        tables): a model that always returns at block ``n - 1`` holds only
+        what the JAX package creates for it."""
+        del self.blocks[n:]
+        for i in range(n, self.cfg.depth):
+            if hasattr(self, f"rel_pos_bias_{i}"):
+                delattr(self, f"rel_pos_bias_{i}")
+
+    def forward(self, x: torch.Tensor, return_features: str = "cls",
+                return_block: Optional[int] = None, *,
+                shuffle_subsets: int = 1,
+                shuffle_noise: Optional[torch.Tensor] = None,
+                attn_temperature: float = 1.0, capture_stats: bool = False,
+                return_final_attn: bool = False):
+        """x (B, H, W, 3) NHWC -> features of ``return_features`` mode; with
+        ``return_final_attn``, (features, (the last block's probabilities,
+        the tokens)). ``shuffle_subsets`` > 1 splits the patch tokens by the
+        argsort of ``shuffle_noise`` (B, N), uniform noise drawn here where
+        it is not given."""
+        if capture_stats:
             raise NotImplementedError(
-                f"feature mode {return_features!r} {_TODO_BACKBONE}")
+                "capture_stats (every block's attention statistics) is not "
+                "ported yet (ROADMAP module item 8, attention statistics)")
         c = self.cfg
         dt = c.dtype
         x = self.patch_embed(x, dt)
-        B = x.shape[0]
+        B, N, D = x.shape
+        prefix = []
         if self.cls_token is not None:
-            x = torch.cat([self.cls_token.to(dt).expand(B, -1, -1), x], dim=1)
-        pos = self.pos_embed
-        if pos.shape[1] != x.shape[1]:
-            # an image size other than the model's: resize the patch grid, in
-            # the parameter's precision, before the cast to the compute dtype
-            pos = interpolate_pos_embed(pos.float(),
-                                        x.shape[1] - c.num_prefix_tokens,
-                                        c.num_prefix_tokens)
-        x = x + pos.to(dt)
-        for blk in self.blocks:
-            x = blk(x)
-        x_pos = x[:, c.num_prefix_tokens:]
-        if return_features == "pos":
-            return x_pos
-        if return_features == "gap":
+            prefix.append(self.cls_token.to(dt).expand(B, -1, -1))
+        if self.reg_token is not None:
+            prefix.append(self.reg_token.to(dt).expand(B, -1, -1))
+        if prefix:
+            x = torch.cat(prefix + [x], dim=1)
+        if self.pos_embed is not None:
+            pos = self.pos_embed
+            if pos.shape[1] != x.shape[1]:
+                # an image size other than the model's: resize the patch grid,
+                # in the parameter's precision, before the cast
+                pos = interpolate_pos_embed(pos.float(), N,
+                                            c.num_prefix_tokens)
+            x = x + pos.to(dt)
+        if self.norm_pre is not None:
+            x = layer_norm(x, self.norm_pre)
+
+        ss = shuffle_subsets
+        n_pre = c.num_prefix_tokens
+        if ss > 1:
+            assert N % ss == 0, f"{N=} not divisible by {ss=}"
+            assert return_features in ("cls", "pos", "gap")
+            assert c.rel_pos_bias == "none", "subsets break the rel-pos grid"
+            if shuffle_noise is None:
+                shuffle_noise = torch.rand(B, N)
+            ids = torch.argsort(shuffle_noise.to(x.device), dim=1)
+            x_pre, x_pos = x[:, :n_pre], x[:, n_pre:]
+            x_pos = torch.gather(x_pos, 1, ids[:, :, None].expand(-1, -1, D))
+            x_pos = x_pos.reshape(B, ss, N // ss, D)
+            x_pre = x_pre[:, None].expand(B, ss, n_pre, D)
+            x = torch.cat([x_pre, x_pos], dim=2).reshape(B * ss,
+                                                         n_pre + N // ss, D)
+
+        rel_bias = self.rel_pos_bias() if self.rel_pos_bias is not None else None
+        needs_final_attn = (return_final_attn
+                            or return_features.startswith(("ca", "attn")))
+        use_scan = (not needs_final_attn
+                    and (return_block is None or return_block == c.depth - 1)
+                    and c.rel_pos_bias != "per_block")
+        if c.scan_blocks and not use_scan:
+            raise ValueError(
+                "scan_blocks=True supports only the fast path: attention "
+                "capture, ca*/attn-* modes, early return_block and per-block "
+                "rel-pos bias need scan_blocks=False (per-layer params)")
+
+        last_block = return_block if return_block is not None else c.depth - 1
+        final_probs = None
+        for i, blk in enumerate(self.blocks):
+            if i > last_block:
+                break
+            bias = (getattr(self, f"rel_pos_bias_{i}")()
+                    if c.rel_pos_bias == "per_block" else rel_bias)
+            if needs_final_attn and i == last_block:
+                x, final_probs = blk.capture(x, attn_temperature, bias)
+            else:
+                x = blk(x, attn_temperature, bias)
+        return self._finish(x, B, N, ss, return_features, final_probs,
+                            return_final_attn)
+
+    def _finish(self, x, B, N, ss, return_features, final_probs,
+                return_final_attn):
+        c = self.cfg
+        D = c.embed_dim
+        if self.norm is not None:
+            x = layer_norm(x, self.norm)
+        n_pre = c.num_prefix_tokens
+        if ss > 1:
+            # cls (B,ss,D); pos (B,ss,N/ss,D); gap the mean over the subsets
+            xs = x.reshape(B, ss, n_pre + N // ss, D)
+            x_pos = xs[:, :, n_pre:]
+            if return_features == "cls":
+                return (xs[:, :, 0] if c.class_token
+                        else torch.zeros(B, ss, D, dtype=x.dtype,
+                                         device=x.device))
+            if return_features == "pos":
+                return x_pos
             return x_pos.mean(dim=1)
-        x_cls = (x[:, 0] if c.class_token
-                 else torch.zeros(B, c.embed_dim, dtype=dt, device=x.device))
-        if return_features == "both":
-            return torch.cat([x_cls[:, None], x_pos], dim=1)
-        return x_cls
+        x_pos = x[:, n_pre:]
+        if c.class_token:
+            x_cls = x[:, 0]
+        elif c.cls_from_registers and c.reg_tokens:
+            x_cls = mean_f32(x[:, :c.reg_tokens], 1)  # CAPI's global_repr
+        else:
+            x_cls = torch.zeros(B, D, dtype=x.dtype, device=x.device)
+        if self.proj is not None and return_features == "cls":
+            # OpenCLIP: ln_post(cls) @ proj; the patch tokens stay D wide
+            x_cls = x_cls @ self.proj.to(x_cls.dtype)
+        ret = select_features(return_features, x, x_cls, x_pos, final_probs)
+        if return_final_attn:
+            return ret, (final_probs, x)
+        return ret
 
 
 # --- size constructors --------------------------------------------------------
@@ -328,6 +652,13 @@ def vit_large_patch16(**kw) -> ViTConfig:
 
 def vit_huge_patch14(class_token: bool = True, **kw) -> ViTConfig:
     return _mk(1280, 32, 16, patch_size=14, class_token=class_token, **kw)
+
+
+def simmim_vit_base_patch16(**kw) -> ViTConfig:
+    """SimMIM pretrained ViT-B: no abs pos-embed, shared rel-pos bias,
+    LayerScale 0.1, q/v-only qkv bias."""
+    return _mk(768, 12, 12, qkv_bias_mode="qv_only", use_abs_pos_emb=False,
+               rel_pos_bias="shared", init_values=0.1, **kw)
 
 
 VIT_CONFIGS = {

@@ -2,8 +2,10 @@
 
 Counterpart of ``ep_tpu/ops/attention.py::mha``, which the JAX package
 leaves to XLA; the pooling heads that run a self-attention of their own
-(dinovit, abmilp) call it. The backbone's attention is the supercell of
-``ops/attn_block.py``, not this.
+(dinovit, abmilp) call it, and so does the backbone's plain ``Attention``
+where it adds a relative-position bias or returns the last block's
+probabilities (``models/vit.py``); every other backbone block runs the
+kernels of ``ops/attn_block.py`` and ``ops/attn_fused.py``.
 """
 from __future__ import annotations
 
@@ -11,6 +13,16 @@ from typing import Optional
 
 import torch
 
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(N,m,k) @ (N,k,n) with f32 sums and an f32 result: on the card the
+    product of the operands in their dtype with an f32 output (bf16 operands
+    stay on the tensor cores); on the CPU the operands widened to f32, where
+    every product of two bf16 values is exact."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
 
 
 def scaled(x: torch.Tensor, scale: float) -> torch.Tensor:

@@ -15,7 +15,8 @@ Weights are in the ``nn.Linear`` layout, (out, in), like every weight of the
 port. The backward (``attn_block_pallas.py::_bwd``) keeps only the inputs,
 recomputes qkv (A) and the attention output (B), takes the projection's and
 LN1's gradients in plain torch (as the JAX package leaves them to XLA) and
-the attention core's from kernel E (``attention_qkv_fused_bwd``).
+the attention core's from kernel E or, past E's limit, the tiled plain
+version (``attn_fused.py::attention_backward``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 
 from . import LAUNCHES, check, use_kernel
 from ._build import call, stream_ptr
-from .attn_fused import (attention_core, attention_qkv_fused_bwd,
+from .attn_fused import (attention_backward, attention_core,
                          attention_qkv_fused_ref)
 
 
@@ -143,7 +144,7 @@ class _AttnSupercell(torch.autograd.Function):
         do = g @ w_proj.to(dt)
         dwp = _weight_grad(g, o, w_proj)
         dbp = g.float().sum((0, 1)).to(b_proj.dtype)
-        dqkv = attention_qkv_fused_bwd(qkv, do, num_heads, scale, temperature)
+        dqkv = attention_backward(qkv, do, num_heads, scale, temperature)
         # qkv = dt(f32(LN1(x) @ W_qkv^T) + b_qkv), LN1 differentiated by autograd
         with torch.enable_grad():
             ln_in = [t.detach().requires_grad_() for t in (x, gamma, beta)]

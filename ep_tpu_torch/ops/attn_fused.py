@@ -21,9 +21,11 @@ on the H100; what each measured is in ``PERF.md``.
 
 :func:`attn_route` is the routing of ``attn_fused_pallas.py::_fwd_impl``, by
 shape: the TPU's memory estimates and its XLA fallback past them do not carry
-over, since F takes any T. The backward at long T is not a kernel in the JAX
-package either (``_bwd_xla``); it is not ported yet, and kernel E raises
-beyond its limit (:data:`BWD_MAX_T`).
+over, since F takes any T. :func:`bwd_route` routes the backward the same
+way: kernel E up to :data:`BWD_MAX_T`, and past it
+:func:`attention_qkv_fused_bwd_long`, plain torch tiled over query rows, as
+the JAX package leaves that case to XLA (``_bwd_xla``). Kernel E's own entry
+refuses what it cannot hold.
 """
 from __future__ import annotations
 
@@ -34,11 +36,14 @@ import torch
 
 from . import LAUNCHES, MAX_SMEM, check, use_kernel
 from ._build import call, query, stream_ptr
+from .attention import mm_f32
 from .flash_attn import attn_flash
 
 CORE_MAX_T = 272  # csrc/attn_core.cu: a tile's rows of logits sit in registers
 # csrc/attn_core_bwd.cu stages q, k, v and dO of one head in shared memory
 BWD_MAX_T = {64: 384, 80: 320}
+BWD_TILE = 128  # query rows a step of attention_qkv_fused_bwd_long
+KEY_ALIGN = 8  # its keys padded to 16 bytes of bf16
 
 
 def _split(t: torch.Tensor, parts: int, num_heads: int):
@@ -114,13 +119,80 @@ def attention_qkv_fused_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
             f"attn_core_bwd is built for head widths 64 (T <= "
             f"{BWD_MAX_T[64]}) and 80 (T <= {BWD_MAX_T[80]}) and keeps q, k, v "
             f"and dO of one head in shared memory; got head width {Dh}, "
-            f"T={T}. The backward at long sequences is not ported yet (ROADMAP "
-            f"module item 5)")
+            f"T={T}; attention_backward takes longer sequences past it")
     dqkv = torch.empty_like(qkv)
     call("ep_attn_core_bwd", qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B,
          T, num_heads, Dh, scale / temperature, stream_ptr(qkv))
     LAUNCHES["attn_core_bwd"] += 1
     return dqkv
+
+
+def bwd_route(T: int, head_dim: int) -> str:
+    """Which backward takes a (B, T, 3*H*Dh) qkv tensor: ``"core"`` (kernel
+    E, or its plain version on the CPU) up to :data:`BWD_MAX_T`, else
+    ``"long"`` (:func:`attention_qkv_fused_bwd_long`). By shape alone, on
+    every device; a head width E is not built for takes E's route up to the
+    longest limit, where E raises on the card."""
+    return "core" if T <= BWD_MAX_T.get(head_dim, max(BWD_MAX_T.values())) \
+        else "long"
+
+
+def attention_backward(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
+                       scale: float, temperature: float = 1.0) -> torch.Tensor:
+    """dqkv by :func:`bwd_route`: kernel E (:func:`attention_qkv_fused_bwd`)
+    or, past its limit, :func:`attention_qkv_fused_bwd_long`, whose calls on
+    the card add to ``LAUNCHES["attn_bwd_long"]``."""
+    if bwd_route(qkv.shape[1], _head_dim(qkv, num_heads)) == "core":
+        return attention_qkv_fused_bwd(qkv, g, num_heads, scale, temperature)
+    if use_kernel(qkv, g):
+        LAUNCHES["attn_bwd_long"] += 1
+    return attention_qkv_fused_bwd_long(qkv, g, num_heads, scale, temperature)
+
+
+def attention_qkv_fused_bwd_long(qkv: torch.Tensor, g: torch.Tensor,
+                                 num_heads: int, scale: float,
+                                 temperature: float = 1.0) -> torch.Tensor:
+    """The backward at any T, in plain torch with the cast points of
+    ``attn_fused_pallas.py::_bwd_xla`` (not ``_bwd_kernel``'s): bf16 operands
+    with f32 sums, dL = bf16(A * (dA - rowsum(A * dA)) / temperature), dQ =
+    (dL K) * scale and dK = (dLᵀ Q) * scale scaled after their products.
+
+    It runs :data:`BWD_TILE` query rows at a time, so the largest tensor it
+    keeps is (B, H, BWD_TILE, T) f32, never (B, H, T, T); dK and dV are summed
+    over the tiles in f32 and cast once. The keys are padded with zero rows to
+    a multiple of :data:`KEY_ALIGN`, whose logits are masked out before the
+    softmax, so that every operand of a product has rows of a multiple of 16
+    bytes, which cuBLAS's Hopper kernels need (at T=1025 it falls back to an
+    sm75 kernel of alignment 1 without)."""
+    B, T, _ = qkv.shape
+    dt = qkv.dtype
+    H = num_heads
+    Dh = _head_dim(qkv, H)
+    coef = scale / temperature
+    pad = -T % KEY_ALIGN
+    q, k, v = (t.reshape(B * H, T, Dh) for t in
+               _split(qkv, 3, H).contiguous())
+    k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
+    gh = _split(g, 1, H)[0].reshape(B * H, T, Dh)
+    dq = torch.empty(B * H, T, Dh, dtype=dt, device=qkv.device)
+    dk = torch.zeros(B * H, T + pad, Dh, dtype=torch.float32,
+                     device=qkv.device)
+    dv = torch.zeros_like(dk)
+    for s in range(0, T, BWD_TILE):
+        qs, gs = q[:, s:s + BWD_TILE], gh[:, s:s + BWD_TILE]
+        logits = mm_f32(qs, k.transpose(1, 2)).mul_(coef)
+        logits[..., T:] = float("-inf")
+        a = torch.softmax(logits, dim=-1)
+        dv += mm_f32(a.to(dt).transpose(1, 2), gs)
+        da = mm_f32(gs, v.transpose(1, 2))
+        dl = da.sub_((a * da).sum(-1, keepdim=True)).mul_(a)
+        if temperature != 1.0:
+            dl.div_(temperature)
+        dl = dl.to(dt)
+        dq[:, s:s + BWD_TILE] = mm_f32(dl, k).mul_(scale).to(dt)
+        dk += mm_f32(dl.transpose(1, 2), qs)
+    dqkv = torch.stack([dq, dk[:, :T].mul_(scale).to(dt), dv[:, :T].to(dt)])
+    return dqkv.reshape(3, B, H, T, Dh).permute(1, 3, 0, 2, 4).reshape(B, T, -1)
 
 
 class _AttentionQKVFused(torch.autograd.Function):
@@ -136,7 +208,7 @@ class _AttentionQKVFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (qkv,) = ctx.saved_tensors
-        return (attention_qkv_fused_bwd(qkv, g.contiguous(), *ctx.args),
+        return (attention_backward(qkv, g.contiguous(), *ctx.args),
                 None, None, None)
 
 

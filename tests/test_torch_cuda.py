@@ -903,3 +903,23 @@ def test_device_aug_draws_on_the_card_what_it_draws_on_the_cpu(dev):
     d = (got - ref).abs()
     assert float(d.max()) <= 5e-2 and int((d > 1e-3).sum()) <= 2e-2 * d.numel()
     assert float(d.mean()) <= 1e-4
+
+
+def test_attention_backward_routes_by_shape(dev):
+    """Up to kernel E's limit the autograd backward launches E; past it the
+    tiled plain backward (counted as attn_bwd_long), which agrees with the
+    CPU's run of the same function, and E is not launched."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.attn_fused import (attention_qkv_fused,
+                                             attention_qkv_fused_bwd_long)
+    for t, expect in ((384, dict(attn_flash=1, attn_core_bwd=1)),
+                      (385, dict(attn_flash=1, attn_bwd_long=1))):
+        qkv = _rand((2, t, 3 * 128), dev, seed=t).requires_grad_(True)
+        g = _rand((2, t, 128), dev, seed=t + 1)
+        reset_launches()
+        attention_qkv_fused(qkv, 2, 0.125).backward(g)
+        assert dict(LAUNCHES) == _counts(**expect)
+    ref = attention_qkv_fused_bwd_long(qkv.detach().cpu(), g.cpu(), 2, 0.125)
+    scale = float(ref.float().abs().max())
+    torch.testing.assert_close(qkv.grad.cpu().float(), ref.float(), rtol=1e-2,
+                               atol=1e-2 * scale)

@@ -49,7 +49,7 @@ from ep_tpu_torch.train.engine import knn_classifier_multi
 from ep_tpu_torch.train.lars import build_optimizer
 from ep_tpu_torch.utils.logging import TrainingLogFile
 
-from test_torch_checkpoint import write_timm_checkpoint
+from test_torch_checkpoint import timm_state_dict, write_timm_checkpoint
 
 TINY = FlaxViTConfig(img_size=16, patch_size=4, embed_dim=32, depth=2,
                      num_heads=2, dtype=jnp.float32, attn_impl="xla")
@@ -174,7 +174,6 @@ def test_knn_classifier_multi_matches_jax():
 # ---- flags and devices -------------------------------------------------------
 
 @pytest.mark.parametrize("kw, error, match", [
-    (dict(oracle_ckpt="dino.pth"), NotImplementedError, "item 7"),
     (dict(mesh_data=2), NotImplementedError, "item 9"),
     (dict(mesh_model=2), NotImplementedError, "item 9"),
     (dict(device_aug=True, train_aug="aimv2"), ValueError, "aimv2")])
@@ -184,6 +183,33 @@ def test_unported_flags_raise(tmp_path, kw, error, match):
     over."""
     with pytest.raises(error, match=match):
         linprobe.main(_p(_cfg(tmp_path, **kw)))
+
+
+def test_oracle_ckpt_is_read_after_finetune(tmp_path, tiny, monkeypatch):
+    """``--cls_features dino --oracle_ckpt``: the oracle takes the timm-layout
+    checkpoint's weights and the backbone ``--finetune``'s, the oracle read
+    second, as in the JAX driver; ``--eval`` then runs on them."""
+    from ep_tpu_torch.convert import torch_vit
+    fin = write_timm_checkpoint(tmp_path / "backbone.pth", seed=1)
+    orc = write_timm_checkpoint(tmp_path / "oracle.pth", seed=2)
+    order = []
+    for name in ("load_pretrained_backbone", "load_oracle"):
+        real = getattr(torch_vit, name)
+
+        def spy(cfg, bcfg, model, real=real, name=name):
+            real(cfg, bcfg, model)
+            order.append((name, model))
+        monkeypatch.setattr(torch_vit, name, spy)
+    stats = linprobe.main(_p(_cfg(tmp_path / "out", cls_features="dino",
+                                  finetune=fin, oracle_ckpt=orc, eval=True)))
+    assert [n for n, _ in order] == ["load_pretrained_backbone", "load_oracle"]
+    model = order[-1][1]
+    key = "blocks.1.attn.qkv.weight"
+    assert torch.equal(model.oracle.state_dict()[key],
+                       timm_state_dict(2)[key])
+    assert torch.equal(model.backbone.state_dict()[key],
+                       timm_state_dict(1)[key])
+    assert np.isfinite(stats["loss"])
 
 
 def test_more_than_one_process_raises(tmp_path, monkeypatch):

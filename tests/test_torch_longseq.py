@@ -22,17 +22,20 @@ import torch
 from ep_tpu.configs import TrainConfig
 from ep_tpu.models.assembly import ProbeModel as FlaxProbeModel
 from ep_tpu.models.vit import ViTConfig as FlaxViTConfig
-from ep_tpu.ops.attn_fused_pallas import (_fwd_flash, _fwd_head_group_rowtile,
-                                          _fwd_xla)
+from ep_tpu.ops.attn_fused_pallas import (_bwd_xla, _fwd_flash,
+                                          _fwd_head_group_rowtile, _fwd_xla)
 from ep_tpu.ops.flash_attn_pallas import flash_attention as jax_flash
 from ep_tpu.utils import pos_embed as jax_pos_embed
 from ep_tpu_torch.configs import TrainConfig as PortTrainConfig
 from ep_tpu_torch.convert.from_flax import flax_to_torch
 from ep_tpu_torch.models.assembly import ProbeModel, build_backbone_config
 from ep_tpu_torch.ops import LAUNCHES, reset_launches
-from ep_tpu_torch.ops.attn_fused import (CORE_MAX_T, attention_core,
-                                         attention_qkv_fused,
-                                         attention_qkv_fused_ref, attn_route)
+from ep_tpu_torch.ops.attn_block import attn_supercell, attn_supercell_ref
+from ep_tpu_torch.ops.attn_fused import (BWD_MAX_T, CORE_MAX_T,
+                                         attention_core, attention_qkv_fused,
+                                         attention_qkv_fused_bwd_long,
+                                         attention_qkv_fused_ref, attn_route,
+                                         bwd_route)
 from ep_tpu_torch.ops.flash_attn import (attn_flash, flash_attention,
                                          flash_attention_ref)
 from ep_tpu_torch.utils import pos_embed
@@ -213,12 +216,62 @@ def test_attn_flash_takes_cuda_tensors_only():
 
 
 def test_long_sequence_backward_differentiates_on_cpu():
-    """On the CPU the long-T backward is the plain version; on the card kernel
-    E raises beyond its limit (the JAX package leaves that case to XLA)."""
-    qkv = torch.from_numpy(np.random.default_rng(1).standard_normal(
-        (1, CORE_MAX_T + 30, 3 * 16)).astype(np.float32)).requires_grad_(True)
-    attention_qkv_fused(qkv, 2, 8 ** -0.5).sum().backward()
-    assert qkv.grad.shape == qkv.shape and torch.isfinite(qkv.grad).all()
+    """Past kernel E's limit the backward is the tiled plain version on every
+    device, held to the JAX package's ``_bwd_xla``, which takes that case on
+    the TPU; on the card kernel E's own entry refuses it."""
+    rng = np.random.default_rng(1)
+    T, H, Dh = BWD_MAX_T[64] + 1, 2, 64
+    qkv = rng.standard_normal((1, T, 3 * H * Dh)).astype(np.float32)
+    g = rng.standard_normal((1, T, H * Dh)).astype(np.float32)
+    assert bwd_route(T, Dh) == "long"
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    attention_qkv_fused(x, H, Dh ** -0.5).backward(torch.from_numpy(g))
+    ref = _bwd_xla(jnp.asarray(qkv), jnp.asarray(g), H, Dh ** -0.5, 1.0)
+    _close(x.grad, ref, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T, Dh, temperature", [
+    (385, 64, 1.0), (385, 64, 1.5), (1025, 80, 1.0), (1025, 80, 1.5),
+    (321, 80, 1.0), (200, 64, 1.0)])
+def test_attention_bwd_long_matches_bwd_xla(dtype, T, Dh, temperature):
+    """``attention_qkv_fused_bwd_long`` against ``_bwd_xla`` with the same
+    cast points (f32 at 1e-5; bf16 within two bf16 steps), T past E's limits
+    at both head widths and one inside (the function takes any T), 128 query
+    rows a tile (T=1025: a last tile of one row)."""
+    rng = np.random.default_rng(T + Dh)
+    H = 2
+    (qkv_j, qkv_t), (g_j, g_t) = (
+        _pair(rng.standard_normal(shape).astype(np.float32), dtype)
+        for shape in ((1, T, 3 * H * Dh), (1, T, H * Dh)))
+    out = attention_qkv_fused_bwd_long(qkv_t, g_t, H, Dh ** -0.5, temperature)
+    assert out.dtype == qkv_t.dtype
+    _close(out, _bwd_xla(qkv_j, g_j, H, Dh ** -0.5, temperature), dtype)
+
+
+@pytest.mark.parametrize("T, Dh, route", [
+    (384, 64, "core"), (385, 64, "long"), (320, 80, "core"), (321, 80, "long"),
+    (1025, 80, "long"), (5, 32, "core"), (385, 32, "long")])
+def test_bwd_route(T, Dh, route):
+    assert bwd_route(T, Dh) == route
+
+
+def test_supercell_backward_at_long_t_takes_the_long_route():
+    """The supercell's backward recomputes at T=1025 and takes the tiled
+    backward: on the CPU its gradients equal the plain chain's autograd."""
+    rng = np.random.default_rng(2)
+    T, D, H = 1025, 128, 2
+    x = torch.from_numpy(rng.standard_normal((1, T, D)).astype(np.float32))
+    w = [torch.from_numpy((rng.standard_normal(s) * 0.05).astype(np.float32))
+         for s in ((3 * D, D), (3 * D,), (D,), (D,), (D, D), (D,))]
+    w[2] = w[2] + 1.0
+    args = (H, (D // H) ** -0.5, 1.0, 1e-6)
+    a = [t.clone().requires_grad_(True) for t in [x] + w]
+    attn_supercell(*a, *args).sum().backward()
+    b = [t.clone().requires_grad_(True) for t in [x] + w]
+    attn_supercell_ref(*b, *args).sum().backward()
+    for ta, tb in zip(a, b):
+        torch.testing.assert_close(ta.grad, tb.grad, rtol=1e-4, atol=1e-5)
 
 
 # --- a whole model at another image size -----------------------------------------

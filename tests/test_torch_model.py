@@ -22,13 +22,18 @@ import torch
 import torch.nn.functional as F
 
 from ep_tpu.configs import TrainConfig
-from ep_tpu.models.assembly import ProbeModel as FlaxProbeModel
-from ep_tpu.models.vit import ViTConfig as FlaxViTConfig, stack_block_params
+import test_torch_backbone_util as bu
+from ep_tpu.models.assembly import (ProbeModel as FlaxProbeModel,
+                                    build_backbone_config as
+                                    build_flax_backbone_config)
+from ep_tpu.models.vit import (ViTConfig as FlaxViTConfig,
+                               VisionTransformer as FlaxVisionTransformer,
+                               stack_block_params)
 from ep_tpu_torch.configs import TrainConfig as PortTrainConfig
 from ep_tpu_torch.convert.from_flax import flax_to_torch
 from ep_tpu_torch.models.assembly import (ProbeModel, build_backbone_config,
                                           init_probe_model)
-from ep_tpu_torch.models.vit import PatchEmbed, ViTConfig, VisionTransformer
+from ep_tpu_torch.models.vit import PatchEmbed, VisionTransformer
 
 IMG, B = 32, 8
 DT = {"float32": (jnp.float32, torch.float32),
@@ -142,29 +147,68 @@ def test_patch_embed_matmul_equals_conv():
     dict(rel_pos_bias="shared"), dict(init_values=0.1), dict(reg_tokens=4),
     dict(mlp_type="swiglu"), dict(pre_norm=True), dict(proj_dim=512),
 ])
-def test_unported_backbone_variants_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 7"):
-        VisionTransformer(ViTConfig(embed_dim=64, depth=1, num_heads=2, **kw))
+def test_unported_backbone_variants_raise(monkeypatch, kw):
+    """Named for the refusal it held before the backbone family was ported:
+    each variant of the JAX ViT now builds and matches the flax module (cls
+    features at f32, 1e-5; ``test_torch_backbone_util.py``)."""
+    monkeypatch.setenv("EP_TPU_PALLAS_INTERPRET", "1")
+    fcfg = bu.flax_cfg(**kw)
+    fm = FlaxVisionTransformer(fcfg)
+    v = {"params": bu.redraw(fm.init(jax.random.key(0), jnp.zeros(
+        (2, bu.IMG, bu.IMG, 3)))["params"])}
+    pm = bu.load_port(VisionTransformer(bu.port_cfg(fcfg)), v)
+    x = bu.images(9)
+    bu.close(pm(torch.from_numpy(x)), fm.apply(v, jnp.asarray(x))[0],
+             "float32", str(kw))
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(return_block=5), "item 7"), (dict(cls_features="raw"), "item 7"),
-    (dict(model="dinov2_vitb14"), "item 7"),
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(return_block=5), id="kw0-item 7"),
+    pytest.param(dict(cls_features="raw"), id="kw1-item 7"),
+    pytest.param(dict(model="dinov2_vitb14"), id="kw2-item 7"),
 ])
-def test_unported_configs_raise(kw, item):
-    cfg = PortTrainConfig(**{**dict(model="vit_tiny_patch16",
-                                    cls_features="ep", ep_queries=4,
-                                    image_size=IMG), **kw})
-    with pytest.raises(NotImplementedError, match=item):
-        ProbeModel(build_backbone_config(cfg), cfg)
+def test_unported_configs_raise(monkeypatch, kw):
+    """Named, with its case ids, for the refusal it held before the backbone
+    family was ported (ROADMAP module item 7): each configuration now builds
+    a ProbeModel whose logits match the flax model's (f32, 1e-5)."""
+    monkeypatch.setenv("EP_TPU_PALLAS_INTERPRET", "1")
+    cfg = _cfg(**{"feats": kw.get("cls_features", "ep")})
+    cfg = dataclasses.replace(cfg, **{k: v for k, v in kw.items()
+                                      if k != "cls_features"})
+    depth = 6 if "return_block" in kw else 2
+    fcfg = build_flax_backbone_config(cfg).replace(
+        img_size=IMG, patch_size=16, embed_dim=64, depth=depth, num_heads=2,
+        attn_impl="pallas")
+    fm = FlaxProbeModel(fcfg, cfg)
+    v = bu.redraw_backbone(fm.init(jax.random.key(0),
+                                   jnp.zeros((2, IMG, IMG, 3)), train=True))
+    pm = bu.load_port(ProbeModel(bu.port_cfg(fcfg), _p(cfg)), v)
+    pm.eval()
+    x = images(1)
+    _assert_logits(pm(torch.from_numpy(x)),
+                   fm.apply(v, jnp.asarray(x), train=False), "float32")
 
 
 @pytest.mark.parametrize("mode", ["raw", "dino", "cp4"])
-def test_unported_feature_modes_raise_in_the_backbone(mode):
-    vit = VisionTransformer(ViTConfig(img_size=IMG, embed_dim=64, depth=1,
-                                      num_heads=2, dtype=torch.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 7"):
-        vit(torch.from_numpy(images()[:2]), mode)
+def test_unported_feature_modes_raise_in_the_backbone(monkeypatch, mode):
+    """Named for the refusal it held before the feature modes were ported:
+    ``raw`` and ``cp4`` now match the flax backbone; ``dino`` is a mode of
+    ProbeModel (the oracle), which the backbone refuses in both packages."""
+    monkeypatch.setenv("EP_TPU_PALLAS_INTERPRET", "1")
+    fcfg = bu.flax_cfg(depth=1)
+    fm = FlaxVisionTransformer(fcfg)
+    v = {"params": bu.redraw(fm.init(jax.random.key(0), jnp.zeros(
+        (2, bu.IMG, bu.IMG, 3)))["params"])}
+    vit = bu.load_port(VisionTransformer(bu.port_cfg(fcfg)), v)
+    x = bu.images(10)
+    if mode == "dino":
+        with pytest.raises(NotImplementedError):
+            fm.apply(v, jnp.asarray(x), mode)
+        with pytest.raises(NotImplementedError):
+            vit(torch.from_numpy(x), mode)
+        return
+    bu.close(vit(torch.from_numpy(x), mode), fm.apply(v, jnp.asarray(x), mode)[0],
+             "float32", mode)
 
 
 def test_init_is_seeded():
