@@ -173,6 +173,32 @@ Phases, each of which must pass (any failure exits non-zero):
              driver's model must give; --cls_features dino --oracle_ckpt of a
              timm-layout ViT-B/16 .pth on ViT-B/16 for one epoch (A, B and C
              23 times a forward), the oracle holding the file's weights.
+   Attention statistics and the tools (ROADMAP module item 8), after the
+   driver phases, on frozen ViT-B/16 (bf16, random weights from seed 0):
+   attn-stats-b — main_attention_stats_torch.py's main with --finetune of a
+             seed-0 timm-layout .pth, the fake dataset's 128 val images at
+             batch 64: no kernel launch (every block on the plain route with
+             its probabilities, as in the JAX package), attention_stats.json
+             written, the probability stats in [0, 1], and the (10, 12) table
+             against the CPU's run of the same main (each stat within 2e-2 of
+             its largest value); then the capture forward at batch 512 timed.
+   extract-features — python -m ep_tpu_torch.tools.extract_features on the
+             driver phase's EP checkpoint (--head_ckpt, val: A, B and C 12
+             times, D once) and with --cls_features cls (train, 4 batches
+             of 128: A, B and C 48 times, D never): features and logits of 4
+             images against the CPU plain path, and the loop's img/s.
+   pool-attention — python -m ep_tpu_torch.tools.extract_pool_attention on
+             the same checkpoint, 8 images: the (8, 32, 196) map, its rows
+             summing to 1 within 1e-3, against the CPU's (5e-2 of its
+             largest value); the logits from kernel D.
+   mae-decoder — MAE ViT-B/16 with its decoder (8 blocks of 16 heads of
+             width 32, plain attention), batch 128, mask ratio 0.75: the
+             loss against the CPU's on the same noise (2e-3 relative); A, B
+             and C 12 times (the encoder), no attention kernel in the
+             decoder; ms a forward.
+   search  — search_linprobe_torch.py's main with EP_SEARCH_BLRS of two
+             values, one epoch each on ViT-B/16 and the fake dataset: "Max
+             Accuracy" in both trials' training_log.txt; the launches.
 
 The zoo's per-head table (train step ms and img/s, head-only step ms, img/s
 and device busy ms) follows its phase. Before the last line come the whole
@@ -193,10 +219,13 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -1966,9 +1995,6 @@ def zoo_driver(card: str, paths: dict) -> dict:
     --eval from its checkpoint: the pool's BatchNorm parameters and moved
     running statistics in checkpoint-.pth, and --eval printing epoch 0's val
     numbers."""
-    import tempfile
-    from pathlib import Path
-
     import ep_tpu_torch.cli.linprobe as linprobe
     from ep_tpu_torch.configs import TrainConfig
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
@@ -2093,14 +2119,12 @@ DRIVER_FLAGS = dict(dataset_name="fake", nb_classes=10, image_size=224,
 DRIVER_STEPS, DRIVER_EVAL_BATCHES = 4, 1
 
 
-def driver(card: str, paths: dict) -> list[dict]:
+def driver(card: str, paths: dict, keep) -> list[dict]:
     """Run the probe-training driver as a user runs it and check what it
     writes. Adds each run's launch counts to ``paths``; returns each epoch's
     wall time and img/s, and the device's idle share over one profiled
-    epoch."""
-    import tempfile
-    from pathlib import Path
-
+    epoch. Copies the EP checkpoint of its first run (after --auto_resume:
+    epoch 2) to ``keep``, for the tools' phases."""
     import ep_tpu_torch.cli.linprobe as linprobe
     from ep_tpu_torch.configs import TrainConfig
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
@@ -2246,6 +2270,7 @@ def driver(card: str, paths: dict) -> list[dict]:
             raise RuntimeError("driver-resume: the checkpoint did not advance")
         log(f"  resumed at epoch 2 from global step {last['first_step']}: "
             f"{resumed[2]}")
+        shutil.copyfile(tmp / "train" / "checkpoint-.pth", keep)
 
         # 3. --eval from the checkpoint: epoch 2's val numbers as printed
         stats = run("driver-eval", tmp / "eval", eval=True,
@@ -2599,9 +2624,6 @@ def driver_backbones(card: str, paths: dict) -> list[dict]:
     --cls_features dino --oracle_ckpt of a timm-layout ViT-B/16 .pth written
     from seed 2's backbone, one epoch on ViT-B/16 (A, B and C 23 times a
     forward: 12 for the backbone, 11 for the oracle)."""
-    import tempfile
-    from pathlib import Path
-
     import ep_tpu_torch.cli.linprobe as linprobe
     from ep_tpu_torch.configs import TrainConfig
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
@@ -2695,6 +2717,335 @@ def driver_backbones(card: str, paths: dict) -> list[dict]:
     return runs
 
 
+# --- attention statistics and the tools (ROADMAP module item 8) --------------
+
+# The attention-statistics table, card against CPU: each of the 10 stats of
+# every block within ATTN_STATS_TOL of that stat's largest value over the
+# blocks. Both sides compute the same plain route in bf16 with f32 logits,
+# softmax and statistics; what differs is the summation order of the bf16
+# products, which moves single probabilities by about a bf16 step of their
+# logits, and a table entry is a mean over 64 x 12 x 196 of them.
+ATTN_STATS_TOL = 2e-2
+# The pool's attention map of the EP head, card against CPU, against its
+# largest value (the zoo phase's bound for return_attn maps).
+POOL_MAP_TOL = 5e-2
+# Rows of a probability map sum to 1 within this.
+ROW_SUM_TOL = 1e-3
+# MAE's loss, card against CPU, relative: a mean over 128 x 147 masked
+# patches of 768 squared errors.
+MAE_LOSS_RTOL = 2e-3
+TOOL_FLAGS = ["--model", "vit_base_patch16", "--dataset_name", "fake",
+              "--nb_classes", "10", "--image_size", "224", "--amp",
+              "bfloat16", "--num_workers", "8"]
+
+
+def _launches_equal(name: str, paths: dict, **want) -> None:
+    from ep_tpu_torch.ops import LAUNCHES
+    full = {**dict.fromkeys(LAUNCHES, 0), **want}
+    log(f"  {name}: launches {({k: v for k, v in paths[name].items() if v})} "
+        f"(expected {want})")
+    if paths[name] != full:
+        raise RuntimeError(f"{name}: launches {paths[name]}, expected {full}")
+
+
+def attn_stats_b(card: str, paths: dict, tmp) -> dict:
+    """main_attention_stats_torch.py's main on frozen ViT-B/16 at full width
+    and depth, its weights from a seed-0 timm-layout checkpoint (--finetune),
+    on ``fake``'s 128 val images at batch 64 (2 batches): no kernel launches
+    (every block takes the plain route with its probabilities, as in the JAX
+    package), the JSON written, the probability stats in [0, 1], and the
+    (10, 12) table against the CPU's run of the same main on the same
+    weights and images (each stat within ATTN_STATS_TOL of its largest
+    value). Then the capture forward alone at batch 512 on random images."""
+    import ep_tpu_torch.cli.attention_stats as AS
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+
+    cfg = TrainConfig(model="vit_base_patch16", image_size=224)
+    src = AS.build_model(cfg, torch.device("cpu"))
+    pth = tmp / "vit_base_seed0.pth"
+    torch.save({"model": {f"module.{k}": v
+                          for k, v in src.state_dict().items()}}, pth)
+    del src
+    log(f"[attn-stats-b] main_attention_stats_torch.py's main: ViT-B/16 "
+        f"(--finetune of a seed-0 timm-layout .pth), the fake dataset's 128 "
+        f"val images, batch 64, bf16, on {card}")
+    summaries = {}
+    for dev in ("cuda", "cpu"):
+        args = AS.get_args_parser().parse_args(
+            ["--model", "vit_base_patch16", "--dataset_name", "fake",
+             "--batch_size", "64", "--max_batches", "2", "--finetune",
+             str(pth), "--output_dir", str(tmp / f"attn-{dev}"),
+             "--num_workers", "8", "--device", dev])
+        reset_launches()
+        t0 = time.perf_counter()
+        summaries[dev] = AS.main(args)
+        wall = time.perf_counter() - t0
+        log(f"  the {dev} run: {wall:.1f} s")
+        if dev == "cuda":
+            paths["attn-stats-b"] = dict(LAUNCHES)
+    _launches_equal("attn-stats-b", paths)
+    written = json.loads((tmp / "attn-cuda" / "attention_stats.json")
+                         .read_text())
+    if written != summaries["cuda"] or list(written) != AS.STAT_NAMES:
+        raise RuntimeError("attn-stats-b: attention_stats.json")
+    got = np.array([written[n] for n in AS.STAT_NAMES])
+    ref = np.array([summaries["cpu"][n] for n in AS.STAT_NAMES])
+    probs = got[:6]
+    if got.shape != (10, 12) or not np.isfinite(got).all() or (
+            probs.min() < 0 or probs.max() > 1):
+        raise RuntimeError(f"attn-stats-b: table {got.tolist()}")
+    rel = np.abs(got - ref).max(1) / np.abs(ref).max(1)
+    ok = bool((rel <= ATTN_STATS_TOL).all())
+    for n, r, row in zip(AS.STAT_NAMES, rel, got):
+        log(f"    {n:32s} blocks 0, 5, 11: {row[0]:.5f} {row[5]:.5f} "
+            f"{row[11]:.5f}; card vs CPU max |d| / max |ref| {r:.2e}")
+    log(f"  the (10, 12) table, card against CPU: worst {rel.max():.2e} of "
+        f"a stat's largest value (tol {ATTN_STATS_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("attn-stats-b: the card's table is not the CPU's")
+
+    model = AS.build_model(cfg.replace(finetune=str(pth)), torch.device("cuda"))
+    x = rand(np.random.default_rng(5), (512, 224, 224, 3))
+    with torch.no_grad():
+        ms = time_ms(lambda: model(x, "cls", capture_stats=True), 3)
+    log(f"  the capture forward (12 blocks with probabilities, statistics "
+        f"and magnitudes) at batch 512: {ms:.2f} ms, {512e3 / ms:.1f} img/s "
+        f"on {card}")
+    del model, x
+    torch.cuda.empty_cache()
+    return dict(table_rel_err=float(rel.max()), batch=512, capture_ms=ms,
+                capture_img_s=512e3 / ms)
+
+
+def _timed_tool(main, argv, name: str, paths: dict) -> tuple:
+    """A tool's main on the card, its launches in ``paths[name]``, and the
+    seconds from its first batch on the card to its end (the loop)."""
+    import ep_tpu_torch.tools.extract_features as EF
+    import ep_tpu_torch.tools.extract_pool_attention as PA
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    first = []
+    real = EF.to_device
+
+    def stamped(*a, **kw):
+        if not first:
+            torch.cuda.synchronize()
+            first.append(time.perf_counter())
+        return real(*a, **kw)
+
+    reset_launches()
+    with mock.patch.object(EF, "to_device", stamped), \
+            mock.patch.object(PA, "to_device", stamped):
+        out = main(argv)
+    torch.cuda.synchronize()
+    loop = time.perf_counter() - first[0]
+    paths[name] = dict(LAUNCHES)
+    return out, loop
+
+
+def _cpu_probe(flags: list, head_ckpt: str, split: str, n: int):
+    """The tools' probe model on the CPU (the plain path) with the tools'
+    flags and checkpoint, and the first ``n`` images of ``split`` as the
+    tools' loader gives them (the val transform, in order)."""
+    import argparse
+
+    import ep_tpu_torch.tools.extract_features as EF
+    from ep_tpu_torch.configs import config_from_args, get_args_parser
+    from ep_tpu_torch.data.datasets import build_datasets
+    from ep_tpu_torch.data.transforms import build_transforms
+
+    cfg = config_from_args(argparse.ArgumentParser(
+        parents=[get_args_parser()]).parse_args(flags + ["--device", "cpu"]))
+    model, _ = EF.build_probe(cfg, head_ckpt)
+    transform_val = build_transforms(cfg)[1]
+    ds = build_datasets(cfg)[0 if split == "train" else 1]
+    x = np.stack([transform_val(ds[i][0]) for i in range(n)])
+    return model, torch.from_numpy(x).to(torch.bfloat16)
+
+
+def extract_features_phase(card: str, paths: dict, ckpt, tmp) -> dict:
+    """python -m ep_tpu_torch.tools.extract_features on the driver phase's
+    EP checkpoint (--head_ckpt, the val split: one batch of 128; A, B and C
+    12 times, D once) and with --cls_features cls and no head (the train
+    split: 4 batches of 128; A, B and C 48 times, D never); the features of
+    the first 4 images against the CPU plain path's on the same weights
+    within FEATURE_TOL of their largest magnitude (features-b's bound), the
+    logits within MODEL_ATOL + MODEL_RTOL*|ref|; img/s from the first batch
+    on the card to the written file."""
+    import ep_tpu_torch.tools.extract_features as EF
+
+    log(f"[extract-features] python -m ep_tpu_torch.tools.extract_features: "
+        f"ViT-B/16, the fake dataset, batch 128, bf16, on {card}")
+    runs = {  # name -> (model flags, head checkpoint, split, launches)
+        "extract-features": (["--cls_features", "ep", "--ep_queries", "32"],
+                             str(ckpt), "val",
+                             dict(ln_qkv_gemm=12, attn_core=12,
+                                  proj_residual_gemm=12, ep_pool=1)),
+        "extract-features-cls": (["--cls_features", "cls"], "", "train",
+                                 dict(ln_qkv_gemm=48, attn_core=48,
+                                      proj_residual_gemm=48)),
+    }
+    out = {}
+    for name, (mode, head, split, want) in runs.items():
+        flags = TOOL_FLAGS + ["--batch_size", "128"] + mode
+        argv = flags + ["--split", split, "--out", str(tmp / f"{name}.npz")]
+        if head:
+            argv += ["--head_ckpt", head]
+        payload, loop = _timed_tool(EF.main, argv, name, paths)
+        _launches_equal(name, paths, **want)
+        n = len(payload["labels"])
+        log(f"  {name}: {n} images to features "
+            f"{tuple(payload['features'].shape)} in {loop:.3f} s from the "
+            f"first batch on the card to the written file, "
+            f"{n / loop:.1f} img/s on {card}")
+        model, x = _cpu_probe(flags, head, split, 4)
+        with torch.no_grad():
+            logits, feats = model(x, return_backbone_features=True)
+        # tokens without a final norm reach about 16 (features-b's bound)
+        compare(f"{name} features {tuple(feats.shape)} of 4 images, card "
+                "vs CPU", torch.from_numpy(payload["features"][:4]), feats,
+                FEATURE_TOL * float(feats.float().abs().max()), 0)
+        if head:
+            compare(f"{name} logits of 4 images, card vs CPU",
+                    torch.from_numpy(payload["logits"][:4]), logits,
+                    MODEL_ATOL, MODEL_RTOL)
+        out[name] = dict(images=n, loop_s=loop, img_s=n / loop)
+        del model
+    return out
+
+
+def pool_attention_phase(card: str, paths: dict, ckpt, tmp) -> dict:
+    """python -m ep_tpu_torch.tools.extract_pool_attention on the driver
+    phase's EP checkpoint (--resume), 8 val images: the map (B, Q, N) from
+    the plain pool, its rows summing to 1 within ROW_SUM_TOL, within
+    POOL_MAP_TOL of its largest value of the CPU's map on the same weights
+    and images; the logits from kernel D (A, B and C 12 times, D once)."""
+    import ep_tpu_torch.tools.extract_pool_attention as PA
+
+    log(f"[pool-attention] python -m ep_tpu_torch.tools."
+        f"extract_pool_attention: ViT-B/16 + EP-32, 8 val images, bf16, "
+        f"on {card}")
+    flags = TOOL_FLAGS + ["--cls_features", "ep", "--ep_queries", "32"]
+    (attn, labels, preds), _ = _timed_tool(
+        PA.main, flags + ["--resume", str(ckpt), "--n_images", "8", "--out",
+                          str(tmp / "pool_attention.npz")],
+        "pool-attention", paths)
+    _launches_equal("pool-attention", paths, ln_qkv_gemm=12, attn_core=12,
+                    proj_residual_gemm=12, ep_pool=1)
+    saved = np.load(tmp / "pool_attention.npz")
+    rows = np.abs(attn.sum(-1) - 1).max()
+    ok = attn.shape == (8, 32, 196) and rows <= ROW_SUM_TOL and np.array_equal(
+        saved["attention"], attn)
+    log(f"  map {attn.shape}, rows sum to 1 within {rows:.2e} (tol "
+        f"{ROW_SUM_TOL:g}), written {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("pool-attention: the map")
+    model, x = _cpu_probe(flags, str(ckpt), "val", 8)
+    logits, ref = PA.extract(model, x)
+    compare("the pool's map (8, 32, 196), card vs CPU",
+            torch.from_numpy(attn), ref,
+            POOL_MAP_TOL * float(ref.abs().max()), 0)
+    agree = int((logits.argmax(-1).numpy() == preds).sum())
+    log(f"  predictions: {agree} of 8 as on the CPU")
+    return dict(shape=list(attn.shape), row_sum_err=float(rows),
+                preds_as_cpu=agree)
+
+
+def mae_decoder(card: str, paths: dict, B: int = 128) -> dict:
+    """MAE ViT-B/16 with its decoder (8 blocks 512 wide, 16 heads of width
+    32, the plain route), random weights from seed 0, batch ``B``, bf16,
+    mask ratio 0.75: the loss on the card against the CPU's on the same
+    images and masking noise (MAE_LOSS_RTOL), the encoder's launches (A, B
+    and C 12 times) and none for the decoder; ms a forward."""
+    from ep_tpu_torch.models.assembly import SkipDefaultInit, init_backbone
+    from ep_tpu_torch.models.mae import MaskedAutoencoderViT, mae_vit_base_patch16
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+
+    with SkipDefaultInit():  # init_backbone draws every parameter
+        cpu = MaskedAutoencoderViT(mae_vit_base_patch16())
+    init_backbone(cpu, torch.Generator().manual_seed(0))
+    model = copy.deepcopy(cpu).cuda()
+    if any(b.supercell for b in model.decoder_blocks) or not all(
+            b.supercell for b in model.blocks):
+        raise RuntimeError("mae-decoder: routes")
+    x = rand(np.random.default_rng(6), (B, 224, 224, 3), dtype=torch.float32,
+             device="cpu")
+    noise = torch.rand(B, 196, generator=torch.Generator().manual_seed(7))
+    xc = x.cuda()
+    log(f"[mae-decoder] MAE ViT-B/16 with its decoder (8 blocks of 16 heads "
+        f"of width 32, plain attention), batch {B}, bf16, mask ratio 0.75, "
+        f"on {card}")
+    with torch.no_grad():
+        reset_launches()
+        loss, pred, mask = model(xc, 0.75, noise=noise)
+        torch.cuda.synchronize()
+        paths["mae-decoder"] = dict(LAUNCHES)
+        _launches_equal("mae-decoder", paths, ln_qkv_gemm=12, attn_core=12,
+                        proj_residual_gemm=12)
+        ms = time_ms(lambda: model(xc, 0.75, noise=noise), 5)
+        ref = cpu(x, 0.75, noise=noise)[0].item()
+    got = loss.item()
+    d = abs(got - ref) / abs(ref)
+    ok = math.isfinite(got) and d <= MAE_LOSS_RTOL and tuple(pred.shape) == (
+        B, 196, 768) and int(mask.sum()) == B * 147
+    log(f"  loss {got:.6f} against the CPU's {ref:.6f}, |d|/|ref| {d:.2e} "
+        f"(tol {MAE_LOSS_RTOL:g}); pred {tuple(pred.shape)}, "
+        f"{int(mask.sum())} masked patches {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("mae-decoder: the card's loss is not the CPU's")
+    log(f"  forward and loss at batch {B}: {ms:.2f} ms, {B * 1e3 / ms:.1f} "
+        f"img/s on {card}")
+    del model, cpu, xc
+    torch.cuda.empty_cache()
+    return dict(batch=B, forward_ms=ms, img_s=B * 1e3 / ms, loss_rel_err=d)
+
+
+SEARCH_BLRS = "0.05,0.1"
+
+
+def search(card: str, paths: dict, tmp) -> dict:
+    """search_linprobe_torch.py's main with EP_SEARCH_BLRS holding two
+    values: one epoch of main_linprobe_torch.py's main a trial (ViT-B/16,
+    EP-32, the fake dataset, batch 128), each trial_{n}/training_log.txt
+    carrying "Max Accuracy", and the launches of both trials (A, B and C 12
+    times and D once a forward)."""
+    import importlib
+
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+
+    log(f"[search] search_linprobe_torch.py's main: blr in {SEARCH_BLRS}, "
+        f"ViT-B/16, EP-32, batch 128, the fake dataset, one epoch a trial, "
+        f"on {card}")
+    with mock.patch.dict(os.environ, {"EP_SEARCH_BLRS": SEARCH_BLRS}):
+        sys.modules.pop("search_linprobe_torch", None)
+        SL = importlib.import_module("search_linprobe_torch")
+    flags = [f"--{k}={v}" for k, v in DRIVER_FLAGS.items()
+             if k not in ("epochs",)]
+    reset_launches()
+    t0 = time.perf_counter()
+    best_blr, best_acc = SL.main(flags + ["--epochs", "1", "--output_dir",
+                                          str(tmp / "search")])
+    wall = time.perf_counter() - t0
+    paths["search"] = dict(LAUNCHES)
+    forwards = 2 * (DRIVER_STEPS + DRIVER_EVAL_BATCHES)
+    _launches_equal("search", paths, ln_qkv_gemm=12 * forwards,
+                    attn_core=12 * forwards, proj_residual_gemm=12 * forwards,
+                    ep_pool=forwards)
+    found = []
+    for n in range(2):
+        text = (tmp / "search" / f"trial_{n}" / "training_log.txt").read_text()
+        found.append("Max Accuracy" in text)
+    ok = all(found) and SL.SEARCH_SPACE["blr"] == [0.05, 0.1]
+    log(f"  two trials in {wall:.1f} s; 'Max Accuracy' in each "
+        f"training_log.txt: {found}; best blr {best_blr}, "
+        f"{best_acc:.2f}% (random weights: no accuracy gate) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("search: the trials' logs")
+    return dict(wall_s=wall, best_blr=best_blr)
+
+
 class _Tee(io.TextIOBase):
     """Writes to two streams: the driver's printed lines to the log and to
     a buffer the checks read."""
@@ -2719,6 +3070,13 @@ def main() -> int:
     args = ap.parse_args()
 
     t_start = time.perf_counter()
+    walls = {}
+
+    def mark(phase: str) -> None:
+        """The seconds since the start at the end of ``phase``."""
+        walls[phase] = time.perf_counter() - t_start
+        log(f"[wall] {phase} done at {walls[phase]:.1f} s")
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2746,6 +3104,7 @@ def main() -> int:
     results += long_results
     results += check_backbone_kernels(rng)
     other_shapes = gemm_shapes + other_shapes
+    mark("kernels")
 
     paths, steps_ms, first_loss = {}, {}, {}
     for kind, (B, *_) in PROBE_CONFIGS.items():
@@ -2769,12 +3128,16 @@ def main() -> int:
         f"(u8 staged input, the crop on the card); train (same run): "
         f"{b['step_ms']:.2f} ms, {b['img_s']:.1f} img/s at batch {a['batch']} "
         f"on {card}")
+    mark("probe paths")
     crop = device_aug_check(card)
     cached = cached_steps(card, paths, steps_ms["train"]["img_s"])
+    mark("device-aug, cached")
     zoo_steps = zoo(card, paths, args.steps, steps_ms["train"]["step_ms"])
     zoo_run = zoo_driver(card, paths)
+    mark("zoo")
     backbone_steps = backbone_probes(card, paths, args.steps)
     feature_modes = features_b(card, paths)
+    mark("backbone probes, features-b")
     for route, usual in (("probe-h448-fused", "probe-h448"),
                          ("probe-h-rowtile", "probe-h")):
         a, b = steps_ms[route], steps_ms[usual]
@@ -2792,8 +3155,24 @@ def main() -> int:
         paths[kind] = finetune(kind, B, FT_STEPS, card)
     finetune_grads()
     finetune_grads(kind="finetune-dinov2-l", depth=2)
-    driver_epochs, extracted = driver(card, paths)
+    mark("fine-tuning")
+    work = tempfile.TemporaryDirectory()
+    tmp = Path(work.name)
+    driver_epochs, extracted = driver(card, paths, tmp / "driver_ep.pth")
     backbone_runs = driver_backbones(card, paths)
+    mark("driver")
+    tools = dict(attn_stats=attn_stats_b(card, paths, tmp))
+    mark("attn-stats-b")
+    tools["extract_features"] = extract_features_phase(
+        card, paths, tmp / "driver_ep.pth", tmp)
+    tools["pool_attention"] = pool_attention_phase(
+        card, paths, tmp / "driver_ep.pth", tmp)
+    mark("extract-features, pool-attention")
+    tools["mae_decoder"] = mae_decoder(card, paths)
+    mark("mae-decoder")
+    tools["search"] = search(card, paths, tmp)
+    mark("search")
+    work.cleanup()
     # phase 4's step at the driver's batch, beside the driver's epochs
     *_, med, _ = train("train", DRIVER_FLAGS["batch_size"], args.steps, card)
     step_b = dict(batch=DRIVER_FLAGS["batch_size"], step_ms=med * 1e3,
@@ -2905,6 +3284,7 @@ def main() -> int:
                     "backbones": {"probe_steps": backbone_steps,
                                   "feature_modes": feature_modes,
                                   "driver": backbone_runs},
+                    "tools": tools, "walls_s": walls,
                     "driver": {"epochs": driver_epochs,
                                "extraction": extracted,
                                "train_step": step_b}}))

@@ -1,1 +1,2 @@
-"""The probe-training driver (counterpart of ``ep_tpu.cli``)."""
+"""The probe-training and attention-statistics drivers (counterpart of
+``ep_tpu.cli``)."""

@@ -151,8 +151,9 @@ class TrainConfig:
     pallas_pool: bool = True  # use the fused pooling kernel when it applies
     int8_mlp: bool = False  # OPT-IN int8 MLP half in the frozen backbone
     # (ops/mlp_int8.py): approximate, so off by default. Needs mlp_type gelu.
-    attn_impl: str = "auto"  # the JAX package's choice between its kernels
-    # and XLA attention; the port picks by device (ops/__init__.py)
+    attn_impl: str = "auto"  # encoder attention: auto | pallas (the kernels
+    # on the card, their plain versions on the CPU) | xla (plain attention,
+    # ops/attention.py::mha, in every block: no attention kernel)
     use_grain: bool = False  # grain-backed input pipeline (worker processes)
     scan_blocks: bool = False  # the JAX package scans over encoder layers;
     # the port always loops (remat_blocks requires the flag, as there)

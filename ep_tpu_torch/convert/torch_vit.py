@@ -23,6 +23,11 @@ the ``nn.Linear``/``nn.Conv2d`` layouts, so the conversion is:
 A backbone entry the file does not hold is an error, as is an entry of the
 wrong shape; but for the patch embedding's bias (CLIP's conv1 has none),
 which keeps its initialisation, as in the JAX package.
+
+A file that ``ep_tpu_torch/tools/convert_checkpoint.py`` wrote,
+``{"backbone": state_dict, "model": name}`` in the port's own names, is
+recognised by its ``backbone`` entry and loaded as it is, strictly
+(:func:`load_backbone_file`), as the JAX driver sniffs its msgpack.
 """
 from __future__ import annotations
 
@@ -41,7 +46,13 @@ _OPTIONAL = ("patch_embed.proj.bias",)
 
 def load_torch_state_dict(path: str, checkpoint_key: str = "model"
                           ) -> Dict[str, torch.Tensor]:
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return _state_dict_of(torch.load(path, map_location="cpu",
+                                     weights_only=True), checkpoint_key)
+
+
+def _state_dict_of(ckpt, checkpoint_key: str) -> Dict[str, torch.Tensor]:
+    """The backbone's entries of a loaded torch checkpoint, prefixes and the
+    decoder dropped."""
     if isinstance(ckpt, dict) and checkpoint_key in ckpt:
         ckpt = ckpt[checkpoint_key]
     elif isinstance(ckpt, dict) and "state_dict" in ckpt:
@@ -166,14 +177,48 @@ def _check_exists(path: str, flag: str) -> None:
             f"access; convert the checkpoint to a local .pth first")
 
 
+def _converted_state(saved: Dict[str, torch.Tensor], module: nn.Module
+                     ) -> Dict[str, torch.Tensor]:
+    """``module``'s state dict from a converted file: every entry by name
+    and shape. Entries the module does not hold (blocks past
+    ``--return_block``, OpenCLIP's ``proj`` outside ``cls`` mode) are
+    left out."""
+    template = module.state_dict()
+    missing = [k for k in template if k not in saved]
+    if missing:
+        raise KeyError(f"the converted checkpoint holds no {missing[:10]}")
+    for k, t in template.items():
+        if saved[k].shape != t.shape:
+            raise ValueError(f"the converted checkpoint's {k} has shape "
+                             f"{tuple(saved[k].shape)}, the model's is "
+                             f"{tuple(t.shape)}")
+    return {k: saved[k].to(t.dtype) for k, t in template.items()}
+
+
+def load_backbone_file(path: str, checkpoint_key: str, module: nn.Module,
+                       backbone_cfg) -> None:
+    """Load a backbone file into ``module`` strictly: the port's converted
+    file as it is, any other torch checkpoint through
+    :func:`torch_vit_to_backbone`."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if (isinstance(payload, dict) and isinstance(payload.get("backbone"), dict)
+            and isinstance(payload.get("model"), str)):
+        print(f"[convert] loading pre-converted {payload['model']} backbone "
+              "checkpoint")
+        state = _converted_state(payload["backbone"], module)
+    else:
+        state = torch_vit_to_backbone(_state_dict_of(payload, checkpoint_key),
+                                      module, backbone_cfg)
+    module.load_state_dict(state, strict=True)
+
+
 def load_pretrained_backbone(cfg, backbone_cfg, model: nn.Module) -> None:
     """Load ``cfg.finetune`` into ``model.backbone`` in place of its random
     initialisation (main_linprobe.py:373-411)."""
     _check_exists(cfg.finetune, "--finetune")
     print(f"Interpreting {cfg.finetune} as path")
-    sd = load_torch_state_dict(cfg.finetune, cfg.checkpoint_key)
-    state = torch_vit_to_backbone(sd, model.backbone, backbone_cfg)
-    model.backbone.load_state_dict(state, strict=True)
+    load_backbone_file(cfg.finetune, cfg.checkpoint_key, model.backbone,
+                       backbone_cfg)
 
 
 def load_oracle(cfg, backbone_cfg, model: nn.Module) -> None:
@@ -185,7 +230,6 @@ def load_oracle(cfg, backbone_cfg, model: nn.Module) -> None:
         raise ValueError("--oracle_ckpt given but the model has no oracle "
                          "(use --cls_features dino)")
     _check_exists(cfg.oracle_ckpt, "--oracle_ckpt")
-    sd = load_torch_state_dict(cfg.oracle_ckpt, cfg.checkpoint_key)
-    state = torch_vit_to_backbone(sd, model.oracle, oracle_config(backbone_cfg))
-    model.oracle.load_state_dict(state, strict=True)
+    load_backbone_file(cfg.oracle_ckpt, cfg.checkpoint_key, model.oracle,
+                       oracle_config(backbone_cfg))
     print(f"[convert] loaded oracle weights from {cfg.oracle_ckpt}")

@@ -16,6 +16,7 @@ from typing import Optional, Union
 
 import torch
 import torch.nn as nn
+from torch.overrides import TorchFunctionMode
 
 from ep_tpu_torch.configs import TrainConfig
 from ep_tpu_torch.ops import default_device
@@ -38,18 +39,20 @@ def build_backbone_config(cfg: TrainConfig) -> Union[ViTConfig, MAEConfig]:
     """Model-name dispatch (``ep_tpu/models/assembly.py::
     build_backbone_config``, the reference's main_linprobe.py:338-371)."""
     dtype = _DTYPES[cfg.amp]
-    flags = dict(scan_blocks=cfg.scan_blocks, remat_blocks=cfg.remat_blocks,
-                 remat_policy=cfg.remat_policy)
+    flags = dict(attn_impl=cfg.attn_impl, scan_blocks=cfg.scan_blocks,
+                 remat_blocks=cfg.remat_blocks, remat_policy=cfg.remat_policy)
     kw = dict(img_size=cfg.image_size, dtype=dtype, int8_mlp=cfg.int8_mlp,
               **flags)
     if cfg.simmim:
         return simmim_vit_base_patch16(**kw)
     if cfg.openclip:
         return openclip_vit_config(cfg.model, cfg.image_size, dtype,
-                                   pretrain=cfg.openclip_pretrain)
+                                   pretrain=cfg.openclip_pretrain).replace(
+                                       attn_impl=cfg.attn_impl)
     name = cfg.model
     if name.startswith("mae_vit"):
-        # the encoder's latent, a full-token pass (mask_ratio=0)
+        # the encoder's latent, a full-token pass (mask_ratio=0); its blocks
+        # take the kernels whatever --attn_impl says (MAEConfig.encoder_vit)
         if name not in _MAE:
             raise ValueError(f"unknown MAE model {name}")
         return _MAE[name](img_size=cfg.image_size, dtype=dtype)
@@ -158,31 +161,39 @@ class ProbeModel(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Draw every parameter from ``generator``, with the JAX package's
-        initial distributions: lecun-normal dense kernels and zero biases in
-        the backbone and the oracle, pos-embed N(0, 0.02), LayerScale at its
-        constant, zero registers and bias tables, OpenCLIP's ``proj``
-        N(0, 1/D), MAE's ``cls_token`` and ``mask_token`` N(0, 0.02); the head
-        by its modules' own initializers (``ProbeHead.init_weights``), after
-        the backbone."""
-        mods = [(n, p) for m in (self.backbone, self.oracle) if m is not None
-                for n, p in m.named_parameters()]
-        for name, p in mods:
-            leaf = name.rsplit(".", 1)[-1]
-            if name.endswith("pos_embed") or (
-                    self.mae and leaf in ("cls_token", "mask_token")):
-                normal_(p, 0.02, generator)
-            elif leaf == "gamma":  # LayerScale
-                p.fill_(self.backbone.cfg.init_values)
-            elif leaf == "proj":  # OpenCLIP's (D, proj_dim) projection
-                normal_(p, p.shape[0] ** -0.5, generator)
-            elif "norm" in name:
-                p.fill_(1.0 if leaf == "weight" else 0.0)
-            elif leaf == "weight":
-                normal_(p, p[0].numel() ** -0.5, generator)
-            else:  # biases, the [CLS] token, registers, rel-pos tables
-                p.zero_()
+        """Draw every parameter from ``generator`` (:func:`init_backbone`
+        for the backbone, then the oracle); the head by its modules' own
+        initializers (``ProbeHead.init_weights``), after the backbone."""
+        for m in (self.backbone, self.oracle):
+            if m is not None:
+                init_backbone(m, generator)
         self.head.init_weights(generator)
+
+
+@torch.no_grad()
+def init_backbone(module: nn.Module, generator: torch.Generator) -> None:
+    """Draw a backbone's parameters (a ``VisionTransformer`` or a
+    ``MaskedAutoencoderViT``) from ``generator`` in the order of
+    ``named_parameters``, with the JAX package's initial distributions:
+    lecun-normal dense kernels and zero biases, pos-embed N(0, 0.02),
+    LayerScale at its constant, zero registers and bias tables, OpenCLIP's
+    ``proj`` N(0, 1/D), MAE's ``cls_token`` and ``mask_token`` N(0, 0.02)."""
+    mae = isinstance(module, MaskedAutoencoderViT)
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name.endswith("pos_embed") or (
+                mae and leaf in ("cls_token", "mask_token")):
+            normal_(p, 0.02, generator)
+        elif leaf == "gamma":  # LayerScale
+            p.fill_(module.cfg.init_values)
+        elif leaf == "proj":  # OpenCLIP's (D, proj_dim) projection
+            normal_(p, p.shape[0] ** -0.5, generator)
+        elif "norm" in name:
+            p.fill_(1.0 if leaf == "weight" else 0.0)
+        elif leaf == "weight":
+            normal_(p, p[0].numel() ** -0.5, generator)
+        else:  # biases, the [CLS] token, registers, rel-pos tables
+            p.zero_()
 
 
 def init_probe_model(cfg: TrainConfig, seed: int = 0,
@@ -192,6 +203,19 @@ def init_probe_model(cfg: TrainConfig, seed: int = 0,
     CUDA device) with weights drawn from ``seed``. The weights are drawn from
     a CPU generator and then moved, so every device holds the same weights."""
     device = default_device(device)
-    model = ProbeModel(backbone_cfg or build_backbone_config(cfg), cfg)
+    with SkipDefaultInit():
+        model = ProbeModel(backbone_cfg or build_backbone_config(cfg), cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device)
+
+
+class SkipDefaultInit(TorchFunctionMode):
+    """Skips the functions of ``torch.nn.init``, which every module's
+    constructor runs on its parameters. ``reset_parameters`` draws each of
+    them anew, so those draws were thrown away (ViT-H/14's took 4 of 7 s on
+    a CPU core); the weights are the same."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__module__", None) == "torch.nn.init":
+            return args[0] if args else kwargs["tensor"]
+        return func(*args, **(kwargs or {}))

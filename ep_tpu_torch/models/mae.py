@@ -6,11 +6,13 @@ the per-patch MSE on masked patches (optionally pixel-normalised). Probing
 uses the encoder's latent (``return_latent``, a full-token pass with
 ``mask_ratio=0``; ``models/assembly.py``).
 
-The encoder's blocks are the plain ViT's: on the card they take the
-attention supercell (kernels A, B, C), where the JAX package's
-``MAEConfig.encoder_vit`` leaves them on XLA's attention (``attn_impl="xla"``).
-The decoder's head width is 32 at every size (512 wide, 16 heads), which
-kernel B is not built for: on the card the decoder raises.
+The encoder's blocks are the plain ViT's: ``encoder_vit`` asks for the
+kernels (``attn_impl="auto"``), so on the card they take the attention
+supercell (kernels A, B, C), where the JAX package's ``MAEConfig.encoder_vit``
+leaves them on XLA's attention. The decoder's blocks take the plain route
+(``attn_impl="xla"``, as the JAX package's decoder does): its head width is 32
+at every size (512 wide, 16 heads), which kernel B is not built for, and its
+attention runs in plain torch (``ops/attention.py::mha``).
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ class MAEConfig:
             img_size=self.img_size, patch_size=self.patch_size,
             embed_dim=self.embed_dim, depth=self.depth,
             num_heads=self.num_heads, mlp_ratio=self.mlp_ratio,
-            qkv_bias=True, dtype=self.dtype,
+            qkv_bias=True, dtype=self.dtype, attn_impl="auto",
         )
 
     def decoder_vit(self) -> ViTConfig:
@@ -57,7 +59,7 @@ class MAEConfig:
             img_size=self.img_size, patch_size=self.patch_size,
             embed_dim=self.decoder_embed_dim, depth=self.decoder_depth,
             num_heads=self.decoder_num_heads, mlp_ratio=self.mlp_ratio,
-            qkv_bias=True, dtype=self.dtype,
+            qkv_bias=True, dtype=self.dtype, attn_impl="xla",
         )
 
 

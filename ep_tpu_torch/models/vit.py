@@ -11,14 +11,20 @@ A block takes one of two routes, by the JAX package's gate
 (``ep_tpu/models/vit.py:406-409``):
 
 * the attention supercell (``ops/attn_block.py``: kernels A, B or, at long
-  sequences, F, and C on the card; E in its backward) where the block has a
-  full qkv bias, no LayerScale and no relative-position bias, and does not
-  capture its probabilities;
+  sequences, F, and C on the card; E in its backward) where ``attn_impl`` is
+  ``"auto"`` or ``"pallas"`` and the block has a full qkv bias, no LayerScale
+  and no relative-position bias, and does not capture its probabilities;
 * otherwise the plain ``Attention`` route: LN1, the qkv product, the
   ``qv_only`` bias, then ``ops/attn_fused.py::attention_qkv_fused`` (kernel B
-  or F on the card, E or the tiled long-T backward) where there is no bias
-  and no capture, else ``ops/attention.py::mha`` (plain torch, as the JAX
-  package leaves it to XLA), the projection and LayerScale.
+  or F on the card, E or the tiled long-T backward) where the kernels are
+  enabled and there is no bias and no capture, else ``ops/attention.py::mha``
+  (plain torch, as the JAX package leaves it to XLA), the projection and
+  LayerScale.
+
+``attn_impl="xla"`` (the JAX package's ``ViTConfig`` default, and MAE's
+decoder) keeps every block on the plain route through ``mha``: no attention
+kernel. The port's default is ``"auto"``, so that a config built directly
+takes the kernels, as every path did before the field existed.
 
 The MLP half is plain torch (GELU, QuickGELU or SwiGLU) or, with
 ``int8_mlp=True`` on a supercell block (``--int8_mlp``, opt-in and
@@ -42,8 +48,11 @@ weight is in the ``nn.Linear``/``nn.Conv2d`` layout but OpenCLIP's ``proj``
 created in float32; ``train/state.py::cast_frozen`` stores a frozen encoder
 in the compute dtype, as the JAX package does.
 
-The capture of every block's attention statistics (``capture_stats``, the
-attention-statistics CLI) is ROADMAP module item 8 and raises.
+``capture_stats=True`` (the attention-statistics CLI) runs every block on the
+plain route with its probabilities, the MLP half without int8, and returns
+the 5-kind statistics of ``ops/attention.py::attn_stats_from_probs`` and the
+residual magnitudes beside the features, as the JAX package's ``_finish``
+does.
 """
 from __future__ import annotations
 
@@ -59,7 +68,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
-from ep_tpu_torch.ops.attention import mha, scaled
+from ep_tpu_torch.ops.attention import attn_stats_from_probs, mha, scaled
 from ep_tpu_torch.ops.attn_block import attn_supercell
 from ep_tpu_torch.ops.attn_fused import attention_qkv_fused
 from ep_tpu_torch.ops.mlp_int8 import mlp_int8_fused
@@ -112,6 +121,10 @@ class ViTConfig:
     remat_blocks: bool = False  # recompute blocks in the backward
     remat_policy: str = "none"  # none | attn_out | attn_fc1 | dots
     int8_mlp: bool = False  # opt-in int8 MLP half (ops/mlp_int8.py)
+    # auto | pallas: the kernels (supercell, B/F); xla: plain attention (mha).
+    # "auto", not the JAX package's "xla", so a config built directly keeps
+    # the kernels; MAE's decoder and --attn_impl xla ask for "xla"
+    attn_impl: str = "auto"
 
     @property
     def grid_size(self) -> int:
@@ -126,11 +139,18 @@ class ViTConfig:
         return (1 if self.class_token else 0) + self.reg_tokens
 
     @property
+    def kernel_attention(self) -> bool:
+        """Whether attention may run the kernels (``ep_tpu/models/vit.py::
+        _pallas_attn_enabled`` on one device: "auto" and "pallas")."""
+        return self.attn_impl in ("auto", "pallas")
+
+    @property
     def supercell(self) -> bool:
         """Whether a block may take the attention supercell: the static half
         of the JAX package's gate (``ep_tpu/models/vit.py:406-409``)."""
-        return (self.rel_pos_bias == "none" and self.init_values is None
-                and self.qkv_bias and self.qkv_bias_mode == "full")
+        return (self.kernel_attention and self.rel_pos_bias == "none"
+                and self.init_values is None and self.qkv_bias
+                and self.qkv_bias_mode == "full")
 
     def replace(self, **kw) -> "ViTConfig":
         return dataclasses.replace(self, **kw)
@@ -151,6 +171,8 @@ def int8_mlp_inactive_reason(c: ViTConfig) -> Optional[str]:
         return "LayerScale backbones take the plain attention path"
     if not (c.qkv_bias and c.qkv_bias_mode == "full"):
         return "qkv_bias mode is not 'full' (supercell needs fused qkv bias)"
+    if not c.kernel_attention:
+        return "attn_impl resolves to plain attention (attn_impl='xla')"
     return None
 
 
@@ -262,6 +284,7 @@ class Attention(nn.Module):
         self.num_heads = cfg.num_heads
         self.scale = (D // cfg.num_heads) ** -0.5
         self.qv_only = cfg.qkv_bias and cfg.qkv_bias_mode == "qv_only"
+        self.kernel = cfg.kernel_attention
         self.qkv = Dense(D, 3 * D, bias=cfg.qkv_bias and not self.qv_only,
                          dtype=cfg.dtype)
         if self.qv_only:
@@ -280,7 +303,7 @@ class Attention(nn.Module):
                               self.v_bias])
             qkv = qkv + bias.to(qkv.dtype)
         probs = None
-        if not return_probs and rel_bias is None:
+        if self.kernel and not return_probs and rel_bias is None:
             # natural layout: kernel B or F on the card, no head split
             out = attention_qkv_fused(qkv, H, self.scale, temperature)
         else:
@@ -377,12 +400,15 @@ class Block(nn.Module):
         return self._attn_plain(x, temperature, rel_bias, False)[0]
 
     def _attn_plain(self, x, temperature, rel_bias, return_probs):
+        """(x + the attention branch after LayerScale, the probabilities or
+        None, the branch before LayerScale)."""
         y = self.attn(layer_norm(x, self.norm1), temperature, rel_bias,
                       return_probs)
         y, probs = y if return_probs else (y, None)
+        branch = y
         if self.ls1 is not None:
             y = self.ls1(y)
-        return x + y, probs
+        return x + y, probs, branch
 
     def mlp_half(self, x: torch.Tensor, int8: bool = True) -> torch.Tensor:
         """LN2, the MLP, LayerScale and the residual; the int8 half where the
@@ -405,9 +431,10 @@ class Block(nn.Module):
     def capture(self, x: torch.Tensor, temperature: float = 1.0,
                 rel_bias: Optional[torch.Tensor] = None):
         """The block on the plain route, with its attention probabilities:
-        (x, probs f32 (B, H, T, T))."""
-        x, probs = self._attn_plain(x, temperature, rel_bias, True)
-        return self.mlp_half(x, int8=False), probs
+        (x, probs f32 (B, H, T, T), the attention branch before LayerScale,
+        where the JAX package measures its magnitude)."""
+        x, probs, branch = self._attn_plain(x, temperature, rel_bias, True)
+        return self.mlp_half(x, int8=False), probs, branch
 
     def forward(self, x: torch.Tensor, temperature: float = 1.0,
                 rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -521,14 +548,12 @@ class VisionTransformer(nn.Module):
                 attn_temperature: float = 1.0, capture_stats: bool = False,
                 return_final_attn: bool = False):
         """x (B, H, W, 3) NHWC -> features of ``return_features`` mode; with
-        ``return_final_attn``, (features, (the last block's probabilities,
-        the tokens)). ``shuffle_subsets`` > 1 splits the patch tokens by the
-        argsort of ``shuffle_noise`` (B, N), uniform noise drawn here where
-        it is not given."""
-        if capture_stats:
-            raise NotImplementedError(
-                "capture_stats (every block's attention statistics) is not "
-                "ported yet (ROADMAP module item 8, attention statistics)")
+        ``capture_stats``, (features, stats f32 (5, B, blocks, H, T),
+        magnitudes f32 (2, B, blocks, T)); with ``return_final_attn``, the
+        last block's probabilities and the tokens after these, as a pair.
+        ``shuffle_subsets`` > 1 splits the patch tokens by the argsort of
+        ``shuffle_noise`` (B, N), uniform noise drawn here where it is not
+        given."""
         c = self.cfg
         dt = c.dtype
         x = self.patch_embed(x, dt)
@@ -570,7 +595,7 @@ class VisionTransformer(nn.Module):
         rel_bias = self.rel_pos_bias() if self.rel_pos_bias is not None else None
         needs_final_attn = (return_final_attn
                             or return_features.startswith(("ca", "attn")))
-        use_scan = (not needs_final_attn
+        use_scan = (not capture_stats and not needs_final_attn
                     and (return_block is None or return_block == c.depth - 1)
                     and c.rel_pos_bias != "per_block")
         if c.scan_blocks and not use_scan:
@@ -581,17 +606,32 @@ class VisionTransformer(nn.Module):
 
         last_block = return_block if return_block is not None else c.depth - 1
         final_probs = None
+        stats, magnitudes = [], []
         for i, blk in enumerate(self.blocks):
             if i > last_block:
                 break
             bias = (getattr(self, f"rel_pos_bias_{i}")()
                     if c.rel_pos_bias == "per_block" else rel_bias)
-            if needs_final_attn and i == last_block:
-                x, final_probs = blk.capture(x, attn_temperature, bias)
+            if capture_stats or (needs_final_attn and i == last_block):
+                x_in = x
+                x, final_probs, branch = blk.capture(x, attn_temperature, bias)
+                if capture_stats:
+                    # ||x|| and ||attention branch|| (models_vit.py:147-150)
+                    stats.append(attn_stats_from_probs(final_probs))
+                    magnitudes.append(torch.stack(
+                        [torch.linalg.vector_norm(t.float(), dim=2)
+                         for t in (x_in, branch)])[:, :, None])
             else:
                 x = blk(x, attn_temperature, bias)
-        return self._finish(x, B, N, ss, return_features, final_probs,
-                            return_final_attn)
+        ret = self._finish(x, B, N, ss, return_features, final_probs,
+                           return_final_attn)
+        if not capture_stats:
+            return ret
+        if ss > 1:  # the JAX package's _finish drops them with the subsets
+            return ret, None, None
+        ret, extra = ret if return_final_attn else (ret, None)
+        out = (ret, torch.cat(stats, dim=2), torch.cat(magnitudes, dim=2))
+        return out + (extra,) if return_final_attn else out
 
     def _finish(self, x, B, N, ss, return_features, final_probs,
                 return_final_attn):

@@ -1,18 +1,18 @@
-"""Multi-head attention over split heads, in plain PyTorch.
+"""Multi-head attention over split heads, in plain PyTorch, and the
+attention statistics of the attention-statistics CLI.
 
-Counterpart of ``ep_tpu/ops/attention.py::mha``, which the JAX package
-leaves to XLA; the pooling heads that run a self-attention of their own
-(dinovit, abmilp) call it, and so does the backbone's plain ``Attention``
-where it adds a relative-position bias or returns the last block's
-probabilities (``models/vit.py``); every other backbone block runs the
+Counterpart of ``ep_tpu/ops/attention.py``, which the JAX package leaves to
+XLA. The pooling heads that run a self-attention of their own (dinovit,
+abmilp) call ``mha``, and so does the backbone's plain ``Attention`` where it
+adds a relative-position bias, returns probabilities or runs with
+``attn_impl="xla"`` (``models/vit.py``); every other backbone block runs the
 kernels of ``ops/attn_block.py`` and ``ops/attn_fused.py``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
-
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -51,3 +51,30 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     if return_probs:
         return out, probs
     return out
+
+
+class AttnStats(NamedTuple):
+    """Per-block attention diagnostics, the reference's 5-kind stack
+    (models_vit.py:246-264): [attn_diag, attn_diag_adj_for_cls,
+    cls_all_attn, all_cls_attn, entropy]."""
+
+    stats: torch.Tensor  # (5, B, 1, H, T)
+    magnitudes: torch.Tensor  # (2, B, 1, T): input norm, attn-branch norm
+
+
+def attn_stats_from_probs(probs: torch.Tensor) -> torch.Tensor:
+    """The 5-kind stack from (B, H, T, T) probabilities, in f32, as
+    (5, B, 1, H, T) (``ep_tpu/ops/attention.py::attn_stats_from_probs``):
+    self-attention, self-attention over the patch keys' mass, [CLS] to every
+    token, every token to [CLS], and the entropy over the patch keys."""
+    probs = probs.float()
+    diag = probs.diagonal(dim1=2, dim2=3)  # (B, H, T)
+    wo_cls = probs[:, :, :, 1:]
+    denom = wo_cls.sum(dim=3, keepdim=True) + 1e-6
+    wo_cls = wo_cls / denom
+    entropy = -(wo_cls * torch.log(wo_cls + 1e-6)).sum(dim=3)
+    # the diagonal of probs / denom, without the (B, H, T, T) quotient
+    diag_adj = diag / denom[..., 0]
+    stats = torch.stack([diag, diag_adj, probs[:, :, 0, :], probs[:, :, :, 0],
+                         entropy])  # (5, B, H, T)
+    return stats[:, :, None]

@@ -273,3 +273,105 @@ def test_blocks_take_the_jax_gate(family, supercell):
         assert int8_mlp_inactive_reason(bcfg)
         pm = ProbeModel(bcfg, cfg)
         assert not any(b.int8_mlp for b in pm.backbone.blocks)
+
+
+def test_mae_decoder_takes_the_plain_route(monkeypatch):
+    """MAE's decoder asks for plain attention (``attn_impl="xla"``, the JAX
+    decoder's) and its encoder for the kernels: the decoder's blocks never
+    reach the supercell or the fused attention (either would raise here),
+    and the loss is flax's."""
+    import ep_tpu_torch.models.vit as pvit
+    fcfg = dataclasses.replace(jmae.mae_vit_base_patch16(dtype=jnp.float32),
+                               **TINY_MAE)
+    pcfg = port_cfg(fcfg)
+    assert pcfg.encoder_vit().attn_impl == "auto"
+    assert pcfg.decoder_vit().attn_impl == "xla"
+    fm = jmae.MaskedAutoencoderViT(fcfg)
+    x = images(5)
+    key = jax.random.key(6)
+    v = {"params": redraw(fm.init({"params": jax.random.key(0),
+                                   "masking": key},
+                                  jnp.asarray(x[:2]))["params"], 9)}
+    pm = load_port(pmae.MaskedAutoencoderViT(pcfg), v)
+    assert all(b.supercell and b.attn.kernel for b in pm.blocks)
+    assert not any(b.supercell or b.attn.kernel for b in pm.decoder_blocks)
+
+    calls = []
+    supercell = pvit.attn_supercell
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return supercell(*a, **k)
+
+    def refuse(*a, **k):
+        raise AssertionError("a decoder block took the fused attention")
+    monkeypatch.setattr(pvit, "attn_supercell", counted)
+    monkeypatch.setattr(pvit, "attention_qkv_fused", refuse)
+    noise = np.array(jax.random.uniform(key, (B, 16)))
+    loss_t, _, _ = pm(torch.from_numpy(x), 0.75,
+                      noise=torch.from_numpy(noise))
+    loss_j, _, _ = fm.apply(v, jnp.asarray(x), 0.75, rng=key)
+    assert calls == [(B, 5, D)] * DEPTH  # the encoder's blocks only
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-5)
+
+
+@pytest.mark.parametrize("family", ["vit_base_patch16", *FAMILIES])
+@pytest.mark.parametrize("attn_impl", ["xla", "auto", "pallas"])
+def test_attn_impl_picks_the_route(family, attn_impl, monkeypatch):
+    """``--attn_impl xla`` puts every block of a ViT-B-shaped backbone (and
+    of every family) on the plain route through ``mha``, as the JAX package
+    routes it to XLA, and leaves the int8 half inactive; ``auto`` and
+    ``pallas`` keep the routes of ``test_blocks_take_the_jax_gate``. MAE's
+    encoder takes the kernels whatever the flag says."""
+    import ep_tpu_torch.models.vit as pvit
+    spec = FAMILIES.get(family, dict(model=family))
+    cfg = PortTrainConfig(nb_classes=C, image_size=IMG, attn_impl=attn_impl,
+                          **spec)
+    bcfg = build_backbone_config(cfg)
+    plain = attn_impl == "xla" and family != "mae_vit_base_patch16"
+    if family == "vit_base_patch16":
+        assert (bcfg.embed_dim, bcfg.num_heads) == (768, 12)
+        assert bool(int8_mlp_inactive_reason(
+            bcfg.replace(int8_mlp=True))) == plain
+    small = tiny(bcfg)
+    if not isinstance(bcfg, pmae.MAEConfig):  # tiny() asks for "pallas"
+        small = small.replace(attn_impl=attn_impl)
+    pm = ProbeModel(small, cfg)
+    blocks = pm.backbone.blocks
+    assert not any(b.attn.kernel for b in blocks) if plain else \
+        all(b.attn.kernel for b in blocks)
+    if plain:
+        assert not any(b.supercell for b in blocks)
+
+        def refuse(*a, **k):
+            raise AssertionError("a plain block took a kernel route")
+        monkeypatch.setattr(pvit, "attn_supercell", refuse)
+        monkeypatch.setattr(pvit, "attention_qkv_fused", refuse)
+        pm.eval()
+        assert torch.isfinite(pm(torch.from_numpy(images(6)))).all()
+
+
+@pytest.mark.parametrize("family", [
+    "vit_tiny_patch16", "dinov2_vitb14_reg", "capi_vitl14", "openclip_openai",
+    "simmim", "mae_vit_base_patch16"])
+def test_init_probe_model_draws_what_reset_parameters_draws(family):
+    """``init_probe_model`` skips the constructors' own initialisation: every
+    parameter and buffer equals that of a model built with it and then
+    drawn from the same seed, for each family and, on the plain ViT, each
+    head of the zoo, its ``_all`` variant and the ``dino`` oracle."""
+    from ep_tpu_torch.configs import POOLING_NAMES
+    spec = FAMILIES.get(family, dict(model=family))
+    heads = (["cls", "pos", "dino"] + POOLING_NAMES
+             + ["ep_all", "aim_all", "cait_all"]
+             if family == "vit_tiny_patch16" else ["ep"])
+    for head in heads:
+        cfg = PortTrainConfig(nb_classes=C, image_size=IMG, cls_features=head,
+                              ep_queries=4, num_heads=4, **spec)
+        bcfg = tiny(build_backbone_config(cfg))
+        got = init_probe_model(cfg, 3, bcfg, device="cpu").state_dict()
+        ref = ProbeModel(bcfg, cfg)
+        ref.reset_parameters(torch.Generator().manual_seed(3))
+        want = ref.state_dict()
+        assert got.keys() == want.keys()
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (family, head, k)

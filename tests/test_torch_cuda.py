@@ -923,3 +923,28 @@ def test_attention_backward_routes_by_shape(dev):
     scale = float(ref.float().abs().max())
     torch.testing.assert_close(qkv.grad.cpu().float(), ref.float(), rtol=1e-2,
                                atol=1e-2 * scale)
+
+
+def test_mae_decoder_runs_on_the_card(dev):
+    """MAE at ViT-B's widths with its decoder (16 heads of width 32, which
+    kernel B is not built for), depth cut to 2 and 2: the encoder launches A,
+    B and C once a block, the decoder's plain route no kernel, and the loss
+    agrees with the CPU's on the same masking noise."""
+    from ep_tpu_torch.models.assembly import init_backbone
+    from ep_tpu_torch.models.mae import (MaskedAutoencoderViT,
+                                         mae_vit_base_patch16)
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    import dataclasses
+    m = MaskedAutoencoderViT(dataclasses.replace(
+        mae_vit_base_patch16(), depth=2, decoder_depth=2))
+    init_backbone(m, torch.Generator().manual_seed(0))
+    x = _rand((4, 224, 224, 3), "cpu", dtype=torch.float32, seed=1)
+    noise = torch.rand(4, 196, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        ref = m(x, 0.75, noise=noise)[0].item()
+        m.to(dev)
+        reset_launches()
+        got = m(x.to(dev), 0.75, noise=noise)[0].item()
+    assert dict(LAUNCHES) == _counts(ln_qkv_gemm=2, attn_core=2,
+                                     proj_residual_gemm=2)
+    assert abs(got - ref) <= 2e-3 * abs(ref)

@@ -1,8 +1,8 @@
 """Every feature mode of the port's VisionTransformer against the flax
 module, and the forward's options: ``return_block``, ``shuffle_subsets``,
 the attention temperature, the ``dino`` mode with its oracle, and the
-refusals the JAX package makes (``tcut-*``, the scan rules) or that name a
-later slice (``capture_stats``, module item 8).
+refusals the JAX package makes (``tcut-*``, the scan rules), and
+``capture_stats`` (module item 8) beside a feature mode.
 
 Sizes, weights and tolerances: ``test_torch_backbone_util.py`` (f32 at 1e-5,
 bf16 within 2**-5 of the largest magnitude). The ``ca*`` and ``attn-*``
@@ -185,9 +185,16 @@ def test_tcut_raises_as_in_jax():
 
 
 def test_capture_stats_names_item_8():
-    _, _, pm = _cached_pair("float32")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pm(torch.from_numpy(images()[:2]), "cls", capture_stats=True)
+    """Named for the refusal it held before module item 8 was ported: the
+    capture now returns flax's features, statistics and magnitudes (f32,
+    1e-5), here beside a mode that reads the last block's probabilities."""
+    fm, v, pm = _cached_pair("float32")
+    x = images()[:2]
+    got = pm(torch.from_numpy(x), "ca2", capture_stats=True)
+    want = fm.apply(v, jnp.asarray(x), "ca2", capture_stats=True)
+    assert got[1].shape == (5, 2, 2, 2, 17) and got[2].shape == (2, 2, 2, 17)
+    for a, b, what in zip(got, want, ("features", "stats", "magnitudes")):
+        close(a, b, "float32", what)
 
 
 @pytest.mark.parametrize("kw, call", [

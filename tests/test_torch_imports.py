@@ -20,7 +20,8 @@ from ep_tpu_torch.utils.pos_embed import bicubic_weight_matrix
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "ep_tpu")
 PORT_FILES = sorted((ROOT / "ep_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "main_linprobe_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "main_linprobe_torch.py",
+    ROOT / "main_attention_stats_torch.py", ROOT / "search_linprobe_torch.py"]
 # The port's copies of the JAX package's host data pipeline (numpy and PIL):
 # the same text, with the package's own imports pointed at ep_tpu_torch.data.
 DATA_COPIES = ("datasets", "transforms", "autoaugment", "loader", "_native")
@@ -54,7 +55,13 @@ def test_the_walk_sees_the_port():
             "ep_tpu_torch/utils/logging.py",
             "ep_tpu_torch/convert/torch_vit.py",
             "ep_tpu_torch/train/feature_cache.py",
-            "ep_tpu_torch/data/device_aug.py"} <= names
+            "ep_tpu_torch/data/device_aug.py",
+            "ep_tpu_torch/cli/attention_stats.py",
+            "main_attention_stats_torch.py", "search_linprobe_torch.py",
+            "ep_tpu_torch/tools/extract_features.py",
+            "ep_tpu_torch/tools/extract_pool_attention.py",
+            "ep_tpu_torch/tools/convert_checkpoint.py",
+            "ep_tpu_torch/tools/validate_zoo.py"} <= names
     assert {f"ep_tpu_torch/data/{f}.py" for f in DATA_COPIES} <= names
     assert _forbidden("ep_tpu") and _forbidden("ep_tpu.configs")
     assert _forbidden("jax.numpy") and not _forbidden("ep_tpu_torch.configs")
