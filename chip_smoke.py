@@ -173,6 +173,30 @@ Phases, each of which must pass (any failure exits non-zero):
              driver's model must give; --cls_features dino --oracle_ckpt of a
              timm-layout ViT-B/16 .pth on ViT-B/16 for one epoch (A, B and C
              23 times a forward), the oracle holding the file's weights.
+   Several processes (ROADMAP module item 9) and --use_grain (item 11),
+   after the driver phases:
+   ddp-nccl-1 — the driver phase's first run again (two epochs, the second
+             profiled) through init_distributed at world size 1
+             (EP_TPU_MULTIHOST=1, WORLD_SIZE=1): an NCCL group, the
+             registered (1, 1) mesh; its training_log.txt lines equal the
+             one-process run's, A, B, C 12 times a forward and D once, the
+             group answers an all_reduce on the card; each epoch's img/s and
+             the idle share beside the driver phase's.
+   ddp-gloo-2 — two ranks on the one card through gloo, started as
+             subprocesses of this script (--ddp-gloo-rank R --ddp-dir D),
+             each initialising its group before the port's init_distributed
+             sees it: 4 train steps of phase 4's model on 256 of its 512
+             images each (weights broadcast from rank 0). Step 0's loss
+             equal on both ranks and within LOSS_TOL of phase 4's and of one
+             process's on all 512; the heads bit-equal across ranks; BN's
+             running statistics within a bf16 step of one process's; A, B, C
+             12 times and D once a step on each rank; then the cached
+             extraction on the fake val split (64 images a rank, batches of
+             32 gathered through the host): the same (128, 196, 768) cache
+             on both ranks, each rank's rows in place. Its step ms is that of
+             two ranks sharing one card, no speed number.
+   use-grain — whether the grain package imports; where it does, one
+             --use_grain driver epoch with its launches.
    Attention statistics and the tools (ROADMAP module item 8), after the
    driver phases, on frozen ViT-B/16 (bf16, random weights from seed 0):
    attn-stats-b — main_attention_stats_torch.py's main with --finetune of a
@@ -2119,43 +2143,13 @@ DRIVER_FLAGS = dict(dataset_name="fake", nb_classes=10, image_size=224,
 DRIVER_STEPS, DRIVER_EVAL_BATCHES = 4, 1
 
 
-def driver(card: str, paths: dict, keep) -> list[dict]:
-    """Run the probe-training driver as a user runs it and check what it
-    writes. Adds each run's launch counts to ``paths``; returns each epoch's
-    wall time and img/s, and the device's idle share over one profiled
-    epoch. Copies the EP checkpoint of its first run (after --auto_resume:
-    epoch 2) to ``keep``, for the tools' phases."""
-    import ep_tpu_torch.cli.linprobe as linprobe
-    from ep_tpu_torch.configs import TrainConfig
-    from ep_tpu_torch.ops import LAUNCHES, reset_launches
-    from ep_tpu_torch.ops.pool_attn import query_groups
-    from ep_tpu_torch.train.state import cast_frozen
+def epoch_timer(run_epoch, epochs: list, profiled: dict):
+    """A stand-in for the driver's train_one_epoch that times each epoch on
+    the host clock, appends its record to ``epochs``, and profiles the epoch
+    ``profiled["at"]`` names ((output_dir, epoch)): the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    epochs, built, extracted = [], [], []
-    profiled = {"at": None}
-    run_epoch, build_model = linprobe.train_one_epoch, linprobe.init_probe_model
-    run_extract = linprobe.extract_split
-
-    def timed_extract(backbone_apply, loader, device, cache_dir, name, **kw):
-        """The driver's extract_split on the host clock."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        feats, labels = run_extract(backbone_apply, loader, device, cache_dir,
-                                    name, **kw)
-        wall = time.perf_counter() - t0
-        rec = dict(run=Path(cache_dir).name, split=name,
-                   shape=list(feats.shape), dtype=str(feats.dtype),
-                   wall_s=wall, img_s=len(feats) / wall)
-        extracted.append(rec)
-        log(f"  extraction of {rec['run']}'s {name}: {len(feats)} images to "
-            f"{tuple(feats.shape)} {feats.dtype} in {wall:.3f} s, "
-            f"{rec['img_s']:.1f} img/s")
-        return feats, labels
-
     def timed_epoch(train_step, step, loader, device, epoch, cfg, writer):
-        """The driver's train_one_epoch on the host clock (and once under
-        the profiler), with the global step it was handed."""
         prof = None
         if profiled["at"] == (cfg.output_dir, epoch):
             prof = profile(activities=[ProfilerActivity.CPU,
@@ -2180,15 +2174,54 @@ def driver(card: str, paths: dict, keep) -> list[dict]:
                f"{wall * 1e3:.1f}, idle share {rec['idle_share']:.3f}"
                if prof is not None else ""))
         return out
+    return timed_epoch
+
+
+def epoch_lines(out: Path) -> dict:
+    """The epoch lines of a run's training_log.txt: {epoch: [numbers]}."""
+    rows = (out / "training_log.txt").read_text().splitlines()
+    return {int(r.split(",")[0]): [float(v) for v in r.split(", ")[1:]]
+            for r in rows if r[:1].isdigit()}
+
+
+def driver(card: str, paths: dict, keep) -> list[dict]:
+    """Run the probe-training driver as a user runs it and check what it
+    writes. Adds each run's launch counts to ``paths``; returns each epoch's
+    wall time and img/s, the device's idle share over one profiled epoch,
+    and the epoch lines of its first run's training_log.txt. Copies the EP
+    checkpoint of its first run (after --auto_resume: epoch 2) to ``keep``,
+    for the tools' phases."""
+    import ep_tpu_torch.cli.linprobe as linprobe
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.pool_attn import query_groups
+    from ep_tpu_torch.train.state import cast_frozen
+
+    epochs, built, extracted = [], [], []
+    profiled = {"at": None}
+    build_model = linprobe.init_probe_model
+    timed_epoch = epoch_timer(linprobe.train_one_epoch, epochs, profiled)
+    run_extract = linprobe.extract_split
+
+    def timed_extract(backbone_apply, loader, device, cache_dir, name, **kw):
+        """The driver's extract_split on the host clock."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats, labels = run_extract(backbone_apply, loader, device, cache_dir,
+                                    name, **kw)
+        wall = time.perf_counter() - t0
+        rec = dict(run=Path(cache_dir).name, split=name,
+                   shape=list(feats.shape), dtype=str(feats.dtype),
+                   wall_s=wall, img_s=len(feats) / wall)
+        extracted.append(rec)
+        log(f"  extraction of {rec['run']}'s {name}: {len(feats)} images to "
+            f"{tuple(feats.shape)} {feats.dtype} in {wall:.3f} s, "
+            f"{rec['img_s']:.1f} img/s")
+        return feats, labels
 
     def keep_model(*a, **kw):
         built.append(build_model(*a, **kw))
         return built[-1]
-
-    def lines(out):
-        rows = (out / "training_log.txt").read_text().splitlines()
-        return {int(r.split(",")[0]): [float(v) for v in r.split(", ")[1:]]
-                for r in rows if r[:1].isdigit()}
 
     def run(name, out, **kw):
         cfg = TrainConfig(**{**DRIVER_FLAGS, "output_dir": str(out), **kw})
@@ -2218,11 +2251,11 @@ def driver(card: str, paths: dict, keep) -> list[dict]:
         if paths[name] != want:
             raise RuntimeError(f"{name}: launches {paths[name]}, expected {want}")
 
-    def check_run(name, out, epoch_lines, ckpt_epoch_step):
+    def check_run(name, out, want_lines, ckpt_epoch_step):
         """Finite epoch lines, and a head-only checkpoint at the epoch and
         global step given."""
-        got = lines(out)
-        if list(got) != epoch_lines or not all(
+        got = epoch_lines(out)
+        if list(got) != want_lines or not all(
                 math.isfinite(v) for row in got.values() for v in row):
             raise RuntimeError(f"{name}: epoch lines {got}")
         ckpt = torch.load(out / "checkpoint-.pth", weights_only=True)
@@ -2259,7 +2292,7 @@ def driver(card: str, paths: dict, keep) -> list[dict]:
         # 2. --auto_resume to 3 epochs: epoch 2 from the saved global step
         run("driver-resume", tmp / "train", epochs=3, auto_resume=True)
         expect("driver-resume", per_epoch)
-        resumed = lines(tmp / "train")
+        resumed = epoch_lines(tmp / "train")
         last = epochs[-1]
         if list(resumed) != [2] or (last["epoch"], last["first_step"]) != (
                 2, 2 * DRIVER_STEPS):
@@ -2286,7 +2319,7 @@ def driver(card: str, paths: dict, keep) -> list[dict]:
         groups = len(query_groups(128))
         run("driver-q128", tmp / "q128", ep_queries=128, epochs=1)
         expect("driver-q128", per_epoch, per_forward=groups)
-        q128 = lines(tmp / "q128")
+        q128 = epoch_lines(tmp / "q128")
         if not all(math.isfinite(v) for v in q128[0]):
             raise RuntimeError(f"driver-q128: {q128}")
         log(f"  --ep_queries 128: {q128[0]}; kernel D {groups} launches a "
@@ -2361,7 +2394,327 @@ def driver(card: str, paths: dict, keep) -> list[dict]:
             raise RuntimeError(f"driver-device-aug: staged files {staged}")
         log(f"  --device_aug: epoch lines {got}; staged {staged}")
     torch.cuda.empty_cache()
-    return epochs, extracted
+    return epochs, extracted, first
+
+
+# --- data parallelism (ROADMAP module item 9) and --use_grain (item 11) ------
+
+def ddp_nccl_1(card: str, paths: dict, driver_epochs: list,
+               driver_lines: dict) -> list[dict]:
+    """The driver phase's first run (two epochs, the second profiled) again,
+    through init_distributed at world size 1 (EP_TPU_MULTIHOST=1,
+    WORLD_SIZE=1): NCCL, the registered (1, 1) mesh and the multi-process
+    path's branches. Its training_log.txt must hold the driver phase's epoch
+    lines; each epoch's img/s and the profiled epoch's idle share are printed
+    beside the driver phase's. Returns its epochs' records."""
+    import torch.distributed as dist
+    import ep_tpu_torch.cli.linprobe as linprobe
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.ops import reset_launches
+
+    epochs, profiled, seen = [], {"at": None}, {}
+    make_mesh = linprobe.make_mesh
+
+    def spy_mesh(*a):
+        """The driver's mesh, and the group it was built over."""
+        seen.update(mesh=make_mesh(*a), backend=dist.get_backend(),
+                    world=dist.get_world_size())
+        return seen["mesh"]
+
+    per_epoch = DRIVER_STEPS + DRIVER_EVAL_BATCHES
+    with tempfile.TemporaryDirectory() as tmp, \
+            environment(EP_TPU_MULTIHOST="1", WORLD_SIZE="1", LOCAL_RANK="0"), \
+            mock.patch.object(linprobe, "train_one_epoch", epoch_timer(
+                linprobe.train_one_epoch, epochs, profiled)), \
+            mock.patch.object(linprobe, "make_mesh", spy_mesh):
+        out = Path(tmp) / "ddp-nccl-1"
+        out.mkdir()
+        profiled["at"] = (str(out), 1)
+        log("[ddp-nccl-1] the driver phase's first run through "
+            "init_distributed at world size 1 (NCCL): ViT-B/16, EP-32, batch "
+            f"128, two epochs, on {card}")
+        torch.cuda.synchronize()
+        reset_launches()
+        try:
+            res = linprobe.main(TrainConfig(**{
+                **DRIVER_FLAGS, "output_dir": str(out),
+                "dist_url": f"file://{tmp}/store"}))
+            torch.cuda.synchronize()
+            # at one rank no step reduces anything: the group answers one
+            # all_reduce on the card
+            probe = torch.arange(4.0, device="cuda")
+            dist.all_reduce(probe)
+            seen["all_reduce"] = probe.tolist()
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        paths["ddp-nccl-1"] = dict(launch_counts())
+        if (seen.get("backend"), seen.get("world"), seen["mesh"].shape,
+                seen["all_reduce"]) != ("nccl", 1, {"data": 1, "model": 1},
+                                        [0.0, 1.0, 2.0, 3.0]):
+            raise RuntimeError(f"ddp-nccl-1: ran on {seen}")
+        _launches_equal("ddp-nccl-1", paths,
+                        ln_qkv_gemm=24 * per_epoch, attn_core=24 * per_epoch,
+                        proj_residual_gemm=24 * per_epoch,
+                        ep_pool=2 * per_epoch)
+        got = epoch_lines(out)
+        log(f"  epoch lines {got}; the driver phase's {driver_lines}; max "
+            f"accuracy {res['max_accuracy']:.2f}%")
+        if got != driver_lines:
+            raise RuntimeError("ddp-nccl-1: training_log.txt's epoch lines are "
+                               "not the non-distributed run's")
+        if not (out / "checkpoint-.pth").exists():
+            raise RuntimeError("ddp-nccl-1: no checkpoint")
+    plain = {e["epoch"]: e for e in driver_epochs if e["run"] == "train"
+             and e["epoch"] in (0, 1)}
+    for e in epochs:
+        p = plain[e["epoch"]]
+        log(f"[steps] ddp-nccl-1 epoch {e['epoch']}: {e['img_s']:.1f} img/s"
+            + (f", idle share {e['idle_share']:.3f}" if "idle_share" in e
+               else "")
+            + f"; driver (one process, same run): {p['img_s']:.1f} img/s"
+            + (f", idle share {p['idle_share']:.3f}" if "idle_share" in p
+               else "") + f" on {card}")
+    return epochs
+
+
+def launch_counts() -> dict:
+    from ep_tpu_torch.ops import LAUNCHES
+    return dict(LAUNCHES)
+
+
+GLOO_STEPS, GLOO_BATCH = 4, 512  # the global batch: 256 images a rank
+
+
+def gloo_config(batch: int):
+    """The train phase's configuration at ``batch`` images a rank of a
+    global batch of GLOO_BATCH (the LR follows the global batch)."""
+    from ep_tpu_torch.configs import TrainConfig
+    return TrainConfig(model="vit_base_patch16", cls_features="ep",
+                       ep_queries=32, d_out=1, nb_classes=1000,
+                       amp="bfloat16", pallas_pool=True, epochs=90,
+                       warmup_epochs=10, blr=0.1, batch_size=batch,
+                       eff_batch_size=GLOO_BATCH)
+
+
+def gloo_steps(batch: int, rows: slice, steps: int):
+    """``steps`` train steps of the train phase's model (seed 0, on the
+    card) on ``rows`` of its GLOO_BATCH images and labels (the same numpy
+    draws); under a registered two-rank mesh its weights are broadcast from
+    rank 0 first. Returns (model, losses, step seconds, launch counts)."""
+    from ep_tpu_torch.models.assembly import (build_backbone_config,
+                                              init_probe_model)
+    from ep_tpu_torch.ops import reset_launches
+    from ep_tpu_torch.parallel.mesh import current_mesh, shard_batch
+    from ep_tpu_torch.parallel.partition import shard_state
+    from ep_tpu_torch.train.lars import LARS
+    from ep_tpu_torch.train.schedule import make_lr_fn
+    from ep_tpu_torch.train.state import cast_frozen, freeze
+    from ep_tpu_torch.train.steps import make_train_step
+
+    cfg = gloo_config(batch)
+    model = init_probe_model(cfg, seed=0, backbone_cfg=build_backbone_config(cfg))
+    if current_mesh() is not None:
+        shard_state(model, current_mesh())
+    opt = LARS(freeze(model, False), weight_decay=0.0)
+    cast_frozen(model, torch.bfloat16)
+    step_fn = make_train_step(model, opt, make_lr_fn(cfg, 1000))
+    rng = np.random.default_rng(0)  # phase 4's images and labels
+    images = rng.standard_normal((GLOO_BATCH, 224, 224, 3), dtype=np.float32)
+    labels = rng.integers(0, 1000, size=(GLOO_BATCH,))
+    x, y = shard_batch((images[rows], labels[rows]))
+    torch.cuda.synchronize()
+    reset_launches()
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step_fn(i, x, y)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return model, losses, times, launch_counts()
+
+
+def ddp_gloo_worker(rank: int, tmp: str) -> None:
+    """One of ddp-gloo-2's two ranks (``chip_smoke.py --ddp-gloo-rank R
+    --ddp-dir D``): joins a gloo group of two through a file store, lets the
+    port's init_distributed see it (and take this rank's card), runs
+    GLOO_STEPS train steps on its half of the global batch, then the cached
+    extraction's gather on the fake val split, and saves what it saw."""
+    import torch.distributed as dist
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.data.datasets import build_datasets
+    from ep_tpu_torch.data.loader import DataLoader
+    from ep_tpu_torch.data.transforms import build_transforms
+    from ep_tpu_torch.ops import _build, reset_launches
+    from ep_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
+                                            use_mesh)
+    from ep_tpu_torch.train.feature_cache import extract_split
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs on the card")
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=2)
+    init_distributed()
+    _build.library()
+    half = GLOO_BATCH // 2
+    with use_mesh(make_mesh(2, 1)):
+        model, losses, times, counts = gloo_steps(
+            half, slice(rank * half, (rank + 1) * half), GLOO_STEPS)
+        out = dict(losses=losses, times=times, counts=counts,
+                   head={k: v.cpu() for k, v in
+                         model.head.state_dict().items()})
+        # the cached extraction: each rank its 64 of the 128 val images in
+        # batches of 32, every batch gathered through the host (gloo)
+        cfg = TrainConfig(**{**DRIVER_FLAGS, "batch_size": 32})
+        _, val = build_datasets(cfg)
+        loader = DataLoader(val, 32, build_transforms(cfg)[1],
+                            num_workers=4, num_processes=2,
+                            process_index=rank)
+        torch.cuda.synchronize()
+        reset_launches()
+        feats, labels = extract_split(model.features, loader,
+                                      torch.device("cuda"), "", "val",
+                                      cfg=cfg)
+        torch.cuda.synchronize()
+        out["extract_counts"] = launch_counts()
+        with torch.no_grad():  # this rank's first batch, ungathered
+            first = next(iter(loader))[0]
+            own = model.features(torch.from_numpy(first).to(
+                "cuda", torch.bfloat16)).float().cpu()
+        f = torch.from_numpy(np.asarray(feats))
+        out.update(extract_shape=tuple(feats.shape), labels=labels,
+                   extract_sum=float(f.double().sum()),
+                   extract_abs=float(f.double().abs().sum()),
+                   own_rows_equal=bool(torch.equal(
+                       f[rank * 32:(rank + 1) * 32], own)))
+    torch.save(out, Path(tmp) / f"gloo{rank}.pth")
+    dist.destroy_process_group()
+
+
+def ddp_gloo_2(card: str, paths: dict, train_loss) -> dict:
+    """Two ranks on the one card through gloo, launched as subprocesses
+    (ddp_gloo_worker): the train step at full width, 256 images a rank of
+    the train phase's 512. Step 0's loss equal on both ranks and within
+    LOSS_TOL of the train phase's; the heads bit-equal after GLOO_STEPS
+    steps; BN's running statistics within bf16 rounding of one process's
+    after the same steps on all 512 images; A to D on each rank; the
+    extraction's gathered cache the same on both ranks. The step's ms is
+    that of two ranks sharing one card: no speed number."""
+    model, ref_losses, _, _ = gloo_steps(GLOO_BATCH, slice(None), GLOO_STEPS)
+    ref_bn = {k: getattr(model.head.bn, k).cpu()
+              for k in ("running_mean", "running_var")}
+    del model
+    torch.cuda.empty_cache()
+    log(f"[ddp-gloo-2] two ranks on one card (gloo), ViT-B/16 EP-32, "
+        f"{GLOO_BATCH // 2} images a rank, {GLOO_STEPS} steps, on {card}; "
+        f"one process at batch {GLOO_BATCH}: losses {ref_losses}")
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "WORLD_SIZE": "2", "GLOO_SOCKET_IFNAME": "lo"}
+        env.pop("EP_TPU_MULTIHOST", None)
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--ddp-gloo-rank",
+             str(r), "--ddp-dir", tmp],
+            env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            said = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, said)):
+            for line in text.splitlines()[-20:]:
+                log(f"  [rank {r}] {line}")
+            if p.returncode != 0:
+                raise RuntimeError(f"ddp-gloo-2: rank {r} exited with "
+                                   f"{p.returncode}")
+        ranks = [torch.load(Path(tmp) / f"gloo{r}.pth", weights_only=False)
+                 for r in range(2)]
+    r0, r1 = ranks
+    log(f"  losses rank 0 {r0['losses']}, rank 1 {r1['losses']}")
+    if r0["losses"] != r1["losses"]:
+        raise RuntimeError("ddp-gloo-2: the ranks' losses differ")
+    # train_loss: the train phase's step 0 at batch 512 (None at another
+    # --batch); ref_losses[0]: one process here
+    for what, loss in (("the train phase's", train_loss),
+                       ("one process's", ref_losses[0])):
+        if loss is None:
+            continue
+        d = abs(r0["losses"][0] - loss)
+        log(f"  step 0's loss against {what} {loss:.5f}: |d| {d:.2e} (tol "
+            f"{LOSS_TOL:g})")
+        if d > LOSS_TOL:
+            raise RuntimeError(f"ddp-gloo-2: step 0's loss is not {what}")
+    if not all(torch.equal(v, r1["head"][k]) for k, v in r0["head"].items()):
+        raise RuntimeError("ddp-gloo-2: the heads differ across ranks")
+    for k, ref in ref_bn.items():
+        got = r0["head"][f"bn.{k}"]
+        bound = STEP * ref.abs() + STEP * ref.abs().mean()
+        worst = float(((got - ref).abs() - bound).max())
+        log(f"  BN {k}: max |d| {float((got - ref).abs().max()):.3e} against "
+            f"one process (bound: a bf16 step of the value and of the mean "
+            f"magnitude)")
+        if worst > 0:
+            raise RuntimeError(f"ddp-gloo-2: BN {k} is not one process's")
+    per_step = dict(ln_qkv_gemm=12 * GLOO_STEPS, attn_core=12 * GLOO_STEPS,
+                    proj_residual_gemm=12 * GLOO_STEPS, ep_pool=GLOO_STEPS)
+    extract = dict(ln_qkv_gemm=12 * 2, attn_core=12 * 2,
+                   proj_residual_gemm=12 * 2)
+    for r, res in enumerate(ranks):
+        paths[f"ddp-gloo-2-rank{r}"] = res["counts"]
+        _launches_equal(f"ddp-gloo-2-rank{r}", paths, **per_step)
+        paths[f"ddp-gloo-2-extract-rank{r}"] = res["extract_counts"]
+        _launches_equal(f"ddp-gloo-2-extract-rank{r}", paths, **extract)
+    same = all(r0[k] == r1[k] for k in ("extract_shape", "extract_sum",
+                                         "extract_abs")) and \
+        np.array_equal(r0["labels"], r1["labels"])
+    log(f"  the gathered val cache: {r0['extract_shape']} on both ranks, "
+        f"equal: {same}; each rank's own rows in place: "
+        f"{r0['own_rows_equal']}, {r1['own_rows_equal']}")
+    if not (same and r0["extract_shape"] == (128, 196, 768)
+            and r0["own_rows_equal"] and r1["own_rows_equal"]):
+        raise RuntimeError("ddp-gloo-2: the gathered cache is wrong")
+    med = statistics.median(r0["times"][1:])
+    log(f"[steps] ddp-gloo-2: {med * 1e3:.2f} ms a step, two ranks sharing "
+        f"one card through gloo ({GLOO_BATCH // 2} images each; not a speed "
+        f"number) on {card}")
+    return dict(losses=r0["losses"], ref_losses=ref_losses,
+                step_ms_two_ranks_sharing_one_card=med * 1e3)
+
+
+def grain_phase(card: str, paths: dict) -> dict:
+    """--use_grain where the grain package imports: one driver epoch (ViT-B/16,
+    batch 128) on the grain loader; where it does not, one line says so."""
+    import importlib.util
+    found = importlib.util.find_spec("grain") is not None
+    log(f"[use-grain] the grain package imports on this machine: {found}")
+    if not found:
+        log("[use-grain] not run: no grain package (--use_grain raises "
+            "without it, as in the JAX package)")
+        return dict(grain=False)
+    import ep_tpu_torch.cli.linprobe as linprobe
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.ops import reset_launches
+    epochs = []
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(
+            linprobe, "train_one_epoch",
+            epoch_timer(linprobe.train_one_epoch, epochs, {"at": None})):
+        reset_launches()
+        linprobe.main(TrainConfig(**{**DRIVER_FLAGS, "epochs": 1,
+                                     "num_workers": 2, "use_grain": True,
+                                     "output_dir": tmp}))
+        paths["use-grain"] = launch_counts()
+        lines = epoch_lines(Path(tmp))
+    per_epoch = DRIVER_STEPS + DRIVER_EVAL_BATCHES
+    _launches_equal("use-grain", paths, ln_qkv_gemm=12 * per_epoch,
+                    attn_core=12 * per_epoch,
+                    proj_residual_gemm=12 * per_epoch, ep_pool=per_epoch)
+    if list(lines) != [0] or not all(math.isfinite(v) for v in lines[0]):
+        raise RuntimeError(f"use-grain: epoch lines {lines}")
+    log(f"[steps] use-grain epoch 0: {epochs[0]['img_s']:.1f} img/s on {card}")
+    return dict(grain=True, epochs=epochs)
 
 
 # --- the backbone family (DINOv2, CAPI, OpenCLIP, SimMIM, MAE) ---------------
@@ -3067,7 +3420,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--steps", type=int, default=5)
+    # ddp-gloo-2 starts this script once a rank with these
+    ap.add_argument("--ddp-gloo-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--ddp-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.ddp_gloo_rank is not None:
+        ddp_gloo_worker(args.ddp_gloo_rank, args.ddp_dir)
+        return 0
 
     t_start = time.perf_counter()
     walls = {}
@@ -3158,9 +3517,17 @@ def main() -> int:
     mark("fine-tuning")
     work = tempfile.TemporaryDirectory()
     tmp = Path(work.name)
-    driver_epochs, extracted = driver(card, paths, tmp / "driver_ep.pth")
+    driver_epochs, extracted, driver_lines = driver(card, paths,
+                                                    tmp / "driver_ep.pth")
     backbone_runs = driver_backbones(card, paths)
     mark("driver")
+    ddp = dict(nccl_1=ddp_nccl_1(card, paths, driver_epochs, driver_lines))
+    mark("ddp-nccl-1")
+    ddp["gloo_2"] = ddp_gloo_2(
+        card, paths, first_loss["train"] if args.batch == GLOO_BATCH else None)
+    mark("ddp-gloo-2")
+    ddp["use_grain"] = grain_phase(card, paths)
+    mark("use-grain")
     tools = dict(attn_stats=attn_stats_b(card, paths, tmp))
     mark("attn-stats-b")
     tools["extract_features"] = extract_features_phase(
@@ -3284,7 +3651,7 @@ def main() -> int:
                     "backbones": {"probe_steps": backbone_steps,
                                   "feature_modes": feature_modes,
                                   "driver": backbone_runs},
-                    "tools": tools, "walls_s": walls,
+                    "tools": tools, "walls_s": walls, "ddp": ddp,
                     "driver": {"epochs": driver_epochs,
                                "extraction": extracted,
                                "train_step": step_b}}))

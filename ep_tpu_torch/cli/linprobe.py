@@ -13,9 +13,16 @@ It runs on the card unless ``--device cpu`` is given: ``cpu`` is the CPU,
 any other value (the flag's default is the JAX package's ``tpu``) the CUDA
 device, and without one the driver raises rather than run on the CPU.
 
-Flags of slices that are not ported raise ``NotImplementedError`` with their
-ROADMAP item: more than one device or process (item 9). ``--oracle_ckpt``
-is read after ``--finetune``, as in the JAX driver.
+Several processes, one card each (``parallel/mesh.py``): a launcher's
+variables (torchrun's RANK, SLURM, Open MPI, or ``EP_TPU_MULTIHOST=1``)
+make ``init_distributed`` join the group, and ``--mesh_data`` x
+``--mesh_model`` ranks form the mesh, registered for the kernel gate and the
+reductions. As in the JAX driver: seeds offset by the process index for the
+host's numpy (the model's weights come from ``--seed`` alone and rank 0's
+are broadcast), a loader per data index, the effective batch times the data
+axis, the sinks and checkpoints on rank 0 only (a barrier after each save),
+and the early stop on global metrics. ``--oracle_ckpt`` is read after
+``--finetune``, as in the JAX driver.
 ``--aot_cache`` (the JAX package's store of compiled programs) changes no
 result and is ignored; ``--debug_nans`` runs under
 ``torch.autograd.detect_anomaly``.
@@ -24,7 +31,6 @@ from __future__ import annotations
 
 import contextlib
 import datetime
-import os
 import time
 from pathlib import Path
 
@@ -40,6 +46,10 @@ from ep_tpu_torch.data.loader import DataLoader, build_loaders
 from ep_tpu_torch.data.transforms import build_transforms
 from ep_tpu_torch.models.assembly import build_backbone_config, init_probe_model
 from ep_tpu_torch.ops import default_device
+from ep_tpu_torch.parallel.mesh import (DATA_AXIS, barrier, init_distributed,
+                                        make_mesh, process_count,
+                                        process_index, use_mesh)
+from ep_tpu_torch.parallel.partition import replicate
 from ep_tpu_torch.runtime.checkpoint import (find_auto_resume, load_model,
                                              save_model)
 from ep_tpu_torch.runtime.profiler import trace
@@ -63,33 +73,22 @@ def run_device(cfg: TrainConfig) -> torch.device:
     return torch.device("cpu") if cfg.device == "cpu" else default_device(None)
 
 
-def check_ported(cfg: TrainConfig) -> None:
-    """Raise for the flags whose slices are not ported yet."""
-    todo = {
-        "--mesh_data above 1": (cfg.mesh_data > 1, "module item 9"),
-        "--mesh_model above 1": (cfg.mesh_model > 1, "module item 9"),
-        "WORLD_SIZE above 1": (int(os.environ.get("WORLD_SIZE", "1")) > 1,
-                               "module item 9"),
-    }
-    for flag, (given, item) in todo.items():
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {item}); ep_tpu_torch "
-                "runs one process on one card")
-
-
 def main(cfg: TrainConfig) -> dict:
-    check_ported(cfg)
+    init_distributed(cfg)
     device = run_device(cfg)
+    # the mesh gates kernel dispatch (attn_impl=auto) and the reductions; it
+    # is registered for this run only
+    mesh = make_mesh(cfg.mesh_data, cfg.mesh_model)
     with contextlib.ExitStack() as stack:
+        stack.enter_context(use_mesh(mesh))
         if cfg.debug_nans:
             # pinpoints the op that produced a NaN, instead of the loss-level
             # abort
             stack.enter_context(torch.autograd.detect_anomaly())
-        return _main(cfg, device)
+        return _main(cfg, device, mesh)
 
 
-def _main(cfg: TrainConfig, device: torch.device) -> dict:
+def _main(cfg: TrainConfig, device: torch.device, mesh) -> dict:
     setup_for_distributed(is_main_process())
 
     log_file = TrainingLogFile(cfg.output_dir)
@@ -100,7 +99,13 @@ def _main(cfg: TrainConfig, device: torch.device) -> dict:
         print("| --aot_cache names the JAX package's store of compiled "
               "programs; PyTorch runs eagerly, so it is ignored")
 
-    np.random.seed(cfg.seed)
+    np.random.seed(cfg.seed + process_index())
+
+    data_axis = mesh.shape[DATA_AXIS]
+    if cfg.batch_size % data_axis != 0:
+        raise ValueError(
+            f"--batch_size {cfg.batch_size} must be divisible by the data "
+            f"mesh axis ({data_axis} processes); pick a multiple of {data_axis}")
 
     # --- data ----------------------------------------------------------------
     device_aug = None
@@ -135,10 +140,17 @@ def _main(cfg: TrainConfig, device: torch.device) -> dict:
         transform_train = transform_val = IdentityTransform()
     print(dataset_train)
     print(dataset_val)
+    # a loader per data index: ranks that share one on a model axis above 1
+    # read the same rows, as the JAX driver replicates over that axis
     loader_train, loader_val = build_loaders(
-        cfg, dataset_train, dataset_val, transform_train, transform_val)
+        cfg, dataset_train, dataset_val, transform_train, transform_val,
+        num_processes=data_axis, process_index=mesh.data_index,
+    )
 
-    eff_batch_size = cfg.batch_size * cfg.accum_iter
+    # the global batch: the JAX driver's factor is its process count, each
+    # process loading its own rows; here the ranks that load their own rows
+    # are the data axis' (all of them on a data-only mesh)
+    eff_batch_size = cfg.batch_size * cfg.accum_iter * data_axis
     cfg = cfg.replace(eff_batch_size=eff_batch_size)
 
     if is_main_process() and cfg.output_dir and not cfg.eval and not cfg.knn_eval:
@@ -157,6 +169,8 @@ def _main(cfg: TrainConfig, device: torch.device) -> dict:
     if cfg.oracle_ckpt:
         from ep_tpu_torch.convert.torch_vit import load_oracle
         load_oracle(cfg, backbone_cfg, model)
+    if process_count() > 1:
+        replicate(model)  # every rank starts from rank 0's weights
 
     trainable = freeze(model, cfg.finetuning)
     optimizer = build_optimizer(
@@ -202,9 +216,13 @@ def _main(cfg: TrainConfig, device: torch.device) -> dict:
         K = max(1, cfg.cache_augs)
         print(f"[cache] extracting frozen features (train x{K} aug "
               f"draw{'s' if K > 1 else ''} + val)")
+        # per-rank sharding like build_loaders: every data index extracts
+        # its own slice of the dataset; extract_split gathers each batch
         ex_train = DataLoader(dataset_train, cfg.batch_size, transform_train,
                               shuffle=False, drop_last=False,
-                              num_workers=cfg.num_workers)
+                              num_workers=cfg.num_workers,
+                              num_processes=data_axis,
+                              process_index=mesh.data_index)
         # K epoch-seeded augmentation draws per image (--cache_augs): the
         # loader iterates in dataset order (shuffle=False), so labels align
         # across variants and only the crop rng changes with the epoch
@@ -276,6 +294,7 @@ def _main(cfg: TrainConfig, device: torch.device) -> dict:
                      "epoch": epoch, "n_parameters": n_parameters}
         if cfg.output_dir:
             save_model(cfg, epoch, model, optimizer, step, log_stats)
+            barrier()  # no rank runs ahead of a file it may resume from
 
         print(f"Accuracy of the network on the {len(dataset_val)} "
               f"test images: {test_stats['acc1']:.1f}%")
@@ -291,7 +310,8 @@ def _main(cfg: TrainConfig, device: torch.device) -> dict:
             log_writer.add_scalar(f"{pf}/test_acc5", test_stats["acc5"], epoch)
             log_writer.add_scalar(f"{pf}/test_loss", test_stats["loss"], epoch)
 
-        # early stop on a validation plateau (main_linprobe.py:731-747)
+        # early stop on a validation plateau; the metrics are global, so
+        # every rank decides identically (main_linprobe.py:731-747)
         if cfg.early_stop:
             if test_stats["acc1"] > es_best + cfg.early_stop_min_delta:
                 es_best, es_stale = test_stats["acc1"], 0

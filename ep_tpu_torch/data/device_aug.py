@@ -32,6 +32,12 @@ Device half:
     draws those of the run it resumes. The sampler mirrors
     ``transforms.tf_random_resized_crop_params`` (the distribution is held to
     the host sampler's in ``tests/test_torch_device_aug.py``).
+  * Several ranks (``DeviceAug.shards`` > 1, the registered mesh's data
+    axis): each rank draws the boxes and flips of the whole global batch
+    (``shards`` times its own rows) and keeps the columns of its rows, rank
+    order, so the ranks crop their rows as one process would crop the
+    global batch, never with one another's draws, and a resume draws them
+    again.
 
 Known protocol difference (of both packages): the random crop samples over
 the SQUARE staged image (stage x stage) rather than the original rectangle.
@@ -47,6 +53,7 @@ import numpy as np
 import torch
 
 from ep_tpu_torch.ops.attention import mm_f32
+from ep_tpu_torch.parallel.mesh import DATA_AXIS, current_mesh
 from .transforms import (CLIP_MEAN, CLIP_STD, IMAGENET_MEAN, IMAGENET_STD,
                          ValTransform)
 
@@ -338,16 +345,22 @@ def crop_flip_normalize(images_u8: torch.Tensor, i, j, h, w, flip, out: int,
 def augment_train_batch(generator: torch.Generator, images_u8: torch.Tensor,
                         out: int, scale: Tuple[float, float],
                         ratio: Tuple[float, float], mean, std,
-                        dtype=torch.bfloat16, hflip: bool = True
-                        ) -> torch.Tensor:
+                        dtype=torch.bfloat16, hflip: bool = True,
+                        shards: int = 1, shard: int = 0) -> torch.Tensor:
     """The full device-side train transform: RandomResizedCrop(TF-style)
     + hflip(0.5) + normalize. images_u8: (B, stage, stage, 3). The boxes,
     then the flips, are drawn from ``generator`` on the CPU and moved to the
-    images' device in one copy (pinned and not blocking on a card)."""
+    images' device in one copy (pinned and not blocking on a card). With
+    ``shards`` > 1 the images are rows ``shard * B`` to ``(shard + 1) * B``
+    of a global batch of ``shards * B``: the draws are the global batch's,
+    and these rows' are kept."""
     B, S = images_u8.shape[0], images_u8.shape[1]
-    draws = torch.stack(sample_crop_params(generator, B, S, scale, ratio)
-                        + ((sample_flips(generator, B).float(),)
+    G = B * shards
+    draws = torch.stack(sample_crop_params(generator, G, S, scale, ratio)
+                        + ((sample_flips(generator, G).float(),)
                            if hflip else ()))
+    if shards > 1:
+        draws = draws[:, shard * B:(shard + 1) * B].contiguous()
     if images_u8.is_cuda:
         draws = draws.pin_memory().to(images_u8.device, non_blocking=True)
     i, j, h, w = draws[:4]
@@ -363,8 +376,8 @@ def augment_train_batch(generator: torch.Generator, images_u8: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class DeviceAug:
     """Everything the steps need to augment on device. Built once from the
-    TrainConfig (from_cfg); passed to make_train_step / make_eval_step /
-    make_extract_step."""
+    TrainConfig and the registered mesh (from_cfg); passed to
+    make_train_step / make_eval_step / make_extract_step."""
 
     out_size: int
     stage_size: int
@@ -375,6 +388,8 @@ class DeviceAug:
     seed: int = 0
     hflip: bool = True
     dtype: Any = torch.bfloat16
+    shards: int = 1  # ranks on the data axis: the global batch is shards x B
+    shard: int = 0  # this rank's place on it
 
     @staticmethod
     def stage_for(image_size: int, override: int = 0) -> int:
@@ -386,20 +401,25 @@ class DeviceAug:
                      else (IMAGENET_MEAN, IMAGENET_STD))
         dtype = torch.bfloat16 if cfg.amp in ("bfloat16", "float16") \
             else torch.float32
+        mesh = current_mesh()
         return cls(out_size=cfg.image_size,
                    stage_size=cls.stage_for(
                        cfg.image_size, getattr(cfg, "device_aug_stage", 0)),
                    mean=tuple(np.asarray(mean).tolist()),
                    std=tuple(np.asarray(std).tolist()),
-                   seed=cfg.seed, dtype=dtype)
+                   seed=cfg.seed, dtype=dtype,
+                   shards=mesh.shape[DATA_AXIS] if mesh else 1,
+                   shard=mesh.data_index if mesh else 0)
 
     def train_fn(self, step: int, images: torch.Tensor) -> torch.Tensor:
         """Augment a u8 staged batch; the global ``step`` seeds the draws
-        (:func:`step_seed`), so the schedule is resume-deterministic."""
+        (:func:`step_seed`), so the schedule is resume-deterministic; this
+        rank keeps its rows' draws of the global batch."""
         return augment_train_batch(step_generator(self.seed, int(step)),
                                    images, self.out_size, self.scale,
                                    self.ratio, self.mean, self.std,
-                                   self.dtype, self.hflip)
+                                   self.dtype, self.hflip, self.shards,
+                                   self.shard)
 
     def eval_fn(self, images: torch.Tensor) -> torch.Tensor:
         return normalize_u8_batch(images, self.mean, self.std, self.dtype)

@@ -124,9 +124,8 @@ def build_loaders(cfg, dataset_train, dataset_val, transform_train,
     drop_last = not cfg.knn_eval  # main_linprobe.py:315-318
     loader_cls = DataLoader
     if getattr(cfg, "use_grain", False):
-        raise NotImplementedError(
-            "--use_grain: the grain-backed loader (the grain package) is not "
-            "part of ep_tpu_torch; drop the flag to use this loader")
+        from .grain_loader import GrainDataLoader
+        loader_cls = GrainDataLoader
     train = loader_cls(
         dataset_train, cfg.batch_size, transform_train, shuffle=not cfg.knn_eval,
         drop_last=drop_last, seed=cfg.seed, num_workers=cfg.num_workers,

@@ -12,7 +12,9 @@ A block takes one of two routes, by the JAX package's gate
 
 * the attention supercell (``ops/attn_block.py``: kernels A, B or, at long
   sequences, F, and C on the card; E in its backward) where ``attn_impl`` is
-  ``"auto"`` or ``"pallas"`` and the block has a full qkv bias, no LayerScale
+  ``"pallas"``, or ``"auto"`` in one process or on a registered mesh whose
+  model axis is 1 (``ViTConfig.kernel_attention``, read when the model is
+  built), and the block has a full qkv bias, no LayerScale
   and no relative-position bias, and does not capture its probabilities;
 * otherwise the plain ``Attention`` route: LN1, the qkv product, the
   ``qv_only`` bias, then ``ops/attn_fused.py::attention_qkv_fused`` (kernel B
@@ -72,6 +74,7 @@ from ep_tpu_torch.ops.attention import attn_stats_from_probs, mha, scaled
 from ep_tpu_torch.ops.attn_block import attn_supercell
 from ep_tpu_torch.ops.attn_fused import attention_qkv_fused
 from ep_tpu_torch.ops.mlp_int8 import mlp_int8_fused
+from ep_tpu_torch.parallel.mesh import MODEL_AXIS, current_mesh, process_count
 from ep_tpu_torch.poolings.common import Dense, mean_f32
 from ep_tpu_torch.utils.pos_embed import interpolate_pos_embed
 
@@ -141,8 +144,18 @@ class ViTConfig:
     @property
     def kernel_attention(self) -> bool:
         """Whether attention may run the kernels (``ep_tpu/models/vit.py::
-        _pallas_attn_enabled`` on one device: "auto" and "pallas")."""
-        return self.attn_impl in ("auto", "pallas")
+        _pallas_attn_enabled``): "pallas" forces them; "auto" takes them in
+        one process, or where the registered mesh's model axis is 1 (each
+        rank runs them on its own rows), and the plain route otherwise, as
+        the JAX package sends a tensor-parallel mesh to XLA attention."""
+        if self.attn_impl == "pallas":
+            return True
+        if self.attn_impl != "auto":
+            return False
+        if process_count() == 1:
+            return True
+        mesh = current_mesh()
+        return mesh is not None and mesh.shape[MODEL_AXIS] == 1
 
     @property
     def supercell(self) -> bool:
@@ -159,8 +172,9 @@ class ViTConfig:
 def int8_mlp_inactive_reason(c: ViTConfig) -> Optional[str]:
     """Why a requested ``int8_mlp`` would leave the MLP half in bf16, else
     None (``ep_tpu/models/vit.py::int8_mlp_inactive_reason``): the int8 half
-    runs only on a supercell block. The JAX package's backend and mesh
-    reasons have no counterpart: the port takes its kernels by device."""
+    runs only on a supercell block. The JAX package's backend reason has no
+    counterpart (the port takes its kernels by device); its mesh reason is
+    given in its words."""
     if not c.int8_mlp:
         return None
     if c.mlp_type != "gelu":
@@ -172,7 +186,8 @@ def int8_mlp_inactive_reason(c: ViTConfig) -> Optional[str]:
     if not (c.qkv_bias and c.qkv_bias_mode == "full"):
         return "qkv_bias mode is not 'full' (supercell needs fused qkv bias)"
     if not c.kernel_attention:
-        return "attn_impl resolves to plain attention (attn_impl='xla')"
+        return ("attn_impl resolves to XLA (attn_impl='xla', or 'auto' on a "
+                "tensor-parallel mesh)")
     return None
 
 

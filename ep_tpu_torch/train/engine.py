@@ -6,6 +6,14 @@ reference's protocol details: the per-iteration LR (inside the step), the
 loss-finiteness abort (engine_finetune.py:68-70), batch-size-weighted eval
 meters (:150-153) and the temperature-weighted kNN classifier (:216-257).
 
+Over several ranks the train step's metrics are already global
+(``train/steps.py``). ``evaluate`` all-reduces its sums over the mesh's data
+axis when the val loader is sharded (``--dist_eval``); without it every rank
+evaluates the whole val set, as in the JAX loaders. ``extract_features``
+gathers every rank's rows of a sharded loader in rank order, so every rank
+holds the whole split; the JAX function reads a global array with
+``device_get``, which JAX refuses across processes.
+
 A batch arrives from the loader as NHWC float32 numpy. It is cast to bf16 on
 the host when the model computes in bf16 (half the bytes to copy) and, with
 ``--pin_mem``, copied from pinned memory without blocking the host. Metrics
@@ -21,6 +29,9 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ep_tpu_torch.parallel.mesh import DATA_AXIS
+from ep_tpu_torch.parallel.metrics import (all_gather_rows,
+                                           collective_device, psum)
 from ep_tpu_torch.utils.logging import MetricLogger, SmoothedValue
 
 
@@ -139,6 +150,11 @@ def evaluate(eval_step, loader, device, cfg=None,
         pending = (batch_sums, batch_preds, host_labels, host_valid)
     if pending is not None:
         drain(pending)
+    if _sharded(loader):
+        # --dist_eval: each rank evaluated its shard; the sums are global
+        total = psum(torch.tensor([sums[k] for k in sums], dtype=torch.float64,
+                                  device=collective_device()), DATA_AXIS)
+        sums = dict(zip(sums, total.tolist()))
 
     count = max(sums["count"], 1.0)
     stats = {
@@ -154,16 +170,36 @@ def evaluate(eval_step, loader, device, cfg=None,
     return stats
 
 
+def _sharded(loader) -> bool:
+    """Whether ``loader`` yields only this rank's share of its split."""
+    return getattr(loader, "num_processes", 1) > 1
+
+
+def gather_labels(labels: np.ndarray, valid: np.ndarray):
+    """(labels, valid) of a batch's rows on every rank of the data axis, in
+    rank order (numpy, ``labels``' dtype; ``valid`` as 0 or 1)."""
+    both = all_gather_rows(torch.from_numpy(np.stack(
+        [labels.astype(np.int64), (valid > 0).astype(np.int64)], axis=1)),
+        DATA_AXIS).cpu().numpy()
+    return both[:, 0].astype(labels.dtype), both[:, 1]
+
+
 def extract_features(extract_step, loader, device, cfg=None):
     """Pooled descriptors + targets over a loader (engine_finetune.py:168-213),
     the padded rows of the last batch dropped by ``valid``; each batch's
-    features are read after the next batch is launched."""
+    features are read after the next batch is launched. A loader sharded
+    over the data axis has each batch's rows of every rank gathered in rank
+    order (valid rows only), so every rank returns the whole split."""
     feats, targets = [], []
     pending = None
     pin = bool(cfg is not None and cfg.pin_mem)
+    gather = _sharded(loader)
 
     def drain(entry):
         f, labels, valid = entry
+        if gather:
+            f = all_gather_rows(f, DATA_AXIS)
+            labels, valid = gather_labels(labels, valid)
         keep = valid > 0
         feats.append(f.float().cpu().numpy()[keep])
         targets.append(labels[keep])

@@ -14,7 +14,13 @@ Semantics (as in the JAX package):
     features' own width, float32 in RAM otherwise. The JAX package keeps the
     device's bf16 in RAM; numpy has no bf16, so the port widens it to f32,
     which holds every bf16 value exactly: the loader yields the same f32
-    batches either way.
+    batches either way;
+  * over several ranks (a registered mesh with a data axis above 1) each
+    rank extracts its loader's rows and every batch is gathered over the
+    data axis in rank order (features, labels and ``valid``), as the JAX
+    package's ``process_allgather`` does: every rank ends with the whole
+    cache, in the same order, and feeds the same cached batches to the head
+    steps, as every JAX process feeds its own copy of them.
 """
 from __future__ import annotations
 
@@ -23,7 +29,9 @@ import os
 import numpy as np
 import torch
 
-from .engine import to_device
+from ep_tpu_torch.parallel.mesh import DATA_AXIS, current_mesh
+from ep_tpu_torch.parallel.metrics import all_gather_rows
+from .engine import gather_labels, to_device
 from .steps import make_eval_step, make_train_step
 
 
@@ -37,7 +45,7 @@ class _HostCopy:
                        else None)
 
     def start(self, fd: torch.Tensor):
-        if self.stream is None:
+        if self.stream is None or not fd.is_cuda:
             return fd.detach(), None
         self.stream.wait_stream(torch.cuda.current_stream(fd.device))
         with torch.cuda.stream(self.stream):
@@ -66,9 +74,15 @@ def extract_split(backbone_apply, loader, device, cache_dir: str, name: str,
     backbone's output (valid-mask filtering can shrink early batches, so a
     per-batch estimate could flip mid-stream and strand rows already kept).
     Each batch's features are read one batch late: batch k's copy to the host
-    overlaps batch k+1's forward."""
+    overlaps batch k+1's forward. Over several ranks each batch is gathered
+    over the data axis first (under gloo through the host), and the store
+    holds every rank's rows: the data axis' size times this rank's."""
     device = torch.device(device)
     copier = _HostCopy(device)
+    mesh = current_mesh()
+    n_data = mesh.shape[DATA_AXIS] if mesh is not None else 1
+    rows = len(loader.dataset) if n_data == 1 else \
+        n_data * len(loader._indices())
     pin = bool(cfg is not None and cfg.pin_mem)
     labels_list = []
     store = None  # the float16 memmap or the f32 array, for every row
@@ -85,9 +99,8 @@ def extract_split(backbone_apply, loader, device, cache_dir: str, name: str,
         labels_list.append(labels[keep])
         if store is None:
             per_row = int(np.prod(f.shape[1:])) * f.element_size()
-            shape = (len(loader.dataset),) + tuple(f.shape[1:])
-            if bool(cache_dir) and \
-                    per_row * len(loader.dataset) > memmap_threshold:
+            shape = (rows,) + tuple(f.shape[1:])
+            if bool(cache_dir) and per_row * rows > memmap_threshold:
                 os.makedirs(cache_dir, exist_ok=True)
                 store = np.lib.format.open_memmap(
                     os.path.join(cache_dir, f"feat_cache_{name}.npy"),
@@ -101,6 +114,9 @@ def extract_split(backbone_apply, loader, device, cache_dir: str, name: str,
     with torch.no_grad():
         for images, labels, valid in iter(loader):
             fd = backbone_apply(to_device(images, device, pin, cfg))
+            if n_data > 1:
+                fd = all_gather_rows(fd, DATA_AXIS, mesh)
+                labels, valid = gather_labels(labels, valid)
             nxt = (*copier.start(fd), labels, valid)
             if pending is not None:
                 consume(*pending)

@@ -11,6 +11,20 @@ With ``device_aug`` (``data/device_aug.py::DeviceAug``) the images arrive as
 u8 staged batches: the train step crops, flips and normalizes them on their
 device, its draws seeded by the global step; the eval and extract steps
 normalize them.
+
+Over several ranks (a registered mesh with a data axis above 1,
+``parallel/mesh.py``) each rank's batch is its rows of the global batch, as
+GSPMD shards the JAX step's: the BatchNorms of the head normalise with the
+global batch's moments (``poolings/batchnorm.py``), the gradients are
+averaged over the data axis in one all-reduce before the optimizer, and the
+loss and top-k accuracies are averaged with them, so the step's metrics
+are the global batch's, as the JAX step's are. The gradient is reduced at
+every micro-step, also under ``accum_iter``: the step reports the global
+gradient's norm at each, as the JAX step does. No ``DistributedDataParallel``
+wraps the module: a frozen backbone has no gradient to reduce, and a
+parameter that gets none (``return_attn``, a head's unused parameter) is
+updated by the optimizer as optax updates it, from a zero gradient on every
+rank.
 """
 from __future__ import annotations
 
@@ -19,6 +33,8 @@ from typing import Callable, Dict, Iterable
 import torch
 import torch.nn as nn
 
+from ep_tpu_torch.parallel.mesh import DATA_AXIS, current_mesh
+from ep_tpu_torch.parallel.metrics import pmean
 from .lars import RawUpdateOptimizer
 
 
@@ -37,6 +53,21 @@ def global_grad_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(g.float().square().sum() for g in grads))
 
 
+def pmean_grads(params, mesh) -> None:
+    """Replace each parameter's gradient by its mean over the mesh's data
+    axis, in one all-reduce of the gradients laid end to end. Every rank
+    holds gradients for the same parameters (the same module and the same
+    step), so the flat buffers line up."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = pmean(torch.cat([g.reshape(-1) for g in grads]), DATA_AXIS, mesh)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 def make_train_step(model: nn.Module, optimizer: RawUpdateOptimizer,
                     lr_fn: Callable[[int], float], device_aug=None):
     """Returns train_step(step, images, labels) -> metrics.
@@ -47,8 +78,12 @@ def make_train_step(model: nn.Module, optimizer: RawUpdateOptimizer,
     state advance in place; under ``accum_iter`` k the optimizer applies the
     mean of k micro-steps' gradients at the k-th, with that micro-step's
     LR (``optax.MultiSteps`` inside the JAX step). ``device_aug`` augments
-    u8 images, keyed by ``step``, so a resumed run draws the same crops."""
+    u8 images, keyed by ``step``, so a resumed run draws the same crops.
+    The mesh registered when the step is made sets the ranks it reduces
+    over."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    mesh = current_mesh()
+    reduce = mesh is not None and mesh.shape[DATA_AXIS] > 1
 
     def train_step(step: int, images: torch.Tensor,
                    labels: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -59,17 +94,19 @@ def make_train_step(model: nn.Module, optimizer: RawUpdateOptimizer,
         loss = cross_entropy(logits, labels).mean()
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if reduce:
+            pmean_grads(params, mesh)
         lr = lr_fn(step)
         grad_norm = global_grad_norm(p.grad for p in params if p.grad is not None)
         optimizer.step(lr)
         logits = logits.detach()
-        return {
-            "loss": loss.detach(),
-            "acc1": topk_correct(logits, labels, 1).mean() * 100.0,
-            "acc5": topk_correct(logits, labels, 5).mean() * 100.0,
-            "lr": torch.tensor(lr),
-            "grad_norm": grad_norm,
-        }
+        scores = {"loss": loss.detach(),
+                  "acc1": topk_correct(logits, labels, 1).mean() * 100.0,
+                  "acc5": topk_correct(logits, labels, 5).mean() * 100.0}
+        if reduce:
+            scores = dict(zip(scores, pmean(torch.stack(list(scores.values())),
+                                            DATA_AXIS, mesh)))
+        return {**scores, "lr": torch.tensor(lr), "grad_norm": grad_norm}
 
     return train_step
 

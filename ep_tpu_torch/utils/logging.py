@@ -10,9 +10,11 @@ Counterpart of ``ep_tpu/utils/logging.py`` (the reference's util/misc.py:
   3. Optional wandb, gated on WANDB_ENTITY/WANDB_PROJECT env vars.
   4. Rank-0-only timestamped stdout.
 
-The port runs one process: :func:`is_main_process` is true unless a
-``torch.distributed`` group says otherwise. The engine hands the meters
-Python numbers, read one step late from the device.
+:func:`is_main_process` is true in one process and on rank 0 of a
+``torch.distributed`` group. The train step's metrics are already global
+(reduced over the mesh's data axis inside the step, ``train/steps.py``), so
+the host-side meters need no barrier or all_reduce. The engine hands the
+meters Python numbers, read one step late from the device.
 """
 from __future__ import annotations
 

@@ -80,10 +80,31 @@ def test_batches_equal_the_jax_packages(tmp_path, dataset, aug):
     assert any(not np.array_equal(a, b) for a, b in zip(first, second))
 
 
-def test_grain_loader_is_refused():
-    cfg = PortTrainConfig(dataset_name="fake", nb_classes=4, image_size=16,
-                          use_grain=True)
-    dtr, dva = build_datasets(cfg)
-    ttr, tva = build_transforms(cfg)
-    with pytest.raises(NotImplementedError, match="grain"):
-        build_loaders(cfg, dtr, dva, ttr, tva)
+def test_grain_loader_matches_the_loaders_sharding():
+    """``--use_grain`` (``data/grain_loader.py``) keeps the DataLoader's
+    per-process contract: at 2 processes, on a dataset that 2 does not
+    divide, each process gets the port's DataLoader's indices for the epoch
+    (``tests/test_data.py::test_grain_loader_matches_thread_loader_sharding``);
+    and its batches, read without worker processes, are the JAX package's
+    grain loader's array for array."""
+    from ep_tpu.data.grain_loader import GrainDataLoader as JaxGrainLoader
+    from ep_tpu_torch.data.datasets import FakeDataset
+    from ep_tpu_torch.data.grain_loader import GrainDataLoader
+    from ep_tpu_torch.data.loader import DataLoader
+    from ep_tpu_torch.data.transforms import TrainTransform
+    ds = FakeDataset(n=101, num_classes=5, image_size=8)
+    t = TrainTransform(8)
+    kw = dict(shuffle=True, seed=7, num_processes=2)
+    for p in range(2):
+        a = DataLoader(ds, 16, t, process_index=p, **kw)
+        b = GrainDataLoader(ds, 16, t, process_index=p, num_workers=0, **kw)
+        c = JaxGrainLoader(ds, 16, t, process_index=p, num_workers=0, **kw)
+        for loader in (a, b, c):
+            loader.set_epoch(4)
+        np.testing.assert_array_equal(a._indices(), b._indices())
+        assert len(a) == len(b) == 4
+        batches = list(b)
+        assert len(batches) == 4 and batches[-1][2].sum() == 51 - 48
+        for ours, theirs in zip(batches, c):
+            for x, y in zip(ours, theirs):
+                np.testing.assert_array_equal(x, y)

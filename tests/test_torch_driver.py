@@ -6,9 +6,11 @@ against the JAX package's, on the CPU.
   against the optax chains over three steps, as the JAX step applies them
   (``p + -lr * u``), to 1e-6.
 * ``knn_classifier_multi`` against the JAX version on seeded features.
-* The flags whose slices are not ported raise (and ``--device_aug`` with
-  ``--train_aug aimv2``, as in the JAX driver), and so does ``main`` without
-  a card unless ``--device cpu`` is given.
+* A mesh the processes cannot fill raises (``--mesh_data 2`` or
+  ``--mesh_model 2`` in one process), and so does ``WORLD_SIZE=2`` that no
+  launcher variable gives a rank; ``--device_aug`` with ``--train_aug
+  aimv2`` raises, as in the JAX driver, and so does ``main`` without a card
+  unless ``--device cpu`` is given.
 * The slice as a whole: the JAX driver trains epoch 0 of a tiny model from a
   test-written ``--finetune`` checkpoint; its ``checkpoint-.msgpack`` (head,
   BN statistics, LARS momentum, step, epoch) becomes the port's checkpoint
@@ -174,13 +176,14 @@ def test_knn_classifier_multi_matches_jax():
 # ---- flags and devices -------------------------------------------------------
 
 @pytest.mark.parametrize("kw, error, match", [
-    (dict(mesh_data=2), NotImplementedError, "item 9"),
-    (dict(mesh_model=2), NotImplementedError, "item 9"),
+    (dict(mesh_data=2), ValueError, "mesh 2x1 != 1 processes"),
+    (dict(mesh_model=2), ValueError, "1 processes not divisible by model=2"),
     (dict(device_aug=True, train_aug="aimv2"), ValueError, "aimv2")])
 def test_unported_flags_raise(tmp_path, kw, error, match):
-    """Flags of slices not ported yet raise with their ROADMAP item; the
-    JAX driver's own refusal of ``--device_aug --train_aug aimv2`` carries
-    over."""
+    """A mesh larger than the processes raises, as the JAX driver's
+    ``make_mesh`` asserts it against its devices (more than one process:
+    ``tests/test_torch_parallel.py``); the JAX driver's own refusal of
+    ``--device_aug --train_aug aimv2`` carries over."""
     with pytest.raises(error, match=match):
         linprobe.main(_p(_cfg(tmp_path, **kw)))
 
@@ -213,8 +216,13 @@ def test_oracle_ckpt_is_read_after_finetune(tmp_path, tiny, monkeypatch):
 
 
 def test_more_than_one_process_raises(tmp_path, monkeypatch):
+    """WORLD_SIZE=2 with no launcher variable that names the rank: the
+    driver raises rather than train as one process."""
+    for var in ("EP_TPU_MULTIHOST", "RANK", "SLURM_PROCID",
+                "OMPI_COMM_WORLD_RANK", "COORDINATOR_ADDRESS", "JOBSET_NAME"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2"):
         linprobe.main(_p(_cfg(tmp_path)))
 
 
@@ -341,3 +349,26 @@ def test_early_stop_triggers(tmp_path, tiny):
     log = (tmp_path / "training_log.txt").read_text()
     assert "[early-stop]" in log
     assert max(_epoch_lines(tmp_path)) < 29
+
+
+def test_use_grain_trains_through_the_driver(tmp_path, tiny, monkeypatch):
+    """``--use_grain``: one epoch through the port's driver on the grain
+    loader (``data/grain_loader.py``, the JAX package's text), read without
+    worker processes: the epoch's line, finite, and a checkpoint at the
+    epoch's 16 steps (512 images at batch 32)."""
+    from ep_tpu_torch.data.grain_loader import GrainDataLoader
+    loaders = []
+    real = linprobe.build_loaders
+
+    def spy(*a, **kw):
+        loaders.extend(real(*a, **kw))
+        return loaders[-2:]
+    monkeypatch.setattr(linprobe, "build_loaders", spy)
+    res = linprobe.main(_p(_cfg(tmp_path, epochs=1, use_grain=True,
+                                num_workers=0)))
+    assert all(isinstance(l, GrainDataLoader) for l in loaders)
+    lines = _epoch_lines(tmp_path)
+    assert list(lines) == [0] and all(np.isfinite(lines[0]))
+    assert np.isfinite(res["loss"])
+    ckpt = torch.load(tmp_path / "checkpoint-.pth", weights_only=True)
+    assert (ckpt["epoch"], ckpt["step"]) == (0, 16)

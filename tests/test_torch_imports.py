@@ -24,7 +24,8 @@ PORT_FILES = sorted((ROOT / "ep_tpu_torch").rglob("*.py")) + [
     ROOT / "main_attention_stats_torch.py", ROOT / "search_linprobe_torch.py"]
 # The port's copies of the JAX package's host data pipeline (numpy and PIL):
 # the same text, with the package's own imports pointed at ep_tpu_torch.data.
-DATA_COPIES = ("datasets", "transforms", "autoaugment", "loader", "_native")
+DATA_COPIES = ("datasets", "transforms", "autoaugment", "loader", "_native",
+               "grain_loader")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -61,7 +62,11 @@ def test_the_walk_sees_the_port():
             "ep_tpu_torch/tools/extract_features.py",
             "ep_tpu_torch/tools/extract_pool_attention.py",
             "ep_tpu_torch/tools/convert_checkpoint.py",
-            "ep_tpu_torch/tools/validate_zoo.py"} <= names
+            "ep_tpu_torch/tools/validate_zoo.py",
+            "ep_tpu_torch/parallel/__init__.py",
+            "ep_tpu_torch/parallel/mesh.py",
+            "ep_tpu_torch/parallel/metrics.py",
+            "ep_tpu_torch/parallel/partition.py"} <= names
     assert {f"ep_tpu_torch/data/{f}.py" for f in DATA_COPIES} <= names
     assert _forbidden("ep_tpu") and _forbidden("ep_tpu.configs")
     assert _forbidden("jax.numpy") and not _forbidden("ep_tpu_torch.configs")
@@ -142,19 +147,7 @@ def test_constructors_build_on_the_card_unless_asked():
 @pytest.mark.parametrize("name", DATA_COPIES)
 def test_data_package_is_a_faithful_copy(name):
     """Each copy of ``ep_tpu/data`` is the JAX package's file with its own
-    imports renamed; the loader alone differs where the JAX package would
-    import the grain-backed loader, which the port refuses."""
+    imports renamed, the grain-backed loader (``--use_grain``) included."""
     jax_text = (ROOT / "ep_tpu" / "data" / f"{name}.py").read_text()
     port_text = (ROOT / "ep_tpu_torch" / "data" / f"{name}.py").read_text()
-    expected = jax_text.replace("ep_tpu.data", "ep_tpu_torch.data")
-    if name == "loader":
-        grain = ("        from .grain_loader import GrainDataLoader\n"
-                 "        loader_cls = GrainDataLoader\n")
-        assert grain in expected
-        head, tail = expected.split(grain)
-        assert port_text.startswith(head) and port_text.endswith(tail)
-        middle = port_text[len(head):len(port_text) - len(tail)]
-        assert middle.lstrip().startswith("raise NotImplementedError(")
-        assert "grain" in middle
-    else:
-        assert port_text == expected
+    assert port_text == jax_text.replace("ep_tpu.data", "ep_tpu_torch.data")
