@@ -195,6 +195,24 @@ Phases, each of which must pass (any failure exits non-zero):
              32 gathered through the host): the same (128, 196, 768) cache
              on both ranks, each rank's rows in place. Its step ms is that of
              two ranks sharing one card, no speed number.
+   tp-gloo-2 — the frozen backbone cut over a model axis of 2 (ROADMAP
+             module item 9b: shard_state at mesh (data 1, model 2)), two
+             ranks on the one card through gloo (--tp-gloo-rank R), each
+             run against one process on the same weights and batch. (a)
+             DINOv2-g/14 (SwiGLU, LayerScale, 24 heads of width 64, depth
+             40) at batch 16, 3 steps, attn_impl auto: each rank's backbone
+             bytes (at most 0.51 of one process's) and the card's allocated
+             bytes after the cut; in the forward of the features, each of
+             the 40 blocks' attention and MLP branches (before LayerScale,
+             whose 1e-5 rounds them away from the features in bf16) within
+             ATOL + RTOL*|ref| of the same module with its pieces joined;
+             step 0's loss within LOSS_TOL and the features within
+             FEATURE_TOL of one process's, the heads bit-equal across ranks,
+             B never and D once a step. (b)
+             ViT-B/16 at batch 128, 2 steps, attn_impl pallas: every block
+             joins its pieces and runs A, B and C 12 times a forward, D
+             once; step 0's loss within LOSS_TOL. Step times of two ranks
+             sharing one card, no speed number.
    use-grain — whether the grain package imports; where it does, one
              --use_grain driver epoch with its launches.
    Attention statistics and the tools (ROADMAP module item 8), after the
@@ -2591,6 +2609,36 @@ def ddp_gloo_worker(rank: int, tmp: str) -> None:
     dist.destroy_process_group()
 
 
+def start_ranks(flag: str, tmp: str) -> list:
+    """Start this script twice as the ranks of a gloo group on the one card
+    (``flag`` R ``--ddp-dir tmp``); returns their processes."""
+    env = {**os.environ, "WORLD_SIZE": "2", "GLOO_SOCKET_IFNAME": "lo"}
+    env.pop("EP_TPU_MULTIHOST", None)
+    return [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+         "--ddp-dir", tmp],
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+
+
+def wait_ranks(procs: list, phase: str, lines: int = 20) -> None:
+    """Wait for the ranks start_ranks started, log the last ``lines`` lines
+    each printed, and raise unless both exited 0."""
+    try:
+        said = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, said)):
+        for line in text.splitlines()[-lines:]:
+            log(f"  [rank {r}] {line}")
+        if p.returncode != 0:
+            raise RuntimeError(f"{phase}: rank {r} exited with {p.returncode}")
+
+
 def ddp_gloo_2(card: str, paths: dict, train_loss) -> dict:
     """Two ranks on the one card through gloo, launched as subprocesses
     (ddp_gloo_worker): the train step at full width, 256 images a rank of
@@ -2609,27 +2657,7 @@ def ddp_gloo_2(card: str, paths: dict, train_loss) -> dict:
         f"{GLOO_BATCH // 2} images a rank, {GLOO_STEPS} steps, on {card}; "
         f"one process at batch {GLOO_BATCH}: losses {ref_losses}")
     with tempfile.TemporaryDirectory() as tmp:
-        env = {**os.environ, "WORLD_SIZE": "2", "GLOO_SOCKET_IFNAME": "lo"}
-        env.pop("EP_TPU_MULTIHOST", None)
-        procs = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--ddp-gloo-rank",
-             str(r), "--ddp-dir", tmp],
-            env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(2)]
-        try:
-            said = [p.communicate(timeout=600)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, (p, text) in enumerate(zip(procs, said)):
-            for line in text.splitlines()[-20:]:
-                log(f"  [rank {r}] {line}")
-            if p.returncode != 0:
-                raise RuntimeError(f"ddp-gloo-2: rank {r} exited with "
-                                   f"{p.returncode}")
+        wait_ranks(start_ranks("--ddp-gloo-rank", tmp), "ddp-gloo-2")
         ranks = [torch.load(Path(tmp) / f"gloo{r}.pth", weights_only=False)
                  for r in range(2)]
     r0, r1 = ranks
@@ -2682,6 +2710,234 @@ def ddp_gloo_2(card: str, paths: dict, train_loss) -> dict:
         f"number) on {card}")
     return dict(losses=r0["losses"], ref_losses=ref_losses,
                 step_ms_two_ranks_sharing_one_card=med * 1e3)
+
+
+# tp-gloo-2's two runs: run -> (TrainConfig flags, batch, steps, launches a
+# step on each rank). (a) DINOv2-g/14 (SwiGLU, LayerScale, 24 heads of width
+# 64, depth 40) under "auto": each rank computes its 12 heads and its half
+# of w1 and w2 on the plain route, 80 f32 all-reduces of (16, 257, 1536) a
+# forward; (b) ViT-B/16 under "pallas": every block joins its pieces and
+# runs A, B and C as one process does.
+TP_RUNS = {
+    "a": (dict(model="dinov2_vitg14"), 16, 3, dict(ep_pool=1)),
+    "b": (dict(model="vit_base_patch16", attn_impl="pallas"), 128, 2,
+          dict(ln_qkv_gemm=12, attn_core=12, proj_residual_gemm=12,
+               ep_pool=1)),
+}
+
+
+def tp_run(run: str, mesh=None) -> dict:
+    """One run of tp-gloo-2 on the card: TP_RUNS[run]'s probe model (seed 0,
+    EP-32, bf16), built with ``mesh`` registered and cut by shard_state where
+    it is given; the backbone's parameter bytes counted from its tensors (and
+    the card's allocated bytes after the cut); the backbone's features of the
+    batch (run a); then the steps, their losses and times, the launches over
+    them and the head. On a cut model, run a's features come with
+    ``branch_check``: DINOv2's LayerScale gammas start at 1e-5, where every
+    block's branch rounds away in bf16 (the features are the patch
+    embedding's whatever the blocks compute), so the blocks' own compute is
+    checked before LayerScale."""
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.models.assembly import init_probe_model
+    from ep_tpu_torch.ops import reset_launches
+    from ep_tpu_torch.parallel.mesh import use_mesh
+    from ep_tpu_torch.parallel.partition import shard_state
+    from ep_tpu_torch.train.lars import LARS
+    from ep_tpu_torch.train.schedule import make_lr_fn
+    from ep_tpu_torch.train.state import cast_frozen, freeze
+    from ep_tpu_torch.train.steps import make_train_step
+
+    flags, B, steps, _ = TP_RUNS[run]
+    cfg = TrainConfig(cls_features="ep", ep_queries=32, d_out=1,
+                      nb_classes=1000, amp="bfloat16", pallas_pool=True,
+                      epochs=90, warmup_epochs=10, blr=0.1, batch_size=B,
+                      eff_batch_size=B, **flags)
+    out = {}
+    with use_mesh(mesh):
+        t0 = time.perf_counter()
+        model = init_probe_model(cfg, seed=0)  # built under the mesh
+        opt = LARS(freeze(model, False), weight_decay=0.0)
+        cast_frozen(model, torch.bfloat16)
+        torch.cuda.synchronize()
+        out["built_s"] = time.perf_counter() - t0
+        if mesh is not None:
+            t0 = time.perf_counter()
+            shard_state(model, mesh)
+            torch.cuda.synchronize()
+            out["cut_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            out["allocated"] = torch.cuda.memory_allocated()
+        out["backbone_bytes"] = sum(p.numel() * p.element_size()
+                                    for p in model.backbone.parameters())
+        step_fn = make_train_step(model, opt, make_lr_fn(cfg, 1000))
+        rng = np.random.default_rng(0)
+        images = torch.from_numpy(rng.standard_normal(
+            (B, 224, 224, 3), dtype=np.float32)).cuda()
+        labels = torch.from_numpy(rng.integers(0, 1000, size=(B,))).cuda()
+        if run == "a":
+            with branch_check(model, mesh is not None) as out["branches"]:
+                with torch.no_grad():
+                    out["feats"] = model.features(images).float().cpu()
+        torch.cuda.synchronize()
+        reset_launches()
+        out["losses"], out["times"] = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            out["losses"].append(float(step_fn(i, images, labels)["loss"]))
+            torch.cuda.synchronize()
+            out["times"].append(time.perf_counter() - t0)
+        out["counts"] = launch_counts()
+        out["head"] = {k: v.cpu() for k, v in model.head.state_dict().items()}
+    return out
+
+
+@contextlib.contextmanager
+def branch_check(model, cut: bool):
+    """While a forward runs (where ``cut``), hold each block's attention and
+    MLP branch (before LayerScale) to the same module run on the same input
+    with its pieces joined, which is what one process computes (the plain
+    route, F.linear where the cut module sums its partial products in f32):
+    within ATOL + RTOL*|ref| everywhere. Yields {kind: [the largest |d|, the
+    largest |d| - (ATOL + RTOL*|ref|), the modules checked]}."""
+    from ep_tpu_torch.parallel.partition import whole_tensors
+    worst = {"attn": [0.0, -math.inf, 0], "mlp": [0.0, -math.inf, 0]}
+
+    def hook(kind):
+        def check(module, args, out):
+            with whole_tensors(module):
+                ref = type(module).forward(module, *args).float()
+            d = (out.float() - ref).abs()
+            w = worst[kind]
+            w[0] = max(w[0], float(d.max()))
+            w[1] = max(w[1], float((d - ATOL - RTOL * ref.abs()).max()))
+            w[2] += 1
+        return check
+
+    handles = [m.register_forward_hook(hook(kind))
+               for blk in (model.backbone.blocks if cut else ())
+               for kind, m in (("attn", blk.attn), ("mlp", blk.mlp))]
+    try:
+        yield worst
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def tp_gloo_worker(rank: int, tmp: str) -> None:
+    """One of tp-gloo-2's two ranks (``chip_smoke.py --tp-gloo-rank R
+    --ddp-dir D``): joins a gloo group of two through a file store, lets the
+    port's init_distributed see it, runs both TP_RUNS on the mesh (data 1,
+    model 2) and saves what it saw."""
+    import torch.distributed as dist
+    from ep_tpu_torch.ops import _build
+    from ep_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs on the card")
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=2)
+    init_distributed()
+    _build.library()
+    mesh = make_mesh(1, 2)
+    out = {}
+    for run in TP_RUNS:
+        out[run] = tp_run(run, mesh)
+        print(f"tp-gloo-2 ({run}) rank {rank}: losses {out[run]['losses']}, "
+              f"built in {out[run]['built_s']:.1f} s, replicated and cut in "
+              f"{out[run]['cut_s']:.1f} s", flush=True)
+    torch.save(out, Path(tmp) / f"tp{rank}.pth")
+    dist.destroy_process_group()
+
+
+def tp_gloo_2(card: str, paths: dict) -> dict:
+    """The frozen backbone cut over a model axis of 2 (shard_state), two
+    ranks on the one card through gloo (tp_gloo_worker), against one process
+    on the same weights and batch: (a) DINOv2-g/14 at batch 16 under "auto",
+    each rank's backbone bytes at most 0.51 of one process's, every block's
+    attention and MLP branch within ATOL + RTOL*|ref| of the same module with
+    its pieces joined (branch_check), step 0's loss within LOSS_TOL and the
+    features within FEATURE_TOL of one process's, the heads bit-equal, B
+    never and D once a step; (b) ViT-B/16 at batch
+    128 under "pallas" (the joined pieces through A, B and C), A, B and C 12
+    times and D once a step, step 0's loss within LOSS_TOL. The step times
+    are those of two ranks sharing one card with their sums through the
+    host: no speed number."""
+    with tempfile.TemporaryDirectory() as tmp:
+        # the ranks build their models while this process runs the same
+        # steps as one process
+        procs = start_ranks("--tp-gloo-rank", tmp)
+        refs = {}
+        try:
+            for run in TP_RUNS:
+                refs[run] = tp_run(run)
+                torch.cuda.empty_cache()
+        finally:
+            wait_ranks(procs, "tp-gloo-2", lines=4)
+        ranks = [torch.load(Path(tmp) / f"tp{r}.pth", weights_only=False)
+                 for r in range(2)]
+    log(f"[tp-gloo-2] two ranks on one card (gloo), mesh (data 1, model 2), "
+        f"on {card}; one process (beside the ranks): (a) DINOv2-g/14 losses "
+        f"{refs['a']['losses']}, (b) ViT-B/16 losses {refs['b']['losses']}")
+    out = {}
+    for run, (flags, B, steps, per_step) in TP_RUNS.items():
+        ref, (r0, r1) = refs[run], (ranks[0][run], ranks[1][run])
+        what = f"tp-gloo-2 ({run}) {flags['model']} batch {B}"
+        log(f"  {what}: losses rank 0 {r0['losses']}, rank 1 {r1['losses']}")
+        if r0["losses"] != r1["losses"]:
+            raise RuntimeError(f"{what}: the ranks' losses differ")
+        if not all(torch.equal(v, r1["head"][k]) for k, v in r0["head"].items()):
+            raise RuntimeError(f"{what}: the heads differ across ranks")
+        d = abs(r0["losses"][0] - ref["losses"][0])
+        log(f"  step 0's loss against one process's {ref['losses'][0]:.5f}: "
+            f"|d| {d:.2e} (tol {LOSS_TOL:g})")
+        if d > LOSS_TOL:
+            raise RuntimeError(f"{what}: step 0's loss is not one process's")
+        for r, res in enumerate((r0, r1)):
+            share = res["backbone_bytes"] / ref["backbone_bytes"]
+            log(f"  rank {r}: backbone parameters {res['backbone_bytes']} bytes"
+                f", {share:.4f} of one process's {ref['backbone_bytes']}; "
+                f"allocated on the card after the cut "
+                f"{res['allocated'] / 2 ** 30:.3f} GiB")
+            if run == "a" and share > 0.51:
+                raise RuntimeError(f"{what}: rank {r} holds {share:.4f} of the "
+                                   "backbone's bytes")
+            name = f"tp-gloo-2-{run}-rank{r}"
+            paths[name] = res["counts"]
+            _launches_equal(name, paths,
+                            **{k: n * steps for k, n in per_step.items()})
+        if run == "a":
+            for r, res in enumerate((r0, r1)):
+                for kind, (err, over, n) in res["branches"].items():
+                    log(f"  rank {r}: {n} {kind} branches (before LayerScale)"
+                        f" against the same modules with their pieces "
+                        f"joined: max |d| {err:.3e}, worst |d| - (tol "
+                        f"{ATOL:g} + {RTOL:g}*|ref|) {over:.3e}")
+                    if n != 40 or over > 0:
+                        raise RuntimeError(f"{what}: rank {r}'s cut {kind} "
+                                           "branches are not one process's")
+            scale = float(ref["feats"].abs().max())
+            err = float((r0["feats"] - ref["feats"]).abs().max())
+            log(f"  features {tuple(r0['feats'].shape)} against one "
+                f"process's: max |d| {err:.3e} (tol {FEATURE_TOL:g} of the "
+                f"largest, {scale:.3f}; at LayerScale 1e-5 the branches "
+                f"round away in bf16, which the branch check does not)")
+            if err > FEATURE_TOL * scale:
+                raise RuntimeError(f"{what}: the features are not one "
+                                   "process's")
+        med = statistics.median(r0["times"][1:])
+        log(f"[steps] tp-gloo-2 ({run}): {med * 1e3:.2f} ms a step, two ranks "
+            f"sharing one card through gloo ({B} images each; not a speed "
+            f"number); one process at batch {B} beside them "
+            f"{statistics.median(ref['times'][1:]) * 1e3:.2f} ms, on {card}")
+        out[run] = dict(
+            losses=r0["losses"], ref_losses=ref["losses"],
+            backbone_bytes=[r0["backbone_bytes"], r1["backbone_bytes"]],
+            ref_backbone_bytes=ref["backbone_bytes"],
+            allocated_after_cut=[r0["allocated"], r1["allocated"]],
+            step_ms_two_ranks_sharing_one_card=med * 1e3,
+            one_process_step_ms_beside_the_ranks=statistics.median(
+                ref["times"][1:]) * 1e3)
+    return out
 
 
 def grain_phase(card: str, paths: dict) -> dict:
@@ -3420,12 +3676,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--steps", type=int, default=5)
-    # ddp-gloo-2 starts this script once a rank with these
+    # ddp-gloo-2 and tp-gloo-2 start this script once a rank with these
     ap.add_argument("--ddp-gloo-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-gloo-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--ddp-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.ddp_gloo_rank is not None:
         ddp_gloo_worker(args.ddp_gloo_rank, args.ddp_dir)
+        return 0
+    if args.tp_gloo_rank is not None:
+        tp_gloo_worker(args.tp_gloo_rank, args.ddp_dir)
         return 0
 
     t_start = time.perf_counter()
@@ -3526,6 +3786,8 @@ def main() -> int:
     ddp["gloo_2"] = ddp_gloo_2(
         card, paths, first_loss["train"] if args.batch == GLOO_BATCH else None)
     mark("ddp-gloo-2")
+    ddp["tp_gloo_2"] = tp_gloo_2(card, paths)
+    mark("tp-gloo-2")
     ddp["use_grain"] = grain_phase(card, paths)
     mark("use-grain")
     tools = dict(attn_stats=attn_stats_b(card, paths, tmp))

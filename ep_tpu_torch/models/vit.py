@@ -55,9 +55,20 @@ plain route with its probabilities, the MLP half without int8, and returns
 the 5-kind statistics of ``ops/attention.py::attn_stats_from_probs`` and the
 residual magnitudes beside the features, as the JAX package's ``_finish``
 does.
+
+A block cut over a model axis above 1 (``parallel/partition.py::
+shard_state``) computes Megatron's way on its pieces: LN on the whole width,
+the local qkv (or fc1, w12) product, attention on its heads (or the
+activation on its hidden units), the partial proj (fc2, w3) product summed
+over the model group in f32, then the bias once, LayerScale and the
+residual. Under ``attn_impl="auto"`` such a block takes the plain route (the
+kernel gate's mesh term); under ``"pallas"`` it joins its pieces into whole
+tensors for each call and runs the kernels as one process does. Captured
+probabilities are joined into head order.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -70,11 +81,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
-from ep_tpu_torch.ops.attention import attn_stats_from_probs, mha, scaled
+from ep_tpu_torch.ops.attention import (attn_stats_from_probs, mha, mm_f32,
+                                        scaled)
 from ep_tpu_torch.ops.attn_block import attn_supercell
 from ep_tpu_torch.ops.attn_fused import attention_qkv_fused
 from ep_tpu_torch.ops.mlp_int8 import mlp_int8_fused
-from ep_tpu_torch.parallel.mesh import MODEL_AXIS, current_mesh, process_count
+from ep_tpu_torch.parallel.mesh import (MODEL_AXIS, Mesh, current_mesh,
+                                        process_count)
+from ep_tpu_torch.parallel.metrics import all_gather_rows, psum
+from ep_tpu_torch.parallel.partition import whole_tensors
 from ep_tpu_torch.poolings.common import Dense, mean_f32
 from ep_tpu_torch.utils.pos_embed import interpolate_pos_embed
 
@@ -231,6 +246,28 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
                         norm.bias.to(x.dtype), norm.eps)
 
 
+def row_parallel(x: torch.Tensor, dense: Dense, mesh: Mesh) -> torch.Tensor:
+    """``dense(x)`` where ``dense`` holds this rank's columns of a
+    row-parallel weight and ``x`` the matching features: the partial product
+    with f32 sums, summed over the model group in f32, the bias added once,
+    then one rounding to the compute dtype (two bf16 partials summed would
+    round twice)."""
+    dt = dense.compute_dtype
+    y = mm_f32(x.to(dt).reshape(1, -1, x.shape[-1]),
+               dense.weight.to(dt).t()[None])[0]
+    y = psum(y, MODEL_AXIS, mesh)
+    if dense.bias is not None:
+        y = y + dense.bias.to(dt).float()
+    return y.to(dt).reshape(*x.shape[:-1], -1)
+
+
+def gather_heads(probs: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's (B, H/M, T, T) probabilities joined over the model group
+    into (B, H, T, T) in head order, on ``probs``' device."""
+    g = all_gather_rows(probs.transpose(0, 1), MODEL_AXIS, mesh)
+    return g.transpose(0, 1).to(probs.device)
+
+
 def _rel_pos_index(grid: Tuple[int, int]) -> np.ndarray:
     """BEiT relative-position index over a (H, W) grid + [CLS]
     (``ep_tpu/models/vit.py::_rel_pos_index``), shape (T, T), T = H*W+1."""
@@ -291,7 +328,13 @@ class PatchEmbed(nn.Module):
 class Attention(nn.Module):
     """The attention half's parameters, and the plain route through them
     (``ep_tpu/models/vit.py::Attention``); the supercell reads the same
-    ``qkv`` and ``proj``."""
+    ``qkv`` and ``proj``.
+
+    Cut by head group (``parallel/partition.py::shard_block``; ``tp`` says
+    how), it runs its heads: the local qkv product, its slice of a
+    ``qv_only`` bias and of the relative-position table, attention on H/M
+    heads, the partial ``proj`` product summed over the model group
+    (:func:`row_parallel`), and its probabilities joined into head order."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -306,29 +349,42 @@ class Attention(nn.Module):
             self.q_bias = nn.Parameter(torch.zeros(D))
             self.v_bias = nn.Parameter(torch.zeros(D))
         self.proj = Dense(D, D, dtype=cfg.dtype)
+        self.tp = None  # parallel/partition.py::TensorParallel once cut
 
     def forward(self, x: torch.Tensor, temperature: float = 1.0,
                 rel_bias: Optional[torch.Tensor] = None,
                 return_probs: bool = False):
         B, T, D = x.shape
-        H = self.num_heads
+        heads = None if self.tp is None else self.tp.heads
+        H = self.num_heads if heads is None else heads.stop - heads.start
+        Dh = D // self.num_heads
         qkv = self.qkv(x)
         if self.qv_only:
-            bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
-                              self.v_bias])
+            q_bias, v_bias = self.q_bias, self.v_bias
+            if heads is not None:
+                cols = slice(heads.start * Dh, heads.stop * Dh)
+                q_bias, v_bias = q_bias[cols], v_bias[cols]
+            bias = torch.cat([q_bias, torch.zeros_like(q_bias), v_bias])
             qkv = qkv + bias.to(qkv.dtype)
+        if rel_bias is not None and heads is not None:
+            rel_bias = rel_bias[:, heads]
         probs = None
         if self.kernel and not return_probs and rel_bias is None:
             # natural layout: kernel B or F on the card, no head split
             out = attention_qkv_fused(qkv, H, self.scale, temperature)
         else:
-            q, k, v = qkv.reshape(B, T, 3, H, D // H).permute(2, 0, 3, 1, 4)
+            q, k, v = qkv.reshape(B, T, 3, H, Dh).permute(2, 0, 3, 1, 4)
             out = mha(q, k, v, self.scale, temperature=temperature,
                       bias=rel_bias, return_probs=return_probs)
             if return_probs:
                 out, probs = out
-            out = out.transpose(1, 2).reshape(B, T, D)
-        out = self.proj(out)
+            out = out.transpose(1, 2).reshape(B, T, H * Dh)
+        if heads is None:
+            out = self.proj(out)
+        else:
+            out = row_parallel(out, self.proj, self.tp.mesh)
+            if probs is not None:
+                probs = gather_heads(probs, self.tp.mesh)
         return (out, probs) if return_probs else out
 
 
@@ -350,6 +406,7 @@ class Mlp(nn.Module):
         self.fc1 = Dense(dim, hidden, dtype=dtype)
         self.fc2 = Dense(hidden, dim, dtype=dtype)
         self.act = act
+        self.tp = None  # cut by hidden units: fc2 is row-parallel
         # exact (erf) GELU when computing in f32, tanh-approximate in bf16, as
         # the JAX package does (its tanh error is far below bf16's step)
         self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
@@ -361,21 +418,29 @@ class Mlp(nn.Module):
             x = x * torch.sigmoid(scaled(x, 1.702))
         else:
             x = F.gelu(x, approximate=self.approximate)
+        if self.tp is not None:
+            return row_parallel(x, self.fc2, self.tp.mesh)
         return self.fc2(x)
 
 
 class SwiGLUMlp(nn.Module):
-    """silu(x1) * x2 on w12's two halves, then w3 (DINOv2-giant)."""
+    """silu(x1) * x2 on w12's two halves, then w3 (DINOv2-giant). Cut over
+    a model group, ``w12`` holds this rank's 1/M of each half, still
+    [w1 | w2], and ``w3`` is row-parallel."""
 
     def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
         super().__init__()
         self.w12 = Dense(dim, 2 * hidden, dtype=dtype)
         self.w3 = Dense(hidden, dim, dtype=dtype)
+        self.tp = None
 
     def forward(self, x):
         x1, x2 = self.w12(x).chunk(2, dim=-1)
         # silu as JAX computes it: the sigmoid rounded, then the products
-        return self.w3(x1 * torch.sigmoid(x1) * x2)
+        x = x1 * torch.sigmoid(x1) * x2
+        if self.tp is not None:
+            return row_parallel(x, self.w3, self.tp.mesh)
+        return self.w3(x)
 
 
 class Block(nn.Module):
@@ -403,6 +468,16 @@ class Block(nn.Module):
                          and self.supercell)
         self.remat = (_remat_policy(cfg.remat_policy, hidden)
                       if cfg.remat_blocks else None)
+        # cut over a model group with attention on the kernels
+        # (parallel/partition.py::shard_block): each call joins the pieces
+        # into whole tensors and runs what one process runs
+        self.gather = False
+
+    def _tensors(self):
+        """The block's whole tensors for the duration of a call: joined over
+        the model group where ``gather`` says so, else as they are."""
+        return (whole_tensors(self.attn, self.mlp) if self.gather
+                else contextlib.nullcontext())
 
     def attn_half(self, x: torch.Tensor, temperature: float = 1.0,
                   rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -448,13 +523,15 @@ class Block(nn.Module):
         """The block on the plain route, with its attention probabilities:
         (x, probs f32 (B, H, T, T), the attention branch before LayerScale,
         where the JAX package measures its magnitude)."""
-        x, probs, branch = self._attn_plain(x, temperature, rel_bias, True)
-        return self.mlp_half(x, int8=False), probs, branch
+        with self._tensors():
+            x, probs, branch = self._attn_plain(x, temperature, rel_bias, True)
+            return self.mlp_half(x, int8=False), probs, branch
 
     def forward(self, x: torch.Tensor, temperature: float = 1.0,
                 rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.remat is None or not torch.is_grad_enabled():
-            return self.whole(x, temperature, rel_bias)
+            with self._tensors():
+                return self.whole(x, temperature, rel_bias)
         whole_block, context_fn = self.remat
         if whole_block:
             return checkpoint(self.whole, x, temperature, rel_bias,

@@ -11,9 +11,10 @@ Axes:
   * ``data``  — each data index loads its own rows (the reference's DDP,
     main_linprobe.py:618-620); gradients, BatchNorm moments and metrics are
     reduced over the ranks of this axis (``parallel/metrics.py``);
-  * ``model`` — ranks that share a data index read the same rows and compute
-    the same thing. The JAX package's tensor-parallel placement
-    (``partition.py``) is not ported (ROADMAP item 9b); attention's
+  * ``model`` — ranks that share a data index read the same rows. Where
+    ``partition.py::shard_state`` cuts the frozen backbone over this axis,
+    each rank computes its pieces and the blocks sum them over the axis'
+    group; otherwise every rank computes the same thing. Attention's
     ``"auto"`` takes the plain route on such a mesh, as it takes XLA there.
 """
 from __future__ import annotations

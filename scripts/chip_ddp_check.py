@@ -5,9 +5,9 @@
 
 Builds the kernels, runs chip_smoke.py's train phase (3 steps at batch 512,
 for step 0's loss) and its driver phase (whose epochs and training_log.txt
-lines the next phase is compared with), then ddp-nccl-1, ddp-gloo-2 and
-use-grain, with the same checks; any failure exits non-zero. About two
-minutes where the whole chip_smoke.py takes nine.
+lines the next phase is compared with), then ddp-nccl-1, ddp-gloo-2,
+tp-gloo-2 and use-grain, with the same checks; any failure exits non-zero.
+A few minutes where the whole chip_smoke.py takes ten.
 """
 import sys
 import tempfile
@@ -36,5 +36,7 @@ cs.ddp_nccl_1(card, paths, epochs, lines)
 cs.log(f"[wall] ddp-nccl-1 at {time.perf_counter() - t0:.1f} s")
 cs.ddp_gloo_2(card, paths, losses[0])
 cs.log(f"[wall] ddp-gloo-2 at {time.perf_counter() - t0:.1f} s")
+cs.tp_gloo_2(card, paths)
+cs.log(f"[wall] tp-gloo-2 at {time.perf_counter() - t0:.1f} s")
 cs.grain_phase(card, paths)
 cs.log(f"[wall] done at {time.perf_counter() - t0:.1f} s")

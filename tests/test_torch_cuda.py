@@ -948,3 +948,44 @@ def test_mae_decoder_runs_on_the_card(dev):
     assert dict(LAUNCHES) == _counts(ln_qkv_gemm=2, attn_core=2,
                                      proj_residual_gemm=2)
     assert abs(got - ref) <= 2e-3 * abs(ref)
+
+
+def test_shard_state_halves_the_backbone_on_the_card(dev):
+    """``shard_state`` at model 2, in one process as rank 0 of the model
+    group: a frozen ViT-B/16 on the card keeps its head-group and half
+    slices as copies, and the card frees the whole tensors, so the bytes
+    allocated fall by at least half of the blocks' four products."""
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.models.assembly import init_probe_model
+    from ep_tpu_torch.parallel.mesh import Mesh
+    from ep_tpu_torch.parallel.partition import shard_state
+    from ep_tpu_torch.train.state import cast_frozen
+    cfg = TrainConfig(model="vit_base_patch16", cls_features="ep",
+                      ep_queries=32, nb_classes=1000, amp="bfloat16")
+    model = init_probe_model(cfg, seed=0)
+    cast_frozen(model, torch.bfloat16)
+    blk = model.backbone.blocks[0]
+    qkv, fc2 = blk.attn.qkv.weight.detach().cpu(), blk.mlp.fc2.weight.detach().cpu()
+    whole = sum(p.numel() * p.element_size()
+                for p in model.backbone.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    shard_state(model, Mesh(1, 2))
+    torch.cuda.empty_cache()
+    freed = before - torch.cuda.memory_allocated()
+    held = sum(p.numel() * p.element_size() for p in model.backbone.parameters())
+    products = 12 * 2 * (4 * 768 * 768 + 2 * 768 * 3072)  # qkv, proj, fc1, fc2
+    assert held == whole - products // 2 - 12 * 2 * (3 * 768 + 3072) // 2
+    # the whole tensors are freed: at least the bytes the cut drops (the
+    # allocator may have given a whole tensor up to 1 MiB more)
+    assert freed >= whole - held - 2 ** 16
+    assert 0.50 <= held / whole <= 0.51
+    q, k = qkv[:384], qkv[768:768 + 384]
+    torch.testing.assert_close(blk.attn.qkv.weight.cpu(),
+                               torch.cat([q, k, qkv[1536:1536 + 384]]),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(blk.mlp.fc2.weight.cpu(), fc2[:, :1536],
+                               rtol=0, atol=0)
+    for p in model.backbone.parameters():
+        assert p.untyped_storage().nbytes() == p.numel() * p.element_size()

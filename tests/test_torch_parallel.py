@@ -13,8 +13,9 @@ In this process:
   test_attn_impl_auto_gate_mesh_shapes``) and ``int8_mlp_inactive_reason``'s
   words against the JAX function's;
 * ``spec_for`` against ``_spec_for`` on every leaf of a ViT-B and a DINOv2
-  SwiGLU tree at model 2 and 4, ``shard_state`` at model 1 and its refusal
-  above;
+  SwiGLU tree at model 2 and 4, ``shard_state`` at model 1 and its cut at
+  model 2 (``tests/test_torch_tensor_parallel.py`` holds the cut model's
+  compute);
 * the ``metrics`` helpers at world size 1, and the device crop's draws per
   rank against the global batch's.
 
@@ -29,8 +30,8 @@ module and running in turn:
   whole batch and the JAX step on the 8-device virtual mesh, within 1e-5;
   then the same as micro-steps of ``--accum_iter 2`` against one process;
 * the helpers at world size 2 (``psum``'s backward, the gather's order,
-  ``shard_state``'s broadcast), and four ranks on a (2, 2) mesh (each
-  axis' group);
+  ``shard_state``'s broadcast and its cut at model 2), and four ranks on a
+  (2, 2) mesh (each axis' group);
 * the driver with ``--cache_features`` (``::test_two_process_cache_features``),
   ``--eval --dist_eval`` on 127 val images, ``--knn_eval`` and
   ``--mesh_model 2``, each against the one-process port run.
@@ -215,10 +216,8 @@ def worker(rank: int, tmp: str) -> None:
         out["host_mean"] = PM.all_reduce_mean_host(rank + 0.5)
     with M.use_mesh(M.make_mesh(1, 2)):
         out["tp_kernel"] = _tiny(build_backbone_config(cfg)).kernel_attention
-        try:
-            shard_state(model, M.current_mesh())
-        except NotImplementedError as err:
-            out["tp_refused"] = str(err)
+        shard_state(model, M.current_mesh())
+        out["tp_cut"] = tuple(model.backbone.blocks[0].attn.qkv.weight.shape)
 
     # the driver, each case in its own directory per rank
     for name in DRIVER_RUNS:
@@ -471,13 +470,26 @@ def test_spec_for_matches_jax(name, model_size):
 
 
 def test_shard_state_at_model_1_and_refusal():
+    """At model 1 ``shard_state`` leaves the state as it is. At model 2 it
+    no longer refuses (item 9b is ported): it cuts the frozen blocks, here
+    to rank 0's pieces, and leaves a module without blocks whole."""
     model = torch.nn.Linear(3, 2)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     assert shard_state(model, M.make_mesh()) is model
     assert all(torch.equal(v, before[k]) for k, v in
                model.state_dict().items())
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        shard_state(model, M.Mesh(1, 2))
+    assert shard_state(model, M.Mesh(1, 2)) is model
+    assert all(torch.equal(v, before[k]) for k, v in
+               model.state_dict().items())
+    cfg = TrainConfig(**_step_cfg())
+    vit = ProbeModel(_tiny(build_backbone_config(cfg)), cfg)
+    assert shard_state(vit, M.Mesh(1, 2)) is vit
+    for blk in vit.backbone.blocks:  # width 32, 2 heads, hidden 128
+        assert blk.attn.qkv.weight.shape == (48, 32)
+        assert blk.attn.proj.weight.shape == (32, 16)
+        assert blk.mlp.fc1.weight.shape == (64, 32)
+        assert blk.mlp.fc2.weight.shape == (32, 64)
+    assert vit.head.fc.weight.shape == (C, 32)
 
 
 def test_metrics_helpers_at_world_size_1():
@@ -618,8 +630,8 @@ def test_four_ranks_on_a_2x2_mesh(tmp_path):
 def test_two_rank_helpers(two_ranks):
     """``psum`` sums and its backward sums the ranks' gradients; ``pmean``,
     the gather in rank order, the host mean; on a model-2 mesh the gate
-    takes the plain route and ``shard_state`` refuses (item 9b); neither
-    rank imported JAX."""
+    takes the plain route and ``shard_state`` cuts the blocks (qkv's rows of
+    one of 2 heads); neither rank imported JAX."""
     (r0, r1), _, _ = two_ranks
     for r in (r0, r1):
         y, g = r["psum"]
@@ -627,7 +639,7 @@ def test_two_rank_helpers(two_ranks):
         assert r["pmean"].tolist() == [0.5, 0.5]
         assert r["gather"].tolist() == [[0.0] * 3] * 2 + [[1.0] * 3] * 2
         assert r["host_mean"] == 1.0
-        assert r["tp_kernel"] is False and "item 9b" in r["tp_refused"]
+        assert r["tp_kernel"] is False and r["tp_cut"] == (48, 32)
         assert not r["jax_imported"]
 
 

@@ -35,6 +35,7 @@ import torch
 
 import ep_tpu.cli.linprobe as jax_linprobe
 import ep_tpu.models.assembly as jax_assembly
+import ep_tpu.parallel.mesh as jax_mesh
 import ep_tpu_torch.cli.linprobe as linprobe
 import ep_tpu_torch.tools.extract_features as port_ef
 import ep_tpu_torch.tools.extract_pool_attention as port_pa
@@ -78,10 +79,14 @@ def tiny(monkeypatch):
 @pytest.fixture(scope="module")
 def checkpoints(tmp_path_factory):
     """A hub ``.pth``, and the JAX driver's EP head after one epoch on it
-    (``checkpoint-.msgpack``) with its conversion to the port's ``.pth``."""
+    (``checkpoint-.msgpack``) with its conversion to the port's ``.pth``.
+    The JAX driver registers its mesh and leaves it; a module fixture runs
+    before the conftest's per-test isolation takes its snapshot, so the
+    registry is restored here, or the mesh reaches the worker's next file."""
     tmp = tmp_path_factory.mktemp("ckpts")
     hub = write_timm_checkpoint(tmp / "vit.pth", seed=3)
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, \
+            jax_mesh.use_mesh(jax_mesh.current_mesh()):
         mp.setattr(jax_assembly, "build_backbone_config", lambda c: TINY)
         mp.setattr(jax_linprobe, "build_backbone_config", lambda c: TINY)
         jax_linprobe.main(_cfg(tmp / "jax", epochs=1, finetune=hub))
