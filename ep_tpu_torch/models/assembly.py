@@ -22,6 +22,7 @@ from ep_tpu_torch.configs import TrainConfig
 from ep_tpu_torch.ops import default_device
 from ep_tpu_torch.poolings.common import mean_f32, normal_
 from ep_tpu_torch.poolings.registry import ProbeHead
+from ep_tpu_torch.runtime.profiler import span
 from .mae import (MAEConfig, MaskedAutoencoderViT, mae_vit_base_patch16,
                   mae_vit_huge_patch14, mae_vit_large_patch16)
 from .vit import (VIT_CONFIGS, ViTConfig, VisionTransformer, remap_features,
@@ -151,7 +152,8 @@ class ProbeModel(nn.Module):
         grad = contextlib.nullcontext() if self.finetuning else torch.no_grad()
         with grad:
             feats = self.features(images)
-        out = self.head(feats, return_attn=return_attn)
+        with span("ep::head"):
+            out = self.head(feats, return_attn=return_attn)
         if not return_backbone_features:
             return out
         if return_attn:

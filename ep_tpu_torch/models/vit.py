@@ -41,6 +41,10 @@ product's output. ``scan_blocks`` is flag surface (``remat_blocks`` needs it,
 and the configurations the JAX package's scan refuses raise ``ValueError``),
 but the port always loops over the blocks.
 
+Under a profiler, ``Block.attn_half`` and ``Block.mlp_half`` open the spans
+``ep::attn_half`` and ``ep::mlp_half`` (``runtime/profiler.py::span``) on
+every route, a recomputation in the backward included.
+
 Parameter names follow timm (``patch_embed.proj``, ``blocks.{i}.attn.qkv``,
 ``blocks.{i}.ls1.gamma``, ``reg_token``, ``norm``, ``norm_pre``,
 ``attn.q_bias``, ``mlp.w12``, ``rel_pos_bias.relative_position_bias_table``;
@@ -91,6 +95,7 @@ from ep_tpu_torch.parallel.mesh import (MODEL_AXIS, Mesh, current_mesh,
 from ep_tpu_torch.parallel.metrics import all_gather_rows, psum
 from ep_tpu_torch.parallel.partition import whole_tensors
 from ep_tpu_torch.poolings.common import Dense, mean_f32
+from ep_tpu_torch.runtime.profiler import span
 from ep_tpu_torch.utils.pos_embed import interpolate_pos_embed
 
 # Pooled-feature names that consume patch tokens only / [CLS]+patch tokens.
@@ -481,13 +486,15 @@ class Block(nn.Module):
 
     def attn_half(self, x: torch.Tensor, temperature: float = 1.0,
                   rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.supercell:
-            a = self.attn
-            return attn_supercell(x, a.qkv.weight, a.qkv.bias,
-                                  self.norm1.weight, self.norm1.bias,
-                                  a.proj.weight, a.proj.bias, self.num_heads,
-                                  self.scale, temperature, self.eps)
-        return self._attn_plain(x, temperature, rel_bias, False)[0]
+        with span("ep::attn_half"):
+            if self.supercell:
+                a = self.attn
+                return attn_supercell(x, a.qkv.weight, a.qkv.bias,
+                                      self.norm1.weight, self.norm1.bias,
+                                      a.proj.weight, a.proj.bias,
+                                      self.num_heads, self.scale, temperature,
+                                      self.eps)
+            return self._attn_plain(x, temperature, rel_bias, False)[0]
 
     def _attn_plain(self, x, temperature, rel_bias, return_probs):
         """(x + the attention branch after LayerScale, the probabilities or
@@ -505,14 +512,16 @@ class Block(nn.Module):
         block runs it (a supercell block; ``int8=False`` on the plain route,
         as the JAX package's capture takes it)."""
         n2 = self.norm2
-        if self.int8_mlp and int8:
-            m = self.mlp
-            return mlp_int8_fused(x, m.fc1.weight, m.fc1.bias, m.fc2.weight,
-                                  m.fc2.bias, n2.weight, n2.bias, self.eps)
-        m = self.mlp(layer_norm(x, n2))
-        if self.ls2 is not None:
-            m = self.ls2(m)
-        return x + m
+        with span("ep::mlp_half"):
+            if self.int8_mlp and int8:
+                m = self.mlp
+                return mlp_int8_fused(x, m.fc1.weight, m.fc1.bias,
+                                      m.fc2.weight, m.fc2.bias, n2.weight,
+                                      n2.bias, self.eps)
+            m = self.mlp(layer_norm(x, n2))
+            if self.ls2 is not None:
+                m = self.ls2(m)
+            return x + m
 
     def whole(self, x: torch.Tensor, temperature: float = 1.0,
               rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:

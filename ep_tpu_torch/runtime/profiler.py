@@ -4,18 +4,34 @@ Counterpart of ``ep_tpu/runtime/profiler.py``:
   * ``trace`` — a context manager around ``torch.profiler`` (the host and,
     where there is one, the card), enabled by ``--profile_dir``: it writes a
     Chrome trace, ``trace.json``, into that directory;
-  * ``ThroughputMeter`` — an images-per-second meter on the host clock.
+  * ``span`` — the port's named ranges (``ep::step``, ``ep::backward``,
+    ``ep::attn_half``, ...). Under a profiler session, whichever opened it
+    (``trace``, the benchmark's traced stretch, ``chip_smoke.py``), a span
+    is a ``record_function`` range: the trace holds its name, start, end and
+    enclosing range on the device trace's clock, beside the kernels it
+    launched. With no session running it is one shared no-op context, at
+    the cost of one check of the profiler's flag.
 The JAX package's ``compiled_cost`` reads XLA's cost model, which eager
-PyTorch does not have.
+PyTorch does not have; its ``ThroughputMeter`` has no counterpart here.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``name`` (an ``ep::`` name) while a profiler
+    session runs; else the shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
@@ -32,20 +48,3 @@ def trace(profile_dir: Optional[str]):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-
-
-class ThroughputMeter:
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self._t0 = time.perf_counter()
-        self._images = 0
-
-    def update(self, n_images: int):
-        self._images += n_images
-
-    @property
-    def images_per_sec(self) -> float:
-        dt = time.perf_counter() - self._t0
-        return self._images / dt if dt > 0 else 0.0

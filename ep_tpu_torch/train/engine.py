@@ -32,6 +32,7 @@ import torch
 from ep_tpu_torch.parallel.mesh import DATA_AXIS
 from ep_tpu_torch.parallel.metrics import (all_gather_rows,
                                            collective_device, psum)
+from ep_tpu_torch.runtime.profiler import span
 from ep_tpu_torch.utils.logging import MetricLogger, SmoothedValue
 
 
@@ -55,6 +56,17 @@ def to_device(array: np.ndarray, device: torch.device, pin: bool,
             t = t.pin_memory()
         return t.to(device, non_blocking=pin)
     return t.to(device)
+
+
+def _waited(loader):
+    """The loader's batches, each ``next`` in an ``ep::data_wait`` span."""
+    batches = iter(loader)
+    while True:
+        with span("ep::data_wait"):
+            batch = next(batches, None)
+        if batch is None:
+            return
+        yield batch
 
 
 def train_one_epoch(train_step, step: int, loader, device, epoch: int, cfg,
@@ -93,10 +105,11 @@ def train_one_epoch(train_step, step: int, loader, device, epoch: int, cfg,
             log_writer.add_scalar("lr", float(m["lr"]), epoch_1000x)
 
     for it, (images, labels, _valid) in enumerate(
-            metric_logger.log_every(iter(loader), print_freq, header,
+            metric_logger.log_every(_waited(loader), print_freq, header,
                                     length=length)):
-        images = to_device(images, device, pin, cfg)
-        labels = to_device(labels, device, pin).long()
+        with span("ep::h2d"):
+            images = to_device(images, device, pin, cfg)
+            labels = to_device(labels, device, pin).long()
         metrics = train_step(step, images, labels)
         step += 1
         if pending is not None:

@@ -35,6 +35,7 @@ import torch.nn as nn
 
 from ep_tpu_torch.parallel.mesh import DATA_AXIS, current_mesh
 from ep_tpu_torch.parallel.metrics import pmean
+from ep_tpu_torch.runtime.profiler import span
 from .lars import RawUpdateOptimizer
 
 
@@ -80,33 +81,46 @@ def make_train_step(model: nn.Module, optimizer: RawUpdateOptimizer,
     LR (``optax.MultiSteps`` inside the JAX step). ``device_aug`` augments
     u8 images, keyed by ``step``, so a resumed run draws the same crops.
     The mesh registered when the step is made sets the ranks it reduces
-    over."""
+    over. Under a profiler the step opens ``ep::step`` and, inside it in
+    this order, ``ep::forward``, ``ep::loss``, ``ep::backward``,
+    ``ep::grad_reduce`` (where a mesh reduces), ``ep::metrics`` for the
+    gradient's norm, ``ep::optimizer`` and ``ep::metrics`` for the scores
+    (``runtime/profiler.py::span``)."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
     mesh = current_mesh()
     reduce = mesh is not None and mesh.shape[DATA_AXIS] > 1
 
     def train_step(step: int, images: torch.Tensor,
                    labels: torch.Tensor) -> Dict[str, torch.Tensor]:
-        model.train()
-        if device_aug is not None:
-            images = device_aug.train_fn(step, images)
-        logits = model(images)
-        loss = cross_entropy(logits, labels).mean()
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if reduce:
-            pmean_grads(params, mesh)
-        lr = lr_fn(step)
-        grad_norm = global_grad_norm(p.grad for p in params if p.grad is not None)
-        optimizer.step(lr)
-        logits = logits.detach()
-        scores = {"loss": loss.detach(),
-                  "acc1": topk_correct(logits, labels, 1).mean() * 100.0,
-                  "acc5": topk_correct(logits, labels, 5).mean() * 100.0}
-        if reduce:
-            scores = dict(zip(scores, pmean(torch.stack(list(scores.values())),
-                                            DATA_AXIS, mesh)))
-        return {**scores, "lr": torch.tensor(lr), "grad_norm": grad_norm}
+        with span("ep::step"):
+            model.train()
+            with span("ep::forward"):
+                if device_aug is not None:
+                    images = device_aug.train_fn(step, images)
+                logits = model(images)
+            with span("ep::loss"):
+                loss = cross_entropy(logits, labels).mean()
+            with span("ep::backward"):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            if reduce:
+                with span("ep::grad_reduce"):
+                    pmean_grads(params, mesh)
+            lr = lr_fn(step)
+            with span("ep::metrics"):
+                grad_norm = global_grad_norm(p.grad for p in params
+                                             if p.grad is not None)
+            with span("ep::optimizer"):
+                optimizer.step(lr)
+            with span("ep::metrics"):
+                logits = logits.detach()
+                scores = {"loss": loss.detach(),
+                          "acc1": topk_correct(logits, labels, 1).mean() * 100.0,
+                          "acc5": topk_correct(logits, labels, 5).mean() * 100.0}
+                if reduce:
+                    scores = dict(zip(scores, pmean(
+                        torch.stack(list(scores.values())), DATA_AXIS, mesh)))
+            return {**scores, "lr": torch.tensor(lr), "grad_norm": grad_norm}
 
     return train_step
 
