@@ -23,7 +23,10 @@ Phases, each of which must pass (any failure exits non-zero):
              tiles up to its limits (T=320 at head width 80, 384 at 64; more
              pairs than SMs, temperature 1.5) and twice, equal bit for bit;
              the supercell's gradients
-             (forward and backward) at both; the int8 MLP half's three
+             (forward and backward) at both; LN1's gradient (ln1_apply,
+             ln1_bwd) at (512*197, 768) and (128*257, 1280), twice (equal bit
+             for bit), timed beside their bound, the plain chain and the
+             library's LayerNorm backward; the int8 MLP half's three
              kernels (ln_quant, fc1, fc2) at ViT-B (1 stripe), ViT-L (8
              stripes) and ViT-H (8 stripes, the JAX package's two-kernel
              tier), with the share of int8 codes that differ, the distance to
@@ -133,7 +136,8 @@ Phases, each of which must pass (any failure exits non-zero):
              warmup), random weights from seed 0. Checks a finite loss, that
              every parameter (backbone included) changed, and the launch
              counters per step: A and B 2x depth (the forward, then again in
-             each supercell backward), C and E 1x depth, D once. Prints the
+             each supercell backward), C, E, ln1_apply and ln1_bwd 1x depth,
+             D once. Prints the
              median step time, img/s and a profiled step's device time.
 7. finetune-h — the ft_h row: ViT-H/14 (D=1280, 16 heads of width 80, T=257)
              + EP-32, batch 128, bf16 LARS momentum, the same flags and checks.
@@ -694,6 +698,67 @@ def check_kernels(B: int, BH: int, rng) -> list[dict]:
                     library_ms=lib[k], **bounds[k]) for k in names]
     results[0]["stats_ms"] = stats_ms  # of ln_qkv_gemm's ms
     return results, others
+
+
+def check_ln1_kernels(BH: int) -> list[dict]:
+    """LN1's gradient in the supercell's backward: ln1_apply and ln1_bwd
+    against their plain version (autograd over the f32 LayerNorm, the
+    residual's sum and the sum of g) at fine-tuning's shapes, ViT-B/16 at
+    batch 512 and ViT-H/14 at batch BH, each twice (bit-equal), timed beside
+    their bound (bytes), the plain chain and the library's LayerNorm
+    backward (native, bf16 weights). Inputs from a generator of their own."""
+    from ep_tpu_torch.ops.attn_block import (ln1_apply, ln1_backward_ref,
+                                             ln1_bwd)
+    rng = np.random.default_rng(21)
+    results = []
+    for tag, b, t, d in (("", 512, 197, 768), ("_k1280", BH, 257, 1280)):
+        m = b * t
+        x = rand(rng, (b, t, d), 2.0) + 0.5
+        gamma = 1 + rand(rng, (d,), 0.1, torch.float32)
+        beta = rand(rng, (d,), 0.1, torch.float32)
+        dxn, g = rand(rng, (b, t, d)), rand(rng, (b, t, d))
+        xf = x.float().view(m, d)
+        stats = torch.stack([xf.mean(-1), torch.rsqrt(
+            xf.var(-1, unbiased=False) + 1e-6)], -1).contiguous()
+        del xf
+        got = (ln1_apply(x, stats, gamma, beta), *ln1_bwd(x, stats, gamma, dxn, g))
+        want = ln1_backward_ref(x, gamma, beta, dxn, g, 1e-6)
+        err = {}
+        for name, a, r in zip(("xn", "g + dx", "dgamma", "dbeta", "dbp"), got,
+                              want):
+            tol = RTOL if a.dtype == torch.bfloat16 else 1e-3
+            err[name] = compare(f"ln1 ({b},{t},{d}) {name}", a, r,
+                                atol=tol * float(r.float().abs().max()),
+                                rtol=tol)
+        repeat_equal(f"ln1 ({b},{t},{d})", got,
+                     (ln1_apply(x, stats, gamma, beta),
+                      *ln1_bwd(x, stats, gamma, dxn, g)))
+        del got, want
+        plain_ms = time_ms(lambda: ln1_backward_ref(x, gamma, beta, dxn, g,
+                                                    1e-6), 3)
+        g16, be16 = gamma.bfloat16(), beta.bfloat16()
+        leaves = [x.detach().requires_grad_(True), g16.requires_grad_(True),
+                  be16.requires_grad_(True)]
+        y = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-6)
+        lib_ms = time_ms(lambda: torch.autograd.grad(y, leaves, dxn,
+                                                     retain_graph=True))
+        del y, leaves
+        for name, fn, moved in (
+                (f"ln1_apply{tag}", lambda: ln1_apply(x, stats, gamma, beta),
+                 nbytes(x, stats, gamma, beta) + nbytes(x)),
+                (f"ln1_bwd{tag}", lambda: ln1_bwd(x, stats, gamma, dxn, g),
+                 nbytes(x, stats, gamma, dxn, g) + nbytes(x) + 3 * d * 4)):
+            r = dict(name=name, err=max(err.values()) if "bwd" in name
+                     else err["xn"], ms=time_ms(fn), plain_ms=plain_ms,
+                     library_ms=lib_ms, **bound(12 * m * d, "f32", moved))
+            log(f"  time {name} ({m}, {d}): kernel {r['ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.3f} ms by {r['bound_by']}; the plain chain "
+                f"(both) {plain_ms:.3f} ms, the library's LN backward "
+                f"{lib_ms:.3f} ms")
+            results.append(r)
+        del x, dxn, g, stats
+        torch.cuda.empty_cache()
+    return results
 
 
 def gemm_other_shapes(BH: int, block_weights) -> list[dict]:
@@ -1412,11 +1477,13 @@ FT_CONFIGS = {
     "finetune-dinov2-l": (128, dict(model="dinov2_vitl14_reg")),
     "finetune-h448": (32, dict(model="vit_huge_patch14", image_size=448)),
 }
-# launches a step where they are not A and B twice a block, C and E once
+# launches a step where they are not A and B twice a block, C, E, ln1_apply
+# and ln1_bwd once
 FT_LAUNCHES = {
     "finetune-dinov2-l": dict(attn_core=24, attn_core_bwd=24, ep_pool=1),
     "finetune-h448": dict(ln_qkv_gemm=64, attn_flash=64, proj_residual_gemm=32,
-                          attn_bwd_long=32, ep_pool=1),
+                          attn_bwd_long=32, ln1_apply=32, ln1_bwd=32,
+                          ep_pool=1),
 }
 FT_STEPS = 4
 
@@ -1549,7 +1616,7 @@ def finetune(kind: str, B: int, steps: int, card: str):
     expect = dict.fromkeys(LAUNCHES, 0)
     expect.update({k: n * steps for k, n in FT_LAUNCHES.get(kind, dict(
         ln_qkv_gemm=2 * d, attn_core=2 * d, proj_residual_gemm=d, ep_pool=1,
-        attn_core_bwd=d)).items()})
+        attn_core_bwd=d, ln1_apply=d, ln1_bwd=d)).items()})
     log(f"  launches over {steps} steps: {counts} (expected {expect})")
     if counts != expect:
         raise RuntimeError("the fine-tuning path did not go through every "
@@ -3717,6 +3784,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     BH = FT_CONFIGS["finetune-h"][0]
     results, gemm_shapes = check_kernels(args.batch, BH, rng)
+    results += check_ln1_kernels(BH)
     int8_results, int8_halves = check_int8_kernels(args.batch, BH, rng)
     results += int8_results
     long_results, other_shapes = check_long_kernels(rng)
@@ -3867,6 +3935,12 @@ def main() -> int:
         "ep_pool_dinov2_g": (csrc + "ep_pool.cu",
                              "ep_tpu/ops/pool_attn_pallas.py:30",
                              "probe-dinov2-g"),
+        # not TPU kernels: LN1's gradient in the supercell's backward, which
+        # the JAX package leaves to XLA (attn_block_pallas.py::_bwd)
+        "ln1_apply": (csrc + "attn_block_gemm.cu", "none", "finetune-b"),
+        "ln1_bwd": (csrc + "attn_block_gemm.cu", "none", "finetune-b"),
+        "ln1_apply_k1280": (csrc + "attn_block_gemm.cu", "none", "finetune-h"),
+        "ln1_bwd_k1280": (csrc + "attn_block_gemm.cu", "none", "finetune-h"),
         # not a TPU kernel: _bwd_xla, which the JAX package runs past its
         # backward kernel's memory (attn_fused_pallas.py:469-471)
         "attn_bwd_long": ("ep_tpu_torch/ops/attn_fused.py",
@@ -3879,7 +3953,7 @@ def main() -> int:
         counter = r["name"]  # the wrapper's entry in LAUNCHES
         for shape_tag in ("_dh80", "_two_kernel", "_rowtile", "_n1024",
                           "_n197", "_q128", "_t261", "_t272", "_dinov2_l",
-                          "_dinov2_g"):
+                          "_dinov2_g", "_k1280"):
             counter = counter.replace(shape_tag, "")
         launches = paths[path_name][counter]
         if launches == 0:

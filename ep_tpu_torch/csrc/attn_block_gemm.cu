@@ -46,6 +46,25 @@
 // nn.Linear weight layout; out (M, N) bf16. Requires K % 64 == 0, N % 8 == 0
 // and, for kernel A, K <= 1280 (a row's values are held by one warp); checked
 // by the Python wrapper.
+//
+// LN1's gradient in the supercell's backward (ln1_apply, ln1_bwd): no TPU
+// kernel. The JAX package leaves LN1's VJP to XLA, which fuses it; autograd
+// over the plain f32 LayerNorm took 45 launches and some 200 bytes an
+// element a block on this card. Bound: bytes (a few operations an element).
+//   * ln1_apply writes xn = bf16((f32(x) - mean) * rstd * gamma + beta), the
+//     input of qkv's weight gradient, from kernel A's row statistics, with
+//     kernel A's rounding steps.
+//   * ln1_bwd reads x, the statistics, gamma, dxn (the gradient at xn) and
+//     g (the gradient at the block's output) once each, one warp a row, and
+//     writes bf16(f32(g) + f32(bf16(dx))): LN's input gradient rounded to
+//     x's type, then the residual's sum, the plain version's two roundings.
+//     Each block keeps f32 column sums of f32(dxn) * xhat (gamma's
+//     gradient), f32(dxn) (beta's) and f32(g) (the projection bias's) in
+//     registers over a fixed range of rows, adds its warps' sums in a fixed
+//     order and writes them; a second kernel adds the blocks' sums in a
+//     fixed order. No atomics: two runs give the same bits.
+// Both take kernel A's widths (K % 64 == 0, K <= 1280), a lane holding
+// K / 256 (rounded up) 16-byte chunks of a row.
 #include "hopper.cuh"
 
 namespace ep {
@@ -387,8 +406,286 @@ int launch_stats(const bf16* x, float2* stats, int M, int K, float eps,
   return (int)cudaGetLastError();
 }
 
+// ---- LN1's gradient ---------------------------------------------------------
+
+constexpr int LN_WARPS = 8, LN_THREADS = LN_WARPS * 32;
+
+// The 8 bf16 values of a 16-byte chunk, as f32.
+__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[2 * e] = bf16_lo(w[e]), v[2 * e + 1] = bf16_hi(w[e]);
+}
+
+// xn = bf16((f32(x) - mean) * rstd * gamma + beta): one warp a row, rows
+// strided over the grid; gamma and beta held in registers.
+template <int CH>
+__global__ void __launch_bounds__(LN_THREADS)
+ln1_apply_kernel(const bf16* __restrict__ x, const float2* __restrict__ stats,
+                 const float* __restrict__ gamma, const float* __restrict__ beta,
+                 bf16* __restrict__ xn, int M, int K) {
+  const int lane = threadIdx.x & 31;
+  float2 gm[CH][4], bt[CH][4];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int col = (lane + 32 * c) * 8;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col < K) {
+        gm[c][e] = __ldg(reinterpret_cast<const float2*>(gamma + col) + e);
+        bt[c][e] = __ldg(reinterpret_cast<const float2*>(beta + col) + e);
+      }
+  }
+  for (int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5); row < M;
+       row += gridDim.x * LN_WARPS) {
+    const float2 st = __ldg(stats + row);
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * K);
+    uint4* yr = reinterpret_cast<uint4*>(xn + (size_t)row * K);
+    uint4 u[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      u[c] = (lane + 32 * c) * 8 < K ? __ldg(xr + lane + 32 * c) : zero_pack();
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      if ((lane + 32 * c) * 8 < K)
+        yr[lane + 32 * c] = make_uint4(ln_pair(u[c].x, st, gm[c][0], bt[c][0]),
+                                       ln_pair(u[c].y, st, gm[c][1], bt[c][1]),
+                                       ln_pair(u[c].z, st, gm[c][2], bt[c][2]),
+                                       ln_pair(u[c].w, st, gm[c][3], bt[c][3]));
+  }
+}
+
+// out = bf16(f32(g) + f32(bf16(rstd * (dy - mean(dy) - xhat * mean(dy *
+// xhat))))), xhat = (f32(x) - mean) * rstd, dy = f32(dxn) * gamma; and this
+// block's column sums of f32(dxn) * xhat, f32(dxn) and f32(g) over its rows
+// [blockIdx.x * rows, +rows) into part[blockIdx.x][3][K]. Warp w takes rows
+// w, w + LN_WARPS, ... of the range; a lane owns the same columns in every
+// row, so its sums stay in registers until the block adds them.
+template <int CH>
+__global__ void __launch_bounds__(LN_THREADS)
+ln1_bwd_kernel(const bf16* __restrict__ x, const float2* __restrict__ stats,
+               const float* __restrict__ gamma, const bf16* __restrict__ dxn,
+               const bf16* __restrict__ g, bf16* __restrict__ out,
+               float* __restrict__ part, int M, int K, int rows) {
+  extern __shared__ float ln_smem[];
+  float* gamma_s = ln_smem;   // [K]
+  float* sums_s = ln_smem + K;  // [3][K]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < K; i += LN_THREADS) gamma_s[i] = gamma[i];
+  __syncthreads();
+
+  float sg[CH][8], sb[CH][8], sp[CH][8];
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sg[c][e] = sb[c][e] = sp[c][e] = 0.f;
+
+  const float inv_k = 1.f / (float)K;
+  const int r0 = blockIdx.x * rows, r1 = min(M, r0 + rows);
+  for (int row = r0 + warp; row < r1; row += LN_WARPS) {
+    const float2 st = __ldg(stats + row);
+    const size_t off = (size_t)row * K / 8;
+    uint4 xv[CH], dv[CH], gv[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const bool in = (lane + 32 * c) * 8 < K;
+      const size_t at = off + lane + 32 * c;
+      xv[c] = in ? __ldg(reinterpret_cast<const uint4*>(x) + at) : zero_pack();
+      dv[c] = in ? __ldg(reinterpret_cast<const uint4*>(dxn) + at) : zero_pack();
+      gv[c] = in ? __ldg(reinterpret_cast<const uint4*>(g) + at) : zero_pack();
+    }
+    // the row's two means (the lanes' zero-filled columns add nothing)
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int col = (lane + 32 * c) * 8;
+      if (col < K) {
+        float xf[8], df[8], gf[8];
+        unpack8(xv[c], xf);
+        unpack8(dv[c], df);
+        unpack8(gv[c], gf);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float xh = __fmul_rn(__fsub_rn(xf[e], st.x), st.y);
+          const float dy = __fmul_rn(df[e], gamma_s[col + e]);
+          s1 += dy;
+          s2 += dy * xh;
+          sg[c][e] += df[e] * xh;
+          sb[c][e] += df[e];
+          sp[c][e] += gf[e];
+        }
+      }
+    }
+    const float m1 = warp_sum(s1) * inv_k, m2 = warp_sum(s2) * inv_k;
+    uint4* orow = reinterpret_cast<uint4*>(out) + off;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int col = (lane + 32 * c) * 8;
+      if (col < K) {
+        float xf[8], df[8], gf[8];
+        unpack8(xv[c], xf);
+        unpack8(dv[c], df);
+        unpack8(gv[c], gf);
+        unsigned w[4];
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          float o[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float xh = __fmul_rn(__fsub_rn(xf[e + h], st.x), st.y);
+            const float dy = __fmul_rn(df[e + h], gamma_s[col + e + h]);
+            const float dx = __fmul_rn(
+                st.y, __fsub_rn(__fsub_rn(dy, m1), __fmul_rn(xh, m2)));
+            o[h] = __fadd_rn(gf[e + h],
+                             __bfloat162float(__float2bfloat16_rn(dx)));
+          }
+          w[e / 2] = pack_bf16(o[0], o[1]);
+        }
+        orow[lane + 32 * c] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+  }
+
+  // the warps' sums into the block's, warp 0 first, then to part
+  for (int w = 0; w < LN_WARPS; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int col = (lane + 32 * c) * 8;
+        if (col < K)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            float* s = sums_s + col + e;
+            s[0] = w ? s[0] + sg[c][e] : sg[c][e];
+            s[K] = w ? s[K] + sb[c][e] : sb[c][e];
+            s[2 * K] = w ? s[2 * K] + sp[c][e] : sp[c][e];
+          }
+      }
+    }
+    __syncthreads();
+  }
+  float* p = part + (size_t)blockIdx.x * 3 * K;
+  for (int i = threadIdx.x; i < 3 * K; i += LN_THREADS) p[i] = sums_s[i];
+}
+
+// sums[j] = part[0][j] + part[1][j] + ... over the blocks, in a fixed order:
+// eight strands a column, then the strands in order.
+__global__ void ln1_bwd_finish_kernel(const float* __restrict__ part,
+                                      float* __restrict__ sums, int blocks,
+                                      int n) {
+  __shared__ float s[8][33];
+  const int j = blockIdx.x * 32 + threadIdx.x;
+  float v = 0.f;
+  if (j < n)
+    for (int b = threadIdx.y; b < blocks; b += 8) v += part[(size_t)b * n + j];
+  s[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < n) {
+#pragma unroll
+    for (int y = 1; y < 8; ++y) v += s[y][threadIdx.x];
+    sums[j] = v;
+  }
+}
+
+inline int ln_chunks(int K) { return (K + 255) / 256; }
+inline int ln_bwd_smem(int K) { return 4 * K * (int)sizeof(float); }
+
+// Blocks of 8 warps for M rows, one wave: as many as the card holds at once,
+// fewer where rows run short.
+template <typename Kernel>
+int one_wave(Kernel kernel, int smem, int M) {
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, LN_THREADS,
+                                                smem);
+  const int most = (per_sm > 0 ? per_sm : 1) * sm_count();
+  const int need = (M + LN_WARPS - 1) / LN_WARPS;
+  return need < most ? (need > 0 ? need : 1) : most;
+}
+
+// ln1_bwd's blocks, each a contiguous range of rows.
+template <int CH>
+int ln1_bwd_grid(int M, int K) {
+  return one_wave(ln1_bwd_kernel<CH>, ln_bwd_smem(K), M);
+}
+
+template <int CH>
+int launch_ln1_apply(const bf16* x, const float2* stats, const float* gamma,
+                     const float* beta, bf16* xn, int M, int K, cudaStream_t s) {
+  ln1_apply_kernel<CH><<<one_wave(ln1_apply_kernel<CH>, 0, M), LN_THREADS, 0,
+                         s>>>(x, stats, gamma, beta, xn, M, K);
+  return (int)cudaGetLastError();
+}
+
+template <int CH>
+int launch_ln1_bwd(const bf16* x, const float2* stats, const float* gamma,
+                   const bf16* dxn, const bf16* g, bf16* out, float* part,
+                   float* sums, int M, int K, cudaStream_t s) {
+  const int grid = ln1_bwd_grid<CH>(M, K);
+  const int rows = (M + grid - 1) / grid;
+  ln1_bwd_kernel<CH><<<grid, LN_THREADS, ln_bwd_smem(K), s>>>(
+      x, stats, gamma, dxn, g, out, part, M, K, rows);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  ln1_bwd_finish_kernel<<<(3 * K + 31) / 32, dim3(32, 8), 0, s>>>(part, sums,
+                                                                  grid, 3 * K);
+  return (int)cudaGetLastError();
+}
+
+// One instance a chunk count: K <= 256 * CH.
+#define EP_LN_DISPATCH(K, FN, ...)                  \
+  switch (ln_chunks(K)) {                           \
+    case 1: return FN<1>(__VA_ARGS__);              \
+    case 2: return FN<2>(__VA_ARGS__);              \
+    case 3: return FN<3>(__VA_ARGS__);              \
+    case 4: return FN<4>(__VA_ARGS__);              \
+    case 5: return FN<5>(__VA_ARGS__);              \
+    default: return (int)cudaErrorInvalidValue;     \
+  }
+
 }  // namespace
 }  // namespace ep
+
+// LN1's output from kernel A's statistics: x (M, K) bf16, stats (M, 2) f32,
+// gamma, beta (K) f32 -> xn (M, K) bf16.
+EP_EXPORT int ep_ln1_apply(const void* x, const void* stats, const void* gamma,
+                           const void* beta, void* xn, int M, int K,
+                           void* stream) {
+  using namespace ep;
+  const bf16* xp = static_cast<const bf16*>(x);
+  const float2* sp = static_cast<const float2*>(stats);
+  const float* gp = static_cast<const float*>(gamma);
+  const float* bp = static_cast<const float*>(beta);
+  bf16* yp = static_cast<bf16*>(xn);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  EP_LN_DISPATCH(K, launch_ln1_apply, xp, sp, gp, bp, yp, M, K, s)
+}
+
+// The number of blocks ep_ln1_bwd runs for M rows of K: its scratch holds
+// that many times 3 * K floats.
+EP_EXPORT int ep_ln1_bwd_blocks(int M, int K) {
+  using namespace ep;
+  EP_LN_DISPATCH(K, ln1_bwd_grid, M, K)
+}
+
+// LN1's backward with the residual: x, dxn, g (M, K) bf16, stats (M, 2),
+// gamma (K) f32 -> out (M, K) bf16 = g + dx; sums (3, K) f32 = gamma's,
+// beta's and the projection bias's gradients; part: f32 scratch of
+// ep_ln1_bwd_blocks(M, K) * 3 * K.
+EP_EXPORT int ep_ln1_bwd(const void* x, const void* stats, const void* gamma,
+                         const void* dxn, const void* g, void* out, void* part,
+                         void* sums, int M, int K, void* stream) {
+  using namespace ep;
+  const bf16* xp = static_cast<const bf16*>(x);
+  const float2* sp = static_cast<const float2*>(stats);
+  const float* gp = static_cast<const float*>(gamma);
+  const bf16* dp = static_cast<const bf16*>(dxn);
+  const bf16* rp = static_cast<const bf16*>(g);
+  bf16* op = static_cast<bf16*>(out);
+  float* pp = static_cast<float*>(part);
+  float* up = static_cast<float*>(sums);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  EP_LN_DISPATCH(K, launch_ln1_bwd, xp, sp, gp, dp, rp, op, pp, up, M, K, s)
+}
 
 // The row statistics of kernel A alone: x (M, K) bf16 -> stats (M, 2) f32,
 // (mean, 1/sqrt(var + eps)) a row.

@@ -33,6 +33,9 @@ SIGNATURES = {
     "ep_ln_row_stats": [_P, _P, _I, _I, _F, _P],
     "ep_ln_qkv_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "ep_proj_residual_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ep_ln1_apply": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "ep_ln1_bwd_blocks": [_I, _I],
+    "ep_ln1_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "ep_attn_core": [_P, _P, _I, _I, _I, _I, _F, _P],
     "ep_attn_core_smem_bytes": [_I, _I],
     "ep_attn_core_bwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],

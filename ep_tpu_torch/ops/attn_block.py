@@ -13,17 +13,20 @@ device memory):
 
 Weights are in the ``nn.Linear`` layout, (out, in), like every weight of the
 port. The backward (``attn_block_pallas.py::_bwd``) keeps only the inputs,
-recomputes qkv (A) and the attention output (B), takes the projection's and
-LN1's gradients in plain torch (as the JAX package leaves them to XLA) and
-the attention core's from kernel E or, past E's limit, the tiled plain
-version (``attn_fused.py::attention_backward``).
+recomputes qkv (A, keeping its row statistics) and the attention output (B),
+takes the projection's products with cuBLAS, the attention core's gradient
+from kernel E or, past E's limit, the tiled plain version
+(``attn_fused.py::attention_backward``), and LN1's gradient with the
+residual's from two passes of ``csrc/attn_block_gemm.cu`` (``ln1_apply``,
+``ln1_bwd``; the JAX package leaves LN1's VJP to XLA, which fuses it), or
+from autograd over the plain LayerNorm on the CPU (``ln1_backward_ref``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import LAUNCHES, check, use_kernel
-from ._build import call, stream_ptr
+from ._build import call, query, stream_ptr
 from .attn_fused import (attention_backward, attention_core,
                          attention_qkv_fused_ref)
 
@@ -44,8 +47,12 @@ def _check_gemm(name: str, N: int, K: int, ln: bool = False) -> None:
 
 
 def ln_qkv(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-           w_qkv: torch.Tensor, b_qkv: torch.Tensor, eps: float) -> torch.Tensor:
-    """Kernel A: LN1 (f32 statistics) and the qkv product, (B,T,D) -> (B,T,3D)."""
+           w_qkv: torch.Tensor, b_qkv: torch.Tensor, eps: float,
+           stats: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel A: LN1 (f32 statistics) and the qkv product, (B,T,D) -> (B,T,3D).
+
+    On the card ``stats``, an f32 (B*T, 2) tensor where given, receives each
+    row's (mean, rstd) for the LN1 backward (:func:`ln1_backward`)."""
     if not use_kernel(x, gamma, beta, w_qkv, b_qkv):
         return ln_qkv_ref(x, gamma, beta, w_qkv, b_qkv, eps)
     B, T, D = x.shape
@@ -58,7 +65,9 @@ def ln_qkv(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     check(b, "b_qkv", (N,), torch.float32)
     check(g, "gamma", (D,), torch.float32)
     check(bt, "beta", (D,), torch.float32)
-    stats = torch.empty(B * T, 2, device=x.device, dtype=torch.float32)
+    if stats is None:
+        stats = torch.empty(B * T, 2, device=x.device, dtype=torch.float32)
+    check(stats, "stats", (B * T, 2), torch.float32)
     out = torch.empty(B, T, N, device=x.device, dtype=x.dtype)
     call("ep_ln_qkv_gemm", x.data_ptr(), w.data_ptr(), b.data_ptr(),
          g.data_ptr(), bt.data_ptr(), stats.data_ptr(), out.data_ptr(),
@@ -83,6 +92,76 @@ def ln_qkv_ref(x, gamma, beta, w_qkv, b_qkv, eps):
     xn = layer_norm_ref(x, gamma, beta, eps)
     qkv = xn.float() @ w_qkv.to(x.dtype).float().t() + b_qkv.float()
     return qkv.to(x.dtype)
+
+
+def ln1_apply(x: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor,
+              beta: torch.Tensor) -> torch.Tensor:
+    """LN1's output from kernel A's row statistics (card only): (B,T,D) ->
+    bf16((f32(x) - mean) * rstd * gamma + beta), the rounding of A's LN."""
+    B, T, D = x.shape
+    _check_gemm("ln1_apply", D, D, ln=True)  # kernel A's widths
+    g, bt = (t.float().contiguous() for t in (gamma, beta))
+    check(x, "x", (B, T, D), torch.bfloat16)
+    check(stats, "stats", (B * T, 2), torch.float32)
+    check(g, "gamma", (D,), torch.float32)
+    check(bt, "beta", (D,), torch.float32)
+    xn = torch.empty_like(x)
+    call("ep_ln1_apply", x.data_ptr(), stats.data_ptr(), g.data_ptr(),
+         bt.data_ptr(), xn.data_ptr(), B * T, D, stream_ptr(x))
+    LAUNCHES["ln1_apply"] += 1
+    return xn
+
+
+def ln1_bwd(x: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor,
+            dxn: torch.Tensor, g: torch.Tensor):
+    """LN1's backward with the residual (card only). ``dxn`` is the gradient
+    at LN1's output, ``g`` the one at the block's output, both (B,T,D) bf16.
+
+    Returns (bf16(f32(g) + f32(dx)), dgamma, dbeta, dbp): dx LN1's input
+    gradient rounded to bf16; the three f32 (D,) column sums of f32(dxn) *
+    xhat, f32(dxn) and f32(g), the last the projection bias's gradient."""
+    B, T, D = x.shape
+    M = B * T
+    _check_gemm("ln1_bwd", D, D, ln=True)
+    gm = gamma.float().contiguous()
+    check(x, "x", (B, T, D), torch.bfloat16)
+    check(stats, "stats", (M, 2), torch.float32)
+    check(gm, "gamma", (D,), torch.float32)
+    check(dxn, "dxn", (B, T, D), torch.bfloat16)
+    check(g, "g", (B, T, D), torch.bfloat16)
+    out = torch.empty_like(x)
+    part = torch.empty(query("ep_ln1_bwd_blocks", M, D), 3, D,
+                       device=x.device, dtype=torch.float32)
+    sums = torch.empty(3, D, device=x.device, dtype=torch.float32)
+    call("ep_ln1_bwd", x.data_ptr(), stats.data_ptr(), gm.data_ptr(),
+         dxn.data_ptr(), g.data_ptr(), out.data_ptr(), part.data_ptr(),
+         sums.data_ptr(), M, D, stream_ptr(x))
+    LAUNCHES["ln1_bwd"] += 1
+    return out, sums[0], sums[1], sums[2]
+
+
+def ln1_backward(x, stats, gamma, beta, dxn, g, eps):
+    """LN1's gradient in the supercell's backward, with the residual's.
+
+    Returns (xn, g + dx, dgamma, dbeta, dbp): LN1's output in x.dtype (the
+    input of qkv's weight gradient), the block input's gradient, and the f32
+    gradients of gamma, beta and the projection bias (the sum of g). On the
+    card kernels ``ln1_apply`` and ``ln1_bwd`` from kernel A's ``stats``; on
+    the CPU :func:`ln1_backward_ref` (``stats`` unused)."""
+    if not use_kernel(x, gamma, beta, dxn, g):
+        return ln1_backward_ref(x, gamma, beta, dxn, g, eps)
+    return (ln1_apply(x, stats, gamma, beta), *ln1_bwd(x, stats, gamma, dxn, g))
+
+
+def ln1_backward_ref(x, gamma, beta, dxn, g, eps):
+    """Plain version of :func:`ln1_backward`: autograd over
+    :func:`layer_norm_ref`'s f32 composition, dx in x.dtype, then the
+    residual's sum ``g + dx`` in x.dtype, and the f32 sum of g."""
+    with torch.enable_grad():
+        ln_in = [t.detach().requires_grad_() for t in (x, gamma, beta)]
+        xn = layer_norm_ref(*ln_in, eps)
+    dx, dgamma, dbeta = torch.autograd.grad(xn, ln_in, dxn)
+    return xn.detach(), g + dx, dgamma, dbeta, g.float().sum((0, 1))
 
 
 def proj_residual(o: torch.Tensor, w_proj: torch.Tensor, b_proj: torch.Tensor,
@@ -137,23 +216,23 @@ class _AttnSupercell(torch.autograd.Function):
         num_heads, scale, temperature, eps = ctx.args
         dt = x.dtype
         g = g.contiguous()
-        # recompute the forward's intermediates: A and B on the card
-        qkv = ln_qkv(x, gamma, beta, w_qkv, b_qkv, eps)
+        # recompute the forward's intermediates: A (keeping LN1's row
+        # statistics) and B on the card
+        stats = (torch.empty(x.shape[0] * x.shape[1], 2, device=x.device,
+                             dtype=torch.float32) if use_kernel(x) else None)
+        qkv = ln_qkv(x, gamma, beta, w_qkv, b_qkv, eps, stats)
         o = attention_core(qkv, num_heads, scale, temperature)
         # out = dt(f32(x) + o @ W_proj^T + b_proj): g passes to x unchanged
         do = g @ w_proj.to(dt)
         dwp = _weight_grad(g, o, w_proj)
-        dbp = g.float().sum((0, 1)).to(b_proj.dtype)
         dqkv = attention_backward(qkv, do, num_heads, scale, temperature)
-        # qkv = dt(f32(LN1(x) @ W_qkv^T) + b_qkv), LN1 differentiated by autograd
-        with torch.enable_grad():
-            ln_in = [t.detach().requires_grad_() for t in (x, gamma, beta)]
-            xn = layer_norm_ref(*ln_in, eps)
+        # qkv = dt(f32(LN1(x) @ W_qkv^T) + b_qkv)
+        xn, dx, dgamma, dbeta, dbp = ln1_backward(
+            x, stats, gamma, beta, dqkv @ w_qkv.to(dt), g, eps)
         dwq = _weight_grad(dqkv, xn, w_qkv)
-        dbq = dqkv.float().sum((0, 1)).to(b_qkv.dtype)
-        dx_ln, dgamma, dbeta = torch.autograd.grad(xn, ln_in,
-                                                   dqkv @ w_qkv.to(dt))
-        return (g + dx_ln, dwq, dbq, dgamma, dbeta, dwp, dbp,
+        dbq = dqkv.sum((0, 1), dtype=torch.float32)
+        return (dx, dwq, dbq.to(b_qkv.dtype), dgamma.to(gamma.dtype),
+                dbeta.to(beta.dtype), dwp, dbp.to(b_proj.dtype),
                 None, None, None, None)
 
 

@@ -217,10 +217,68 @@ def test_gemm_kernels_refuse_what_they_do_not_take(dev):
                       _rand((1, 5, 64), dev))
 
 
+def _row_stats(x, eps=1e-6):
+    """Kernel A's row statistics of x (B,T,D): (B*T, 2) f32 (mean, rstd)."""
+    from ep_tpu_torch.ops._build import call, stream_ptr
+    stats = torch.empty(x.shape[0] * x.shape[1], 2, device=x.device,
+                        dtype=torch.float32)
+    call("ep_ln_row_stats", x.data_ptr(), stats.data_ptr(),
+         x.shape[0] * x.shape[1], x.shape[2], eps, stream_ptr(x))
+    return stats
+
+
+@pytest.mark.parametrize("B, T, D", [
+    (2, 197, 768), (64, 197, 768), (3, 5, 768), (3, 257, 1024), (1, 1, 1024),
+    (1, 1025, 1280), (3, 7, 1280), (2, 37, 64)])
+def test_ln1_kernels(dev, B, T, D):
+    """ln1_apply and ln1_bwd against the plain version (autograd over the f32
+    LayerNorm) at the three model widths and K = 64, with M = B*T ragged,
+    under one block's 8 rows and over a pass of the whole card; twice, bit
+    for bit. xn and g + dx round to bf16 at the same points as the plain
+    version, from statistics one f32 rounding apart; the f32 column sums
+    run over the rows in another order."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.attn_block import ln1_backward, ln1_backward_ref
+    x = _rand((B, T, D), dev, 2.0, seed=70) + 0.5
+    gamma = 1 + _rand((D,), dev, 0.1, torch.float32, seed=71)
+    beta = _rand((D,), dev, 0.1, torch.float32, seed=72)
+    dxn, g = _rand((B, T, D), dev, seed=73), _rand((B, T, D), dev, seed=74)
+    stats = _row_stats(x)
+    reset_launches()
+    got = ln1_backward(x, stats, gamma, beta, dxn, g, 1e-6)
+    assert dict(LAUNCHES) == _counts(ln1_apply=1, ln1_bwd=1)
+    again = ln1_backward(x, stats, gamma, beta, dxn, g, 1e-6)
+    want = ln1_backward_ref(x, gamma, beta, dxn, g, 1e-6)
+    for name, a, b, c in zip(("xn", "g + dx", "dgamma", "dbeta", "dbp"), got,
+                             again, want):
+        assert a.dtype == c.dtype and a.shape == c.shape, name
+        assert torch.equal(a, b), f"{name}: two calls differ"
+        scale = float(c.float().abs().max())
+        tol = TOL["rtol"] if a.dtype == torch.bfloat16 else 1e-3
+        torch.testing.assert_close(a, c, rtol=tol, atol=tol * scale, msg=name)
+
+
+def test_ln1_kernels_refuse_what_a_refuses(dev):
+    from ep_tpu_torch.ops.attn_block import ln1_apply, ln1_bwd
+    for D, match in ((96, "K % 64"), (1344, "K <= 1280")):
+        x = _rand((1, 5, D), dev)
+        stats = torch.zeros(5, 2, device=dev)
+        ones, zeros = torch.ones(D, device=dev), torch.zeros(D, device=dev)
+        with pytest.raises(NotImplementedError, match=match):
+            ln1_apply(x, stats, ones, zeros)
+        with pytest.raises(NotImplementedError, match=match):
+            ln1_bwd(x, stats, ones, x, x)
+    with pytest.raises(TypeError):
+        ln1_bwd(_rand((1, 5, 64), dev, dtype=torch.float32),
+                torch.zeros(5, 2, device=dev), torch.ones(64, device=dev),
+                _rand((1, 5, 64), dev), _rand((1, 5, 64), dev))
+
+
 @pytest.mark.parametrize("B, T, D, H", [(2, 197, 768, 12), (2, 257, 1280, 16)])
 def test_supercell_gradients(dev, B, T, D, H):
-    """The supercell's backward (A and B recomputed, E, plain products)
-    against autograd of its plain version on the card; the weights are f32
+    """The supercell's backward (A and B recomputed, E, cuBLAS products, LN1's
+    gradient through ln1_apply and ln1_bwd) against autograd of its plain
+    version on the card; the weights are f32
     masters as in fine-tuning. Each gradient within 2e-2 of its largest
     magnitude: the products round to bf16 at the same points, in another
     summation order."""
@@ -243,7 +301,8 @@ def test_supercell_gradients(dev, B, T, D, H):
         if fn is attn_supercell:
             assert dict(LAUNCHES) == _counts(ln_qkv_gemm=2, attn_core=2,
                                              proj_residual_gemm=1,
-                                             attn_core_bwd=1)
+                                             attn_core_bwd=1, ln1_apply=1,
+                                             ln1_bwd=1)
     for a, b in zip(*grads):
         assert a.dtype == b.dtype
         scale = float(b.float().abs().max())

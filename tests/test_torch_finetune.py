@@ -36,7 +36,8 @@ from ep_tpu.train.state import create_train_state
 from ep_tpu_torch.configs import TrainConfig as PortTrainConfig
 from ep_tpu_torch.convert.from_flax import flax_to_torch
 from ep_tpu_torch.models.assembly import ProbeModel, build_backbone_config
-from ep_tpu_torch.ops.attn_block import attn_supercell
+from ep_tpu_torch.ops.attn_block import (attn_supercell, layer_norm_ref,
+                                         ln1_backward_ref)
 from ep_tpu_torch.ops.attn_fused import (attention_qkv_fused,
                                          attention_qkv_fused_bwd_ref)
 from ep_tpu_torch.train import schedule
@@ -148,6 +149,50 @@ def test_supercell_vjp_matches_jax(dtype):
         assert t.grad.dtype == t.dtype, name
         gj = np.asarray(jnp.asarray(gj, jnp.float32))
         _close(t.grad, gj.T if gj.ndim == 2 else gj, dtype, name)
+
+
+# ---- LN1's backward (the plain version of kernels ln1_apply and ln1_bwd) ----
+
+@pytest.mark.parametrize("B, T", [(3, 7), (1, 197)])  # rows not a multiple of 8
+@pytest.mark.parametrize("D", [64, 768, 1280])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln1_backward_ref_matches_autograd(dtype, D, B, T):
+    """``ln1_backward_ref`` is autograd over ``layer_norm_ref``, bit for bit,
+    with the residual's sum and the sum of g; and the closed form that the
+    card's kernels compute, in float64 with their cast points
+    (bf16(g + bf16(dx)), dx = rstd * (dy - mean(dy) - xhat * mean(dy *
+    xhat)), dy = dxn * gamma), agrees with it."""
+    rng = np.random.default_rng(D + T)
+    td = DTYPES[dtype][1]
+    x, dxn, g = (torch.from_numpy(rng.standard_normal((B, T, D), np.float32)
+                                  * s + m).to(td)
+                 for s, m in ((2.0, 0.5), (1.0, 0.0), (1.0, 0.0)))
+    gamma = torch.from_numpy(1 + 0.1 * rng.standard_normal(D, np.float32))
+    beta = torch.from_numpy(0.1 * rng.standard_normal(D, np.float32))
+    xn, dx, dgamma, dbeta, dbp = ln1_backward_ref(x, gamma, beta, dxn, g, 1e-6)
+
+    ln_in = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    ref_xn = layer_norm_ref(*ln_in, 1e-6)
+    ref = torch.autograd.grad(ref_xn, ln_in, dxn)
+    assert xn.dtype == dx.dtype == td and not xn.requires_grad
+    for got, want in zip((xn, dx, dgamma, dbeta, dbp),
+                         (ref_xn.detach(), g + ref[0], ref[1], ref[2],
+                          g.float().sum((0, 1)))):
+        assert torch.equal(got, want)
+
+    x64, dxn64, g64 = x.double(), dxn.double(), g.double()
+    mu = x64.mean(-1, keepdim=True)
+    rstd = ((x64 - mu) ** 2).mean(-1, keepdim=True).add(1e-6).rsqrt()
+    xh = (x64 - mu) * rstd
+    dy = dxn64 * gamma.double()
+    dx64 = rstd * (dy - dy.mean(-1, keepdim=True)
+                   - xh * (dy * xh).mean(-1, keepdim=True))
+    closed = (g64 + dx64.to(td).double()).to(td)
+    for name, got, want in (
+            ("xn", xn, (xh * gamma.double() + beta.double()).to(td)),
+            ("g + dx", dx, closed), ("dgamma", dgamma, (dxn64 * xh).sum((0, 1))),
+            ("dbeta", dbeta, dxn64.sum((0, 1))), ("dbp", dbp, g64.sum((0, 1)))):
+        _close(got, want.float().numpy(), dtype, name)
 
 
 # ---- the whole fine-tuning model --------------------------------------------
