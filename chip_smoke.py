@@ -26,7 +26,10 @@ Phases, each of which must pass (any failure exits non-zero):
              (forward and backward) at both; LN1's gradient (ln1_apply,
              ln1_bwd) at (512*197, 768) and (128*257, 1280), twice (equal bit
              for bit), timed beside their bound, the plain chain and the
-             library's LayerNorm backward; the int8 MLP half's three
+             library's LayerNorm backward; SwiGLU's gate at (128*261,
+             2x4096) against the plain bf16 chain (equal bit for bit on
+             99.9% of the elements, a bf16 step on the rest), twice, timed
+             beside its bound and the chain; the int8 MLP half's three
              kernels (ln_quant, fc1, fc2) at ViT-B (1 stripe), ViT-L (8
              stripes) and ViT-H (8 stripes, the JAX package's two-kernel
              tier), with the share of int8 codes that differ, the distance to
@@ -114,7 +117,9 @@ Phases, each of which must pass (any failure exits non-zero):
              the plain Attention route (LN1 and qkv in torch), A and C never,
              D once at (512, 256, 1024, 32); then its logits of 4 images
              against the CPU plain path. probe-dinov2-g — the SwiGLU giant
-             (D=1536, depth 40, 24 heads), batch 64: B 40 times, D once.
+             with 4 registers at the hub's widths (D=1536, depth 40, 24
+             heads, SwiGLU hidden 4096, T=261), batch 64: B and the gate
+             kernel 40 times, D once.
              probe-capi — CAPI-L/14 (16 registers, no [CLS], T=272: B's last
              key bin): A, B and C 24 times; then a cls-mode model (the
              register mean) against the CPU's. probe-clip-b — OpenCLIP
@@ -759,6 +764,42 @@ def check_ln1_kernels(BH: int) -> list[dict]:
         del x, dxn, g, stats
         torch.cuda.empty_cache()
     return results
+
+
+def check_swiglu_gate() -> list[dict]:
+    """SwiGLU's gate (``ops/swiglu.py``) at DINOv2-g/14's probe shape, 128
+    images of 261 tokens with H=4096, against the plain bf16 chain: equal
+    bit for bit on at least 99.9% of the elements and within one bf16 step
+    on the rest (the kernel's exp may differ from PyTorch's in the last f32
+    bit), twice (bit-equal), timed beside its bound (bytes) and the chain.
+    Inputs from a generator of their own."""
+    from ep_tpu_torch.ops.swiglu import swiglu_gate, swiglu_gate_ref
+    rng = np.random.default_rng(22)
+    b, t, h = 128, 261, 4096
+    x12 = rand(rng, (b, t, 2 * h), 3.0)
+    got, want = swiglu_gate(x12), swiglu_gate_ref(x12)
+    g, w = got.float(), want.float()
+    same = float((g == w).float().mean())
+    step = torch.exp2(torch.frexp(torch.maximum(g.abs(), w.abs()))[1] - 8.0)
+    ok = same >= 0.999 and bool(((g - w).abs() <= step).all())
+    log(f"  swiglu_gate ({b},{t},2x{h}): {same:.6f} of the elements equal "
+        f"bit for bit, the rest within a bf16 step {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("swiglu_gate: the kernel is not the plain chain")
+    repeat_equal(f"swiglu_gate ({b},{t},2x{h})", got, swiglu_gate(x12))
+    err = float((g - w).abs().max())
+    del got, want, g, w, step
+    r = dict(name="swiglu_gate_dinov2_g", err=err,
+             ms=time_ms(lambda: swiglu_gate(x12)),
+             plain_ms=time_ms(lambda: swiglu_gate_ref(x12), 3),
+             library_ms=None,
+             **bound(0, "bf16", nbytes(x12) * 3 // 2))
+    log(f"  time swiglu_gate ({b * t}, {h}): kernel {r['ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.3f} ms by {r['bound_by']}; the plain chain "
+        f"{r['plain_ms']:.3f} ms")
+    del x12
+    torch.cuda.empty_cache()
+    return [r]
 
 
 def gemm_other_shapes(BH: int, block_weights) -> list[dict]:
@@ -3151,8 +3192,8 @@ def check_backbone_kernels(rng) -> list[dict]:
 _DINOV2_L = dict(model="dinov2_vitl14_reg")
 BACKBONE_CONFIGS = {
     "probe-dinov2-l": (512, _DINOV2_L, dict(attn_core=24, ep_pool=1)),
-    "probe-dinov2-g": (64, dict(model="dinov2_vitg14"),
-                       dict(attn_core=40, ep_pool=1)),
+    "probe-dinov2-g": (64, dict(model="dinov2_vitg14_reg"),
+                       dict(attn_core=40, swiglu_gate=40, ep_pool=1)),
     "probe-capi": (512, dict(model="capi_vitl14"),
                    dict(ln_qkv_gemm=24, attn_core=24, proj_residual_gemm=24,
                         ep_pool=1)),
@@ -3785,6 +3826,7 @@ def main() -> int:
     BH = FT_CONFIGS["finetune-h"][0]
     results, gemm_shapes = check_kernels(args.batch, BH, rng)
     results += check_ln1_kernels(BH)
+    results += check_swiglu_gate()
     int8_results, int8_halves = check_int8_kernels(args.batch, BH, rng)
     results += int8_results
     long_results, other_shapes = check_long_kernels(rng)
@@ -3941,6 +3983,8 @@ def main() -> int:
         "ln1_bwd": (csrc + "attn_block_gemm.cu", "none", "finetune-b"),
         "ln1_apply_k1280": (csrc + "attn_block_gemm.cu", "none", "finetune-h"),
         "ln1_bwd_k1280": (csrc + "attn_block_gemm.cu", "none", "finetune-h"),
+        "swiglu_gate_dinov2_g": (csrc + "swiglu_gate.cu", "none",
+                                 "probe-dinov2-g"),
         # not a TPU kernel: _bwd_xla, which the JAX package runs past its
         # backward kernel's memory (attn_fused_pallas.py:469-471)
         "attn_bwd_long": ("ep_tpu_torch/ops/attn_fused.py",

@@ -30,7 +30,15 @@ takes the kernels, as every path did before the field existed.
 
 The MLP half is plain torch (GELU, QuickGELU or SwiGLU) or, with
 ``int8_mlp=True`` on a supercell block (``--int8_mlp``, opt-in and
-approximate), the int8 half of ``ops/mlp_int8.py``.
+approximate), the int8 half of ``ops/mlp_int8.py``. SwiGLU's gate is
+``ops/swiglu.py::swiglu_gate`` (one kernel on the card) where no gradient
+is needed and the block is whole, the plain chain otherwise.
+
+Register tokens sit after the [CLS] token. With ``reg_pos_embed=True`` (the
+JAX package's layout) the position embedding has a row for each of them;
+with ``reg_pos_embed=False`` (DINOv2's hub layout, ``prepare_tokens_with_
+masks``) it covers ``[cls | patches]`` only, and the registers are inserted
+after [CLS] once it has been added.
 
 Block rematerialisation for fine-tuning (``remat_blocks``) is
 ``torch.utils.checkpoint`` with the JAX package's four policies
@@ -43,7 +51,8 @@ but the port always loops over the blocks.
 
 Under a profiler, ``Block.attn_half`` and ``Block.mlp_half`` open the spans
 ``ep::attn_half`` and ``ep::mlp_half`` (``runtime/profiler.py::span``) on
-every route, a recomputation in the backward included.
+every route, a recomputation in the backward included; ``SwiGLUMlp`` opens
+``ep::swiglu_gate`` around its gate on either route.
 
 Parameter names follow timm (``patch_embed.proj``, ``blocks.{i}.attn.qkv``,
 ``blocks.{i}.ls1.gamma``, ``reg_token``, ``norm``, ``norm_pre``,
@@ -90,6 +99,7 @@ from ep_tpu_torch.ops.attention import (attn_stats_from_probs, mha, mm_f32,
 from ep_tpu_torch.ops.attn_block import attn_supercell
 from ep_tpu_torch.ops.attn_fused import attention_qkv_fused
 from ep_tpu_torch.ops.mlp_int8 import mlp_int8_fused
+from ep_tpu_torch.ops.swiglu import swiglu_gate, swiglu_gate_ref
 from ep_tpu_torch.parallel.mesh import (MODEL_AXIS, Mesh, current_mesh,
                                         process_count)
 from ep_tpu_torch.parallel.metrics import all_gather_rows, psum
@@ -130,6 +140,7 @@ class ViTConfig:
     qkv_bias_mode: str = "full"  # full | qv_only (BEiT/SimMIM)
     class_token: bool = True
     reg_tokens: int = 0
+    reg_pos_embed: bool = True  # False: DINOv2's hub layout (no register rows)
     cls_from_registers: bool = False  # CAPI: the register mean is the cls
     use_abs_pos_emb: bool = True
     rel_pos_bias: str = "none"  # none | shared | per_block
@@ -160,6 +171,12 @@ class ViTConfig:
     @property
     def num_prefix_tokens(self) -> int:
         return (1 if self.class_token else 0) + self.reg_tokens
+
+    @property
+    def num_pos_prefix_tokens(self) -> int:
+        """The position embedding's rows before the patch grid's."""
+        return ((1 if self.class_token else 0)
+                + (self.reg_tokens if self.reg_pos_embed else 0))
 
     @property
     def kernel_attention(self) -> bool:
@@ -431,7 +448,10 @@ class Mlp(nn.Module):
 class SwiGLUMlp(nn.Module):
     """silu(x1) * x2 on w12's two halves, then w3 (DINOv2-giant). Cut over
     a model group, ``w12`` holds this rank's 1/M of each half, still
-    [w1 | w2], and ``w3`` is row-parallel."""
+    [w1 | w2], and ``w3`` is row-parallel. The gate is the kernel's
+    (``ops/swiglu.py``) where no gradient is needed and the block is whole;
+    with a gradient, or cut, it is the plain chain, which autograd
+    differentiates."""
 
     def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
         super().__init__()
@@ -440,9 +460,13 @@ class SwiGLUMlp(nn.Module):
         self.tp = None
 
     def forward(self, x):
-        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        x12 = self.w12(x)
         # silu as JAX computes it: the sigmoid rounded, then the products
-        x = x1 * torch.sigmoid(x1) * x2
+        with span("ep::swiglu_gate"):
+            if self.tp is None and not x12.requires_grad:
+                x = swiglu_gate(x12)
+            else:
+                x = swiglu_gate_ref(x12)
         if self.tp is not None:
             return row_parallel(x, self.w3, self.tp.mesh)
         return self.w3(x)
@@ -616,7 +640,7 @@ class VisionTransformer(nn.Module):
         self.reg_token = (nn.Parameter(torch.zeros(1, cfg.reg_tokens, D))
                           if cfg.reg_tokens else None)
         self.pos_embed = (nn.Parameter(torch.zeros(
-            1, cfg.num_prefix_tokens + cfg.num_patches, D))
+            1, cfg.num_pos_prefix_tokens + cfg.num_patches, D))
             if cfg.use_abs_pos_emb else None)
         self.norm_pre = (nn.LayerNorm(D, eps=cfg.norm_eps) if cfg.pre_norm
                          else None)
@@ -659,11 +683,14 @@ class VisionTransformer(nn.Module):
         dt = c.dtype
         x = self.patch_embed(x, dt)
         B, N, D = x.shape
-        prefix = []
+        prefix, regs = [], None
         if self.cls_token is not None:
             prefix.append(self.cls_token.to(dt).expand(B, -1, -1))
         if self.reg_token is not None:
-            prefix.append(self.reg_token.to(dt).expand(B, -1, -1))
+            regs = self.reg_token.to(dt).expand(B, -1, -1)
+            if c.reg_pos_embed:
+                prefix.append(regs)
+                regs = None
         if prefix:
             x = torch.cat(prefix + [x], dim=1)
         if self.pos_embed is not None:
@@ -672,8 +699,11 @@ class VisionTransformer(nn.Module):
                 # an image size other than the model's: resize the patch grid,
                 # in the parameter's precision, before the cast
                 pos = interpolate_pos_embed(pos.float(), N,
-                                            c.num_prefix_tokens)
+                                            c.num_pos_prefix_tokens)
             x = x + pos.to(dt)
+        if regs is not None:  # the hub's layout: after [CLS], no position
+            n_cls = len(prefix)
+            x = torch.cat([x[:, :n_cls], regs, x[:, n_cls:]], dim=1)
         if self.norm_pre is not None:
             x = layer_norm(x, self.norm_pre)
 

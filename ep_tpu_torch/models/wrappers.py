@@ -6,7 +6,11 @@ route cls against patch tokens (``vit.py::select_features``), and a key map
 in ``convert/torch_vit.py``.
 
   * DINOv2: register tokens are left out of the patch stream (they are prefix
-    tokens); the giant tower uses SwiGLU.
+    tokens); the giant tower uses SwiGLU. Two departures from the JAX
+    package, to the hub's layout (``dinov2/hub/backbones.py``): the giant's
+    SwiGLU hidden width is DINOv2's (:func:`swiglu_hidden`: 4096 at D=1536,
+    where the JAX package keeps 4 * D), and a ``_reg`` tower's position
+    embedding has no rows for its registers (``reg_pos_embed=False``).
   * CAPI: no [CLS]; ``cls`` is the register mean (``cls_from_registers``).
   * OpenCLIP: ln_pre, ln_post over all tokens, and the visual projection on
     the cls path only (``proj_dim``).
@@ -18,20 +22,31 @@ import torch
 from .vit import ViTConfig
 
 
+def swiglu_hidden(dim: int) -> int:
+    """DINOv2's SwiGLU hidden width (``dinov2/layers/swiglu_ffn.py::
+    SwiGLUFFNFused`` at ``mlp_ratio`` 4): two thirds of ``4 * dim``, rounded
+    up to a multiple of 8."""
+    return (int(dim * 4 * 2 / 3) + 7) // 8 * 8
+
+
 def dinov2_config(name: str, image_size: int = 224,
                   dtype: torch.dtype = torch.bfloat16) -> ViTConfig:
     """DINOv2 towers: patch 14, LayerScale 1e-5, final LN; '_reg' variants
-    carry 4 register tokens; the giant tower uses SwiGLU."""
+    carry 4 register tokens outside the position embedding; the giant tower
+    uses SwiGLU at the hub's hidden width, carried as ``mlp_ratio`` so that
+    ``int(embed_dim * mlp_ratio)`` reads it."""
     dims = {"vits14": (384, 12, 6), "vitb14": (768, 12, 12),
             "vitl14": (1024, 24, 16), "vitg14": (1536, 40, 24)}
     core = name.replace("dinov2_", "").replace("_reg", "")
     d, depth, heads = dims.get(core, (1024, 24, 16))
     reg = 4 if name.endswith("_reg") else 0
+    swiglu = core == "vitg14"
+    ratio = swiglu_hidden(d) / d if swiglu else 4.0
     return ViTConfig(
         img_size=image_size, patch_size=14, embed_dim=d, depth=depth,
-        num_heads=heads, init_values=1e-5, final_norm="ln",
-        reg_tokens=reg, mlp_type="swiglu" if core == "vitg14" else "gelu",
-        dtype=dtype,
+        num_heads=heads, mlp_ratio=ratio, init_values=1e-5, final_norm="ln",
+        reg_tokens=reg, reg_pos_embed=False,
+        mlp_type="swiglu" if swiglu else "gelu", dtype=dtype,
     )
 
 

@@ -36,6 +36,7 @@ LAUNCHES: dict[str, int] = {
     "mlp_int8_fc2": 0,
     "ln1_apply": 0,
     "ln1_bwd": 0,
+    "swiglu_gate": 0,
     # not a kernel: the plain-torch attention backward past kernel E's limit
     # (ops/attn_fused.py::attention_backward), counted on the card to show
     # which backward a path took

@@ -55,6 +55,7 @@ SIGNATURES = {
     "ep_mlp_int8_fc1": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
     "ep_mlp_int8_fc2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ep_swiglu_gate": [_P, _P, _I, _I, _P],
 }
 
 

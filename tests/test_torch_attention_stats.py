@@ -37,7 +37,7 @@ from ep_tpu_torch.ops.attention import AttnStats, attn_stats_from_probs
 from ep_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
 from test_torch_backbone_util import (close, flax_cfg, images, load_port,
-                                      redraw)
+                                      port_cfg, redraw)
 from test_torch_checkpoint import write_timm_checkpoint
 
 
@@ -67,9 +67,7 @@ def _pair(kw, seed):
     fm = FlaxViT(fcfg)
     v = {"params": redraw(fm.init(jax.random.key(0), jnp.zeros(
         (2, 32, 32, 3)))["params"], seed)}
-    return fm, v, load_port(VisionTransformer(pvit.ViTConfig(
-        **{**{f: getattr(fcfg, f) for f in ViTConfig.__dataclass_fields__
-              if f != "dtype"}, "dtype": torch.float32})), v)
+    return fm, v, load_port(VisionTransformer(port_cfg(fcfg)), v)
 
 
 @pytest.mark.parametrize("name", list(CAPTURE))

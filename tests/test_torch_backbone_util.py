@@ -15,6 +15,14 @@ tables and q/v biases at zero, which would leave those paths untested; every
 leaf is redrawn: LayerNorm scales 1 + 0.1 n, LayerScale 0.5 + 0.1 n, dense
 and conv kernels n / sqrt(fan-in), the rest 0.1 n.
 
+DINOv2's hub layout (the port's ``dinov2_config``; ROADMAP's differences
+kept on purpose): the port builds the SwiGLU giant at DINOv2's hidden width
+and a ``_reg`` tower's position embedding without rows for its registers.
+The flax side is given the same model (:func:`hub_twin`,
+:func:`hub_variables`): the port's hidden width as its ``mlp_ratio``, and
+its position embedding zero at the registers, whose rows
+:func:`drop_register_rows` leaves out of what the port loads.
+
 Tolerances: float32 at 1e-5 (the suite's parity bar). In bfloat16 both
 sides round at the same points, but a few products round once where flax
 rounds twice (the product, then the bias add) and sums run in another order;
@@ -42,6 +50,7 @@ DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TINY = dict(img_size=IMG, patch_size=PATCH, embed_dim=D, depth=DEPTH,
             num_heads=HEADS)
+PORT_ONLY = ("reg_pos_embed",)  # the port's config fields flax's lacks
 
 
 def flax_cfg(dtype="float32", **kw) -> FlaxViTConfig:
@@ -49,13 +58,67 @@ def flax_cfg(dtype="float32", **kw) -> FlaxViTConfig:
                             "dtype": DT[dtype][0]})
 
 
-def port_cfg(fcfg):
+def port_cfg(fcfg, **port):
     """The port's config of the same backbone (``ViTConfig`` or
-    ``MAEConfig``), from the flax one."""
+    ``MAEConfig``), from the flax one; ``port`` sets the fields the flax
+    config lacks (``PORT_ONLY``), else they keep their defaults."""
     cls = pmae.MAEConfig if isinstance(fcfg, jmae.MAEConfig) else ViTConfig
-    names = {f.name for f in dataclasses.fields(cls)} - {"dtype"}
+    names = {f.name for f in dataclasses.fields(cls)} - {"dtype", *PORT_ONLY}
     dtype = torch.float32 if fcfg.dtype == jnp.float32 else torch.bfloat16
-    return cls(**{n: getattr(fcfg, n) for n in names}, dtype=dtype)
+    return cls(**{n: getattr(fcfg, n) for n in names}, dtype=dtype, **port)
+
+
+def hub_twin(fcfg, pcfg):
+    """The flax config ``fcfg`` of the model the port's ``pcfg`` builds: the
+    port's MLP hidden width as its ``mlp_ratio`` (DINOv2's SwiGLU width,
+    where the JAX package keeps 4 * D). Every other field must be the
+    port's already."""
+    if isinstance(pcfg, pmae.MAEConfig):
+        assert port_cfg(fcfg) == pcfg
+        return fcfg
+    hidden = int(pcfg.embed_dim * pcfg.mlp_ratio)
+    twin = fcfg.replace(mlp_ratio=hidden / fcfg.embed_dim)
+    assert int(twin.embed_dim * twin.mlp_ratio) == hidden
+    own = {n: getattr(pcfg, n) for n in PORT_ONLY}
+    assert port_cfg(twin, **own) == pcfg.replace(mlp_ratio=twin.mlp_ratio)
+    return twin
+
+
+def _register_rows(pcfg):
+    """(first row, rows) of the registers in the flax position embedding
+    that the port's ``pcfg`` has no rows for, or None."""
+    if getattr(pcfg, "reg_pos_embed", True) or not pcfg.reg_tokens:
+        return None
+    return (1 if pcfg.class_token else 0), pcfg.reg_tokens
+
+
+def hub_variables(variables, pcfg):
+    """flax ``variables`` with the backbone position embedding's register
+    rows zeroed where the port's ``pcfg`` has none: the flax model adds no
+    position at its registers, as the hub's does not."""
+    rows = _register_rows(pcfg)
+    if rows is None:
+        return variables
+    first, n = rows
+    params = dict(variables["params"])
+    backbone = dict(params["backbone"])
+    pos = np.array(backbone["pos_embed"])
+    pos[:, first:first + n] = 0
+    backbone["pos_embed"] = pos
+    params["backbone"] = backbone
+    return {**variables, "params": params}
+
+
+def drop_register_rows(state, pcfg, key="backbone.pos_embed"):
+    """A state dict (or gradients) converted from flax, in the port's
+    layout: the rows of ``key`` at the registers left out where ``pcfg``
+    has none."""
+    rows = _register_rows(pcfg)
+    if rows is None or key not in state:
+        return state
+    first, n = rows
+    pos = state[key]
+    return {**state, key: torch.cat([pos[:, :first], pos[:, first + n:]], 1)}
 
 
 def images(seed=0, n=B, size=IMG):
@@ -92,10 +155,14 @@ def redraw_backbone(variables, seed=0, keys=("backbone", "oracle")):
     return {**v, "params": params}
 
 
-def load_port(module, variables):
-    """Load flax ``variables`` into a port module, strictly."""
+def load_port(module, variables, hub=None):
+    """Load flax ``variables`` into a port module, strictly; with ``hub``, the
+    port's backbone config, in its layout (:func:`drop_register_rows`)."""
     params, buffers = flax_to_torch(variables, device="cpu")
-    module.load_state_dict({**params, **buffers}, strict=True)
+    state = {**params, **buffers}
+    if hub is not None:
+        state = drop_register_rows(state, hub)
+    module.load_state_dict(state, strict=True)
     return module
 
 

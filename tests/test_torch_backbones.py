@@ -26,8 +26,9 @@ import pytest
 import torch
 
 from test_torch_backbone_util import (B, DEPTH, D, HEADS, IMG, PATCH, close,
-                                      images, load_port, port_cfg, redraw,
-                                      redraw_backbone)
+                                      drop_register_rows, hub_twin,
+                                      hub_variables, images, load_port,
+                                      port_cfg, redraw, redraw_backbone)
 from ep_tpu.configs import TrainConfig
 from ep_tpu.models import mae as jmae
 from ep_tpu.models.assembly import (ProbeModel as FlaxProbeModel,
@@ -83,14 +84,15 @@ def tiny(bcfg, **kw):
 
 def models(cfg, seed=0, **kw):
     """(flax model, its variables with redrawn backbone weights, the port's
-    model with them)."""
-    fcfg = tiny(jax_build_backbone_config(cfg), **kw)
+    model with them). The flax model is the port's: DINOv2 in the hub's
+    layout (``hub_twin``, ``hub_variables``)."""
     pcfg = PortTrainConfig(**dataclasses.asdict(cfg))
-    assert port_cfg(fcfg) == tiny(build_backbone_config(pcfg), **kw)
+    pbcfg = tiny(build_backbone_config(pcfg), **kw)
+    fcfg = hub_twin(tiny(jax_build_backbone_config(cfg), **kw), pbcfg)
     fm = FlaxProbeModel(fcfg, cfg)
     v = fm.init(jax.random.key(0), jnp.zeros((2, IMG, IMG, 3)), train=True)
-    v = redraw_backbone(v, seed)
-    return fm, v, load_port(ProbeModel(port_cfg(fcfg), pcfg), v)
+    v = hub_variables(redraw_backbone(v, seed), pbcfg)
+    return fm, v, load_port(ProbeModel(pbcfg, pcfg), v, hub=pbcfg)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -207,6 +209,8 @@ def test_layerscale_finetune_grads_match_flax(policy):
     from ep_tpu_torch.convert.from_flax import flax_to_torch
     grads_j, _ = flax_to_torch({"params": jax.tree_util.tree_map(
         lambda a: np.asarray(a, np.float32), grads_j)}, device="cpu")
+    # the registers' rows of flax's position embedding are the hub's none
+    grads_j = drop_register_rows(grads_j, pm.backbone.cfg)
     loss_t, grads_t = _grads(pm, x, y)
     assert all(b.remat is not None for b in pm.backbone.blocks)
     np.testing.assert_allclose(loss_t, float(loss_j), rtol=1e-5)

@@ -258,6 +258,54 @@ def test_ln1_kernels(dev, B, T, D):
         torch.testing.assert_close(a, c, rtol=tol, atol=tol * scale, msg=name)
 
 
+@pytest.mark.parametrize("shape", [
+    (128, 261, 2 * 4096), (3, 16), (1000, 48), (7, 2 * 4104), (2, 5, 2 * 8)])
+def test_swiglu_gate(dev, shape):
+    """SwiGLU's gate kernel against the plain bf16 chain at DINOv2-g/14's
+    probe shape (128 images of 261 tokens, H=4096), one vector a row, a row
+    past the block's two vectors a thread, and 3-d input of a narrow width:
+    equal bit for bit on at least 99.9% of the elements, and within one
+    bf16 step on the rest (the sigmoid's exp may differ from PyTorch's in
+    its last f32 bit, which moves a result lying on a rounding boundary);
+    twice, bit for bit."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.swiglu import swiglu_gate, swiglu_gate_ref
+    x12 = _rand(shape, dev, 3.0, seed=80)
+    reset_launches()
+    got = swiglu_gate(x12)
+    assert dict(LAUNCHES) == _counts(swiglu_gate=1)
+    assert torch.equal(got, swiglu_gate(x12))
+    want = swiglu_gate_ref(x12)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    assert float((g == w).float().mean()) >= 0.999
+    step = torch.exp2(torch.frexp(torch.maximum(g.abs(), w.abs()))[1] - 8.0)
+    assert bool(((g - w).abs() <= step).all())
+
+
+def test_swiglu_gate_refuses_what_it_cannot_take(dev):
+    from ep_tpu_torch.ops.swiglu import swiglu_gate
+    with pytest.raises(NotImplementedError, match="H % 8"):
+        swiglu_gate(_rand((4, 2 * 12), dev))
+    with pytest.raises(TypeError):
+        swiglu_gate(_rand((4, 32), dev, dtype=torch.float32))
+
+
+def test_swiglu_mlp_takes_the_kernel_without_a_gradient(dev):
+    """``SwiGLUMlp`` on the card: the gate kernel under ``no_grad`` (a probed
+    encoder), the plain chain where autograd needs the gradient."""
+    from ep_tpu_torch.models.vit import SwiGLUMlp
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    mlp = SwiGLUMlp(64, 176, torch.bfloat16).to(dev)
+    x = _rand((2, 9, 64), dev, seed=81)
+    reset_launches()
+    with torch.no_grad():
+        mlp(x)
+    assert dict(LAUNCHES) == _counts(swiglu_gate=1)
+    mlp(x).float().sum().backward()
+    assert LAUNCHES["swiglu_gate"] == 1 and mlp.w12.weight.grad is not None
+
+
 def test_ln1_kernels_refuse_what_a_refuses(dev):
     from ep_tpu_torch.ops.attn_block import ln1_apply, ln1_bwd
     for D, match in ((96, "K % 64"), (1344, "K <= 1280")):

@@ -197,26 +197,30 @@ def _start(world: int, tmp: Path):
 
 def _flax_case(name: str):
     """(flax model, its variables with the backbone and oracle redrawn, the
-    port's backbone config) of case ``name``."""
+    port's backbone config) of case ``name``: the port's model, DINOv2 in
+    the hub's layout (``test_torch_backbone_util.hub_twin``)."""
     import jax
     import jax.numpy as jnp
     from ep_tpu.configs import TrainConfig as JaxTrainConfig
-    from ep_tpu.models import mae as jmae
     from ep_tpu.models.assembly import ProbeModel as FlaxProbeModel
     from ep_tpu.models.assembly import build_backbone_config
-    from test_torch_backbone_util import port_cfg, redraw_backbone
+    from ep_tpu_torch.models import mae as pmae
+    from ep_tpu_torch.models.assembly import (
+        build_backbone_config as port_backbone_config)
+    from test_torch_backbone_util import (hub_twin, hub_variables,
+                                          redraw_backbone)
     cfg = JaxTrainConfig(**_train_cfg(name))
+    cut = dict(img_size=IMG, patch_size=PATCH, embed_dim=D, depth=DEPTH,
+               num_heads=HEADS)
+    pbcfg = port_backbone_config(TrainConfig(**_train_cfg(name)))
     bcfg = build_backbone_config(cfg)
-    size = dict(img_size=IMG, patch_size=PATCH, embed_dim=D, depth=DEPTH,
-                num_heads=HEADS)
-    if isinstance(bcfg, jmae.MAEConfig):
-        bcfg = dataclasses.replace(bcfg, **size)
-    else:
-        bcfg = bcfg.replace(**{**size, "attn_impl": cfg.attn_impl,
-                               **CASES[name][1]})
+    if not isinstance(pbcfg, pmae.MAEConfig):
+        cut = {**cut, "attn_impl": cfg.attn_impl, **CASES[name][1]}
+    pbcfg = dataclasses.replace(pbcfg, **cut)
+    bcfg = hub_twin(dataclasses.replace(bcfg, **cut), pbcfg)
     fm = FlaxProbeModel(bcfg, cfg)
     v = fm.init(jax.random.key(0), jnp.zeros((2, IMG, IMG, 3)), train=True)
-    return fm, redraw_backbone(v, seed=len(name)), port_cfg(bcfg)
+    return fm, hub_variables(redraw_backbone(v, seed=len(name)), pbcfg), pbcfg
 
 
 class _Ranks:
@@ -254,6 +258,7 @@ def ranks(tmp_path_factory):
     """The ranks, started first (they wait for their inputs), and every
     case's flax model and weights, written for them."""
     from ep_tpu_torch.convert.from_flax import flax_to_torch
+    from test_torch_backbone_util import drop_register_rows
     tmp = tmp_path_factory.mktemp("tensor_parallel")
     run = _Ranks(tmp)
     try:
@@ -261,7 +266,8 @@ def ranks(tmp_path_factory):
             fm, v, bcfg = _flax_case(name)
             params, buffers = flax_to_torch(v, device="cpu")
             run.cases[name] = dict(cfg=_train_cfg(name), bcfg=bcfg,
-                                   state={**params, **buffers})
+                                   state=drop_register_rows(
+                                       {**params, **buffers}, bcfg))
             run.flax[name] = (fm, v)
         imgs, labels = _data()
         torch.save(dict(cases=run.cases, imgs=imgs, labels=labels),
