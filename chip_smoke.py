@@ -29,7 +29,10 @@ Phases, each of which must pass (any failure exits non-zero):
              library's LayerNorm backward; SwiGLU's gate at (128*261,
              2x4096) against the plain bf16 chain (equal bit for bit on
              99.9% of the elements, a bf16 step on the rest), twice, timed
-             beside its bound and the chain; the int8 MLP half's three
+             beside its bound and the chain; LARS's kernel pair over ViT-B/16's
+             fine-tuning leaves against the plain per-leaf loop, twice
+             (bit-equal), timed beside its bound and the loop, and the
+             gradient norm beside the per-leaf sum; the int8 MLP half's three
              kernels (ln_quant, fc1, fc2) at ViT-B (1 stripe), ViT-L (8
              stripes) and ViT-H (8 stripes, the JAX package's two-kernel
              tier), with the share of int8 codes that differ, the distance to
@@ -802,6 +805,101 @@ def check_swiglu_gate() -> list[dict]:
     return [r]
 
 
+def check_lars() -> list[dict]:
+    """LARS's kernel pair (``ops/lars.py``: lars_norms + lars_apply) over
+    ViT-B/16's fine-tuning leaves (the encoder and the EP head, f32) at the
+    benchmark's hyperparameters: one step against the plain per-leaf loop
+    from the same state (each leaf's norms summed in another order: within
+    1e-5), twice (bit-equal), then timed beside its bound (bytes) and the
+    plain loop; and the train step's gradient norm (one multi-tensor pass)
+    beside the per-leaf sum it replaced. Inputs from a generator of their
+    own."""
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.models.assembly import (ProbeModel, SkipDefaultInit,
+                                              build_backbone_config)
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.train.lars import LARS, RawUpdateOptimizer
+    from ep_tpu_torch.train.state import freeze
+    from ep_tpu_torch.train.steps import global_grad_norm
+    from torch.profiler import ProfilerActivity, profile
+
+    class PlainLARS(LARS):
+        _apply_updates = RawUpdateOptimizer._apply_updates
+
+    cfg = TrainConfig(model="vit_base_patch16", cls_features="ep",
+                      ep_queries=32, nb_classes=1000, amp="bfloat16",
+                      finetuning=True)
+    with SkipDefaultInit(), torch.device("cuda"):
+        model = ProbeModel(build_backbone_config(cfg), cfg)
+    shapes = [tuple(p.shape) for p in freeze(model, True)]
+    del model
+    rng = np.random.default_rng(23)
+    start = [rand(rng, s, 0.02, torch.float32) for s in shapes]
+    grads = [rand(rng, s, 1e-3, torch.float32) for s in shapes]
+    n = sum(p.numel() for p in start)
+
+    def fresh(cls):
+        ps = [torch.nn.Parameter(p.clone()) for p in start]
+        for p, g in zip(ps, grads):
+            p.grad = g
+        return ps, cls(ps, weight_decay=0.0)
+
+    reset_launches()
+    got, opt = fresh(LARS)
+    opt.step(1.6)
+    again, opt2 = fresh(LARS)
+    opt2.step(1.6)
+    ref, ref_opt = fresh(PlainLARS)
+    ref_opt.step(1.6)
+    if (LAUNCHES["lars_norms"], LAUNCHES["lars_apply"]) != (2, 2):
+        raise RuntimeError(f"lars: launches {dict(LAUNCHES)}")
+    repeat_equal("lars", tuple(got), tuple(again))
+    err, ok = 0.0, True
+    for a, r in zip(got, ref):
+        for x, y in ((a, r), (opt.state[a]["mu"], ref_opt.state[r]["mu"])):
+            d = (x - y).detach().abs()
+            err = max(err, float(d.max()))
+            ok &= bool((d <= 1e-5 * (y.abs() + y.abs().max())).all())
+    log(f"  lars over {len(shapes)} leaves, {n} parameters: max |d| against "
+        f"the plain loop {err:.3e} (tol |d| <= 1e-5*(|ref| + the leaf's "
+        f"largest |ref|)) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("lars: the kernel pair is not the plain loop")
+    scaled = sum(p.numel() for p in start if p.ndim > 1)
+    moved = 8 * scaled + 20 * n  # f32 p, g (first pass); p, g, mu in, mu, p out
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            opt.step(1.6)
+        torch.cuda.synchronize()
+    pair_ms = sum(ms for ms, _, key in device_rows(prof) if "lars_" in key) / 5
+    t0 = time.perf_counter()
+    for _ in range(5):
+        opt.step(1.6)
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    r = dict(name="lars_apply_vitb_ft", err=err, ms=pair_ms,
+             step_ms=time_ms(lambda: opt.step(1.6)), host_ms=host_ms,
+             plain_ms=time_ms(lambda: ref_opt.step(1.6), 3), library_ms=None,
+             **bound(0, "f32", moved))
+    log(f"  time lars ({len(shapes)} leaves, {n}): kernel pair {pair_ms:.3f} "
+        f"device ms (profiler), bound {r['bound_ms']:.3f} ms by "
+        f"{r['bound_by']}; LARS.step {r['step_ms']:.3f} ms back to back, "
+        f"{host_ms:.3f} ms of it the host's; the plain per-leaf loop "
+        f"{r['plain_ms']:.3f} ms")
+    norm_ms = time_ms(lambda: global_grad_norm(grads))
+    sum_ms = time_ms(lambda: torch.sqrt(sum(g.float().square().sum()
+                                            for g in grads)))
+    d = abs(float(global_grad_norm(grads)) / float(torch.sqrt(sum(
+        g.float().square().sum() for g in grads))) - 1)
+    log(f"  gradient norm over the same leaves: multi-tensor {norm_ms:.3f} "
+        f"ms, the per-leaf sum {sum_ms:.3f} ms, relative difference {d:.2e}")
+    if d > 1e-5:
+        raise RuntimeError("global_grad_norm: not the per-leaf sum")
+    del got, again, ref, opt, opt2, ref_opt, start, grads
+    torch.cuda.empty_cache()
+    return [r]
+
+
 def gemm_other_shapes(BH: int, block_weights) -> list[dict]:
     """Kernels A and C at the other paths' shapes (ViT-H/14 at 224 px, batch
     BH, and at 448 px, batch 64), timed beside bound, plain and library; and,
@@ -1342,6 +1440,12 @@ def environment(**values):
     return mock.patch.dict(os.environ, values)
 
 
+def lars_pair(updates: int) -> dict:
+    """The launches of ``updates`` LARS updates on the card: the kernel pair
+    of ops/lars.py once each."""
+    return dict(lars_norms=updates, lars_apply=updates)
+
+
 def train(kind: str, B: int, steps: int, card: str):
     """The probe-training path; returns (model, images, launch counts, median
     step seconds, the steps' losses)."""
@@ -1445,11 +1549,12 @@ def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel,
     else:
         expect.update({"ln_qkv_gemm": d * steps, attn_kernel: d * steps,
                        "proj_residual_gemm": d * steps, pool_kernel: steps})
+    expect.update(lars_pair(steps))
     int8 = getattr(bcfg, "int8_mlp", False)
     if int8:
         expect.update(dict.fromkeys(INT8_KERNELS, d * steps))
     expect_bf16 = 0 if int8 else d * steps
-    log(f"  launches over {steps} forwards: {counts} (expected {expect}); "
+    log(f"  launches over {steps} steps: {counts} (expected {expect}); "
         f"calls of the bf16 MLP half: {bf16_mlp_calls[0]} (expected "
         f"{expect_bf16})")
     if counts != expect or bf16_mlp_calls[0] != expect_bf16:
@@ -1658,6 +1763,7 @@ def finetune(kind: str, B: int, steps: int, card: str):
     expect.update({k: n * steps for k, n in FT_LAUNCHES.get(kind, dict(
         ln_qkv_gemm=2 * d, attn_core=2 * d, proj_residual_gemm=d, ep_pool=1,
         attn_core_bwd=d, ln1_apply=d, ln1_bwd=d)).items()})
+    expect.update(lars_pair(steps))
     log(f"  launches over {steps} steps: {counts} (expected {expect})")
     if counts != expect:
         raise RuntimeError("the fine-tuning path did not go through every "
@@ -1796,7 +1902,8 @@ def cached_steps(card: str, paths: dict, train_img_s: float) -> dict:
                 loss = float(m["loss"])  # synchronises
                 chains.append((time.perf_counter() - t0) / CACHED_CHAIN)
             paths[name] = dict(LAUNCHES)
-            want = dict.fromkeys(LAUNCHES, 0)
+            want = {**dict.fromkeys(LAUNCHES, 0),
+                    **lars_pair(CACHED_CHAIN * CACHED_CHAINS)}
             want[kernel] = CACHED_CHAIN * CACHED_CHAINS
             log(f"[{name}] head-only step of --cache_features, tokens "
                 f"{tuple(tokens.shape)} bf16, EP-32 + BN + fc + LARS, pool "
@@ -2024,7 +2131,7 @@ def zoo(card: str, paths: dict, steps: int, train_ms: float) -> dict:
         paths[f"zoo-{name}"] = counts = dict(LAUNCHES)
         want = dict.fromkeys(LAUNCHES, 0)
         want.update(ln_qkv_gemm=12 * steps, attn_core=12 * steps,
-                    proj_residual_gemm=12 * steps)
+                    proj_residual_gemm=12 * steps, **lars_pair(steps))
         if base_name(name) == "ep":
             want["ep_pool"] = steps
         med = statistics.median(times)
@@ -2073,7 +2180,8 @@ def zoo(card: str, paths: dict, steps: int, train_ms: float) -> dict:
             loss = float(m["loss"])
             chains.append((time.perf_counter() - t0) / CACHED_CHAIN)
         paths[f"zoo-cached-{name}"] = counts = dict(LAUNCHES)
-        want = dict.fromkeys(LAUNCHES, 0)
+        want = {**dict.fromkeys(LAUNCHES, 0),
+                **lars_pair(CACHED_CHAIN * CACHED_CHAINS)}
         if base_name(name) == "ep":
             want["ep_pool"] = CACHED_CHAIN * CACHED_CHAINS
         if counts != want or not math.isfinite(loss):
@@ -2172,7 +2280,8 @@ def zoo_driver(card: str, paths: dict) -> dict:
                 else DRIVER_EVAL_BATCHES
             want = dict.fromkeys(LAUNCHES, 0)
             want.update(ln_qkv_gemm=12 * forwards, attn_core=12 * forwards,
-                        proj_residual_gemm=12 * forwards)
+                        proj_residual_gemm=12 * forwards,
+                        **lars_pair(0 if kw else DRIVER_STEPS))
             log(f"  [{name}] {time.perf_counter() - t0:.1f} s, launches "
                 f"{ {k: v for k, v in paths[name].items() if v} }")
             if paths[name] != want:
@@ -2365,13 +2474,14 @@ def driver(card: str, paths: dict, keep) -> list[dict]:
             f"{ {k: v for k, v in paths[name].items() if v} }")
         return res
 
-    def expect(name, forwards, pool="ep_pool", per_forward=1, pools=None):
+    def expect(name, forwards, pool="ep_pool", per_forward=1, pools=None,
+               updates=0):
         """A, B and C 12 times a forward; the pool per_forward times a
         forward, or ``pools`` times in all (cached epochs pool without a
-        forward)."""
+        forward); LARS's pair once an update."""
         want = dict.fromkeys(LAUNCHES, 0)
         want.update(ln_qkv_gemm=12 * forwards, attn_core=12 * forwards,
-                    proj_residual_gemm=12 * forwards)
+                    proj_residual_gemm=12 * forwards, **lars_pair(updates))
         if pool:
             want[pool] = per_forward * forwards if pools is None else pools
         if paths[name] != want:
@@ -2407,7 +2517,7 @@ def driver(card: str, paths: dict, keep) -> list[dict]:
         # 1. two epochs, the second one profiled
         profiled["at"] = (str(tmp / "train"), 1)
         res = run("driver", tmp / "train")
-        expect("driver", 2 * per_epoch)
+        expect("driver", 2 * per_epoch, updates=2 * DRIVER_STEPS)
         first, ckpt = check_run("driver", tmp / "train", [0, 1],
                                 (1, 2 * DRIVER_STEPS))
         log(f"  epoch lines {first}; the checkpoint holds "
@@ -2417,7 +2527,7 @@ def driver(card: str, paths: dict, keep) -> list[dict]:
 
         # 2. --auto_resume to 3 epochs: epoch 2 from the saved global step
         run("driver-resume", tmp / "train", epochs=3, auto_resume=True)
-        expect("driver-resume", per_epoch)
+        expect("driver-resume", per_epoch, updates=DRIVER_STEPS)
         resumed = epoch_lines(tmp / "train")
         last = epochs[-1]
         if list(resumed) != [2] or (last["epoch"], last["first_step"]) != (
@@ -2444,7 +2554,8 @@ def driver(card: str, paths: dict, keep) -> list[dict]:
         # 4. one epoch at --ep_queries 128: kernel D in groups of 64 queries
         groups = len(query_groups(128))
         run("driver-q128", tmp / "q128", ep_queries=128, epochs=1)
-        expect("driver-q128", per_epoch, per_forward=groups)
+        expect("driver-q128", per_epoch, per_forward=groups,
+               updates=DRIVER_STEPS)
         q128 = epoch_lines(tmp / "q128")
         if not all(math.isfinite(v) for v in q128[0]):
             raise RuntimeError(f"driver-q128: {q128}")
@@ -2495,7 +2606,7 @@ def driver(card: str, paths: dict, keep) -> list[dict]:
             profiled["at"] = (str(out), 1)
             run(name, out, cache_features=True, cache_augs=K, epochs=n_epochs)
             expect(name, K * DRIVER_STEPS + DRIVER_EVAL_BATCHES,
-                   pools=n_epochs * per_epoch)
+                   pools=n_epochs * per_epoch, updates=n_epochs * DRIVER_STEPS)
             got, _ = check_run(name, out, list(range(n_epochs)),
                                (n_epochs - 1, n_epochs * DRIVER_STEPS))
             said = ("[cache] train (512, 196, 768)"
@@ -2511,7 +2622,7 @@ def driver(card: str, paths: dict, keep) -> list[dict]:
         profiled["at"] = (str(out), 1)
         run("driver-device-aug", out, device_aug=True,
             device_aug_cache=str(tmp / "staged"))
-        expect("driver-device-aug", 2 * per_epoch)
+        expect("driver-device-aug", 2 * per_epoch, updates=2 * DRIVER_STEPS)
         got, _ = check_run("driver-device-aug", out, [0, 1],
                            (1, 2 * DRIVER_STEPS))
         staged = sorted(p.name for p in (tmp / "staged").glob("staged_*.npy"))
@@ -2582,7 +2693,7 @@ def ddp_nccl_1(card: str, paths: dict, driver_epochs: list,
         _launches_equal("ddp-nccl-1", paths,
                         ln_qkv_gemm=24 * per_epoch, attn_core=24 * per_epoch,
                         proj_residual_gemm=24 * per_epoch,
-                        ep_pool=2 * per_epoch)
+                        ep_pool=2 * per_epoch, **lars_pair(2 * DRIVER_STEPS))
         got = epoch_lines(out)
         log(f"  epoch lines {got}; the driver phase's {driver_lines}; max "
             f"accuracy {res['max_accuracy']:.2f}%")
@@ -2795,7 +2906,8 @@ def ddp_gloo_2(card: str, paths: dict, train_loss) -> dict:
         if worst > 0:
             raise RuntimeError(f"ddp-gloo-2: BN {k} is not one process's")
     per_step = dict(ln_qkv_gemm=12 * GLOO_STEPS, attn_core=12 * GLOO_STEPS,
-                    proj_residual_gemm=12 * GLOO_STEPS, ep_pool=GLOO_STEPS)
+                    proj_residual_gemm=12 * GLOO_STEPS, ep_pool=GLOO_STEPS,
+                    **lars_pair(GLOO_STEPS))
     extract = dict(ln_qkv_gemm=12 * 2, attn_core=12 * 2,
                    proj_residual_gemm=12 * 2)
     for r, res in enumerate(ranks):
@@ -2827,10 +2939,11 @@ def ddp_gloo_2(card: str, paths: dict, train_loss) -> dict:
 # forward; (b) ViT-B/16 under "pallas": every block joins its pieces and
 # runs A, B and C as one process does.
 TP_RUNS = {
-    "a": (dict(model="dinov2_vitg14"), 16, 3, dict(ep_pool=1)),
+    "a": (dict(model="dinov2_vitg14"), 16, 3,
+          dict(ep_pool=1, lars_norms=1, lars_apply=1)),
     "b": (dict(model="vit_base_patch16", attn_impl="pallas"), 128, 2,
           dict(ln_qkv_gemm=12, attn_core=12, proj_residual_gemm=12,
-               ep_pool=1)),
+               ep_pool=1, lars_norms=1, lars_apply=1)),
 }
 
 
@@ -3074,7 +3187,8 @@ def grain_phase(card: str, paths: dict) -> dict:
     per_epoch = DRIVER_STEPS + DRIVER_EVAL_BATCHES
     _launches_equal("use-grain", paths, ln_qkv_gemm=12 * per_epoch,
                     attn_core=12 * per_epoch,
-                    proj_residual_gemm=12 * per_epoch, ep_pool=per_epoch)
+                    proj_residual_gemm=12 * per_epoch, ep_pool=per_epoch,
+                    **lars_pair(DRIVER_STEPS))
     if list(lines) != [0] or not all(math.isfinite(v) for v in lines[0]):
         raise RuntimeError(f"use-grain: epoch lines {lines}")
     log(f"[steps] use-grain epoch 0: {epochs[0]['img_s']:.1f} img/s on {card}")
@@ -3370,8 +3484,8 @@ def driver_backbones(card: str, paths: dict) -> list[dict]:
             f"{ {k: v for k, v in paths[name].items() if v} }")
         return res
 
-    def expect(name, forwards, **per_forward):
-        want = dict.fromkeys(LAUNCHES, 0)
+    def expect(name, forwards, updates=0, **per_forward):
+        want = {**dict.fromkeys(LAUNCHES, 0), **lars_pair(updates)}
         want.update({k: n * forwards for k, n in per_forward.items()})
         if paths[name] != want:
             raise RuntimeError(f"{name}: launches {paths[name]}, expected {want}")
@@ -3385,7 +3499,8 @@ def driver_backbones(card: str, paths: dict) -> list[dict]:
         log(f"[driver-dinov2] main_linprobe_torch.py's main: "
             f"dinov2_vitb14_reg, EP-32, batch 128, the fake dataset, on {card}")
         res = run("driver-dinov2", tmp / "dinov2", model="dinov2_vitb14_reg")
-        expect("driver-dinov2", per_epoch, attn_core=12, ep_pool=1)
+        expect("driver-dinov2", per_epoch, DRIVER_STEPS, attn_core=12,
+               ep_pool=1)
         if not math.isfinite(res["loss"]):
             raise RuntimeError(f"driver-dinov2: {res}")
         log(f"  one epoch: {res}")
@@ -3420,8 +3535,8 @@ def driver_backbones(card: str, paths: dict) -> list[dict]:
         del oracle_src
         res = run("driver-dino", tmp / "dino", cls_features="dino",
                   oracle_ckpt=str(pth))
-        expect("driver-dino", per_epoch, ln_qkv_gemm=23, attn_core=23,
-               proj_residual_gemm=23)
+        expect("driver-dino", per_epoch, DRIVER_STEPS, ln_qkv_gemm=23,
+               attn_core=23, proj_residual_gemm=23)
         held = built[0].oracle.state_dict()  # cast to bf16 for probing
         same = all(torch.equal(held[k].cpu(), v.to(held[k].dtype))
                    for k, v in written.items())
@@ -3748,7 +3863,7 @@ def search(card: str, paths: dict, tmp) -> dict:
     forwards = 2 * (DRIVER_STEPS + DRIVER_EVAL_BATCHES)
     _launches_equal("search", paths, ln_qkv_gemm=12 * forwards,
                     attn_core=12 * forwards, proj_residual_gemm=12 * forwards,
-                    ep_pool=forwards)
+                    ep_pool=forwards, **lars_pair(2 * DRIVER_STEPS))
     found = []
     for n in range(2):
         text = (tmp / "search" / f"trial_{n}" / "training_log.txt").read_text()
@@ -3827,6 +3942,7 @@ def main() -> int:
     results, gemm_shapes = check_kernels(args.batch, BH, rng)
     results += check_ln1_kernels(BH)
     results += check_swiglu_gate()
+    results += check_lars()
     int8_results, int8_halves = check_int8_kernels(args.batch, BH, rng)
     results += int8_results
     long_results, other_shapes = check_long_kernels(rng)
@@ -3985,6 +4101,9 @@ def main() -> int:
         "ln1_bwd_k1280": (csrc + "attn_block_gemm.cu", "none", "finetune-h"),
         "swiglu_gate_dinov2_g": (csrc + "swiglu_gate.cu", "none",
                                  "probe-dinov2-g"),
+        # not a TPU kernel: LARS, which the JAX package leaves to XLA; the
+        # pair's time, counted by lars_apply's launches (lars_norms's equal)
+        "lars_apply_vitb_ft": (csrc + "lars.cu", "none", "finetune-b"),
         # not a TPU kernel: _bwd_xla, which the JAX package runs past its
         # backward kernel's memory (attn_fused_pallas.py:469-471)
         "attn_bwd_long": ("ep_tpu_torch/ops/attn_fused.py",
@@ -3997,7 +4116,7 @@ def main() -> int:
         counter = r["name"]  # the wrapper's entry in LAUNCHES
         for shape_tag in ("_dh80", "_two_kernel", "_rowtile", "_n1024",
                           "_n197", "_q128", "_t261", "_t272", "_dinov2_l",
-                          "_dinov2_g", "_k1280"):
+                          "_dinov2_g", "_k1280", "_vitb_ft"):
             counter = counter.replace(shape_tag, "")
         launches = paths[path_name][counter]
         if launches == 0:

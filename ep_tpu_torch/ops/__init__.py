@@ -37,6 +37,8 @@ LAUNCHES: dict[str, int] = {
     "ln1_apply": 0,
     "ln1_bwd": 0,
     "swiglu_gate": 0,
+    "lars_norms": 0,
+    "lars_apply": 0,
     # not a kernel: the plain-torch attention backward past kernel E's limit
     # (ops/attn_fused.py::attention_backward), counted on the card to show
     # which backward a path took

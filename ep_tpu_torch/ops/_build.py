@@ -56,6 +56,8 @@ SIGNATURES = {
                         _P],
     "ep_mlp_int8_fc2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ep_swiglu_gate": [_P, _P, _I, _I, _P],
+    "ep_lars_norms": [_P, _P, _P, _P, _I, _I, _P],
+    "ep_lars_apply": [_P, _P, _P, _P, _I, _I, _F, _P],
 }
 
 

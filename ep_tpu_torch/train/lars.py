@@ -17,6 +17,10 @@ LARS (``scaled_lars``): for parameters with ndim > 1,
 
 parameters with ndim <= 1 get neither weight decay nor trust scaling (the
 rule is by rank, not by name). Then heavy-ball momentum, mu = momentum*mu + dp.
+On CUDA parameters LARS's :meth:`~RawUpdateOptimizer.step` is two kernel
+launches over every leaf (``ops/lars.py``); on the CPU it is the loop below,
+which :meth:`~RawUpdateOptimizer.raw_updates` keeps on either device as the
+reference.
 
 AdamW: ``optax.scale_by_adam(0.9, 0.999, 1e-8, mu_dtype)`` followed by
 ``optax.add_decayed_weights(weight_decay)`` on every parameter. SGD: the
@@ -37,6 +41,9 @@ survives a checkpoint.
 from __future__ import annotations
 
 import torch
+
+from ep_tpu_torch.ops import use_kernel
+from ep_tpu_torch.ops.lars import lars_update
 
 
 class RawUpdateOptimizer(torch.optim.Optimizer):
@@ -75,7 +82,7 @@ class RawUpdateOptimizer(torch.optim.Optimizer):
         gradients into their running mean and apply only at its k-th
         micro-step."""
         if self.accum_iter == 1:
-            updates = self.raw_updates()
+            self._apply_updates(lr)
         else:
             n = self.param_groups[0]["mini_step"]
             means = []
@@ -94,16 +101,26 @@ class RawUpdateOptimizer(torch.optim.Optimizer):
                 for group in self.param_groups:
                     group["mini_step"] = n + 1
                 return
-            updates = self.raw_updates(means)
+            self._apply_updates(lr, means)
             for group in self.param_groups:
                 group["mini_step"] = 0
                 for p in group["params"]:
                     self.state[p]["acc_grad"].zero_()
-        for p, u in updates:
+
+    def _apply_updates(self, lr: float, grads=None) -> None:
+        """``p += -lr * u`` for every parameter, ``u`` from
+        :meth:`raw_updates` of ``grads``."""
+        for p, u in self.raw_updates(grads):
             p.copy_((p.float() + u * (-lr)).to(p.dtype))
 
 
 class LARS(RawUpdateOptimizer):
+    """On CUDA parameters :meth:`step` runs the whole update in the two
+    kernels of ``ops/lars.py`` (the same arithmetic, each leaf's norms summed
+    in another order); on CPU parameters the plain loop of :meth:`_update`."""
+
+    _plan = None  # ops/lars.py::LarsPlan of the parameter list
+
     def __init__(self, params, weight_decay: float = 0.0, momentum: float = 0.9,
                  trust_coefficient: float = 0.001,
                  mu_dtype: torch.dtype = torch.float32, accum_iter: int = 1):
@@ -111,6 +128,25 @@ class LARS(RawUpdateOptimizer):
                                       momentum=momentum,
                                       trust_coefficient=trust_coefficient),
                          mu_dtype, accum_iter)
+
+    def _apply_updates(self, lr: float, grads=None) -> None:
+        params = [p for group in self.param_groups for p in group["params"]]
+        if not params or not use_kernel(*params):
+            return super()._apply_updates(lr, grads)
+        if grads is None:
+            grads = [[p.grad for p in group["params"]]
+                     for group in self.param_groups]
+        hypers = []
+        for group in self.param_groups:
+            group["count"] += 1
+            hypers += [(group["weight_decay"], group["trust_coefficient"],
+                        group["momentum"])] * len(group["params"])
+        mus, self._plan = lars_update(
+            params, [g for row in grads for g in row],
+            [self.state[p].get("mu") for p in params], hypers, self.mu_dtype,
+            lr, self._plan)
+        for p, mu in zip(params, mus):
+            self.state[p]["mu"] = mu
 
     def _update(self, p, dp, group, state):
         wd, tc = group["weight_decay"], group["trust_coefficient"]

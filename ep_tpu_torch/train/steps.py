@@ -51,7 +51,10 @@ def topk_correct(logits: torch.Tensor, labels: torch.Tensor, k: int) -> torch.Te
 
 
 def global_grad_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    """The norm of all the gradients laid end to end, in float32: a few
+    multi-tensor launches on the card, whatever the number of leaves."""
+    return torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(list(grads), dtype=torch.float32)))
 
 
 def pmean_grads(params, mesh) -> None:

@@ -306,6 +306,118 @@ def test_swiglu_mlp_takes_the_kernel_without_a_gradient(dev):
     assert LAUNCHES["swiglu_gate"] == 1 and mlp.w12.weight.grad is not None
 
 
+# ViT-B/16-shaped leaves for the LARS kernel pair: (shape, group, gradient):
+# the patch embedding, cls and position (rank 3), a block's weights, biases
+# and LN (rank 1), a leaf without a gradient, one smaller than a chunk and
+# not a multiple of 4, an empty one, and the head (its own group)
+LARS_LEAVES = [((768, 3, 16, 16), 0, True), ((1, 1, 768), 0, True),
+               ((1, 197, 768), 0, True), ((2304, 768), 0, True),
+               ((2304,), 0, True), ((768,), 0, True), ((3072, 768), 0, True),
+               ((3072,), 0, True), ((768, 3072), 0, True), ((1, 32, 768), 1, False),
+               ((5, 7), 0, True), ((0, 8), 0, True), ((1000, 768), 1, True),
+               ((1000,), 1, True)]
+
+
+def _lars_params(dtype, dev, seed=90):
+    """The leaves as parameters, one of them at a 4-byte offset (the
+    kernels' one-at-a-time walk)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, (shape, _, _) in enumerate(LARS_LEAVES):
+        a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.02)
+        a = a.to(dev, dtype)
+        if i == 10:  # (5, 7) at an offset
+            a = torch.cat([a.new_zeros(2), a.reshape(-1)])[2:].view(shape)
+        out.append(torch.nn.Parameter(a))
+    return out
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16],
+                         ids=["p_f32", "p_bf16"])
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16],
+                         ids=["mu_f32", "mu_bf16"])
+@pytest.mark.parametrize("wd", [0.0, 0.05])
+def test_lars_kernel_pair_is_the_plain_step(dev, wd, mu_dtype, p_dtype, accum):
+    """``LARS.step`` on the card (``lars_norms`` + ``lars_apply`` once a
+    step) against the plain ``_update`` loop on the card, over 3 updates of
+    ViT-B-shaped leaves in two parameter groups (the head's with another
+    trust coefficient and momentum), and twice, bit for bit.
+
+    Tolerance: the pair sums each leaf's norms in another order than
+    ``torch.linalg.vector_norm``, which moves the trust ratio by a few f32
+    steps; every other operation rounds as the plain chain does. With p and
+    mu kept in f32, each parameter's change and each momentum agree within
+    1e-5 of themselves and of their leaf's largest magnitude, the change
+    also within one f32 step of the parameter it is read off. Where either
+    is kept in bf16, a value that the ratio's last bits moved across a
+    rounding boundary differs by one bf16 step, and the next steps carry
+    that step on (through mu, or through p in the weight decay and the
+    norms): 2**-7 instead of 1e-5. A bf16 parameter equals the plain one bit
+    for bit but on a thousandth of its elements (2 in a small leaf), and is
+    within two bf16 steps of its start or its end, whichever is larger, on
+    the rest (a step flipped at one update is carried to where the value
+    has shrunk)."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.train.lars import LARS, RawUpdateOptimizer
+
+    class PlainLARS(LARS):
+        _apply_updates = RawUpdateOptimizer._apply_updates
+
+    def run(cls):
+        ps = _lars_params(p_dtype, dev)
+        groups = [{"params": [p for p, (_, k, _) in zip(ps, LARS_LEAVES) if k == 0]},
+                  {"params": [p for p, (_, k, _) in zip(ps, LARS_LEAVES) if k == 1],
+                   "trust_coefficient": 0.002, "momentum": 0.8}]
+        opt = cls(groups, weight_decay=wd, mu_dtype=mu_dtype, accum_iter=accum)
+        rng = np.random.default_rng(91)
+        for step in range(3 * accum):
+            for p, (shape, _, has_grad) in zip(ps, LARS_LEAVES):
+                p.grad = torch.from_numpy(rng.standard_normal(shape).astype(
+                    np.float32) * 1e-2).to(dev, p_dtype) if has_grad else None
+            opt.step(1.6)
+        torch.cuda.synchronize()
+        return ps, opt
+
+    reset_launches()
+    got, opt = run(LARS)
+    assert dict(LAUNCHES) == _counts(lars_norms=3, lars_apply=3)
+    again, _ = run(LARS)
+    ref, ref_opt = run(PlainLARS)
+    assert LAUNCHES["lars_norms"] == LAUNCHES["lars_apply"] == 6
+    start = _lars_params(p_dtype, dev)
+    tol = 1e-5 if p_dtype == mu_dtype == torch.float32 else 2 ** -7
+    for i, (a, b, c, a0) in enumerate(zip(got, again, ref, start)):
+        assert torch.equal(a, b), f"leaf {i}: two runs differ"
+        mu, mu_ref = opt.state[a]["mu"], ref_opt.state[c]["mu"]
+        assert mu.dtype == mu_ref.dtype == mu_dtype and mu.shape == a.shape
+        pa, pc, p0 = a.detach().float(), c.detach().float(), a0.detach().float()
+        if p_dtype == torch.float32:  # the change, read off an f32 parameter
+            largest = float((pc - p0).abs().max()) if pc.numel() else 0.0
+            p_max = float(pc.abs().max()) if pc.numel() else 0.0
+            torch.testing.assert_close(
+                pa - p0, pc - p0, rtol=tol, atol=tol * largest + 2 ** -22 * p_max,
+                msg=lambda m: f"leaf {i}, p: {m}")
+        elif pc.numel():
+            assert int((pa != pc).sum()) <= max(2, pc.numel() // 1000), \
+                f"leaf {i}, p"
+            two_steps = 2 ** -6 * torch.maximum(p0.abs(), pc.abs())
+            assert bool(((pa - pc).abs() <= two_steps).all()), f"leaf {i}, p"
+        largest = float(mu_ref.float().abs().max()) if mu_ref.numel() else 0.0
+        torch.testing.assert_close(mu.float(), mu_ref.float(), rtol=tol,
+                                   atol=tol * largest,
+                                   msg=lambda m: f"leaf {i}, mu: {m}")
+    assert opt.param_groups[1]["count"] == ref_opt.param_groups[1]["count"] == 3
+
+
+def test_lars_kernels_refuse_what_they_do_not_take(dev):
+    from ep_tpu_torch.train.lars import LARS
+    p = torch.nn.Parameter(torch.zeros(8, 8, device=dev, dtype=torch.float16))
+    p.grad = torch.zeros_like(p)
+    with pytest.raises(TypeError, match="float16"):
+        LARS([p]).step(0.1)
+
+
 def test_ln1_kernels_refuse_what_a_refuses(dev):
     from ep_tpu_torch.ops.attn_block import ln1_apply, ln1_bwd
     for D, match in ((96, "K % 64"), (1344, "K <= 1280")):
@@ -925,9 +1037,11 @@ def test_driver_one_epoch_on_the_card_matches_cpu(dev, tmp_path, depth2):
     main(_driver_cfg(tmp_path / "card", device="cuda"))
     launched = dict(LAUNCHES)
     main(_driver_cfg(tmp_path / "cpu", device="cpu"))
-    # 4 train steps and 1 eval batch of 128, each a forward through 2 blocks
+    # 4 train steps and 1 eval batch of 128, each a forward through 2 blocks;
+    # LARS's pair once a train step
     assert launched == _counts(ln_qkv_gemm=10, attn_core=10,
-                               proj_residual_gemm=10, ep_pool=5)
+                               proj_residual_gemm=10, ep_pool=5,
+                               lars_norms=4, lars_apply=4)
     card, cpu = _epoch_line(tmp_path / "card"), _epoch_line(tmp_path / "cpu")
     assert card[0] == cpu[0] == 0
     for i in (1, 3):  # train loss, val loss
@@ -952,8 +1066,9 @@ def test_driver_builds_on_the_card_by_default(dev, tmp_path, depth2):
 def test_driver_input_modes_on_the_card_match_cpu(dev, tmp_path, depth2,
                                                   flags):
     """--cache_features (the encoder over 4 train and 1 val batches, then a
-    head-only epoch: kernel D 4 + 1 times) and --device_aug (the crop on the
-    card, drawn as on the CPU for the same step) against their CPU runs."""
+    head-only epoch: kernel D 4 + 1 times, LARS's pair 4) and --device_aug
+    (the crop on the card, drawn as on the CPU for the same step) against
+    their CPU runs."""
     from ep_tpu_torch.cli.linprobe import main
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     reset_launches()
@@ -961,7 +1076,8 @@ def test_driver_input_modes_on_the_card_match_cpu(dev, tmp_path, depth2,
     launched = dict(LAUNCHES)
     main(_driver_cfg(tmp_path / "cpu", device="cpu", **flags))
     assert launched == _counts(ln_qkv_gemm=10, attn_core=10,
-                               proj_residual_gemm=10, ep_pool=5)
+                               proj_residual_gemm=10, ep_pool=5,
+                               lars_norms=4, lars_apply=4)
     card, cpu = _epoch_line(tmp_path / "card"), _epoch_line(tmp_path / "cpu")
     assert card[0] == cpu[0] == 0
     for i in (1, 3):  # train loss, val loss
