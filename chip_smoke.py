@@ -8,68 +8,20 @@ Phases, each of which must pass (any failure exits non-zero):
 1. device  — require CUDA; print the card's name and power limit (nvidia-smi).
 2. build   — compile ep_tpu_torch/csrc/*.cu with nvcc, one process per source
              (or reuse the library already built from the same sources);
-             print the seconds and ptxas' register and spill lines.
-3. kernels — every kernel against its plain PyTorch version on the same
-             inputs on the card: max abs / rel error beside the stated
-             tolerance, and kernel time beside plain time, the card's bound
-             for the same work and, where one PyTorch call computes the same
-             function, that call's time, at the main paths' shapes: A, B, C
-             and D at ViT-B (A and C also at ViT-H/14, 224 and 448 px, at
-             ViT-L's width and at batches of 3 and 8; A's row statistics
-             alone); B at ViT-H (head width 80, T=257) and at the edges of
-             its tiles and key bins (T of 1 to 272 at both head widths, more
-             (image, head) pairs than SMs, temperature 1.5); E, the
-             attention backward, at ViT-B and ViT-H, at the edges of its
-             tiles up to its limits (T=320 at head width 80, 384 at 64; more
-             pairs than SMs, temperature 1.5) and twice, equal bit for bit;
-             the supercell's gradients
-             (forward and backward) at both; LN1's gradient (ln1_apply,
-             ln1_bwd) at (512*197, 768) and (128*257, 1280), twice (equal bit
-             for bit), timed beside their bound, the plain chain and the
-             library's LayerNorm backward; SwiGLU's gate at (128*261,
-             2x4096) against the plain bf16 chain (equal bit for bit on
-             99.9% of the elements, a bf16 step on the rest), twice, timed
-             beside its bound and the chain; LARS's kernel pair over ViT-B/16's
-             fine-tuning leaves against the plain per-leaf loop, twice
-             (bit-equal), timed beside its bound and the loop, and the
-             gradient norm beside the per-leaf sum; the int8 MLP half's three
-             kernels (ln_quant, fc1, fc2) at ViT-B (1 stripe), ViT-L (8
-             stripes) and ViT-H (8 stripes, the JAX package's two-kernel
-             tier), with the share of int8 codes that differ, the distance to
-             the bf16 half, and the bf16 half's and torch._int_mm's times;
-             fc1's table-driven GELU against the GELU arithmetic at every
-             bf16 value, fc1 at a ragged M with a token at the scale's
-             floor, and fc2 in both tiers' bias orders (1 and 8 stripes, M
-             of 111 and 64) equal to its plain version.
-             Then the long-sequence kernels: F (attn_flash) at ViT-H/14 and
-             ViT-B/16 at 448 px (T=1025 and 785) and at the row-tiled variant's
-             shape (T=257, head width 80) beside kernel B, and at the edges of
-             its tiles (T of 1 to 1025 at both head widths, more (image, head)
-             pairs than SMs, temperature 1.5); D at N=1024, at ViT-H's N=256,
-             at ViT-L's width and at the zoo's ep_all shape (512, 197, 768:
-             [CLS] + patch tokens) (D at every shape, and ln_quant, also
-             twice: equal bit for bit); G (ep_pool_proj) at ViT-B, ViT-H and
-             ViT-H at 448 px beside the unfused pair (F.linear, then D), and
-             at the edges of its panels and query bank and at cq 12 and 20
-             (each also twice: equal bit for bit), then through the EP head
-             at --d_out 2 (ViT-B and ViT-H widths) against its unfused route;
-             D and G at 128 queries at ViT-B, batch 512 (a launch for each
-             group of 64 queries; twice, equal bit for bit), each beside its
-             time at 32 queries. Then the backbone family's shapes: B at
-             (512, 261, 16x64) and (512, 272, 16x64), D at (512, 256, 1024,
-             32) and (64, 256, 1536, 32) (each twice, equal bit for bit), and
-             the attention backward past kernel E's limit (plain torch, tiled
-             over query rows) at (32, 1025, 16x80) against the CPU's.
-4. train   — the probe-training main path as bench.py builds it: frozen
+             print the seconds and ptxas' register and spill lines. Then
+             kernels: each kernel against its plain version at the paths'
+             full shapes, and its time beside its bound, its plain version
+             and the library (scripts/torch_hopper_gemm_check.py's checks).
+3. train   — the probe-training main path as bench.py builds it: frozen
              ViT-B/16 (random weights from seed 0) + EP-32 head, BN, fc, LARS
              with the warmup-cosine LR; a few steps at --batch. Checks a finite
              loss, trainable parameters changed, frozen ones untouched, and the
              launch counters: kernels A, B, C 12x per forward, D once.
-5. model   — logits of 4 images from the card's kernel path against the
+4. model   — logits of 4 images from the card's kernel path against the
              port's plain path on the CPU with the same weights.
-   int8-b  — phase 4 with int8_mlp=True (bench.py with EP_TPU_BENCH_INT8=1):
+   int8-b  — phase 3 with int8_mlp=True (bench.py with EP_TPU_BENCH_INT8=1):
              the same checks, the int8 kernels 12x per forward and no call of
-             the bf16 MLP half; then phase 5's logits check on the int8 model.
+             the bf16 MLP half; then phase 4's logits check on the int8 model.
    probe-h, int8-h — the same pair for a frozen ViT-H/14 (D=1280, depth 32,
              T=257) at batch 128: the bf16 step, then the int8 step (the int8
              kernels 32x per forward, 8 stripes).
@@ -82,7 +34,7 @@ Phases, each of which must pass (any failure exits non-zero):
              at 448 px through a ViT-H/14-width model of depth 4 built at 224
              px (the position embedding is interpolated), fused EP route: the
              card's kernels against the plain path on the CPU.
-   device-aug — phase 4 on u8 staged input (512, 256, 256, 3) with the
+   device-aug — phase 3 on u8 staged input (512, 256, 256, 3) with the
              --device_aug crop, flip and normalize inside the step
              (bench.py::_bench_device_aug): its img/s beside train's; then the
              crop alone at batch 512 (ms beside its bound) and the card's crop
@@ -97,7 +49,7 @@ Phases, each of which must pass (any failure exits non-zero):
              the CPU plain path.
    zoo     — every --cls_features pooling head (the 14 of the zoo, plain
              torch as in the JAX package) and ep_all and aim_all ([CLS] +
-             patch tokens) on the frozen ViT-B/16 of phase 4 at batch 512: a
+             patch tokens) on the frozen ViT-B/16 of phase 3 at batch 512: a
              warm-up step and --steps steps at the peak LR; a finite loss,
              every head parameter moved (but for gradients that are rounding
              noise), the pools' BatchNorm statistics moved (aim, cbam, dolg),
@@ -138,7 +90,7 @@ Phases, each of which must pass (any failure exits non-zero):
              launches (A, B, C 11 times and a plain last block for ca*/attn-*,
              23 for dino, 7 for --return_block 6), and its forward at batch
              512 timed.
-6. finetune-b — full fine-tuning as bench.py's ft_b row builds it: ViT-B/16 +
+5. finetune-b — full fine-tuning as bench.py's ft_b row builds it: ViT-B/16 +
              EP-32, batch 512, --finetuning --remat_blocks --remat_policy
              attn_out, LARS and the warmup-cosine LR (at its peak, the end of
              warmup), random weights from seed 0. Checks a finite loss, that
@@ -147,7 +99,7 @@ Phases, each of which must pass (any failure exits non-zero):
              each supercell backward), C, E, ln1_apply and ln1_bwd 1x depth,
              D once. Prints the
              median step time, img/s and a profiled step's device time.
-7. finetune-h — the ft_h row: ViT-H/14 (D=1280, 16 heads of width 80, T=257)
+6. finetune-h — the ft_h row: ViT-H/14 (D=1280, 16 heads of width 80, T=257)
              + EP-32, batch 128, bf16 LARS momentum, the same flags and checks.
    finetune-dinov2-l — DINOv2-L/14 with registers, batch 128, the same
              flags: B and E 24 times a step (the plain route's attention is
@@ -156,11 +108,11 @@ Phases, each of which must pass (any failure exits non-zero):
    finetune-h448 — ViT-H/14 at 448 px (T=1025), batch 32: A and F 64 times
              a step (forward, and again in each supercell backward), C 32,
              the tiled plain backward past kernel E's limit 32, E never.
-8. finetune-grads — every parameter's gradient for 4 images at ViT-B, the
+7. finetune-grads — every parameter's gradient for 4 images at ViT-B, the
              card's kernel path against the port's plain path on the CPU;
              then at DINOv2-L's width, depth 2 (LayerScale at 0.5, the
              head's BN in eval mode).
-9. driver  — main_linprobe_torch.py's main, as a user runs it, in a temporary
+8. driver  — main_linprobe_torch.py's main, as a user runs it, in a temporary
              directory: ViT-B/16 at 224 px, EP-32, batch 128, bf16, the fake
              dataset (512 train and 128 val images made in memory), random
              weights from seed 0. Two epochs (the second profiled: the
@@ -176,7 +128,7 @@ Phases, each of which must pass (any failure exits non-zero):
              per split, the '[cache] train (512, 196, 768)' line, head-only
              epochs: D once a step, A, B and C only in the extraction), and
              --device_aug --device_aug_cache over 2 epochs (the staged memmap
-             files); prints each epoch's wall img/s beside phase 4's step at
+             files); prints each epoch's wall img/s beside phase 3's step at
              batch 128, and the idle share of a profiled epoch of each mode.
    driver-dinov2 — main_linprobe_torch.py --model dinov2_vitb14_reg for one
              epoch (B 12 times a forward, D once); --eval --finetune of a
@@ -197,9 +149,9 @@ Phases, each of which must pass (any failure exits non-zero):
    ddp-gloo-2 — two ranks on the one card through gloo, started as
              subprocesses of this script (--ddp-gloo-rank R --ddp-dir D),
              each initialising its group before the port's init_distributed
-             sees it: 4 train steps of phase 4's model on 256 of its 512
+             sees it: 4 train steps of phase 3's model on 256 of its 512
              images each (weights broadcast from rank 0). Step 0's loss
-             equal on both ranks and within LOSS_TOL of phase 4's and of one
+             equal on both ranks and within LOSS_TOL of phase 3's and of one
              process's on all 512; the heads bit-equal across ranks; BN's
              running statistics within a bf16 step of one process's; A, B, C
              12 times and D once a step on each rank; then the cached
@@ -256,12 +208,13 @@ Phases, each of which must pass (any failure exits non-zero):
 
 The zoo's per-head table (train step ms and img/s, head-only step ms, img/s
 and device busy ms) follows its phase. Before the last line come the whole
-run's wall seconds, the card's
-name and power limit, a JSON line with
-cached_mode_img_s, effective_90ep_img_s and device_aug_img_s (bench.py's keys)
-beside them, and a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}. It imports
-nothing of JAX and nothing of the JAX package.
+run's wall seconds, the card's name and power limit and a JSON line of every
+phase's results (``kernels``: each kernel check with the launches of that
+kernel on each path; a checked kernel no path launched fails the run); the
+last line is {"ok": true, "device": {...}}. It imports nothing of JAX and
+nothing of the JAX package. The kernels at the edges of their tiles are
+tests/test_torch_cuda.py's (python -m pytest --noconftest -m cuda
+tests/test_torch_cuda.py).
 """
 from __future__ import annotations
 
@@ -284,29 +237,14 @@ from unittest import mock
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from benchmark.peaks import H100_SXM, bound_s
 
 # Pass when |kernel - plain| <= ATOL + RTOL*|plain| elementwise: about two
 # bf16 rounding steps at unit magnitude. Both sides round to bf16 at the same
 # points; what differs is the f32 summation order, which can move a value
 # across one bf16 rounding boundary.
 ATOL, RTOL = 1e-2, 1e-2
-# Where an output is an average over hundreds of keys or tokens (kernels F, G
-# and D at ViT-H), its values are around 0.05 and ATOL is a quarter of them.
-# Single elements do move that far: where a row's largest probability (up to
-# about 0.1 among a million rows) rounds to the other bf16 neighbour, the
-# output moves by that step times |v|, up to 1e-3. So ATOL, RTOL stay the
-# bound of every element, and beside it at most STEP_SHARE of the elements,
-# and never fewer than STEP_FLOOR elements, may lie past one bf16 step of the
-# value itself (spacing / |value| <= 2**-7) plus one bf16 step at the plain
-# version's mean magnitude, |d| <= STEP*mean|plain| + STEP*|plain|. One key or
-# token dropped from such an average moves it by about 1e-3, past that bound
-# at about half of the elements. The share the kernels reached on an H100 was
-# 7.8e-8 at most, but it counts single elements: kernel D at ViT-H once had 2
-# of 163,840 past it (1.2e-5) on another random draw, and at the small ragged
-# shapes one element is already a share above 1e-5. So the bound grows with
-# the element count and has a floor of a few elements.
-STEP, STEP_SHARE, STEP_FLOOR = 2.0 ** -7, 1e-5, 4
 # Whole model, 12 blocks of bf16 rounding differences on random weights.
 MODEL_ATOL, MODEL_RTOL = 5e-2, 5e-2
 # A backbone's features (features-b), against the largest magnitude of the
@@ -314,10 +252,8 @@ MODEL_ATOL, MODEL_RTOL = 5e-2, 5e-2
 # one bf16 step is 0.125, so MODEL_ATOL would hold single tokens (cp1) to
 # under a step; 2**-5 of the largest is the CPU tests' bf16 bound.
 FEATURE_TOL = 2.0 ** -5
-# Gradients, each against its tensor's largest magnitude: the attention
-# backward's dq and dk sum T products of a bf16-rounded dL (E: 1e-2); the
-# supercell's weight gradients sum B*T bf16 products (2e-2). A whole model's
-# gradients of 4 images differ more at single elements: the head's BN
+# A whole model's gradients of 4 images, each against its tensor's largest
+# magnitude, differ at single elements by more than a kernel's: the head's BN
 # normalises each feature over the 4 images, so where a channel's 4 values
 # nearly coincide it divides a bf16-sized difference by a small deviation, and
 # the residual stream's gradient rounds to bf16 twice a block on its way back
@@ -329,27 +265,7 @@ FEATURE_TOL = 2.0 ** -5
 # every token, which the EP softmax and BN cancel) leaves only rounding noise,
 # whose direction is noise; it measured 2.6e-4 of the largest, the smallest
 # other gradient 3.8e-3.
-BWD_TOL, CELL_TOL = 1e-2, 2e-2
 GRAD_TOL, GRAD_COS, GRAD_FLOOR = 0.25, 0.99, 2e-3
-# The int8 MLP half. Its s32 products are exact, so on the same int8 codes fc1
-# and fc2 repeat their plain versions' f32 arithmetic step for step: fc1's
-# codes may differ in at most CODE_SHARE_SAME of the elements (room for a tanh
-# that rounds differently, none measured) and fc2 is held to ATOL, RTOL.
-# ln_quant sums its f32 row statistics in another order than torch, which
-# carries single values of LN2's output across a rounding boundary: one code
-# step, in at most CODE_SHARE_LN of the elements. Through the whole half such
-# a code moves hidden values by a bf16 step before the GELU, so the hidden
-# codes of the chain may differ in CODE_SHARE_CHAIN of the elements. The
-# whole half's output is held to ATOL, RTOL on the tokens whose LN codes and
-# scale agree (measured: equal), and on the others, where a moved code shifts
-# the token's hidden codes, to MOVED_TOL of the largest output plus RTOL
-# (measured: one bf16 step, 0.5% of the largest). Against the bf16 half the int8 half is
-# approximate by design; INT8_MEAN_REL and INT8_MAX_REL are the bounds of the
-# JAX package's kernel gate (mean |d| / mean |ref|, max |d| / max |ref|).
-CODE_SHARE_SAME, CODE_SHARE_LN, CODE_SHARE_CHAIN = 1e-6, 1e-3, 1e-2
-MOVED_TOL = 1e-2
-INT8_MEAN_REL, INT8_MAX_REL = 3e-2, 0.6
-
 # Step 0's loss of a path through another kernel route (F for B, G for D and
 # F.linear) against the same model, images and weights through the usual
 # route: both routes round to bf16 at the same points and sum in another
@@ -358,11 +274,8 @@ INT8_MEAN_REL, INT8_MAX_REL = 3e-2, 0.6
 # H100: 8.4e-5 (G for D) and 5.2e-4 (F for B over 32 blocks), the same in
 # every run; the bound is 4 times the larger.
 LOSS_TOL = 2e-3
-
-# Published dense peaks of an H100 SXM (operations a second) and its memory
-# rate (bytes a second), for the bound of each kernel.
-PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
-HBM_RATE = 3.35e12
+# One bf16 step of a value v is at most STEP*|v| (8 significant bits).
+STEP = 2.0 ** -7
 
 
 def log(msg: str) -> None:
@@ -398,26 +311,6 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def nbytes(*tensors: torch.Tensor) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(ops: float, kind: str, moved: int) -> dict:
-    """The least time the card could take: the operations on these inputs
-    over the peak rate of their type, or the bytes of each input read once and
-    each output written once over the memory rate, whichever is larger."""
-    t_ops, t_bytes = ops / PEAK[kind] * 1e3, moved / HBM_RATE * 1e3
-    return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
-
-
-def split_heads(qkv: torch.Tensor, h: int):
-    """(B,T,3*H*Dh) -> contiguous q, k, v of (B,H,T,Dh), as
-    scaled_dot_product_attention takes them."""
-    b, t, _ = qkv.shape
-    return qkv.view(b, t, 3, h, -1).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
-
-
 def compare(name: str, out: torch.Tensor, ref: torch.Tensor,
             atol: float = ATOL, rtol: float = RTOL) -> float:
     out, ref = out.float(), ref.float()
@@ -432,982 +325,6 @@ def compare(name: str, out: torch.Tensor, ref: torch.Tensor,
     if not ok:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
     return max_abs
-
-
-def compare_steps(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
-    """``compare``, and the elements past one bf16 step (STEP): at most
-    STEP_SHARE of them, and STEP_FLOOR whatever the count."""
-    max_abs = compare(name, out, ref)
-    out, ref = out.float(), ref.float()
-    atol = STEP * float(ref.abs().mean())
-    past = int(((out - ref).abs() > atol + STEP * ref.abs()).sum())
-    limit = max(math.ceil(STEP_SHARE * ref.numel()), STEP_FLOOR)
-    ok = past <= limit
-    log(f"    elements with |d| > {atol:.3e} + 2^-7*|ref|: {past} of "
-        f"{ref.numel()}, share {past / ref.numel():.3e} (tol {limit} elements: "
-        f"a share of {STEP_SHARE:g}, at least {STEP_FLOOR}) "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise RuntimeError(f"{name}: kernel disagrees with its plain version")
-    return max_abs
-
-
-def repeat_equal(name: str, first, second) -> None:
-    """A kernel's second call on the same inputs equals its first bit for
-    bit (tensors, or tuples of them)."""
-    pairs = zip(first, second) if isinstance(first, tuple) else [(first, second)]
-    same = all(bool(torch.equal(a, b)) for a, b in pairs)
-    log(f"    {name}: a second call equal bit for bit {'ok' if same else 'FAIL'}")
-    if not same:
-        raise RuntimeError(f"{name}: two calls differ")
-
-
-def pool_sdpa(qs: torch.Tensor, tok: torch.Tensor, v: torch.Tensor):
-    """The EP pool as one scaled_dot_product_attention call: every query is a
-    head with one query row, the tokens are each head's keys, the query's
-    slice of v its head's values, scale 1. (B, Q, cq)."""
-    b, n, q, _ = v.shape
-    return F.scaled_dot_product_attention(
-        qs[None, :, None, :].expand(b, -1, -1, -1),
-        tok[:, None].expand(-1, q, -1, -1), v.permute(0, 2, 1, 3),
-        scale=1.0)[:, :, 0]
-
-
-def check_kernels(B: int, BH: int, rng) -> list[dict]:
-    from ep_tpu_torch.ops.attn_block import (attn_supercell, attn_supercell_ref,
-                                             ln_qkv, ln_qkv_ref, proj_residual,
-                                             proj_residual_ref)
-    from ep_tpu_torch.ops.attn_fused import (attention_qkv_fused,
-                                             attention_qkv_fused_bwd,
-                                             attention_qkv_fused_bwd_ref,
-                                             attention_qkv_fused_ref)
-    from ep_tpu_torch.ops import _build
-    from ep_tpu_torch.ops.pool_attn import ep_pool_attend, ep_pool_attend_ref
-
-    T, D, H = 197, 768, 12
-    Dh = D // H
-    scale = Dh ** -0.5
-    err = {}
-
-    def block_weights(D, rng=rng):
-        return dict(w_qkv=rand(rng, (3 * D, D), D ** -0.5),
-                    b_qkv=rand(rng, (3 * D,), 0.02, torch.float32),
-                    gamma=1 + rand(rng, (D,), 0.1, torch.float32),
-                    beta=rand(rng, (D,), 0.1, torch.float32),
-                    w_proj=rand(rng, (D, D), D ** -0.5),
-                    b_proj=rand(rng, (D,), 0.02, torch.float32))
-
-    log("[kernels] B: attn_core (attention_qkv_fused)")
-    for b, t, h in ((8, T, H), (3, 5, 2), (B, T, H)):
-        qkv = rand(rng, (b, t, 3 * h * Dh))
-        e = compare(f"attn_core B={b} T={t} H={h}",
-                    attention_qkv_fused(qkv, h, scale),
-                    attention_qkv_fused_ref(qkv, h, scale))
-        err["attn_core"] = max(err.get("attn_core", 0.0), e)
-    sdpa = F.scaled_dot_product_attention
-    q, k, v = split_heads(qkv, H)
-    times = {"attn_core": (time_ms(lambda: attention_qkv_fused(qkv, H, scale)),
-                           time_ms(lambda: attention_qkv_fused_ref(qkv, H, scale), 3))}
-    lib = {"attn_core": time_ms(lambda: sdpa(q, k, v, scale=scale))}
-    bounds = {"attn_core": bound(4 * B * H * T * T * Dh, "bf16",
-                                 nbytes(qkv) + nbytes(qkv) // 3)}
-    del q, k, v
-
-    log("[kernels] A, C and the supercell (attn_supercell)")
-    w = block_weights(D)
-    for b in (8, B):
-        x = rand(rng, (b, T, D))
-        a_args = (x, w["gamma"], w["beta"], w["w_qkv"], w["b_qkv"], 1e-6)
-        err["ln_qkv_gemm"] = max(err.get("ln_qkv_gemm", 0.0), compare(
-            f"ln_qkv_gemm B={b}", ln_qkv(*a_args), ln_qkv_ref(*a_args)))
-        c_args = (rand(rng, (b, T, D)), w["w_proj"], w["b_proj"], x)
-        err["proj_residual_gemm"] = max(
-            err.get("proj_residual_gemm", 0.0),
-            compare(f"proj_residual_gemm B={b}", proj_residual(*c_args),
-                    proj_residual_ref(*c_args)))
-        args = (x, w["w_qkv"], w["b_qkv"], w["gamma"], w["beta"], w["w_proj"],
-                w["b_proj"], H, scale)
-        compare(f"attn_supercell B={b}", attn_supercell(*args),
-                attn_supercell_ref(*args))
-    times["ln_qkv_gemm"] = (time_ms(lambda: ln_qkv(*a_args)),
-                            time_ms(lambda: ln_qkv_ref(*a_args), 3))
-    times["proj_residual_gemm"] = (time_ms(lambda: proj_residual(*c_args)),
-                                   time_ms(lambda: proj_residual_ref(*c_args), 3))
-    g16, be16, bq16, bp16 = (w[k].bfloat16() for k in ("gamma", "beta", "b_qkv",
-                                                       "b_proj"))
-    lib["ln_qkv_gemm"] = time_ms(lambda: F.linear(
-        F.layer_norm(x, (D,), g16, be16, 1e-6), w["w_qkv"], bq16))
-    lib["proj_residual_gemm"] = time_ms(
-        lambda: x + F.linear(c_args[0], w["w_proj"], bp16))
-    M = B * T
-    bounds["ln_qkv_gemm"] = bound(
-        2 * M * 3 * D * D, "bf16",
-        nbytes(x, w["w_qkv"], w["b_qkv"], w["gamma"], w["beta"]) + 3 * nbytes(x))
-    bounds["proj_residual_gemm"] = bound(
-        2 * M * D * D, "bf16",
-        nbytes(c_args[0], w["w_proj"], w["b_proj"], x) + nbytes(x))
-    t_cell = (time_ms(lambda: attn_supercell(*args)),
-              time_ms(lambda: attn_supercell_ref(*args), 3))
-    log(f"  attn_supercell B={B}: kernels {t_cell[0]:.3f} ms, plain {t_cell[1]:.3f} ms")
-    # kernel A's row statistics alone (a kernel of their own before the GEMM)
-    stats = torch.empty(M, 2, device="cuda", dtype=torch.float32)
-    stats_ms = time_ms(lambda: _build.call(
-        "ep_ln_row_stats", x.data_ptr(), stats.data_ptr(), M, D, 1e-6,
-        _build.stream_ptr(x)))
-    xf = x.float().view(M, D)
-    compare("ln_row_stats mean", stats[:, 0], xf.mean(-1), 1e-5, 1e-5)
-    compare("ln_row_stats rstd", stats[:, 1],
-            torch.rsqrt(xf.var(-1, unbiased=False) + 1e-6), 1e-5, 1e-5)
-    del stats, xf
-    others = gemm_other_shapes(BH, block_weights)
-
-    log("[kernels] D: ep_pool (ep_pool_attend), forward and gradients")
-    for b, n, c, q in ((16, 196, 768, 32), (3, 37, 128, 4), (B, 196, 768, 32)):
-        cq = c // q
-        qs = rand(rng, (q, c), c ** -0.5)
-        # the main path hands the kernel the patch-token view x[:, 1:]
-        tok = rand(rng, (b, n + 1, c))[:, 1:]
-        v = rand(rng, (b, n, q, cq))
-        out = ep_pool_attend(qs, tok, v)
-        err["ep_pool"] = max(err.get("ep_pool", 0.0), compare(
-            f"ep_pool B={b} N={n} C={c} Q={q}", out,
-            ep_pool_attend_ref(qs, tok, v)))
-        repeat_equal(f"ep_pool B={b} N={n} C={c} Q={q}", out,
-                     ep_pool_attend(qs, tok, v))
-        if b <= 16:
-            grads = []
-            for fn in (ep_pool_attend, ep_pool_attend_ref):
-                qg = qs.clone().requires_grad_(True)
-                vg = v.clone().requires_grad_(True)
-                (fn(qg, tok, vg).float() ** 2).sum().backward()
-                grads.append((qg.grad, vg.grad))
-            for i, gname in enumerate(("d q_scaled", "d v")):
-                ref = grads[1][i]
-                scale_g = float(ref.float().abs().max())
-                compare(f"ep_pool {gname} B={b}", grads[0][i], ref,
-                        atol=ATOL * scale_g, rtol=RTOL)
-    times["ep_pool"] = (time_ms(lambda: ep_pool_attend(qs, tok, v)),
-                        time_ms(lambda: ep_pool_attend_ref(qs, tok, v), 3))
-    compare("ep_pool as one SDPA call (library_ms)", pool_sdpa(qs, tok, v),
-            ep_pool_attend_ref(qs, tok, v))
-    lib["ep_pool"] = time_ms(lambda: pool_sdpa(qs, tok, v), 3)
-    # logits q.x^T (Q*C a token) and the per-query slices (C a token)
-    bounds["ep_pool"] = bound(2 * b * n * (q * c + c), "bf16",
-                              nbytes(qs, v) + b * n * c * 2 + b * c * 2)
-
-    log("[kernels] B at ViT-H: attn_core, head width 80")
-    TH, DH, HH = 257, 1280, 16
-    scale_h = (DH // HH) ** -0.5
-    for b, t, h in ((8, TH, HH), (3, 9, 8), (BH, TH, HH)):
-        qkv = rand(rng, (b, t, 3 * h * 80))
-        err["attn_core_dh80"] = max(err.get("attn_core_dh80", 0.0), compare(
-            f"attn_core B={b} T={t} H={h} Dh=80",
-            attention_qkv_fused(qkv, h, scale_h),
-            attention_qkv_fused_ref(qkv, h, scale_h)))
-    times["attn_core_dh80"] = (
-        time_ms(lambda: attention_qkv_fused(qkv, HH, scale_h)),
-        time_ms(lambda: attention_qkv_fused_ref(qkv, HH, scale_h), 3))
-    q, k, v = split_heads(qkv, HH)
-    lib["attn_core_dh80"] = time_ms(lambda: sdpa(q, k, v, scale=scale_h))
-    bounds["attn_core_dh80"] = bound(4 * BH * HH * TH * TH * 80, "bf16",
-                                     nbytes(qkv) + nbytes(qkv) // 3)
-    del q, k, v
-
-    log("[kernels] B and E at the edges of their tiles, 3 x 48 (image, head) "
-        "pairs, temperature 1.5")
-    for dh in (64, 80):
-        for t in (1, 63, 64, 65, 129, 197, 256, 257, 272):
-            qkv = rand(rng, (3, t, 3 * 48 * dh))
-            name = "attn_core" if dh == 64 else "attn_core_dh80"
-            err[name] = max(err[name], compare(
-                f"attn_core B=3 T={t} H=48 Dh={dh}",
-                attention_qkv_fused(qkv, 48, dh ** -0.5, 1.5),
-                attention_qkv_fused_ref(qkv, 48, dh ** -0.5, 1.5)))
-        for t in (1, 5, 16, 63, 64, 65, 128, 129, 197, 257, 300, 320) + (
-                (384,) if dh == 64 else ()):
-            qkv = rand(rng, (3, t, 3 * 48 * dh))
-            g = rand(rng, (3, t, 48 * dh))
-            name = "attn_core_bwd" if dh == 64 else "attn_core_bwd_dh80"
-            out = attention_qkv_fused_bwd(qkv, g, 48, dh ** -0.5, 1.5)
-            ref = attention_qkv_fused_bwd_ref(qkv, g, 48, dh ** -0.5, 1.5)
-            err[name] = max(err.get(name, 0.0), compare(
-                f"attn_core_bwd B=3 T={t} H=48 Dh={dh}", out, ref,
-                atol=BWD_TOL * float(ref.float().abs().max()), rtol=BWD_TOL))
-            if not torch.equal(out, attention_qkv_fused_bwd(qkv, g, 48,
-                                                            dh ** -0.5, 1.5)):
-                raise RuntimeError(f"attn_core_bwd T={t} Dh={dh}: two calls "
-                                   "differ")
-            del out, ref
-    log("  attn_core_bwd: every second call equal to the first, bit for bit")
-
-    log("[kernels] E: attn_core_bwd (attention_qkv_fused_bwd)")
-    for name, cases in (
-            ("attn_core_bwd", ((8, T, H, 64), (3, 5, 2, 64), (B, T, H, 64))),
-            ("attn_core_bwd_dh80",
-             ((8, TH, HH, 80), (3, 9, 8, 80), (BH, TH, HH, 80)))):
-        for b, t, h, dh in cases:
-            qkv = rand(rng, (b, t, 3 * h * dh))
-            g = rand(rng, (b, t, h * dh))
-            ref = attention_qkv_fused_bwd_ref(qkv, g, h, dh ** -0.5)
-            e = compare(f"{name} B={b} T={t} H={h} Dh={dh}",
-                        attention_qkv_fused_bwd(qkv, g, h, dh ** -0.5), ref,
-                        atol=BWD_TOL * float(ref.float().abs().max()),
-                        rtol=BWD_TOL)
-            err[name] = max(err.get(name, 0.0), e)
-            del ref
-        times[name] = (
-            time_ms(lambda: attention_qkv_fused_bwd(qkv, g, h, dh ** -0.5)),
-            time_ms(lambda: attention_qkv_fused_bwd_ref(qkv, g, h, dh ** -0.5), 3))
-        # the library's backward alone, of a forward run once before the clock
-        qkv_l = [a.detach().requires_grad_(True) for a in split_heads(qkv, h)]
-        out_l = sdpa(*qkv_l, scale=dh ** -0.5)
-        g_l = g.view(b, t, h, dh).transpose(1, 2)
-        lib[name] = time_ms(lambda: torch.autograd.grad(out_l, qkv_l, g_l,
-                                                        retain_graph=True))
-        del qkv_l, out_l, g_l
-        # the logits again and the four products of the gradients
-        bounds[name] = bound(10 * b * h * t * t * dh, "bf16",
-                             2 * nbytes(qkv) + nbytes(g))
-
-    log("[kernels] supercell gradients (A, B recomputed, E), f32 master weights")
-    for b, t, d, h, tag in ((8, T, D, H, "ViT-B"), (B, T, D, H, "ViT-B"),
-                            (8, TH, DH, HH, "ViT-H"), (BH, TH, DH, HH, "ViT-H")):
-        w = block_weights(d)
-        leaves = [rand(rng, (b, t, d))] + [
-            w[k].float() for k in ("w_qkv", "b_qkv", "gamma", "beta", "w_proj",
-                                   "b_proj")]
-        leaves = [x.requires_grad_(True) for x in leaves]
-        g = rand(rng, (b, t, d))
-        sc = (d // h) ** -0.5
-
-        def fwd_bwd(fn):
-            out = fn(*leaves, h, sc)
-            return torch.autograd.grad(out, leaves, g)
-
-        grads = [fwd_bwd(attn_supercell), fwd_bwd(attn_supercell_ref)]
-        for gname, a, r in zip(("x", "w_qkv", "b_qkv", "gamma", "beta",
-                                "w_proj", "b_proj"), *grads):
-            compare(f"supercell {tag} B={b} d{gname}", a, r,
-                    atol=CELL_TOL * float(r.float().abs().max()), rtol=CELL_TOL)
-        del grads
-        if b > 8:  # time at the path's batch
-            times[f"supercell_fwd_bwd_{tag}"] = (
-                time_ms(lambda: fwd_bwd(attn_supercell), 5),
-                time_ms(lambda: fwd_bwd(attn_supercell_ref), 2))
-
-    for k, (t_k, t_p) in times.items():
-        log(f"  time {k}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms" + (
-            f", bound {bounds[k]['bound_ms']:.3f} ms by {bounds[k]['bound_by']}"
-            f", library {lib[k] if lib[k] is None else round(lib[k], 3)} ms"
-            if k in bounds else ""))
-    names = ("ln_qkv_gemm", "attn_core", "attn_core_dh80", "proj_residual_gemm",
-             "ep_pool", "attn_core_bwd", "attn_core_bwd_dh80")
-    results = [dict(name=k, err=err[k], ms=times[k][0], plain_ms=times[k][1],
-                    library_ms=lib[k], **bounds[k]) for k in names]
-    results[0]["stats_ms"] = stats_ms  # of ln_qkv_gemm's ms
-    return results, others
-
-
-def check_ln1_kernels(BH: int) -> list[dict]:
-    """LN1's gradient in the supercell's backward: ln1_apply and ln1_bwd
-    against their plain version (autograd over the f32 LayerNorm, the
-    residual's sum and the sum of g) at fine-tuning's shapes, ViT-B/16 at
-    batch 512 and ViT-H/14 at batch BH, each twice (bit-equal), timed beside
-    their bound (bytes), the plain chain and the library's LayerNorm
-    backward (native, bf16 weights). Inputs from a generator of their own."""
-    from ep_tpu_torch.ops.attn_block import (ln1_apply, ln1_backward_ref,
-                                             ln1_bwd)
-    rng = np.random.default_rng(21)
-    results = []
-    for tag, b, t, d in (("", 512, 197, 768), ("_k1280", BH, 257, 1280)):
-        m = b * t
-        x = rand(rng, (b, t, d), 2.0) + 0.5
-        gamma = 1 + rand(rng, (d,), 0.1, torch.float32)
-        beta = rand(rng, (d,), 0.1, torch.float32)
-        dxn, g = rand(rng, (b, t, d)), rand(rng, (b, t, d))
-        xf = x.float().view(m, d)
-        stats = torch.stack([xf.mean(-1), torch.rsqrt(
-            xf.var(-1, unbiased=False) + 1e-6)], -1).contiguous()
-        del xf
-        got = (ln1_apply(x, stats, gamma, beta), *ln1_bwd(x, stats, gamma, dxn, g))
-        want = ln1_backward_ref(x, gamma, beta, dxn, g, 1e-6)
-        err = {}
-        for name, a, r in zip(("xn", "g + dx", "dgamma", "dbeta", "dbp"), got,
-                              want):
-            tol = RTOL if a.dtype == torch.bfloat16 else 1e-3
-            err[name] = compare(f"ln1 ({b},{t},{d}) {name}", a, r,
-                                atol=tol * float(r.float().abs().max()),
-                                rtol=tol)
-        repeat_equal(f"ln1 ({b},{t},{d})", got,
-                     (ln1_apply(x, stats, gamma, beta),
-                      *ln1_bwd(x, stats, gamma, dxn, g)))
-        del got, want
-        plain_ms = time_ms(lambda: ln1_backward_ref(x, gamma, beta, dxn, g,
-                                                    1e-6), 3)
-        g16, be16 = gamma.bfloat16(), beta.bfloat16()
-        leaves = [x.detach().requires_grad_(True), g16.requires_grad_(True),
-                  be16.requires_grad_(True)]
-        y = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-6)
-        lib_ms = time_ms(lambda: torch.autograd.grad(y, leaves, dxn,
-                                                     retain_graph=True))
-        del y, leaves
-        for name, fn, moved in (
-                (f"ln1_apply{tag}", lambda: ln1_apply(x, stats, gamma, beta),
-                 nbytes(x, stats, gamma, beta) + nbytes(x)),
-                (f"ln1_bwd{tag}", lambda: ln1_bwd(x, stats, gamma, dxn, g),
-                 nbytes(x, stats, gamma, dxn, g) + nbytes(x) + 3 * d * 4)):
-            r = dict(name=name, err=max(err.values()) if "bwd" in name
-                     else err["xn"], ms=time_ms(fn), plain_ms=plain_ms,
-                     library_ms=lib_ms, **bound(12 * m * d, "f32", moved))
-            log(f"  time {name} ({m}, {d}): kernel {r['ms']:.3f} ms, bound "
-                f"{r['bound_ms']:.3f} ms by {r['bound_by']}; the plain chain "
-                f"(both) {plain_ms:.3f} ms, the library's LN backward "
-                f"{lib_ms:.3f} ms")
-            results.append(r)
-        del x, dxn, g, stats
-        torch.cuda.empty_cache()
-    return results
-
-
-def check_swiglu_gate() -> list[dict]:
-    """SwiGLU's gate (``ops/swiglu.py``) at DINOv2-g/14's probe shape, 128
-    images of 261 tokens with H=4096, against the plain bf16 chain: equal
-    bit for bit on at least 99.9% of the elements and within one bf16 step
-    on the rest (the kernel's exp may differ from PyTorch's in the last f32
-    bit), twice (bit-equal), timed beside its bound (bytes) and the chain.
-    Inputs from a generator of their own."""
-    from ep_tpu_torch.ops.swiglu import swiglu_gate, swiglu_gate_ref
-    rng = np.random.default_rng(22)
-    b, t, h = 128, 261, 4096
-    x12 = rand(rng, (b, t, 2 * h), 3.0)
-    got, want = swiglu_gate(x12), swiglu_gate_ref(x12)
-    g, w = got.float(), want.float()
-    same = float((g == w).float().mean())
-    step = torch.exp2(torch.frexp(torch.maximum(g.abs(), w.abs()))[1] - 8.0)
-    ok = same >= 0.999 and bool(((g - w).abs() <= step).all())
-    log(f"  swiglu_gate ({b},{t},2x{h}): {same:.6f} of the elements equal "
-        f"bit for bit, the rest within a bf16 step {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise RuntimeError("swiglu_gate: the kernel is not the plain chain")
-    repeat_equal(f"swiglu_gate ({b},{t},2x{h})", got, swiglu_gate(x12))
-    err = float((g - w).abs().max())
-    del got, want, g, w, step
-    r = dict(name="swiglu_gate_dinov2_g", err=err,
-             ms=time_ms(lambda: swiglu_gate(x12)),
-             plain_ms=time_ms(lambda: swiglu_gate_ref(x12), 3),
-             library_ms=None,
-             **bound(0, "bf16", nbytes(x12) * 3 // 2))
-    log(f"  time swiglu_gate ({b * t}, {h}): kernel {r['ms']:.3f} ms, bound "
-        f"{r['bound_ms']:.3f} ms by {r['bound_by']}; the plain chain "
-        f"{r['plain_ms']:.3f} ms")
-    del x12
-    torch.cuda.empty_cache()
-    return [r]
-
-
-def check_lars() -> list[dict]:
-    """LARS's kernel pair (``ops/lars.py``: lars_norms + lars_apply) over
-    ViT-B/16's fine-tuning leaves (the encoder and the EP head, f32) at the
-    benchmark's hyperparameters: one step against the plain per-leaf loop
-    from the same state (each leaf's norms summed in another order: within
-    1e-5), twice (bit-equal), then timed beside its bound (bytes) and the
-    plain loop; and the train step's gradient norm (one multi-tensor pass)
-    beside the per-leaf sum it replaced. Inputs from a generator of their
-    own."""
-    from ep_tpu_torch.configs import TrainConfig
-    from ep_tpu_torch.models.assembly import (ProbeModel, SkipDefaultInit,
-                                              build_backbone_config)
-    from ep_tpu_torch.ops import LAUNCHES, reset_launches
-    from ep_tpu_torch.train.lars import LARS, RawUpdateOptimizer
-    from ep_tpu_torch.train.state import freeze
-    from ep_tpu_torch.train.steps import global_grad_norm
-    from torch.profiler import ProfilerActivity, profile
-
-    class PlainLARS(LARS):
-        _apply_updates = RawUpdateOptimizer._apply_updates
-
-    cfg = TrainConfig(model="vit_base_patch16", cls_features="ep",
-                      ep_queries=32, nb_classes=1000, amp="bfloat16",
-                      finetuning=True)
-    with SkipDefaultInit(), torch.device("cuda"):
-        model = ProbeModel(build_backbone_config(cfg), cfg)
-    shapes = [tuple(p.shape) for p in freeze(model, True)]
-    del model
-    rng = np.random.default_rng(23)
-    start = [rand(rng, s, 0.02, torch.float32) for s in shapes]
-    grads = [rand(rng, s, 1e-3, torch.float32) for s in shapes]
-    n = sum(p.numel() for p in start)
-
-    def fresh(cls):
-        ps = [torch.nn.Parameter(p.clone()) for p in start]
-        for p, g in zip(ps, grads):
-            p.grad = g
-        return ps, cls(ps, weight_decay=0.0)
-
-    reset_launches()
-    got, opt = fresh(LARS)
-    opt.step(1.6)
-    again, opt2 = fresh(LARS)
-    opt2.step(1.6)
-    ref, ref_opt = fresh(PlainLARS)
-    ref_opt.step(1.6)
-    if (LAUNCHES["lars_norms"], LAUNCHES["lars_apply"]) != (2, 2):
-        raise RuntimeError(f"lars: launches {dict(LAUNCHES)}")
-    repeat_equal("lars", tuple(got), tuple(again))
-    err, ok = 0.0, True
-    for a, r in zip(got, ref):
-        for x, y in ((a, r), (opt.state[a]["mu"], ref_opt.state[r]["mu"])):
-            d = (x - y).detach().abs()
-            err = max(err, float(d.max()))
-            ok &= bool((d <= 1e-5 * (y.abs() + y.abs().max())).all())
-    log(f"  lars over {len(shapes)} leaves, {n} parameters: max |d| against "
-        f"the plain loop {err:.3e} (tol |d| <= 1e-5*(|ref| + the leaf's "
-        f"largest |ref|)) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise RuntimeError("lars: the kernel pair is not the plain loop")
-    scaled = sum(p.numel() for p in start if p.ndim > 1)
-    moved = 8 * scaled + 20 * n  # f32 p, g (first pass); p, g, mu in, mu, p out
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            opt.step(1.6)
-        torch.cuda.synchronize()
-    pair_ms = sum(ms for ms, _, key in device_rows(prof) if "lars_" in key) / 5
-    t0 = time.perf_counter()
-    for _ in range(5):
-        opt.step(1.6)
-    host_ms = (time.perf_counter() - t0) / 5 * 1e3
-    r = dict(name="lars_apply_vitb_ft", err=err, ms=pair_ms,
-             step_ms=time_ms(lambda: opt.step(1.6)), host_ms=host_ms,
-             plain_ms=time_ms(lambda: ref_opt.step(1.6), 3), library_ms=None,
-             **bound(0, "f32", moved))
-    log(f"  time lars ({len(shapes)} leaves, {n}): kernel pair {pair_ms:.3f} "
-        f"device ms (profiler), bound {r['bound_ms']:.3f} ms by "
-        f"{r['bound_by']}; LARS.step {r['step_ms']:.3f} ms back to back, "
-        f"{host_ms:.3f} ms of it the host's; the plain per-leaf loop "
-        f"{r['plain_ms']:.3f} ms")
-    norm_ms = time_ms(lambda: global_grad_norm(grads))
-    sum_ms = time_ms(lambda: torch.sqrt(sum(g.float().square().sum()
-                                            for g in grads)))
-    d = abs(float(global_grad_norm(grads)) / float(torch.sqrt(sum(
-        g.float().square().sum() for g in grads))) - 1)
-    log(f"  gradient norm over the same leaves: multi-tensor {norm_ms:.3f} "
-        f"ms, the per-leaf sum {sum_ms:.3f} ms, relative difference {d:.2e}")
-    if d > 1e-5:
-        raise RuntimeError("global_grad_norm: not the per-leaf sum")
-    del got, again, ref, opt, opt2, ref_opt, start, grads
-    torch.cuda.empty_cache()
-    return [r]
-
-
-def gemm_other_shapes(BH: int, block_weights) -> list[dict]:
-    """Kernels A and C at the other paths' shapes (ViT-H/14 at 224 px, batch
-    BH, and at 448 px, batch 64), timed beside bound, plain and library; and,
-    for correctness alone, at ViT-L's width (K = 1024) and at every width
-    with batches of 3 and 8, whose M is no multiple of the 128-row panel.
-    Inputs come from a generator of their own, so that the checks that follow
-    see the inputs they always saw."""
-    rng = np.random.default_rng(6)
-    from ep_tpu_torch.ops.attn_block import (ln_qkv, ln_qkv_ref, proj_residual,
-                                             proj_residual_ref)
-    others = []
-    for tag, b, t, d, timed in (
-            ("vitb_b3", 3, 197, 768, False),
-            ("vitl_b3", 3, 197, 1024, False), ("vitl_b8", 8, 197, 1024, False),
-            ("vith_b3", 3, 257, 1280, False), ("h448_b3", 3, 1025, 1280, False),
-            ("vith", BH, 257, 1280, True), ("h448", 64, 1025, 1280, True)):
-        w = block_weights(d, rng)
-        x, o = rand(rng, (b, t, d)), rand(rng, (b, t, d))
-        a_args = (x, w["gamma"], w["beta"], w["w_qkv"], w["b_qkv"], 1e-6)
-        c_args = (o, w["w_proj"], w["b_proj"], x)
-        e_a = compare(f"ln_qkv_gemm ({b},{t},{d})", ln_qkv(*a_args),
-                      ln_qkv_ref(*a_args))
-        e_c = compare(f"proj_residual_gemm ({b},{t},{d})",
-                      proj_residual(*c_args), proj_residual_ref(*c_args))
-        if not timed:
-            continue
-        g16, be16, bq16, bp16 = (w[k].bfloat16() for k in (
-            "gamma", "beta", "b_qkv", "b_proj"))
-        m = b * t
-        for name, e, fn, ref, lib_fn, bnd in (
-                (f"ln_qkv_gemm_{tag}", e_a, lambda: ln_qkv(*a_args),
-                 lambda: ln_qkv_ref(*a_args),
-                 lambda: F.linear(F.layer_norm(x, (d,), g16, be16, 1e-6),
-                                  w["w_qkv"], bq16),
-                 bound(2 * m * 3 * d * d, "bf16", nbytes(
-                     x, w["w_qkv"], w["b_qkv"], w["gamma"], w["beta"])
-                     + 3 * nbytes(x))),
-                (f"proj_residual_gemm_{tag}", e_c, lambda: proj_residual(*c_args),
-                 lambda: proj_residual_ref(*c_args),
-                 lambda: x + F.linear(o, w["w_proj"], bp16),
-                 bound(2 * m * d * d, "bf16",
-                       nbytes(o, w["w_proj"], w["b_proj"], x) + nbytes(x)))):
-            r = dict(name=name, err=e, ms=time_ms(fn), plain_ms=time_ms(ref, 3),
-                     library_ms=time_ms(lib_fn), **bnd)
-            log(f"  time {name}: kernel {r['ms']:.3f} ms, plain "
-                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
-                f"{r['bound_by']}, library {r['library_ms']:.3f} ms")
-            others.append(r)
-        del x, o, w
-        torch.cuda.empty_cache()
-    return others
-
-
-def check_long_kernels(rng) -> tuple[list[dict], list[dict]]:
-    """Kernel F, kernel D at long N and kernel G at the shapes of 448 px
-    probing, each against its plain version on the same inputs. Returns the
-    entries of the kernels that a path of this script runs at that shape, and
-    the other shapes' numbers."""
-    from ep_tpu_torch.ops._build import query
-    from ep_tpu_torch.ops.attn_fused import (attention_core,
-                                             attention_qkv_fused_ref)
-    from ep_tpu_torch.ops.flash_attn import attn_flash
-    from ep_tpu_torch.ops.pool_attn import (ep_pool_attend, ep_pool_attend_ref,
-                                            ep_pool_proj_attend,
-                                            ep_pool_proj_attend_ref,
-                                            ep_pool_proj_smem_bytes,
-                                            ep_pool_proj_tiling,
-                                            ep_pool_smem_bytes, ep_pool_tiling)
-    sdpa = F.scaled_dot_product_attention
-    on_path, others = [], []
-
-    def entry(name, err, t_k, t_p, t_lib, bnd, **extra):
-        log(f"  time {name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
-            f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']}, library "
-            f"{t_lib if t_lib is None else round(t_lib, 3)} ms" + "".join(
-                f", {k} {v:.3f}" for k, v in extra.items()))
-        return dict(name=name, err=err, ms=t_k, plain_ms=t_p, library_ms=t_lib,
-                    **bnd, **extra)
-
-    log("[kernels] F: attn_flash (attention_core beyond kernel B's T, and the "
-        "row-tiled variant)")
-    for b, t, h, dh in ((3, 70, 2, 64), (2, 130, 8, 80), (2, 1025, 16, 80)):
-        qkv = rand(rng, (b, t, 3 * h * dh))
-        compare_steps(f"attn_flash B={b} T={t} H={h} Dh={dh}",
-                      attn_flash(qkv, h, dh ** -0.5),
-                      attention_qkv_fused_ref(qkv, h, dh ** -0.5))
-    # The edges of F's tiles, from a generator of their own: a single key,
-    # the last key tile narrowed to 16, 32 or 64 columns, query tiles whose
-    # second warpgroup has no row or one; more (image, head) pairs than SMs
-    # (the persistent blocks take several items); temperature 1.5.
-    edge_rng = np.random.default_rng(8)
-    for b, t, h, dh in [(2, t, 2, dh) for dh in (64, 80)
-                        for t in (1, 63, 65, 129, 257, 785, 1025)] + [
-                            (9, 70, 16, 80), (12, 33, 12, 64)]:
-        qkv = rand(edge_rng, (b, t, 3 * h * dh))
-        compare_steps(f"attn_flash B={b} T={t} H={h} Dh={dh} temperature 1.5",
-                      attn_flash(qkv, h, dh ** -0.5, 1.5),
-                      attention_qkv_fused_ref(qkv, h, dh ** -0.5, 1.5))
-    for name, b, t, h, dh, variant in (
-            ("attn_flash", 64, 1025, 16, 80, None),
-            ("attn_flash_dh64", 64, 785, 12, 64, None),
-            ("attn_flash_rowtile", 128, 257, 16, 80, "rowtile")):
-        sc = dh ** -0.5
-        qkv = rand(rng, (b, t, 3 * h * dh))
-        ref = attention_qkv_fused_ref(qkv, h, sc)
-        e = compare_steps(f"{name} B={b} T={t} H={h} Dh={dh}",
-                          attention_core(qkv, h, sc, variant=variant), ref)
-        del ref
-        t_k = time_ms(lambda: attention_core(qkv, h, sc, variant=variant))
-        t_p = time_ms(lambda: attention_qkv_fused_ref(qkv, h, sc), 2)
-        extra = {}
-        if variant:  # what the variant exists to be compared with: kernel B
-            extra["attn_core_ms"] = time_ms(
-                lambda: attention_core(qkv, h, sc, variant="core"))
-        q, k, v = split_heads(qkv, h)
-        t_lib = time_ms(lambda: sdpa(q, k, v, scale=sc))
-        del q, k, v
-        r = entry(name, e, t_k, t_p, t_lib,
-                  bound(4 * b * h * t * t * dh, "bf16",
-                        nbytes(qkv) + nbytes(qkv) // 3), **extra)
-        (others if name == "attn_flash_dh64" else on_path).append(r)
-        del qkv
-        torch.cuda.empty_cache()
-
-    log("[kernels] D at ViT-H (N=256), at N=1024 (448 px), at ViT-L's "
-        "width (C=1024) and at ep_all's N=197 ([CLS] + patch tokens, the zoo "
-        "phase's ViT-B at batch 512)")
-    Q = 32
-    for name, b, n, c in (("ep_pool_vith", 128, 256, 1280),
-                          ("ep_pool_n1024", 64, 1024, 1280),
-                          ("ep_pool_vitl", 16, 196, 1024),
-                          ("ep_pool_n197", 512, 197, 768)):
-        if name == "ep_pool_n197":  # every token, so no slice; its own draws
-            g = np.random.default_rng(9)
-            qs, tok = rand(g, (Q, c), c ** -0.5), rand(g, (b, n, c))
-            v = rand(g, (b, n, Q, c // Q))
-        else:
-            qs = rand(rng, (Q, c), c ** -0.5)
-            tok = rand(rng, (b, n + 1, c))[:, 1:]
-            v = rand(rng, (b, n, Q, c // Q))
-        cluster, tiles = ep_pool_tiling(n, c, Q, c)
-        log(f"  {name}: clusters of {cluster} block(s) an image, {tiles} tile(s) "
-            f"of 64 tokens a block, {ep_pool_smem_bytes(Q, c, cluster, tiles)} "
-            f"bytes of shared memory a block, "
-            f"{query('ep_pool_resident_clusters', Q, c, cluster, tiles)} "
-            f"clusters resident")
-        ref = ep_pool_attend_ref(qs, tok, v)
-        out = ep_pool_attend(qs, tok, v)
-        e = compare_steps(f"{name} B={b} N={n} C={c} Q={Q}", out, ref)
-        repeat_equal(f"{name} B={b} N={n} C={c} Q={Q}", out,
-                     ep_pool_attend(qs, tok, v))
-        del out
-        compare(f"{name} as one SDPA call (library_ms)",
-                pool_sdpa(qs, tok, v), ref)
-        r = entry(name, e, time_ms(lambda: ep_pool_attend(qs, tok, v)),
-                  time_ms(lambda: ep_pool_attend_ref(qs, tok, v), 3),
-                  time_ms(lambda: pool_sdpa(qs, tok, v), 3),
-                  bound(2 * b * n * (Q * c + c), "bf16",
-                        nbytes(qs, v) + b * n * c * 2 + b * c * 2))
-        (on_path if name in ("ep_pool_n1024", "ep_pool_n197")
-         else others).append(r)
-
-    log("[kernels] G: ep_pool_proj (ep_pool_proj_attend), forward and "
-        "gradients; the unfused pair is F.linear, then kernel D")
-    for b, n, c, q in ((3, 37, 128, 4), (2, 70, 192, 12)):
-        qs = rand(rng, (q, c), c ** -0.5)
-        tok = rand(rng, (b, n + 1, c))[:, 1:]
-        w = rand(rng, (c, c), c ** -0.5, torch.float32)
-        compare_steps(f"ep_pool_proj B={b} N={n} C={c} Q={q}",
-                      ep_pool_proj_attend(qs, tok, w),
-                      ep_pool_proj_attend_ref(qs, tok, w))
-        grads = []
-        for fn in (ep_pool_proj_attend, ep_pool_proj_attend_ref):
-            qg = qs.clone().requires_grad_(True)
-            wg = w.clone().requires_grad_(True)
-            (fn(qg, tok, wg).float() ** 2).sum().backward()
-            grads.append((qg.grad, wg.grad))
-        for i, gname in enumerate(("d q_scaled", "d w")):
-            ref = grads[1][i]
-            compare(f"ep_pool_proj {gname} B={b}", grads[0][i], ref,
-                    atol=ATOL * float(ref.float().abs().max()), rtol=RTOL)
-    def proj_tiling(n, c, q, qc):
-        cluster, panels = ep_pool_proj_tiling(n, c, q, qc)
-        return (f"clusters of {cluster} block(s) an image, {panels} panel(s) "
-                f"of 128 tokens a block, "
-                f"{ep_pool_proj_smem_bytes(q, qc, cluster)} bytes of shared "
-                f"memory a block, "
-                f"{query('ep_pool_proj_resident_clusters', q, qc, cluster)} "
-                f"clusters resident")
-
-    # The edges of G's panels (N of 1, 127 to 129, 1025; 2100 past 16 panels:
-    # two a block), of its query bank (Q of 4, 33 and 64: padded to 8, 64
-    # and 64 rows) and the widths of --d_out 2 at ViT-B and ViT-H (cq 12 and
-    # 20), from a generator of their own; each also twice, equal bit for bit.
-    edge_rng = np.random.default_rng(9)
-    for b, n, c, q, qc in ((3, 1, 768, 32, 768), (3, 127, 768, 32, 768),
-                           (3, 128, 768, 32, 768), (3, 129, 768, 32, 768),
-                           (2, 1025, 1280, 32, 1280), (2, 2100, 768, 32, 768),
-                           (3, 196, 128, 4, 128), (3, 196, 528, 33, 528),
-                           (3, 196, 1280, 64, 1280), (8, 196, 768, 32, 384),
-                           (8, 256, 1280, 32, 640)):
-        qs = rand(edge_rng, (q, c), c ** -0.5)
-        tok = rand(edge_rng, (b, n + 1, c))[:, 1:]
-        w = rand(edge_rng, (qc, c), c ** -0.5)
-        tag = f"ep_pool_proj B={b} N={n} C={c} Q={q} cq={qc // q}"
-        log(f"  {tag}: {proj_tiling(n, c, q, qc)}")
-        out = ep_pool_proj_attend(qs, tok, w)
-        compare_steps(tag, out, ep_pool_proj_attend_ref(qs, tok, w))
-        repeat_equal(tag, out, ep_pool_proj_attend(qs, tok, w))
-    log("[kernels] G through the EP head at --d_out 2 (EP_TPU_EP_FUSED=1): "
-        "the module a probe calls, against its unfused route")
-    from ep_tpu_torch.ops import LAUNCHES, reset_launches
-    from ep_tpu_torch.poolings.ep import EfficientProbing
-    for c, n in ((768, 196), (1280, 256)):
-        torch.manual_seed(0)
-        head = EfficientProbing(c, num_queries=Q, d_out=2).cuda()
-        x = rand(edge_rng, (64, n, c))
-        with torch.no_grad():
-            unfused = head(x)
-            with environment(EP_TPU_EP_FUSED="1"):
-                reset_launches()
-                fused = head(x)
-                counts = dict(LAUNCHES)
-        if counts["ep_pool_proj"] != 1 or counts["ep_pool"] != 0:
-            raise RuntimeError(f"the fused head at d_out 2 launched {counts}")
-        compare_steps(f"EfficientProbing C={c} d_out=2 (cq={head.cq}) N={n}, "
-                      "fused (G) against unfused (F.linear, D)", fused, unfused)
-    for name, b, n, c in (("ep_pool_proj_vitb", 512, 196, 768),
-                          ("ep_pool_proj_vith", 128, 256, 1280),
-                          ("ep_pool_proj", 64, 1024, 1280)):
-        qs = rand(rng, (Q, c), c ** -0.5)
-        tok = rand(rng, (b, n + 1, c))[:, 1:]
-        w = rand(rng, (c, c), c ** -0.5)  # the frozen-dtype copy the kernel reads
-        log(f"  {name}: {proj_tiling(n, c, Q, c)}")
-        out = ep_pool_proj_attend(qs, tok, w)
-        e = compare_steps(f"{name} B={b} N={n} C={c} Q={Q}", out,
-                          ep_pool_proj_attend_ref(qs, tok, w))
-        repeat_equal(f"{name} B={b} N={n} C={c} Q={Q}", out,
-                     ep_pool_proj_attend(qs, tok, w))
-        del out
-
-        def unfused():
-            return ep_pool_attend(qs, tok, F.linear(tok, w).view(b, n, Q, -1))
-
-        r = entry(name, e, time_ms(lambda: ep_pool_proj_attend(qs, tok, w)),
-                  time_ms(lambda: ep_pool_proj_attend_ref(qs, tok, w), 3),
-                  None,  # no one PyTorch call projects and pools per query
-                  bound(2 * b * n * c * (c + Q), "bf16",
-                        nbytes(qs, w) + b * n * c * 2 + b * c * 2),
-                  unfused_ms=time_ms(unfused),
-                  linear_ms=time_ms(lambda: F.linear(tok, w)))
-        (on_path if name == "ep_pool_proj" else others).append(r)
-        del qs, tok, w
-        torch.cuda.empty_cache()
-
-    log("[kernels] D and G at 128 queries (--ep_queries 128, cq 6) at ViT-B, "
-        "batch 512: a launch for each group of 64 queries; beside each, its "
-        "time at 32 queries on the same tokens")
-    b, n, c = 512, 196, 768
-    tok = rand(rng, (b, n + 1, c))[:, 1:]
-    w = rand(rng, (c, c), c ** -0.5)
-    qs = rand(rng, (32, c), c ** -0.5)
-    v = F.linear(tok, w).view(b, n, 32, -1)
-    d32 = time_ms(lambda: ep_pool_attend(qs, tok, v))
-    g32 = time_ms(lambda: ep_pool_proj_attend(qs, tok, w))
-    q = 128
-    qs = rand(rng, (q, c), c ** -0.5)
-    v = F.linear(tok, w).view(b, n, q, -1)
-    ref = ep_pool_attend_ref(qs, tok, v)
-    out = ep_pool_attend(qs, tok, v)
-    e_d = compare_steps(f"ep_pool B={b} N={n} C={c} Q={q}", out, ref)
-    repeat_equal(f"ep_pool B={b} N={n} C={c} Q={q}", out,
-                 ep_pool_attend(qs, tok, v))
-    compare(f"ep_pool Q={q} as one SDPA call (library_ms)",
-            pool_sdpa(qs, tok, v), ref)
-    out = ep_pool_proj_attend(qs, tok, w)
-    e_g = compare_steps(f"ep_pool_proj B={b} N={n} C={c} Q={q}", out,
-                        ep_pool_proj_attend_ref(qs, tok, w))
-    repeat_equal(f"ep_pool_proj B={b} N={n} C={c} Q={q}", out,
-                 ep_pool_proj_attend(qs, tok, w))
-    del out, ref
-    d_ms = (time_ms(lambda: ep_pool_attend(qs, tok, v)),
-            time_ms(lambda: ep_pool_attend_ref(qs, tok, v), 3),
-            time_ms(lambda: pool_sdpa(qs, tok, v), 3))
-    g_ms = (time_ms(lambda: ep_pool_proj_attend(qs, tok, w)),
-            time_ms(lambda: ep_pool_proj_attend_ref(qs, tok, w), 3))
-    r_d = entry("ep_pool_q128", e_d, *d_ms,
-                bound(2 * b * n * (128 * c + c), "bf16",
-                      2 * (b * n * c * 2) + 128 * c * 2 + b * c * 2),
-                q32_ms=d32)
-    r_g = entry("ep_pool_proj_q128", e_g, *g_ms, None,
-                bound(2 * b * n * c * (c + 128), "bf16",
-                      b * n * c * 2 + c * c * 2 + 128 * c * 2 + b * c * 2),
-                q32_ms=g32)
-    on_path.append(r_d)
-    others.append(r_g)
-    del tok, w, qs, v
-    torch.cuda.empty_cache()
-    return on_path, others
-
-
-def code_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[float, int]:
-    """(share of int8 codes that differ, the largest difference)."""
-    d = (a.int() - b.int()).abs()
-    return float((d != 0).float().mean()), int(d.max())
-
-
-def check_int8_kernels(B: int, BH: int, rng) -> tuple[list[dict], list[dict]]:
-    """The int8 MLP half's kernels at ViT-B, ViT-L and ViT-H: each against its
-    plain version on the same inputs, the whole half against the plain int8
-    half and the bf16 half, and the times. Returns the kernels' entries (ViT-B
-    and ViT-H, the shapes of the int8-b and int8-h paths) and one summary of
-    the whole half per shape."""
-    from ep_tpu_torch.ops import mlp_int8 as m
-
-    eps = 1e-6
-    kernels, halves = [], []
-    bad = m.gelu_table_mismatches(torch.device("cuda"))
-    log(f"[kernels] fc1's GELU by table against the GELU arithmetic at every "
-        f"finite bf16 value: {bad} differ (tol 0) {'ok' if bad == 0 else 'FAIL'}")
-    if bad:
-        raise RuntimeError("fc1's GELU table disagrees with the GELU arithmetic")
-    # M = 111 rows, no multiple of the 128-row panel, and a token whose GELU
-    # outputs are all zero (zero codes, zero bias): its scale is the 1e-8
-    # floor. (A generator of its own: the checks below keep their inputs.)
-    own_rng, shared_rng = np.random.default_rng(7), rng
-    rng = own_rng
-    for D, S in ((768, 1), (1280, 8)):
-        DH = 4 * D
-        hq = torch.from_numpy(rng.integers(-127, 128, (3, 37, D),
-                                           dtype=np.int8)).cuda()
-        hq[1, 5] = 0
-        sx = rand(rng, (3, 37, 1), 0.01, torch.float32).abs() + 1e-3
-        w1q, s1 = m.quantize_weight(rand(rng, (DH, D), D ** -0.5))
-        b1 = torch.zeros(DH, device="cuda")
-        aq, sa = m.fc1(hq, sx, w1q, s1, b1, S)
-        aq_r, sa_r = m.fc1_ref(hq, sx, w1q, s1, b1, S)
-        floor = float(torch.full((), 1e-8) / torch.full((), 127.0))
-        ok = (bool(torch.equal(aq, aq_r)) and bool(torch.equal(sa, sa_r))
-              and bool((sa[1, 5] == floor).all()) and not bool(aq[1, 5].any()))
-        log(f"  fc1 at M=111, D={D}, {S} stripe(s), tiling "
-            f"{m.fc1_tiling(DH // S)}: codes and scales equal to the plain "
-            f"version's {bool(torch.equal(aq, aq_r))}, the zero token's scale "
-            f"{float(sa[1, 5, 0]):.4e} (floor {floor:.4e}) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError("fc1 disagrees with its plain version")
-    # fc2 in both tiers' bias orders on the same codes, 1 and 8 stripes, M
-    # ragged (111) and under one 128-row panel (64): equal to the bit.
-    for b, t, D, S in ((3, 37, 768, 1), (3, 37, 1280, 8), (1, 64, 768, 1),
-                       (1, 64, 1024, 8)):
-        DH = 4 * D
-        aq = torch.from_numpy(rng.integers(-127, 128, (b, t, DH),
-                                           dtype=np.int8)).cuda()
-        sa = rand(rng, (b, t, S), 0.01, torch.float32).abs() + 1e-3
-        w2q, s2 = m.quantize_weight(rand(rng, (D, DH), DH ** -0.5))
-        x, b2 = rand(rng, (b, t, D)), rand(rng, (D,), 0.5, torch.float32)
-        outs = {tier: m.fc2(aq, sa, x, w2q, s2, b2, S, tier) for tier in m.TIERS}
-        for tier, out in outs.items():
-            ok = bool(torch.equal(out, m.fc2_ref(aq, sa, x, w2q, s2, b2, S, tier)))
-            log(f"  fc2 at M={b * t}, D={D}, {S} stripe(s), the {tier} tier's "
-                f"bias order: equal to the plain version's "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise RuntimeError("fc2 disagrees with its plain version")
-        # in bf16 the two orders round alike almost everywhere (the JAX
-        # package's tiers agree to the bit in bf16); their f32 sums differ
-        log(f"    the two orders differ at {int((outs['resident'] != outs['two_kernel']).sum())}"
-            f" of {outs['resident'].numel()} bf16 outputs")
-    rng = shared_rng
-    for tag, suffix, b, T, D, tier in (
-            ("ViT-B", "", B, 197, 768, ("resident", 1)),
-            ("ViT-L", None, 128, 197, 1024, ("resident", 8)),
-            ("ViT-H", "_two_kernel", BH, 257, 1280, ("two_kernel", 8))):
-        DH, S, M = 4 * D, tier[1], b * T
-        if m.plan(T, D, DH) != tier:
-            raise RuntimeError(f"plan({T}, {D}, {DH}) = {m.plan(T, D, DH)}, "
-                               f"expected {tier}")
-        log(f"[kernels] int8 MLP half at {tag}: x ({b},{T},{D}), hidden {DH}, "
-            f"{S} stripe(s) of {DH // S} (the JAX package's {tier[0]} tier)")
-        # the frozen encoder's parameters are stored in bf16 when probing
-        x = rand(rng, (b, T, D))
-        x[0, T // 2] = 0.0  # one all-zero token row
-        w1, b1 = rand(rng, (DH, D), D ** -0.5), rand(rng, (DH,), 0.1)
-        w2, b2 = rand(rng, (D, DH), DH ** -0.5), rand(rng, (D,), 0.1)
-        gamma, beta = 1 + rand(rng, (D,), 0.1), rand(rng, (D,), 0.1)
-        w1q, s1 = m.quantize_weight(w1)
-        w2q, s2 = m.quantize_weight(w2)
-
-        hq, sx = m.ln_quant(x, gamma, beta, eps)
-        hq_r, sx_r = m.ln_quant_ref(x, gamma, beta, eps)
-        share, worst = code_diff(hq, hq_r)
-        share_ln = share
-        e_ln = float((hq.float() * sx - hq_r.float() * sx_r).abs().max())
-        ok = worst <= 1 and share <= CODE_SHARE_LN and bool(torch.isfinite(sx).all())
-        log(f"  ln_quant: codes differing {share:.3e} (tol {CODE_SHARE_LN:g}), "
-            f"largest difference {worst} (tol 1), dequantised max_abs_err "
-            f"{e_ln:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError("ln_quant disagrees with its plain version")
-        repeat_equal("ln_quant", (hq, sx), m.ln_quant(x, gamma, beta, eps))
-
-        aq, sa = m.fc1(hq, sx, w1q, s1, b1, S)
-        aq_r, sa_r = m.fc1_ref(hq, sx, w1q, s1, b1, S)
-        share, worst = code_diff(aq, aq_r)
-        e_fc1 = float((aq.float() * sa.repeat_interleave(DH // S, -1)
-                       - aq_r.float() * sa_r.repeat_interleave(DH // S, -1)
-                       ).abs().max())
-        ok = worst <= 1 and share <= CODE_SHARE_SAME and bool(
-            torch.isfinite(sa).all())
-        log(f"  fc1 on the same codes: codes differing {share:.3e} (tol "
-            f"{CODE_SHARE_SAME:g}), largest difference {worst} (tol 1), "
-            f"dequantised max_abs_err {e_fc1:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError("fc1 disagrees with its plain version")
-        del aq_r, sa_r
-
-        out = m.fc2(aq, sa, x, w2q, s2, b2, S, tier[0])
-        e_fc2 = compare("fc2 on the same codes", out,
-                        m.fc2_ref(aq, sa, x, w2q, s2, b2, S, tier[0]))
-
-        args = (x, w1, b1, w2, b2, gamma, beta, eps)
-        ref = m.mlp_int8_ref(*args, S, tier[0])
-        half_out = m.mlp_int8_forward(*args, S, tier[0])
-        same = ((hq == hq_r).all(-1) & (sx == sx_r).all(-1))
-        e_half = compare(f"the whole half against the plain int8 half, the "
-                         f"{int(same.sum())} of {M} tokens whose LN codes and "
-                         f"scale agree", half_out[same], ref[same])
-        if not bool(same.all()):
-            e_half = max(e_half, compare(
-                "the whole half, the other tokens", half_out[~same], ref[~same],
-                atol=MOVED_TOL * float(ref.float().abs().max())))
-        del half_out, same
-        share, worst = code_diff(aq, m.fc1_ref(hq_r, sx_r, w1q, s1, b1, S)[0])
-        ok = share <= CODE_SHARE_CHAIN
-        log(f"  hidden codes through the whole half: differing {share:.3e} "
-            f"(tol {CODE_SHARE_CHAIN:g}), largest difference {worst} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError("the int8 half's hidden codes disagree")
-        ref16 = m.mlp_bf16_ref(*args).float()
-        d = (out.float() - ref16).abs()
-        mean_rel = float(d.mean() / ref16.abs().mean())
-        max_rel = float(d.max() / ref16.abs().max())
-        ok = mean_rel <= INT8_MEAN_REL and max_rel <= INT8_MAX_REL
-        log(f"  against the bf16 half: mean rel {mean_rel:.3e} (tol "
-            f"{INT8_MEAN_REL:g}), max rel {max_rel:.3e} (tol {INT8_MAX_REL:g}) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok or not bool(torch.isfinite(out[0, T // 2]).all()):
-            raise RuntimeError("the int8 half is too far from the bf16 half")
-        del ref, ref16, d, hq_r, sx_r
-
-        def bf16_half():  # the port's bf16 MLP half (models/vit.py::Block)
-            h = F.layer_norm(x, (D,), gamma, beta, eps)
-            return x + F.linear(F.gelu(F.linear(h, w1, b1), approximate="tanh"),
-                                w2, b2)
-
-        hq2, aq2 = hq.view(M, D), aq.view(M, DH)
-        t = {
-            "ln_quant": (time_ms(lambda: m.ln_quant(x, gamma, beta, eps)),
-                         time_ms(lambda: m.ln_quant_ref(x, gamma, beta, eps), 3)),
-            "fc1": (time_ms(lambda: m.fc1(hq, sx, w1q, s1, b1, S)),
-                    time_ms(lambda: m.fc1_ref(hq, sx, w1q, s1, b1, S), 3)),
-            "fc2": (time_ms(lambda: m.fc2(aq, sa, x, w2q, s2, b2, S, tier[0])),
-                    time_ms(lambda: m.fc2_ref(aq, sa, x, w2q, s2, b2, S,
-                                              tier[0]), 3)),
-        }
-        lib = {"ln_quant": None,  # no one call normalises and quantises
-               "fc1": time_ms(lambda: torch._int_mm(hq2, w1q.t())),
-               "fc2": time_ms(lambda: torch._int_mm(aq2, w2q.t()))}
-        bounds = {
-            # a handful of f32 operations an element: bound by its bytes
-            "ln_quant": bound(10 * M * D, "f32", nbytes(x, gamma, beta, hq, sx)),
-            "fc1": bound(2 * M * D * DH, "int8",
-                         nbytes(hq, sx, w1q, s1, b1, aq, sa)),
-            "fc2": bound(2 * M * DH * D, "int8",
-                         nbytes(aq, sa, w2q, s2, b2, x, out)),
-        }
-        half = dict(
-            shape=tag, stripes=S, max_abs_err=e_half, mean_rel_vs_bf16=mean_rel,
-            ms=time_ms(lambda: m.mlp_int8_forward(*args, S, tier[0])),
-            kernels_ms=sum(v[0] for v in t.values()),
-            weight_quant_ms=time_ms(lambda: (m.quantize_weight(w1),
-                                             m.quantize_weight(w2))),
-            plain_ms=time_ms(lambda: m.mlp_int8_ref(*args, S, tier[0]), 3),
-            bf16_half_ms=time_ms(bf16_half),
-            int_mm_ms=lib["fc1"] + lib["fc2"],
-            bound_ms=sum(v["bound_ms"] for v in bounds.values()))
-        halves.append(half)
-        for k, (t_k, t_p) in t.items():
-            log(f"  time {k}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
-                f"{bounds[k]['bound_ms']:.3f} ms by {bounds[k]['bound_by']}, "
-                f"library {lib[k] if lib[k] is None else round(lib[k], 3)} ms")
-        log(f"  time the whole half: {half['ms']:.3f} ms (kernels "
-            f"{half['kernels_ms']:.3f}, weight quantisation "
-            f"{half['weight_quant_ms']:.3f}), plain int8 {half['plain_ms']:.3f} "
-            f"ms, the bf16 half (LN2, cuBLAS fc1, GELU, cuBLAS fc2, residual) "
-            f"{half['bf16_half_ms']:.3f} ms, torch._int_mm on the two products "
-            f"alone {half['int_mm_ms']:.3f} ms, bound {half['bound_ms']:.3f} ms")
-        if suffix is not None:
-            errs = {"ln_quant": e_ln, "fc1": e_fc1, "fc2": e_fc2}
-            kernels += [dict(name=f"mlp_int8_{k}{suffix}", err=errs[k],
-                             ms=t[k][0], plain_ms=t[k][1], library_ms=lib[k],
-                             **bounds[k]) for k in t]
-            kernels[-3]["codes_differing"] = share_ln  # ln_quant's
-        del x, w1, w2, w1q, w2q, hq, aq, sa, out, hq2, aq2, args
-        torch.cuda.empty_cache()
-    return kernels, halves
 
 
 # bench.py:100-128: frozen backbone + EP-32. kind -> (batch (None: --batch),
@@ -2345,12 +1262,12 @@ def device_aug_check(card: str, n_check: int = 128) -> dict:
     ms = time_ms(lambda: aug.train_fn(7, images))
     flops = 2 * B * out * S * (S * 3 + out * 3)
     moved = images.numel() + B * out * out * 3 * 2
-    bnd = bound(flops, "bf16", moved)
+    bound_ms = bound_s(flops, moved, H100_SXM) * 1e3
     log(f"[device-aug] the train transform (crop, flip, normalize) at batch "
         f"{B}, u8 {tuple(images.shape)} to bf16 ({B}, {out}, {out}, 3): "
         f"{ms:.3f} ms ({flops / 1e9:.1f} GFLOP of products on bf16 values "
-        f"in f32; bound {bnd['bound_ms']:.3f} ms by {bnd['bound_by']} at the "
-        f"bf16 peak) on {card}")
+        f"in f32; bound {bound_ms:.3f} ms at the bf16 peak or the memory "
+        f"rate) on {card}")
     f32 = dataclasses.replace(aug, dtype=torch.float32)
     got = f32.train_fn(7, images[:n_check]).cpu()
     ref = f32.train_fn(7, images[:n_check].cpu())
@@ -2364,7 +1281,8 @@ def device_aug_check(card: str, n_check: int = 128) -> dict:
         f"{float(d.mean()):.3e} (tol {AUG_MEAN:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError("the card's crop disagrees with the CPU's")
-    return dict(crop_ms=ms, crop_max_abs_err=float(d.max()), **bnd)
+    return dict(crop_ms=ms, crop_max_abs_err=float(d.max()),
+                bound_ms=bound_ms)
 
 
 # The driver phase: main_linprobe_torch.py's main on the fake dataset (512
@@ -2756,7 +1674,7 @@ def gloo_steps(batch: int, rows: slice, steps: int):
     opt = LARS(freeze(model, False), weight_decay=0.0)
     cast_frozen(model, torch.bfloat16)
     step_fn = make_train_step(model, opt, make_lr_fn(cfg, 1000))
-    rng = np.random.default_rng(0)  # phase 4's images and labels
+    rng = np.random.default_rng(0)  # phase 3's images and labels
     images = rng.standard_normal((GLOO_BATCH, 224, 224, 3), dtype=np.float32)
     labels = rng.integers(0, 1000, size=(GLOO_BATCH,))
     x, y = shard_batch((images[rows], labels[rows]))
@@ -3196,110 +2114,6 @@ def grain_phase(card: str, paths: dict) -> dict:
 
 
 # --- the backbone family (DINOv2, CAPI, OpenCLIP, SimMIM, MAE) ---------------
-
-def check_backbone_kernels(rng) -> list[dict]:
-    """Phase 3 at the backbone family's shapes: B at DINOv2-L's T=261 and
-    CAPI's T=272 (batch 512, 16 heads of width 64), D at DINOv2-L's (512, 256,
-    1024, 32) and DINOv2-g's (64, 256, 1536, 32; cq 48) on the patch-token
-    view past five prefix tokens, each twice (equal bit for bit); and the
-    attention backward past kernel E's limit (ops/attn_fused.py::
-    attention_qkv_fused_bwd_long, plain torch, as the JAX package leaves it to
-    XLA) at ViT-H/14 448 px's (32, 1025, 16x80), against the CPU's run of the
-    same function on two of the images."""
-    from ep_tpu_torch.ops.attn_fused import (attention_core,
-                                             attention_qkv_fused_bwd_long,
-                                             attention_qkv_fused_bwd_ref,
-                                             attention_qkv_fused_ref)
-    from ep_tpu_torch.ops.pool_attn import ep_pool_attend, ep_pool_attend_ref
-    sdpa = F.scaled_dot_product_attention
-    results = []
-
-    def entry(name, err, t_k, t_p, t_lib, bnd):
-        log(f"  time {name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
-            f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']}, library "
-            f"{t_lib if t_lib is None else round(t_lib, 3)} ms")
-        results.append(dict(name=name, err=err, ms=t_k, plain_ms=t_p,
-                            library_ms=t_lib, **bnd))
-
-    log("[kernels] B at the backbone family's sequences: DINOv2-L (T = 1 + 4 "
-        "registers + 256 = 261) and CAPI (16 registers + 256 = 272, B's last "
-        "key bin), batch 512, 16 heads of width 64")
-    h, dh = 16, 64
-    sc = dh ** -0.5
-    for name, b, t in (("attn_core_t261", 512, 261), ("attn_core_t272", 512, 272)):
-        qkv = rand(rng, (b, t, 3 * h * dh))
-        out = attention_core(qkv, h, sc, variant="core")
-        e = compare(f"{name} B={b} T={t} H={h}", out,
-                    attention_qkv_fused_ref(qkv, h, sc))
-        repeat_equal(f"{name} B={b} T={t} H={h}", out,
-                     attention_core(qkv, h, sc, variant="core"))
-        del out
-        t_k = time_ms(lambda: attention_core(qkv, h, sc, variant="core"))
-        t_p = time_ms(lambda: attention_qkv_fused_ref(qkv, h, sc), 2)
-        q, k, v = split_heads(qkv, h)
-        t_lib = time_ms(lambda: sdpa(q, k, v, scale=sc))
-        del q, k, v
-        entry(name, e, t_k, t_p, t_lib, bound(4 * b * h * t * t * dh, "bf16",
-                                              nbytes(qkv) + nbytes(qkv) // 3))
-        del qkv
-        torch.cuda.empty_cache()
-
-    log("[kernels] D at DINOv2-L's (512, 256, 1024, 32) and DINOv2-g's (64, "
-        "256, 1536, 32: cq 48), the patch tokens a view past the prefix "
-        "tokens ([CLS] and 4 registers; the giant has no registers)")
-    Q = 32
-    for name, b, n, c, pre in (("ep_pool_dinov2_l", 512, 256, 1024, 5),
-                               ("ep_pool_dinov2_g", 64, 256, 1536, 1)):
-        qs = rand(rng, (Q, c), c ** -0.5)
-        tok = rand(rng, (b, n + pre, c))[:, pre:]
-        v = rand(rng, (b, n, Q, c // Q))
-        ref = ep_pool_attend_ref(qs, tok, v)
-        out = ep_pool_attend(qs, tok, v)
-        e = compare_steps(f"{name} B={b} N={n} C={c} Q={Q}", out, ref)
-        repeat_equal(f"{name} B={b} N={n} C={c} Q={Q}", out,
-                     ep_pool_attend(qs, tok, v))
-        compare(f"{name} as one SDPA call (library_ms)", pool_sdpa(qs, tok, v),
-                ref)
-        del out, ref
-        entry(name, e, time_ms(lambda: ep_pool_attend(qs, tok, v)),
-              time_ms(lambda: ep_pool_attend_ref(qs, tok, v), 3),
-              time_ms(lambda: pool_sdpa(qs, tok, v), 3),
-              bound(2 * b * n * (Q * c + c), "bf16",
-                    nbytes(qs, v) + b * n * c * 2 + b * c * 2))
-        del qs, tok, v
-
-    log("[kernels] the attention backward past kernel E's limit "
-        "(attention_qkv_fused_bwd_long: 128 query rows a tile, bf16 products "
-        "with f32 sums) at ViT-H/14 448 px, (32, 1025, 16x80)")
-    b, t, h, dh = 32, 1025, 16, 80
-    sc = dh ** -0.5
-    qkv = rand(rng, (b, t, 3 * h * dh))
-    g = rand(rng, (b, t, h * dh))
-    out = attention_qkv_fused_bwd_long(qkv, g, h, sc)
-    ref = attention_qkv_fused_bwd_long(qkv[:2].cpu(), g[:2].cpu(), h, sc)
-    e = compare(f"attn_bwd_long B={b} T={t} H={h} Dh={dh}, images 0-1 against "
-                "the CPU's", out[:2].cpu(), ref,
-                atol=BWD_TOL * float(ref.float().abs().max()), rtol=BWD_TOL)
-    e_ref = attention_qkv_fused_bwd_ref(qkv[:2], g[:2], h, sc)
-    compare("attn_bwd_long against kernel E's plain version (another cast "
-            "order: dL and the scale)", out[:2], e_ref,
-            atol=BWD_TOL * float(e_ref.float().abs().max()), rtol=BWD_TOL)
-    del out, ref, e_ref
-    qkv_l = [a.detach().requires_grad_(True) for a in split_heads(qkv, h)]
-    out_l = sdpa(*qkv_l, scale=sc)
-    g_l = g.view(b, t, h, dh).transpose(1, 2)
-    t_lib = time_ms(lambda: torch.autograd.grad(out_l, qkv_l, g_l,
-                                                retain_graph=True), 3)
-    del qkv_l, out_l, g_l
-    entry("attn_bwd_long", e,
-          time_ms(lambda: attention_qkv_fused_bwd_long(qkv, g, h, sc), 3),
-          time_ms(lambda: attention_qkv_fused_bwd_ref(qkv, g, h, sc), 2),
-          t_lib, bound(10 * b * h * t * t * dh, "bf16",
-                       2 * nbytes(qkv) + nbytes(g)))
-    del qkv, g
-    torch.cuda.empty_cache()
-    return results
-
 
 # The backbone family's probe paths at published widths and depths: batch,
 # TrainConfig flags, the launches of one forward (every other count zero)
@@ -3928,7 +2742,7 @@ def main() -> int:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    from ep_tpu_torch.ops import _build
+    from ep_tpu_torch.ops import LAUNCHES, _build
     path, secs, compiled = _build.build()
     log(f"[build] {'compiled' if compiled else 'reused'} "
         f"{[p.name for p in _build.sources()]} -> {path.name} in {secs:.1f} s")
@@ -3936,19 +2750,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  {line.strip()}")
     _build.library()
-
-    rng = np.random.default_rng(0)
-    BH = FT_CONFIGS["finetune-h"][0]
-    results, gemm_shapes = check_kernels(args.batch, BH, rng)
-    results += check_ln1_kernels(BH)
-    results += check_swiglu_gate()
-    results += check_lars()
-    int8_results, int8_halves = check_int8_kernels(args.batch, BH, rng)
-    results += int8_results
-    long_results, other_shapes = check_long_kernels(rng)
-    results += long_results
-    results += check_backbone_kernels(rng)
-    other_shapes = gemm_shapes + other_shapes
+    mark("build")
+    from scripts import torch_hopper_gemm_check as kernel_check
+    if not kernel_check.run():
+        raise RuntimeError("a kernel disagrees with its plain version")
     mark("kernels")
 
     paths, steps_ms, first_loss = {}, {}, {}
@@ -4028,7 +2833,7 @@ def main() -> int:
     tools["search"] = search(card, paths, tmp)
     mark("search")
     work.cleanup()
-    # phase 4's step at the driver's batch, beside the driver's epochs
+    # phase 3's step at the driver's batch, beside the driver's epochs
     *_, med, _ = train("train", DRIVER_FLAGS["batch_size"], args.steps, card)
     step_b = dict(batch=DRIVER_FLAGS["batch_size"], step_ms=med * 1e3,
                   img_s=DRIVER_FLAGS["batch_size"] / med)
@@ -4041,111 +2846,18 @@ def main() -> int:
     if "jax" in sys.modules or any(
             k == "ep_tpu" or k.startswith("ep_tpu.") for k in sys.modules):
         raise RuntimeError("jax or the JAX package was imported")
-    csrc = "ep_tpu_torch/csrc/"
-    int8_pallas = "ep_tpu/ops/mlp_int8_pallas.py"
-    replaces = {  # name -> (source, TPU kernel, the path whose count is shown)
-        "ln_qkv_gemm": (csrc + "attn_block_gemm.cu",
-                        "ep_tpu/ops/attn_block_pallas.py:30", "finetune-b"),
-        "attn_core": (csrc + "attn_core.cu",
-                      "ep_tpu/ops/attn_fused_pallas.py:31", "finetune-b"),
-        "attn_core_dh80": (csrc + "attn_core.cu",
-                           "ep_tpu/ops/attn_fused_pallas.py:62", "finetune-h"),
-        "proj_residual_gemm": (csrc + "attn_block_gemm.cu",
-                               "ep_tpu/ops/attn_block_pallas.py:30", "finetune-b"),
-        "ep_pool": (csrc + "ep_pool.cu",
-                    "ep_tpu/ops/pool_attn_pallas.py:30", "driver-cached"),
-        "attn_core_bwd": (csrc + "attn_core_bwd.cu",
-                          "ep_tpu/ops/attn_fused_pallas.py:334", "finetune-b"),
-        "attn_core_bwd_dh80": (csrc + "attn_core_bwd.cu",
-                               "ep_tpu/ops/attn_fused_pallas.py:385",
-                               "finetune-h"),
-        "mlp_int8_ln_quant": (csrc + "mlp_int8.cu", int8_pallas + ":40", "int8-b"),
-        "mlp_int8_fc1": (csrc + "mlp_int8.cu", int8_pallas + ":40", "int8-b"),
-        "mlp_int8_fc2": (csrc + "mlp_int8.cu", int8_pallas + ":40", "int8-b"),
-        "mlp_int8_ln_quant_two_kernel": (csrc + "mlp_int8.cu",
-                                         int8_pallas + ":188", "int8-h"),
-        "mlp_int8_fc1_two_kernel": (csrc + "mlp_int8.cu", int8_pallas + ":188",
-                                    "int8-h"),
-        "mlp_int8_fc2_two_kernel": (csrc + "mlp_int8.cu", int8_pallas + ":216",
-                                    "int8-h"),
-        "attn_flash": (csrc + "attn_flash.cu",
-                       "ep_tpu/ops/flash_attn_pallas.py:42", "probe-h448"),
-        "attn_flash_rowtile": (csrc + "attn_flash.cu",
-                               "ep_tpu/ops/attn_fused_pallas.py:217",
-                               "probe-h-rowtile"),
-        "ep_pool_n1024": (csrc + "ep_pool.cu",
-                          "ep_tpu/ops/pool_attn_pallas.py:30", "probe-h448"),
-        "ep_pool_n197": (csrc + "ep_pool.cu",
-                         "ep_tpu/ops/pool_attn_pallas.py:30", "zoo-ep_all"),
-        "ep_pool_q128": (csrc + "ep_pool.cu",
-                         "ep_tpu/ops/pool_attn_pallas.py:30", "driver-q128"),
-        "ep_pool_proj": (csrc + "ep_pool_proj.cu",
-                         "ep_tpu/ops/pool_attn_pallas.py:194",
-                         "probe-h448-fused"),
-        "attn_core_t261": (csrc + "attn_core.cu",
-                           "ep_tpu/ops/attn_fused_pallas.py:31",
-                           "probe-dinov2-l"),
-        "attn_core_t272": (csrc + "attn_core.cu",
-                           "ep_tpu/ops/attn_fused_pallas.py:31", "probe-capi"),
-        "ep_pool_dinov2_l": (csrc + "ep_pool.cu",
-                             "ep_tpu/ops/pool_attn_pallas.py:30",
-                             "probe-dinov2-l"),
-        "ep_pool_dinov2_g": (csrc + "ep_pool.cu",
-                             "ep_tpu/ops/pool_attn_pallas.py:30",
-                             "probe-dinov2-g"),
-        # not TPU kernels: LN1's gradient in the supercell's backward, which
-        # the JAX package leaves to XLA (attn_block_pallas.py::_bwd)
-        "ln1_apply": (csrc + "attn_block_gemm.cu", "none", "finetune-b"),
-        "ln1_bwd": (csrc + "attn_block_gemm.cu", "none", "finetune-b"),
-        "ln1_apply_k1280": (csrc + "attn_block_gemm.cu", "none", "finetune-h"),
-        "ln1_bwd_k1280": (csrc + "attn_block_gemm.cu", "none", "finetune-h"),
-        "swiglu_gate_dinov2_g": (csrc + "swiglu_gate.cu", "none",
-                                 "probe-dinov2-g"),
-        # not a TPU kernel: LARS, which the JAX package leaves to XLA; the
-        # pair's time, counted by lars_apply's launches (lars_norms's equal)
-        "lars_apply_vitb_ft": (csrc + "lars.cu", "none", "finetune-b"),
-        # not a TPU kernel: _bwd_xla, which the JAX package runs past its
-        # backward kernel's memory (attn_fused_pallas.py:469-471)
-        "attn_bwd_long": ("ep_tpu_torch/ops/attn_fused.py",
-                          "ep_tpu/ops/attn_fused_pallas.py:536",
-                          "finetune-h448"),
-    }
-    kernels = []
-    for r in results:
-        src, tpu, path_name = replaces[r["name"]]
-        counter = r["name"]  # the wrapper's entry in LAUNCHES
-        for shape_tag in ("_dh80", "_two_kernel", "_rowtile", "_n1024",
-                          "_n197", "_q128", "_t261", "_t272", "_dinov2_l",
-                          "_dinov2_g", "_k1280", "_vitb_ft"):
-            counter = counter.replace(shape_tag, "")
-        launches = paths[path_name][counter]
-        if launches == 0:
-            raise RuntimeError(f"{r['name']}: the {path_name} path launched it "
-                               "no time")
-        kernels.append({
-            "name": r["name"], "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches, "max_abs_err": r["err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: v for k, v in r.items() if (
-                k.endswith("_ms") or k == "codes_differing") and k not in (
-                "plain_ms", "bound_ms", "library_ms")},
-            "launches_path": path_name,
-            "launches_by_path": {k: v[counter] for k, v in paths.items()}})
-    # bench.py's three keys of the two input modes (BENCH_r05.json)
-    modes = dict(cached_mode_img_s=cached["cached_mode_img_s"],
-                 effective_90ep_img_s=cached["effective_90ep_img_s"],
-                 device_aug_img_s=steps_ms["device-aug"]["img_s"])
+    launched = {k: {p: n[k] for p, n in paths.items() if n.get(k)}
+                for k in {r["kernel"] for r in kernel_check.ROWS}}
+    idle = [k for k, by in launched.items() if k in LAUNCHES and not by]
+    if idle:
+        raise RuntimeError(f"checked, but no path launched {sorted(idle)}")
     log(f"[wall] the whole run: {time.perf_counter() - t_start:.1f} s on {card}")
     log(card)
-    log(json.dumps({**modes, "card": card, "batch": args.batch,
-                    "train_img_s": steps_ms["train"]["img_s"],
-                    "cached_mode_fused_img_s": cached[
-                        "cached_mode_fused_img_s"]}))
-    log(json.dumps({"kernels": kernels, "int8_mlp_halves": int8_halves,
-                    "other_shapes": other_shapes, "probe_steps": steps_ms,
-                    "input_modes": {**cached, "device_aug_img_s": modes[
-                        "device_aug_img_s"], "device_aug_crop": crop},
+    log(json.dumps({"kernels": [dict(r, launches=launched[r["kernel"]])
+                                for r in kernel_check.ROWS],
+                    "probe_steps": steps_ms,
+                    "input_modes": {**cached, "device_aug_img_s": steps_ms[
+                        "device-aug"]["img_s"], "device_aug_crop": crop},
                     "zoo": {"heads": zoo_steps, "driver_dolg": zoo_run},
                     "backbones": {"probe_steps": backbone_steps,
                                   "feature_modes": feature_modes,

@@ -31,6 +31,15 @@ def _rand(shape, dev, scale=1.0, dtype=torch.bfloat16, seed=0):
     return torch.from_numpy(a * scale).to(dev, dtype)
 
 
+def _close_in_steps(out, ref):
+    """TOL at every element, and the paths' step bound (its reason is at
+    scripts/torch_hopper_gemm_check.py::STEP_SHARE)."""
+    from scripts.torch_hopper_gemm_check import steps_past
+    torch.testing.assert_close(out, ref, **TOL)
+    past, limit = steps_past(out, ref)
+    assert past <= limit, f"{past} of {ref.numel()} elements past one bf16 step"
+
+
 def _counts(**launched):
     """LAUNCHES as expected: the named kernels, every other one zero."""
     from ep_tpu_torch.ops import LAUNCHES
@@ -51,12 +60,17 @@ BWD_EDGES = [(3, t, 48, dh) for dh in (64, 80)
 
 @pytest.mark.parametrize("B, T, H, Dh", [
     (2, 197, 12, 64), (3, 5, 2, 64), (1, 64, 1, 64), (2, 100, 3, 64),
-    (1, 256, 2, 64), (2, 257, 16, 80), (3, 9, 8, 80), (1, 272, 2, 80)] + CORE_EDGES)
+    (1, 256, 2, 64), (2, 257, 16, 80), (3, 9, 8, 80), (1, 272, 2, 80),
+    (2, 261, 2, 64)] + CORE_EDGES)
 def test_attn_core(dev, B, T, H, Dh):
+    """Kernel B against its plain version, and a second call equal bit for
+    bit."""
     from ep_tpu_torch.ops.attn_fused import (attention_qkv_fused,
                                              attention_qkv_fused_ref)
     qkv = _rand((B, T, 3 * H * Dh), dev)
-    torch.testing.assert_close(attention_qkv_fused(qkv, H, Dh ** -0.5, 1.5),
+    out = attention_qkv_fused(qkv, H, Dh ** -0.5, 1.5)
+    assert torch.equal(out, attention_qkv_fused(qkv, H, Dh ** -0.5, 1.5))
+    torch.testing.assert_close(out,
                                attention_qkv_fused_ref(qkv, H, Dh ** -0.5, 1.5),
                                **TOL)
 
@@ -64,8 +78,9 @@ def test_attn_core(dev, B, T, H, Dh):
 @pytest.mark.parametrize("B, T, H, Dh", [
     (2, 1025, 16, 80), (1, 785, 12, 64), (2, 257, 16, 80), (3, 5, 2, 64),
     (1, 64, 1, 64), (1, 65, 2, 80), (1, 1025, 2, 64), (1, 300, 2, 80),
-    (1, 2049, 1, 64)] + [(2, t, 2, dh) for dh in (64, 80)
-                         for t in (1, 63, 65, 129, 257, 785)] + [
+    (1, 2049, 1, 64), (3, 70, 2, 64), (2, 130, 8, 80)] + [
+        (2, t, 2, dh) for dh in (64, 80)
+        for t in (1, 63, 65, 129, 257, 785, 1025)] + [
     (9, 70, 16, 80), (12, 33, 12, 64)])
 def test_attn_flash(dev, B, T, H, Dh):
     """Kernel F at the slice's shapes (T=1025 and 785 at 448 px, T=257 for the
@@ -73,7 +88,8 @@ def test_attn_flash(dev, B, T, H, Dh):
     single key; one key tile narrowed to 16, 32 or 64 columns; a query tile
     whose second warpgroup has no row or one row) and with more (image, head)
     pairs than the card has SMs, so that its persistent blocks take several
-    items, against the plain version that kernel B is held to."""
+    items, against the plain version that kernel B is held to, with the
+    bound on the elements past one bf16 step."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.attn_fused import attention_qkv_fused_ref
     from ep_tpu_torch.ops.flash_attn import attn_flash
@@ -81,8 +97,7 @@ def test_attn_flash(dev, B, T, H, Dh):
     reset_launches()
     out = attn_flash(qkv, H, Dh ** -0.5, 1.5)
     assert dict(LAUNCHES) == _counts(attn_flash=1)
-    torch.testing.assert_close(
-        out, attention_qkv_fused_ref(qkv, H, Dh ** -0.5, 1.5), **TOL)
+    _close_in_steps(out, attention_qkv_fused_ref(qkv, H, Dh ** -0.5, 1.5))
 
 
 @pytest.mark.parametrize("T, H, Dh, variant, kernel", [
@@ -158,7 +173,7 @@ def test_attn_core_bwd(dev, B, T, H, Dh):
     torch.testing.assert_close(x.grad, out, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("B, T, D", [(2, 197, 768), (3, 7, 192)])
+@pytest.mark.parametrize("B, T, D", [(2, 197, 768), (3, 7, 192), (8, 197, 768)])
 def test_supercell_and_its_gemms(dev, B, T, D):
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.attn_block import attn_supercell, attn_supercell_ref
@@ -178,7 +193,9 @@ def test_supercell_and_its_gemms(dev, B, T, D):
 
 @pytest.mark.parametrize("B, T, D", [
     (1, 5, 768), (3, 197, 768), (1, 100, 1024), (3, 257, 1024), (1, 64, 1280),
-    (2, 257, 1280), (1, 1025, 1280), (2, 37, 64), (1, 128, 768)])
+    (2, 257, 1280), (1, 1025, 1280), (2, 37, 64), (1, 128, 768),
+    (8, 197, 768), (3, 197, 1024), (8, 197, 1024), (3, 257, 1280),
+    (3, 1025, 1280)])
 def test_gemm_kernels_at_every_width_and_ragged_m(dev, B, T, D):
     """Kernels A and C alone at the three model widths (and K = 64), with
     M = B*T smaller than one 128-row panel, equal to one, and ragged past
@@ -236,7 +253,8 @@ def test_ln1_kernels(dev, B, T, D):
     under one block's 8 rows and over a pass of the whole card; twice, bit
     for bit. xn and g + dx round to bf16 at the same points as the plain
     version, from statistics one f32 rounding apart; the f32 column sums
-    run over the rows in another order."""
+    run over the rows in another order. Kernel A's row statistics, which
+    both read, within 1e-5 of the f32 mean and rsqrt(var + eps)."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.attn_block import ln1_backward, ln1_backward_ref
     x = _rand((B, T, D), dev, 2.0, seed=70) + 0.5
@@ -244,6 +262,12 @@ def test_ln1_kernels(dev, B, T, D):
     beta = _rand((D,), dev, 0.1, torch.float32, seed=72)
     dxn, g = _rand((B, T, D), dev, seed=73), _rand((B, T, D), dev, seed=74)
     stats = _row_stats(x)
+    xf = x.float().view(B * T, D)
+    torch.testing.assert_close(stats[:, 0], xf.mean(-1), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        stats[:, 1], torch.rsqrt(xf.var(-1, unbiased=False) + 1e-6),
+        rtol=1e-5, atol=1e-5)
+    del xf
     reset_launches()
     got = ln1_backward(x, stats, gamma, beta, dxn, g, 1e-6)
     assert dict(LAUNCHES) == _counts(ln1_apply=1, ln1_bwd=1)
@@ -342,7 +366,9 @@ def test_lars_kernel_pair_is_the_plain_step(dev, wd, mu_dtype, p_dtype, accum):
     """``LARS.step`` on the card (``lars_norms`` + ``lars_apply`` once a
     step) against the plain ``_update`` loop on the card, over 3 updates of
     ViT-B-shaped leaves in two parameter groups (the head's with another
-    trust coefficient and momentum), and twice, bit for bit.
+    trust coefficient and momentum), and twice, bit for bit; and the gradient
+    norm (one multi-tensor pass) within 1e-5 of the per-leaf sum on the last
+    gradients.
 
     Tolerance: the pair sums each leaf's norms in another order than
     ``torch.linalg.vector_norm``, which moves the trust ratio by a few f32
@@ -360,6 +386,7 @@ def test_lars_kernel_pair_is_the_plain_step(dev, wd, mu_dtype, p_dtype, accum):
     has shrunk)."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.train.lars import LARS, RawUpdateOptimizer
+    from ep_tpu_torch.train.steps import global_grad_norm
 
     class PlainLARS(LARS):
         _apply_updates = RawUpdateOptimizer._apply_updates
@@ -385,6 +412,9 @@ def test_lars_kernel_pair_is_the_plain_step(dev, wd, mu_dtype, p_dtype, accum):
     again, _ = run(LARS)
     ref, ref_opt = run(PlainLARS)
     assert LAUNCHES["lars_norms"] == LAUNCHES["lars_apply"] == 6
+    grads = [p.grad for p in got if p.grad is not None]
+    per_leaf = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    assert abs(float(global_grad_norm(grads) / per_leaf) - 1) <= 1e-5
     start = _lars_params(p_dtype, dev)
     tol = 1e-5 if p_dtype == mu_dtype == torch.float32 else 2 ** -7
     for i, (a, b, c, a0) in enumerate(zip(got, again, ref, start)):
@@ -484,7 +514,7 @@ def test_ep_pool_forward_and_grad(dev, B, N, C, Q):
         (out.float() ** 2).sum().backward()
         outs.append(out)
         grads.append((qg.grad, vg.grad))
-    torch.testing.assert_close(outs[0], outs[1], **TOL)
+    _close_in_steps(outs[0], outs[1])
     for a, b in zip(*grads):
         scale = float(b.float().abs().max())
         torch.testing.assert_close(a, b, rtol=1e-2, atol=1e-2 * scale)
@@ -494,27 +524,32 @@ def test_ep_pool_forward_and_grad(dev, B, N, C, Q):
 # tile, one tile, one past it; ViT-B/L's 196 and ViT-H's 256 tokens, split
 # over clusters of 4; 448 px's 1024 over 16) and at every width and query
 # count the paths give it (EP-4 on a 128-wide model, EP-32 at ViT-B, ViT-L
-# and ViT-H).
-POOL_EDGES = [(2, n, c, q) for n in (1, 37, 63, 64, 65, 196, 256, 1024)
-              for c, q in ((128, 4), (768, 32), (1024, 32), (1280, 32))]
+# and ViT-H), on the patch tokens past one prefix token ([CLS]); then
+# ep_all's 197 tokens with no prefix, DINOv2-L's 256 past [CLS] and 4
+# registers, and DINOv2-g's width (cq 48).
+POOL_EDGES = [(2, n, c, q, 1) for n in (1, 37, 63, 64, 65, 196, 256, 1024)
+              for c, q in ((128, 4), (768, 32), (1024, 32), (1280, 32))] + [
+                  (2, 197, 768, 32, 0), (2, 256, 1024, 32, 5),
+                  (2, 256, 1536, 32, 1)]
 
 
-@pytest.mark.parametrize("B, N, C, Q", POOL_EDGES)
-def test_ep_pool_at_the_edges_of_its_tiles(dev, B, N, C, Q):
-    """Kernel D against its plain version on the patch-token view x[:, 1:],
-    one launch a call, and two calls equal bit for bit (the cluster's partial
-    sums are added in rank order, without atomics)."""
+@pytest.mark.parametrize("B, N, C, Q, prefix", POOL_EDGES)
+def test_ep_pool_at_the_edges_of_its_tiles(dev, B, N, C, Q, prefix):
+    """Kernel D against its plain version on the view x[:, prefix:], with the
+    bound on the elements past one bf16 step, one launch a call, and two
+    calls equal bit for bit (the cluster's partial sums are added in rank
+    order, without atomics)."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.pool_attn import ep_pool_attend, ep_pool_attend_ref
     q = _rand((Q, C), dev, C ** -0.5, seed=40)
-    x = _rand((B, N + 1, C), dev, seed=41)[:, 1:]
+    x = _rand((B, N + prefix, C), dev, seed=41)[:, prefix:]
     v = _rand((B, N, Q, C // Q), dev, seed=42)
     reset_launches()
     out = ep_pool_attend(q, x, v)
     again = ep_pool_attend(q, x, v)
     assert dict(LAUNCHES) == _counts(ep_pool=2)
     assert torch.equal(out, again)
-    torch.testing.assert_close(out, ep_pool_attend_ref(q, x, v), **TOL)
+    _close_in_steps(out, ep_pool_attend_ref(q, x, v))
 
 
 @pytest.mark.parametrize("N, C, Q, QC", [
@@ -533,7 +568,8 @@ def test_ep_pool_tiling_is_the_kernels(dev, N, C, Q, QC):
 
 
 @pytest.mark.parametrize("B, N, C, Q, d_out", [
-    (3, 37, 128, 8, 1), (3, 37, 128, 4, 2), (2, 70, 192, 12, 1),
+    (3, 37, 128, 8, 1), (3, 37, 128, 4, 2), (3, 37, 128, 4, 1),
+    (2, 70, 192, 12, 1),
     (2, 196, 768, 32, 1), (2, 256, 1280, 32, 1), (2, 1024, 1280, 32, 1),
     (2, 196, 1024, 32, 1),
     # --d_out 2 at ViT-B and ViT-H: cq = 12 and 20
@@ -548,7 +584,8 @@ def test_ep_pool_proj_forward_and_grad(dev, B, N, C, Q, d_out):
     """Kernel G against its plain version at ViT-B, ViT-H (224 and 448 px) and
     ViT-L widths, at d_out 2, at the edges of its panels and of its query
     bank, and at small ragged shapes, on the patch-token view the model hands
-    it, with the f32 master weight; a second call equal bit for bit (the
+    it, with the f32 master weight, with the bound on
+    the elements past one bf16 step; a second call equal bit for bit (the
     cluster's partial sums are added in rank order, without atomics); the
     gradients are autograd through the plain version on both sides."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
@@ -569,7 +606,7 @@ def test_ep_pool_proj_forward_and_grad(dev, B, N, C, Q, d_out):
         grads.append((qg.grad, wg.grad))
     assert outs[0].shape == (B, Q, C // d_out // Q)
     assert torch.equal(ep_pool_proj_attend(q, x, w), outs[0])
-    torch.testing.assert_close(outs[0], outs[1], **TOL)
+    _close_in_steps(outs[0], outs[1])
     for a, b in zip(*grads):
         assert a.dtype == b.dtype
         scale = float(b.float().abs().max())
@@ -596,7 +633,8 @@ def test_ep_pool_proj_tiling_is_the_kernels(dev, N, C, Q, QC):
 def test_ep_head_fused_route_at_d_out_2(dev, monkeypatch):
     """EfficientProbing with --d_out 2 at ViT-B's width (cq = 12) and ViT-H's
     (cq = 20) takes kernel G with EP_TPU_EP_FUSED set, once and without
-    calling the value projection, and agrees with the unfused route."""
+    calling the value projection, and agrees with the unfused route, with
+    the bound on the elements past one bf16 step."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.poolings.ep import EfficientProbing
     for C, N in ((768, 196), (1280, 256)):
@@ -614,7 +652,7 @@ def test_ep_head_fused_route_at_d_out_2(dev, monkeypatch):
         hook.remove()
         monkeypatch.delenv("EP_TPU_EP_FUSED")
         assert fused.shape == (4, C // 2)
-        torch.testing.assert_close(fused, unfused, **TOL)
+        _close_in_steps(fused, unfused)
 
 
 def test_ep_head_routes(dev, monkeypatch):
@@ -715,19 +753,24 @@ def _code_diff(a, b):
     return float((d != 0).float().mean()), int(d.max())
 
 
-@pytest.mark.parametrize("B, T, D, DH, stripes", [
-    (3, 7, 128, 512, 1), (3, 7, 128, 512, 2), (2, 197, 768, 3072, 1),
-    (2, 197, 1024, 4096, 8), (1, 257, 1280, 5120, 8)])
-def test_mlp_int8_kernels(dev, B, T, D, DH, stripes):
-    """ln_quant, fc1 and fc2, each against its plain version on the same
-    inputs. The s32 products are exact, so fc1 and fc2 repeat their plain
-    versions' f32 arithmetic to the bit on the same codes. Only ln_quant's f32
+@pytest.mark.parametrize("B, T, D, DH, stripes, tier", [
+    (3, 7, 128, 512, 1, "resident"), (3, 7, 128, 512, 2, "resident"),
+    (2, 197, 768, 3072, 1, "resident"), (2, 197, 1024, 4096, 8, "resident"),
+    (1, 257, 1280, 5120, 8, "resident"), (1, 257, 1280, 5120, 8, "two_kernel")])
+def test_mlp_int8_kernels(dev, B, T, D, DH, stripes, tier):
+    """ln_quant, fc1 and fc2 (in the tier's bias order), each against its
+    plain version on the same inputs. The s32 products are exact, so fc1 and
+    fc2 repeat their plain versions' f32 arithmetic to the bit on the same
+    codes. Only ln_quant's f32
     row statistics are summed in another order, which moves single codes of
     LN2's output across a rounding boundary: by at most 1, in under 1e-3 of
     them. Through the whole half such a code can move a hidden value by one
     bf16 step before the GELU, so the hidden codes are held to a share of 1e-2
     and the output to the kernels' usual tolerance where a token's LN codes and
-    scale agree, and to 1e-2 of the largest output on the other tokens."""
+    scale agree, and to 1e-2 of the largest output on the other tokens.
+    Against the bf16 half the int8 half is approximate by design: held to
+    the JAX package's kernel gate, mean |d| / mean |ref| <= 3e-2 and max |d|
+    / max |ref| <= 0.6."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops import mlp_int8 as m
     x, w1, b1, w2, b2, g, be = _mlp_args(B, T, D, DH, dev)
@@ -736,7 +779,7 @@ def test_mlp_int8_kernels(dev, B, T, D, DH, stripes):
     reset_launches()
     hq, sx = m.ln_quant(x, g, be, 1e-6)
     aq, sa = m.fc1(hq, sx, w1q, s1, b1, stripes)
-    out = m.fc2(aq, sa, x, w2q, s2, b2, stripes)
+    out = m.fc2(aq, sa, x, w2q, s2, b2, stripes, tier)
     assert dict(LAUNCHES) == _counts(mlp_int8_ln_quant=1, mlp_int8_fc1=1,
                                      mlp_int8_fc2=1)
     hq_r, sx_r = m.ln_quant_ref(x, g, be, 1e-6)
@@ -747,12 +790,17 @@ def test_mlp_int8_kernels(dev, B, T, D, DH, stripes):
     aq_r, sa_r = m.fc1_ref(hq, sx, w1q, s1, b1, stripes)
     assert _code_diff(aq, aq_r) == (0.0, 0)
     torch.testing.assert_close(sa, sa_r, rtol=0, atol=0)
-    torch.testing.assert_close(out, m.fc2_ref(aq, sa, x, w2q, s2, b2, stripes),
-                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        out, m.fc2_ref(aq, sa, x, w2q, s2, b2, stripes, tier), rtol=0, atol=0)
     assert torch.isfinite(out).all()
+    ref16 = m.mlp_bf16_ref(x, w1, b1, w2, b2, g, be, 1e-6).float()
+    d = (out.float() - ref16).abs()
+    assert float(d.mean() / ref16.abs().mean()) <= 3e-2
+    assert float(d.max() / ref16.abs().max()) <= 0.6
+    del ref16, d
     # the whole half from x
-    ref = m.mlp_int8_ref(x, w1, b1, w2, b2, g, be, 1e-6, stripes)
-    got = m.mlp_int8_forward(x, w1, b1, w2, b2, g, be, 1e-6, stripes)
+    ref = m.mlp_int8_ref(x, w1, b1, w2, b2, g, be, 1e-6, stripes, tier)
+    got = m.mlp_int8_forward(x, w1, b1, w2, b2, g, be, 1e-6, stripes, tier)
     same = (hq == hq_r).all(-1) & (sx == sx_r).all(-1)
     torch.testing.assert_close(got[same], ref[same], **TOL)
     torch.testing.assert_close(got[~same], ref[~same], rtol=1e-2,
@@ -806,7 +854,7 @@ def test_ln_quant_at_every_width(dev, M, D):
 
 @pytest.mark.parametrize("B, T, D, stripes", [
     (3, 37, 768, 1), (1, 100, 768, 1), (3, 37, 1280, 8), (1, 64, 1280, 8),
-    (2, 197, 1024, 8), (1, 128, 768, 8)])
+    (2, 197, 1024, 8), (1, 128, 768, 8), (1, 64, 768, 1), (1, 64, 1024, 8)])
 def test_fc2_takes_the_tiers_bias_order(dev, B, T, D, stripes):
     """Kernel fc2 at both tiers against its plain version on the same codes,
     to the bit: x + (y + b2) at the resident tier, (x + y) + b2 at the
@@ -835,7 +883,7 @@ def test_fc2_takes_the_tiers_bias_order(dev, B, T, D, stripes):
 @pytest.mark.parametrize("B, T, D, stripes", [
     (1, 5, 768, 1), (3, 197, 768, 1), (1, 100, 1024, 8), (3, 257, 1024, 8),
     (1, 64, 1280, 8), (2, 257, 1280, 8), (1, 128, 768, 8), (2, 37, 128, 4),
-    (1, 300, 640, 1)])
+    (1, 300, 640, 1), (3, 37, 768, 1), (3, 37, 1280, 8)])
 def test_fc1_equals_its_plain_version_bit_for_bit(dev, B, T, D, stripes):
     """Kernel fc1 on random codes at the three model widths with 1 and 8
     stripes (clusters of 8, 2 and 1 blocks; tiles of 128 and 160 columns), M
@@ -963,8 +1011,8 @@ MANY_QUERIES = [(2, 196, 768, 96), (2, 196, 768, 128), (2, 196, 768, 768),
 @pytest.mark.parametrize("B, N, C, Q", MANY_QUERIES)
 def test_ep_pool_takes_more_than_64_queries(dev, B, N, C, Q):
     """Kernel D past 64 queries: one launch for each group of at most 64,
-    against its plain version on the patch-token view, and two calls equal
-    bit for bit."""
+    against its plain version on the patch-token view with the bound on the
+    elements past one bf16 step, and two calls equal bit for bit."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.pool_attn import (ep_pool_attend, ep_pool_attend_ref,
                                             query_groups)
@@ -975,14 +1023,14 @@ def test_ep_pool_takes_more_than_64_queries(dev, B, N, C, Q):
     out = ep_pool_attend(q, x, v)
     assert dict(LAUNCHES) == _counts(ep_pool=len(query_groups(Q)))
     assert torch.equal(out, ep_pool_attend(q, x, v))
-    torch.testing.assert_close(out, ep_pool_attend_ref(q, x, v), **TOL)
+    _close_in_steps(out, ep_pool_attend_ref(q, x, v))
 
 
 @pytest.mark.parametrize("B, N, C, Q", MANY_QUERIES)
 def test_ep_pool_proj_takes_more_than_64_queries(dev, B, N, C, Q):
     """Kernel G past 64 queries: one launch for each group of at most 64 on
-    its rows of W, against its plain version, and two calls equal bit for
-    bit."""
+    its rows of W, against its plain version with the bound on the elements
+    past one bf16 step, and two calls equal bit for bit."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.pool_attn import (ep_pool_proj_attend,
                                             ep_pool_proj_attend_ref,
@@ -994,7 +1042,7 @@ def test_ep_pool_proj_takes_more_than_64_queries(dev, B, N, C, Q):
     out = ep_pool_proj_attend(q, x, w)
     assert dict(LAUNCHES) == _counts(ep_pool_proj=len(query_groups(Q)))
     assert torch.equal(out, ep_pool_proj_attend(q, x, w))
-    torch.testing.assert_close(out, ep_pool_proj_attend_ref(q, x, w), **TOL)
+    _close_in_steps(out, ep_pool_proj_attend_ref(q, x, w))
 
 
 # The driver on the card: ViT-B's width at depth 2, 64 px images (16 patch
@@ -1114,8 +1162,11 @@ def test_extract_split_reads_each_batch_from_a_side_stream(dev):
 
 def test_device_aug_draws_on_the_card_what_it_draws_on_the_cpu(dev):
     """The same step's crop on the card and on the CPU: the same boxes and
-    flips; the f32 outputs within chip_smoke.py's AUG_* bounds (a y-pass
-    bf16 step carried through the x-pass)."""
+    flips. The card's products round their operands to bf16 (the CPU's
+    widen them to f32), and a y-pass bf16 step is carried through the
+    x-pass: every f32 output within 5e-2, at most 2e-2 of them past 1e-3,
+    the mean |d| under 1e-4. A wrong box or flip moves most elements by
+    tenths."""
     from ep_tpu_torch.data.device_aug import DeviceAug
     aug = DeviceAug(out_size=224, stage_size=256, dtype=torch.float32)
     x = torch.from_numpy(np.random.default_rng(1).integers(
@@ -1177,7 +1228,11 @@ def test_shard_state_halves_the_backbone_on_the_card(dev):
     """``shard_state`` at model 2, in one process as rank 0 of the model
     group: a frozen ViT-B/16 on the card keeps its head-group and half
     slices as copies, and the card frees the whole tensors, so the bytes
-    allocated fall by at least half of the blocks' four products."""
+    the live tensors requested fall by at least half of the blocks' four
+    products. Requested bytes, not ``memory_allocated()``: the allocator
+    rounds a tensor up to a block that the segments earlier tests left in
+    its cache decide, so the allocated bytes freed depend on the tests'
+    order; the requested bytes fall only as the whole tensors go."""
     from ep_tpu_torch.configs import TrainConfig
     from ep_tpu_torch.models.assembly import init_probe_model
     from ep_tpu_torch.parallel.mesh import Mesh
@@ -1192,17 +1247,21 @@ def test_shard_state_halves_the_backbone_on_the_card(dev):
     whole = sum(p.numel() * p.element_size()
                 for p in model.backbone.parameters())
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    before = torch.cuda.memory_allocated()
+
+    def requested():
+        # the live tensors' own bytes: the allocator's blocks round them up,
+        # by as much as 1 MiB a tensor, as the segments that earlier tests
+        # left in its cache decide
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    before = requested()
     shard_state(model, Mesh(1, 2))
-    torch.cuda.empty_cache()
-    freed = before - torch.cuda.memory_allocated()
+    freed = before - requested()
     held = sum(p.numel() * p.element_size() for p in model.backbone.parameters())
     products = 12 * 2 * (4 * 768 * 768 + 2 * 768 * 3072)  # qkv, proj, fc1, fc2
     assert held == whole - products // 2 - 12 * 2 * (3 * 768 + 3072) // 2
-    # the whole tensors are freed: at least the bytes the cut drops (the
-    # allocator may have given a whole tensor up to 1 MiB more)
-    assert freed >= whole - held - 2 ** 16
+    # the whole tensors are freed: at least the bytes the cut drops
+    assert freed >= whole - held - 2 ** 16, (freed, whole - held)
     assert 0.50 <= held / whole <= 0.51
     q, k = qkv[:384], qkv[768:768 + 384]
     torch.testing.assert_close(blk.attn.qkv.weight.cpu(),

@@ -21,7 +21,9 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "ep_tpu")
 PORT_FILES = sorted((ROOT / "ep_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "main_linprobe_torch.py",
-    ROOT / "main_attention_stats_torch.py", ROOT / "search_linprobe_torch.py"]
+    ROOT / "main_attention_stats_torch.py", ROOT / "search_linprobe_torch.py",
+    ROOT / "scripts" / "torch_hopper_gemm_check.py",
+    ROOT / "scripts" / "chip_ddp_check.py"]
 # The port's copies of the JAX package's host data pipeline (numpy and PIL):
 # the same text, with the package's own imports pointed at ep_tpu_torch.data.
 DATA_COPIES = ("datasets", "transforms", "autoaugment", "loader", "_native",
@@ -46,7 +48,8 @@ def _forbidden(module: str) -> bool:
 
 def test_the_walk_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    assert {"chip_smoke.py", "ep_tpu_torch/configs.py",
+    assert {"chip_smoke.py", "scripts/torch_hopper_gemm_check.py",
+            "scripts/chip_ddp_check.py", "ep_tpu_torch/configs.py",
             "ep_tpu_torch/ops/mlp_int8.py", "ep_tpu_torch/ops/flash_attn.py",
             "ep_tpu_torch/utils/pos_embed.py",
             "ep_tpu_torch/models/assembly.py", "main_linprobe_torch.py",
