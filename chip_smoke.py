@@ -206,6 +206,12 @@ Phases, each of which must pass (any failure exits non-zero):
              values, one epoch each on ViT-B/16 and the fake dataset: "Max
              Accuracy" in both trials' training_log.txt; the launches.
 
+Every launch check also counts fc1_gelu_epilogue (ops/fc1_gelu.py: fc1
+with its GELU in cuBLASLt's epilogue, a route and not a kernel) once for
+each bf16 GELU MLP run without a gradient: frozen encoders, extraction and
+evaluation forwards, captured blocks, MAE's decoder; never in fine-tuning,
+the int8 half, QuickGELU, SwiGLU or a block cut over a model axis.
+
 The zoo's per-head table (train step ms and img/s, head-only step ms, img/s
 and device busy ms) follows its phase. Before the last line come the whole
 run's wall seconds, the card's name and power limit and a JSON line of every
@@ -363,6 +369,12 @@ def lars_pair(updates: int) -> dict:
     return dict(lars_norms=updates, lars_apply=updates)
 
 
+def fc1_gelu(blocks: int) -> dict:
+    """The launches of ``blocks`` bf16 GELU MLPs run without a gradient on
+    the card: fc1 with its GELU in cuBLASLt's epilogue (ops/fc1_gelu.py)."""
+    return dict(fc1_gelu_epilogue=blocks)
+
+
 def train(kind: str, B: int, steps: int, card: str):
     """The probe-training path; returns (model, images, launch counts, median
     step seconds, the steps' losses)."""
@@ -470,6 +482,8 @@ def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel,
     int8 = getattr(bcfg, "int8_mlp", False)
     if int8:
         expect.update(dict.fromkeys(INT8_KERNELS, d * steps))
+    elif not per_forward:
+        expect.update(fc1_gelu(d * steps))
     expect_bf16 = 0 if int8 else d * steps
     log(f"  launches over {steps} steps: {counts} (expected {expect}); "
         f"calls of the bf16 MLP half: {bf16_mlp_calls[0]} (expected "
@@ -523,7 +537,7 @@ def logits_448() -> None:
         counts = dict(LAUNCHES)
     expect = dict.fromkeys(LAUNCHES, 0)
     expect.update(ln_qkv_gemm=depth, attn_flash=depth, proj_residual_gemm=depth,
-                  ep_pool_proj=1)
+                  ep_pool_proj=1, **fc1_gelu(depth))
     log(f"  launches of the card's forward: {counts} (expected {expect})")
     if counts != expect:
         raise RuntimeError("the 448 px forward did not go through A, F, C and G")
@@ -1048,7 +1062,8 @@ def zoo(card: str, paths: dict, steps: int, train_ms: float) -> dict:
         paths[f"zoo-{name}"] = counts = dict(LAUNCHES)
         want = dict.fromkeys(LAUNCHES, 0)
         want.update(ln_qkv_gemm=12 * steps, attn_core=12 * steps,
-                    proj_residual_gemm=12 * steps, **lars_pair(steps))
+                    proj_residual_gemm=12 * steps, **lars_pair(steps),
+                    **fc1_gelu(12 * steps))
         if base_name(name) == "ep":
             want["ep_pool"] = steps
         med = statistics.median(times)
@@ -1198,7 +1213,8 @@ def zoo_driver(card: str, paths: dict) -> dict:
             want = dict.fromkeys(LAUNCHES, 0)
             want.update(ln_qkv_gemm=12 * forwards, attn_core=12 * forwards,
                         proj_residual_gemm=12 * forwards,
-                        **lars_pair(0 if kw else DRIVER_STEPS))
+                        **lars_pair(0 if kw else DRIVER_STEPS),
+                        **fc1_gelu(12 * forwards))
             log(f"  [{name}] {time.perf_counter() - t0:.1f} s, launches "
                 f"{ {k: v for k, v in paths[name].items() if v} }")
             if paths[name] != want:
@@ -1394,12 +1410,13 @@ def driver(card: str, paths: dict, keep) -> list[dict]:
 
     def expect(name, forwards, pool="ep_pool", per_forward=1, pools=None,
                updates=0):
-        """A, B and C 12 times a forward; the pool per_forward times a
-        forward, or ``pools`` times in all (cached epochs pool without a
-        forward); LARS's pair once an update."""
+        """A, B, C and fc1's GELU epilogue 12 times a forward; the pool
+        per_forward times a forward, or ``pools`` times in all (cached epochs
+        pool without a forward); LARS's pair once an update."""
         want = dict.fromkeys(LAUNCHES, 0)
         want.update(ln_qkv_gemm=12 * forwards, attn_core=12 * forwards,
-                    proj_residual_gemm=12 * forwards, **lars_pair(updates))
+                    proj_residual_gemm=12 * forwards, **lars_pair(updates),
+                    **fc1_gelu(12 * forwards))
         if pool:
             want[pool] = per_forward * forwards if pools is None else pools
         if paths[name] != want:
@@ -1611,7 +1628,8 @@ def ddp_nccl_1(card: str, paths: dict, driver_epochs: list,
         _launches_equal("ddp-nccl-1", paths,
                         ln_qkv_gemm=24 * per_epoch, attn_core=24 * per_epoch,
                         proj_residual_gemm=24 * per_epoch,
-                        ep_pool=2 * per_epoch, **lars_pair(2 * DRIVER_STEPS))
+                        ep_pool=2 * per_epoch, **lars_pair(2 * DRIVER_STEPS),
+                        **fc1_gelu(24 * per_epoch))
         got = epoch_lines(out)
         log(f"  epoch lines {got}; the driver phase's {driver_lines}; max "
             f"accuracy {res['max_accuracy']:.2f}%")
@@ -1825,9 +1843,9 @@ def ddp_gloo_2(card: str, paths: dict, train_loss) -> dict:
             raise RuntimeError(f"ddp-gloo-2: BN {k} is not one process's")
     per_step = dict(ln_qkv_gemm=12 * GLOO_STEPS, attn_core=12 * GLOO_STEPS,
                     proj_residual_gemm=12 * GLOO_STEPS, ep_pool=GLOO_STEPS,
-                    **lars_pair(GLOO_STEPS))
+                    **lars_pair(GLOO_STEPS), **fc1_gelu(12 * GLOO_STEPS))
     extract = dict(ln_qkv_gemm=12 * 2, attn_core=12 * 2,
-                   proj_residual_gemm=12 * 2)
+                   proj_residual_gemm=12 * 2, **fc1_gelu(12 * 2))
     for r, res in enumerate(ranks):
         paths[f"ddp-gloo-2-rank{r}"] = res["counts"]
         _launches_equal(f"ddp-gloo-2-rank{r}", paths, **per_step)
@@ -1855,13 +1873,13 @@ def ddp_gloo_2(card: str, paths: dict, train_loss) -> dict:
 # 64, depth 40) under "auto": each rank computes its 12 heads and its half
 # of w1 and w2 on the plain route, 80 f32 all-reduces of (16, 257, 1536) a
 # forward; (b) ViT-B/16 under "pallas": every block joins its pieces and
-# runs A, B and C as one process does.
+# runs A, B, C and fc1's GELU epilogue as one process does.
 TP_RUNS = {
     "a": (dict(model="dinov2_vitg14"), 16, 3,
           dict(ep_pool=1, lars_norms=1, lars_apply=1)),
     "b": (dict(model="vit_base_patch16", attn_impl="pallas"), 128, 2,
           dict(ln_qkv_gemm=12, attn_core=12, proj_residual_gemm=12,
-               ep_pool=1, lars_norms=1, lars_apply=1)),
+               ep_pool=1, lars_norms=1, lars_apply=1, **fc1_gelu(12))),
 }
 
 
@@ -2106,7 +2124,7 @@ def grain_phase(card: str, paths: dict) -> dict:
     _launches_equal("use-grain", paths, ln_qkv_gemm=12 * per_epoch,
                     attn_core=12 * per_epoch,
                     proj_residual_gemm=12 * per_epoch, ep_pool=per_epoch,
-                    **lars_pair(DRIVER_STEPS))
+                    **lars_pair(DRIVER_STEPS), **fc1_gelu(12 * per_epoch))
     if list(lines) != [0] or not all(math.isfinite(v) for v in lines[0]):
         raise RuntimeError(f"use-grain: epoch lines {lines}")
     log(f"[steps] use-grain epoch 0: {epochs[0]['img_s']:.1f} img/s on {card}")
@@ -2119,19 +2137,20 @@ def grain_phase(card: str, paths: dict) -> dict:
 # TrainConfig flags, the launches of one forward (every other count zero)
 _DINOV2_L = dict(model="dinov2_vitl14_reg")
 BACKBONE_CONFIGS = {
-    "probe-dinov2-l": (512, _DINOV2_L, dict(attn_core=24, ep_pool=1)),
+    "probe-dinov2-l": (512, _DINOV2_L, dict(attn_core=24, ep_pool=1,
+                                            **fc1_gelu(24))),
     "probe-dinov2-g": (64, dict(model="dinov2_vitg14_reg"),
                        dict(attn_core=40, swiglu_gate=40, ep_pool=1)),
     "probe-capi": (512, dict(model="capi_vitl14"),
                    dict(ln_qkv_gemm=24, attn_core=24, proj_residual_gemm=24,
-                        ep_pool=1)),
+                        ep_pool=1, **fc1_gelu(24))),
     "probe-clip-b": (512, dict(model="ViT-B-16", openclip=True,
                                cls_features="cls"),
                      dict(ln_qkv_gemm=12, attn_core=12, proj_residual_gemm=12)),
-    "probe-simmim": (512, dict(simmim=True), dict(ep_pool=1)),
+    "probe-simmim": (512, dict(simmim=True), dict(ep_pool=1, **fc1_gelu(12))),
     "probe-mae-l": (512, dict(model="mae_vit_large_patch16"),
                     dict(ln_qkv_gemm=24, attn_core=24, proj_residual_gemm=24,
-                         ep_pool=1)),
+                         ep_pool=1, **fc1_gelu(24))),
 }
 
 
@@ -2224,16 +2243,18 @@ def features_b(card: str, paths: dict) -> dict:
     ref["dino"] = mean_f32(fm[:, None] * d_c[:, :, 0, 1:, None].to(fm.dtype),
                            (1, 2))
     ref["rb6"] = rb_c
-    per_forward = {m: dict(ln_qkv_gemm=11, attn_core=11, proj_residual_gemm=11)
+    # the captured last block's MLP takes the epilogue too
+    per_forward = {m: dict(ln_qkv_gemm=11, attn_core=11, proj_residual_gemm=11,
+                           **fc1_gelu(12))
                    for m in FEATURE_MODES[4:10]}  # ca*, attn-*
     per_forward.update({m: dict(ln_qkv_gemm=12, attn_core=12,
-                                proj_residual_gemm=12)
+                                proj_residual_gemm=12, **fc1_gelu(12))
                         for m in FEATURE_MODES[:4] + ("raw",)})
     per_forward.update(
                        dino=dict(ln_qkv_gemm=23, attn_core=23,
-                                 proj_residual_gemm=23),
+                                 proj_residual_gemm=23, **fc1_gelu(24)),
                        rb6=dict(ln_qkv_gemm=7, attn_core=7,
-                                proj_residual_gemm=7))
+                                proj_residual_gemm=7, **fc1_gelu(7)))
     big = torch.from_numpy(rng.standard_normal((512, 224, 224, 3),
                                                dtype=np.float32)).cuda()
     out = {}
@@ -2314,7 +2335,7 @@ def driver_backbones(card: str, paths: dict) -> list[dict]:
             f"dinov2_vitb14_reg, EP-32, batch 128, the fake dataset, on {card}")
         res = run("driver-dinov2", tmp / "dinov2", model="dinov2_vitb14_reg")
         expect("driver-dinov2", per_epoch, DRIVER_STEPS, attn_core=12,
-               ep_pool=1)
+               ep_pool=1, **fc1_gelu(12))
         if not math.isfinite(res["loss"]):
             raise RuntimeError(f"driver-dinov2: {res}")
         log(f"  one epoch: {res}")
@@ -2333,7 +2354,7 @@ def driver_backbones(card: str, paths: dict) -> list[dict]:
         run("driver-dinov2-finetune", tmp / "dinov2-ft", model="dinov2_vitb14_reg",
             finetune=str(pth), eval=True)
         expect("driver-dinov2-finetune", DRIVER_EVAL_BATCHES, attn_core=12,
-               ep_pool=1)
+               ep_pool=1, **fc1_gelu(12))
         cast_frozen(source, torch.bfloat16)
         with torch.no_grad():
             got, ref = built[0].eval()(images), source.eval()(images)
@@ -2350,7 +2371,7 @@ def driver_backbones(card: str, paths: dict) -> list[dict]:
         res = run("driver-dino", tmp / "dino", cls_features="dino",
                   oracle_ckpt=str(pth))
         expect("driver-dino", per_epoch, DRIVER_STEPS, ln_qkv_gemm=23,
-               attn_core=23, proj_residual_gemm=23)
+               attn_core=23, proj_residual_gemm=23, **fc1_gelu(24))
         held = built[0].oracle.state_dict()  # cast to bf16 for probing
         same = all(torch.equal(held[k].cpu(), v.to(held[k].dtype))
                    for k, v in written.items())
@@ -2430,7 +2451,7 @@ def attn_stats_b(card: str, paths: dict, tmp) -> dict:
         log(f"  the {dev} run: {wall:.1f} s")
         if dev == "cuda":
             paths["attn-stats-b"] = dict(LAUNCHES)
-    _launches_equal("attn-stats-b", paths)
+    _launches_equal("attn-stats-b", paths, **fc1_gelu(12 * 2))
     written = json.loads((tmp / "attn-cuda" / "attention_stats.json")
                          .read_text())
     if written != summaries["cuda"] or list(written) != AS.STAT_NAMES:
@@ -2527,10 +2548,12 @@ def extract_features_phase(card: str, paths: dict, ckpt, tmp) -> dict:
         "extract-features": (["--cls_features", "ep", "--ep_queries", "32"],
                              str(ckpt), "val",
                              dict(ln_qkv_gemm=12, attn_core=12,
-                                  proj_residual_gemm=12, ep_pool=1)),
+                                  proj_residual_gemm=12, ep_pool=1,
+                                  **fc1_gelu(12))),
         "extract-features-cls": (["--cls_features", "cls"], "", "train",
                                  dict(ln_qkv_gemm=48, attn_core=48,
-                                      proj_residual_gemm=48)),
+                                      proj_residual_gemm=48,
+                                      **fc1_gelu(48))),
     }
     out = {}
     for name, (mode, head, split, want) in runs.items():
@@ -2578,7 +2601,7 @@ def pool_attention_phase(card: str, paths: dict, ckpt, tmp) -> dict:
                           str(tmp / "pool_attention.npz")],
         "pool-attention", paths)
     _launches_equal("pool-attention", paths, ln_qkv_gemm=12, attn_core=12,
-                    proj_residual_gemm=12, ep_pool=1)
+                    proj_residual_gemm=12, ep_pool=1, **fc1_gelu(12))
     saved = np.load(tmp / "pool_attention.npz")
     rows = np.abs(attn.sum(-1) - 1).max()
     ok = attn.shape == (8, 32, 196) and rows <= ROW_SUM_TOL and np.array_equal(
@@ -2628,7 +2651,7 @@ def mae_decoder(card: str, paths: dict, B: int = 128) -> dict:
         torch.cuda.synchronize()
         paths["mae-decoder"] = dict(LAUNCHES)
         _launches_equal("mae-decoder", paths, ln_qkv_gemm=12, attn_core=12,
-                        proj_residual_gemm=12)
+                        proj_residual_gemm=12, **fc1_gelu(12 + 8))
         ms = time_ms(lambda: model(xc, 0.75, noise=noise), 5)
         ref = cpu(x, 0.75, noise=noise)[0].item()
     got = loss.item()
@@ -2677,7 +2700,8 @@ def search(card: str, paths: dict, tmp) -> dict:
     forwards = 2 * (DRIVER_STEPS + DRIVER_EVAL_BATCHES)
     _launches_equal("search", paths, ln_qkv_gemm=12 * forwards,
                     attn_core=12 * forwards, proj_residual_gemm=12 * forwards,
-                    ep_pool=forwards, **lars_pair(2 * DRIVER_STEPS))
+                    ep_pool=forwards, **lars_pair(2 * DRIVER_STEPS),
+                    **fc1_gelu(12 * forwards))
     found = []
     for n in range(2):
         text = (tmp / "search" / f"trial_{n}" / "training_log.txt").read_text()

@@ -30,7 +30,10 @@ takes the kernels, as every path did before the field existed.
 
 The MLP half is plain torch (GELU, QuickGELU or SwiGLU) or, with
 ``int8_mlp=True`` on a supercell block (``--int8_mlp``, opt-in and
-approximate), the int8 half of ``ops/mlp_int8.py``. SwiGLU's gate is
+approximate), the int8 half of ``ops/mlp_int8.py``. A bf16 GELU MLP on the
+card that needs no gradient and is not cut computes fc1, its bias and the
+tanh GELU as one library product with the activation in its epilogue
+(``ops/fc1_gelu.py``). SwiGLU's gate is
 ``ops/swiglu.py::swiglu_gate`` (one kernel on the card) where no gradient
 is needed and the block is whole, the plain chain otherwise.
 
@@ -98,6 +101,7 @@ from ep_tpu_torch.ops.attention import (attn_stats_from_probs, mha, mm_f32,
                                         scaled)
 from ep_tpu_torch.ops.attn_block import attn_supercell
 from ep_tpu_torch.ops.attn_fused import attention_qkv_fused
+from ep_tpu_torch.ops.fc1_gelu import fc1_gelu, takes_gelu_epilogue
 from ep_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 from ep_tpu_torch.ops.swiglu import swiglu_gate, swiglu_gate_ref
 from ep_tpu_torch.parallel.mesh import (MODEL_AXIS, Mesh, current_mesh,
@@ -434,7 +438,17 @@ class Mlp(nn.Module):
         self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
 
     def forward(self, x):
-        x = self.fc1(x)
+        fc1 = self.fc1
+        dt = fc1.compute_dtype
+        needs_grad = torch.is_grad_enabled() and (
+            x.requires_grad or fc1.weight.requires_grad
+            or fc1.bias.requires_grad)
+        if takes_gelu_epilogue(x.device, dt, self.act, self.tp is not None,
+                               needs_grad):
+            # the bias and the activation in fc1's epilogue (a frozen encoder)
+            return self.fc2(fc1_gelu(x.to(dt), fc1.weight.to(dt),
+                                     fc1.bias.to(dt)))
+        x = fc1(x)
         if self.act == "quick_gelu":
             # x * sigmoid(1.702 x), the constant in x's dtype as JAX rounds it
             x = x * torch.sigmoid(scaled(x, 1.702))

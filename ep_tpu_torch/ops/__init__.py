@@ -43,6 +43,9 @@ LAUNCHES: dict[str, int] = {
     # (ops/attn_fused.py::attention_backward), counted on the card to show
     # which backward a path took
     "attn_bwd_long": 0,
+    # not a kernel: fc1 with its bias and tanh GELU in cuBLASLt's epilogue
+    # (ops/fc1_gelu.py), counted to show which MLP route a path took
+    "fc1_gelu_epilogue": 0,
 }
 
 

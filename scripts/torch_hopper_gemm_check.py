@@ -4,7 +4,8 @@ its time beside its bound, its plain version and the library.
 
     python3 scripts/torch_hopper_gemm_check.py [--no-time]
                                [--only gemm cell fc1 fc2 half flash core bwd
-                                       pool lnq proj ln1 swiglu lars backbone]
+                                       pool lnq proj ln1 swiglu fc1_gelu lars
+                                       backbone]
                                [--root DIR]
 
 Builds ep_tpu_torch/csrc and prints ptxas' lines for the wgmma kernels
@@ -20,7 +21,9 @@ twice, equal bit for bit) and the tiled backward past E's limit; kernel D
 (ep_pool) and the int8 ln_quant, twice, equal bit for bit; kernel G
 (ep_pool_proj), D and G also at 128 queries;
 LN1's gradient (ln1_apply, ln1_bwd) at fine-tuning's ViT-B/16 and ViT-H/14
-shapes; SwiGLU's gate at DINOv2-g/14's probe shape; LARS's kernel pair over
+shapes; SwiGLU's gate at DINOv2-g/14's probe shape; fc1 with its GELU in
+cuBLASLt's epilogue (fc1_gelu_epilogue, a route and not a kernel) at the
+probe cells' MLP shapes, beside F.linear + F.gelu; LARS's kernel pair over
 ViT-B/16's fine-tuning leaves and the gradient norm; and the backbone
 family's shapes (B at T=261 and 272, D at DINOv2-L's and DINOv2-g's). Each
 is timed beside its bound (benchmark/peaks.py's bound_s, at the
@@ -66,7 +69,7 @@ ATOL = RTOL = 1e-2
 # element count and has a floor of a few elements.
 STEP, STEP_SHARE, STEP_FLOOR = 2.0 ** -7, 1e-5, 4
 GROUPS = ("gemm", "cell", "fc1", "fc2", "half", "flash", "core", "bwd", "pool",
-          "lnq", "proj", "ln1", "swiglu", "lars", "backbone")
+          "lnq", "proj", "ln1", "swiglu", "fc1_gelu", "lars", "backbone")
 # kernel B at the paths' shapes, and at the backbone family's: DINOv2-L's
 # T = 1 + 4 registers + 256 and CAPI's 16 registers + 256 (B's last key bin)
 CORE_SHAPES = ((512, 197, 12, 64), (128, 256, 16, 80), (128, 257, 16, 80))
@@ -184,7 +187,8 @@ def run(only=GROUPS, timed=True) -> bool:
                   core=lambda r, t: check_core(r, t, CORE_SHAPES),
                   bwd=check_bwd, pool=lambda r, t: check_pool(r, t, POOL_SHAPES),
                   lnq=check_ln_quant, proj=check_proj, ln1=check_ln1,
-                  swiglu=check_swiglu, lars=check_lars, backbone=check_backbone)
+                  swiglu=check_swiglu, fc1_gelu=check_fc1_gelu,
+                  lars=check_lars, backbone=check_backbone)
     for group in GROUPS:
         if group in only:
             checks[group](rng, timed)
@@ -794,6 +798,73 @@ def check_swiglu(_, timed) -> None:
               f"{row['plain_ms']:.3f} ms", flush=True)
     del x12
     torch.cuda.empty_cache()
+
+
+# fc1 of the probe cells' MLP halves: (rows, D), hidden 4D (ViT-B/16 at
+# batch 512, ViT-H/14 at 224 px and batch 128, at 448 px and batch 64)
+FC1_GELU_SHAPES = ((512 * 197, 768), (128 * 257, 1280), (64 * 1025, 1280))
+
+
+def check_fc1_gelu(_, timed) -> None:
+    """fc1 with its bias and tanh GELU in cuBLASLt's epilogue
+    (ops/fc1_gelu.py) at the probe cells' MLP shapes, against the old route
+    (F.linear, then F.gelu(approximate="tanh")): each against the f32
+    product and GELU of the same bf16 values, in bf16 steps of the
+    reference (floored at the step of its mean magnitude), the epilogue no
+    more than one step further than the old route; the share equal bit for
+    bit to the old route's; the profiler's kernels of one call, none of them
+    PyTorch's GELU. Timed beside its bound and the old route."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ep_tpu_torch.ops.fc1_gelu import fc1_gelu
+    print("fc1 + GELU in cuBLASLt's epilogue against F.linear + F.gelu")
+    for m, d in FC1_GELU_SHAPES:
+        h_dim = 4 * d
+        rng = np.random.default_rng(24 + d)
+        x = rand(rng, (m, d))
+        w, b = rand(rng, (h_dim, d), d ** -0.5), rand(rng, (h_dim,), 0.5)
+
+        def old():
+            return F.gelu(F.linear(x, w, b), approximate="tanh")
+
+        got, was = fc1_gelu(x, w, b), old()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fc1_gelu(x, w, b)
+            torch.cuda.synchronize()
+        kernels = [e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        same = float((got == was).float().mean())
+        ref = F.gelu(F.linear(x.float(), w.float(), b.float()),
+                     approximate="tanh")
+        step = torch.exp2(torch.floor(torch.log2(torch.maximum(
+            ref.abs(), ref.abs().mean()))) - 7.0)
+        new_err = float(((got.float() - ref).abs() / step).max())
+        old_err = float(((was.float() - ref).abs() / step).max())
+        del ref, step
+        row = check("fc1_gelu_epilogue", (m, d, h_dim), new_err <= old_err + 1
+                    and bool(torch.isfinite(got).all())
+                    and not any("Gelu" in k for k in kernels),
+                    f"{same:.4f} of the elements equal bit for bit to the old "
+                    f"route's; from the f32 reference {new_err:.2f} bf16 steps "
+                    f"at most (the old route {old_err:.2f}); kernels of one "
+                    f"call {[k[:90] for k in kernels]}",
+                    max_abs_err=float((got.float() - was.float()).abs().max()),
+                    equal_share=same)
+        del got, was
+        if timed:
+            ops = 2 * m * d * h_dim
+            row["bound_ms"], by = bound_ms(ops, nbytes(x, w, b) + 2 * m * h_dim)
+            row.update(ms=time_ms(lambda: fc1_gelu(x, w, b)),
+                       library_ms=time_ms(old))
+            print(f"  time: the epilogue {row['ms']:.3f} ms "
+                  f"({ops / row['ms'] / 1e9:.0f} TFLOP/s), bound "
+                  f"{row['bound_ms']:.3f} ms ({by}, "
+                  f"{row['bound_ms'] / row['ms']:.0%}); F.linear + F.gelu "
+                  f"{row['library_ms']:.3f} ms", flush=True)
+        del x, w, b
+        torch.cuda.empty_cache()
 
 
 def check_lars(_, timed) -> None:

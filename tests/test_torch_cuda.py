@@ -12,6 +12,7 @@ another order, which can move a value across one bf16 rounding boundary, so
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 pytestmark = pytest.mark.cuda
 
@@ -328,6 +329,80 @@ def test_swiglu_mlp_takes_the_kernel_without_a_gradient(dev):
     assert dict(LAUNCHES) == _counts(swiglu_gate=1)
     mlp(x).float().sum().backward()
     assert LAUNCHES["swiglu_gate"] == 1 and mlp.w12.weight.grad is not None
+
+
+def _bf16_steps(out, ref):
+    """|out - ref| in bf16 steps of ref's value (8 significant bits), the
+    step floored at that of ref's mean magnitude, where f32 sums in another
+    order move a value near zero by more than its own step."""
+    out, ref = out.float(), ref.float()
+    floor = ref.abs().mean()
+    step = torch.exp2(torch.floor(torch.log2(torch.maximum(ref.abs(), floor)))
+                      - 7.0)
+    return (out - ref).abs() / step
+
+
+@pytest.mark.parametrize("rows, D", [(2 * 197, 768), (257, 1280), (5, 768)],
+                         ids=["vit-b", "vit-h", "ragged"])
+def test_fc1_gelu_epilogue_against_the_old_route(dev, rows, D):
+    """``Mlp`` under ``no_grad`` at ViT-B's and ViT-H's MLP widths: one
+    epilogue call, and both its hidden tensor and its output (after fc2) no
+    further from an f32 reference than the old route's (``F.linear``, then
+    ``F.gelu(approximate="tanh")``) plus one bf16 step. The epilogue rounds
+    the activation once, the old route twice; the share of hidden elements
+    equal bit for bit is printed."""
+    from ep_tpu_torch.models.vit import Mlp
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.fc1_gelu import fc1_gelu
+    torch.manual_seed(D)
+    mlp = Mlp(D, 4 * D, torch.bfloat16).to(dev).requires_grad_(False)
+    x = _rand((1, rows, D), dev, seed=D)
+    w1, b1 = mlp.fc1.weight.bfloat16(), mlp.fc1.bias.bfloat16()
+    reset_launches()
+    with torch.no_grad():
+        out = mlp(x)
+        assert dict(LAUNCHES) == _counts(fc1_gelu_epilogue=1)
+        h = fc1_gelu(x, w1, b1)
+        h_old = F.gelu(F.linear(x, w1, b1), approximate="tanh")
+        out_old = mlp.fc2(h_old)
+        h_ref = F.gelu(F.linear(x.float(), w1.float(), b1.float()),
+                       approximate="tanh")
+        out_ref = F.linear(h_ref, mlp.fc2.weight.bfloat16().float(),
+                           mlp.fc2.bias.bfloat16().float())
+    assert h.shape == h_old.shape and h.dtype == torch.bfloat16
+    assert torch.equal(out, mlp.fc2(h))
+    for got, old, ref in ((h, h_old, h_ref), (out, out_old, out_ref)):
+        new_err = float(_bf16_steps(got, ref).max())
+        old_err = float(_bf16_steps(old, ref).max())
+        assert new_err <= old_err + 1, (new_err, old_err)
+    same = float((h == h_old).float().mean())
+    print(f"fc1_gelu ({rows}, {D} -> {4 * D}): {same:.4f} of the hidden equal "
+          "bit for bit to the old route's")
+
+
+def test_vit_b_takes_the_epilogue_only_without_a_gradient(dev, monkeypatch):
+    """A ViT-B/16 forward under ``no_grad`` takes the epilogue once a block;
+    with an input that needs a gradient it keeps the old route, and the
+    input's gradient is the old route's bit for bit."""
+    import ep_tpu_torch.models.vit as pvit
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    torch.manual_seed(0)
+    vit = pvit.VisionTransformer(pvit.ViTConfig()).to(dev).requires_grad_(False)
+    x = _rand((2, 224, 224, 3), dev, dtype=torch.float32, seed=82)
+    reset_launches()
+    with torch.no_grad():
+        vit(x)
+    assert LAUNCHES["fc1_gelu_epilogue"] == 12
+    grads = []
+    for route in ("as chosen", "old"):
+        if route == "old":
+            monkeypatch.setattr(pvit, "takes_gelu_epilogue", lambda *a: False)
+        xg = x.clone().requires_grad_(True)
+        reset_launches()
+        vit(xg).float().sum().backward()
+        assert LAUNCHES["fc1_gelu_epilogue"] == 0
+        grads.append(xg.grad)
+    assert torch.equal(*grads)
 
 
 # ViT-B/16-shaped leaves for the LARS kernel pair: (shape, group, gradient):
@@ -696,7 +771,8 @@ def test_model_at_448_px_goes_through_f(dev, monkeypatch):
     with torch.no_grad():
         out = model(x)
     assert dict(LAUNCHES) == _counts(ln_qkv_gemm=2, attn_flash=2,
-                                     proj_residual_gemm=2, ep_pool_proj=1)
+                                     proj_residual_gemm=2, ep_pool_proj=1,
+                                     fc1_gelu_epilogue=2)
     assert out.shape == (2, 10) and torch.isfinite(out).all()
 
 
@@ -1089,7 +1165,8 @@ def test_driver_one_epoch_on_the_card_matches_cpu(dev, tmp_path, depth2):
     # LARS's pair once a train step
     assert launched == _counts(ln_qkv_gemm=10, attn_core=10,
                                proj_residual_gemm=10, ep_pool=5,
-                               lars_norms=4, lars_apply=4)
+                               lars_norms=4, lars_apply=4,
+                               fc1_gelu_epilogue=10)
     card, cpu = _epoch_line(tmp_path / "card"), _epoch_line(tmp_path / "cpu")
     assert card[0] == cpu[0] == 0
     for i in (1, 3):  # train loss, val loss
@@ -1125,7 +1202,8 @@ def test_driver_input_modes_on_the_card_match_cpu(dev, tmp_path, depth2,
     main(_driver_cfg(tmp_path / "cpu", device="cpu", **flags))
     assert launched == _counts(ln_qkv_gemm=10, attn_core=10,
                                proj_residual_gemm=10, ep_pool=5,
-                               lars_norms=4, lars_apply=4)
+                               lars_norms=4, lars_apply=4,
+                               fc1_gelu_epilogue=10)
     card, cpu = _epoch_line(tmp_path / "card"), _epoch_line(tmp_path / "cpu")
     assert card[0] == cpu[0] == 0
     for i in (1, 3):  # train loss, val loss
@@ -1202,7 +1280,8 @@ def test_attention_backward_routes_by_shape(dev):
 def test_mae_decoder_runs_on_the_card(dev):
     """MAE at ViT-B's widths with its decoder (16 heads of width 32, which
     kernel B is not built for), depth cut to 2 and 2: the encoder launches A,
-    B and C once a block, the decoder's plain route no kernel, and the loss
+    B and C once a block, the decoder's plain route no attention kernel,
+    every block's MLP (under ``no_grad``) fc1's GELU epilogue, and the loss
     agrees with the CPU's on the same masking noise."""
     from ep_tpu_torch.models.assembly import init_backbone
     from ep_tpu_torch.models.mae import (MaskedAutoencoderViT,
@@ -1220,7 +1299,7 @@ def test_mae_decoder_runs_on_the_card(dev):
         reset_launches()
         got = m(x.to(dev), 0.75, noise=noise)[0].item()
     assert dict(LAUNCHES) == _counts(ln_qkv_gemm=2, attn_core=2,
-                                     proj_residual_gemm=2)
+                                     proj_residual_gemm=2, fc1_gelu_epilogue=4)
     assert abs(got - ref) <= 2e-3 * abs(ref)
 
 
