@@ -74,7 +74,11 @@ Phases, each of which must pass (any failure exits non-zero):
              against the CPU plain path. probe-dinov2-g — the SwiGLU giant
              with 4 registers at the hub's widths (D=1536, depth 40, 24
              heads, SwiGLU hidden 4096, T=261), batch 64: B and the gate
-             kernel 40 times, D once.
+             kernel 40 times, D once. probe-dinov3-7b — DINOv3 ViT-7B/16 at
+             its published widths (D=4096, 32 heads of 128, SwiGLU 8192,
+             RoPE, 4 storage tokens) at 448 px (T=789), its first 2 blocks
+             (--return_block 1), batch 8: the RoPE pass, F and the gate
+             kernel twice, D once.
              probe-capi — CAPI-L/14 (16 registers, no [CLS], T=272: B's last
              key bin): A, B and C 24 times; then a cls-mode model (the
              register mean) against the CPU's. probe-clip-b — OpenCLIP
@@ -471,7 +475,7 @@ def _train(kind, B, steps, card, flags, attn_kernel, pool_kernel,
     moved = [k for k, p in frozen_p.items() if not torch.equal(p, before_f[k])]
     if moved:
         raise RuntimeError(f"frozen parameters changed: {moved[:5]}")
-    d = bcfg.depth
+    d = len(model.backbone.blocks)  # the blocks up to --return_block
     expect = dict.fromkeys(LAUNCHES, 0)
     if per_forward:
         expect.update({k: n * steps for k, n in per_forward.items()})
@@ -2141,6 +2145,10 @@ BACKBONE_CONFIGS = {
                                             **fc1_gelu(24))),
     "probe-dinov2-g": (64, dict(model="dinov2_vitg14_reg"),
                        dict(attn_core=40, swiglu_gate=40, ep_pool=1)),
+    "probe-dinov3-7b": (8, dict(model="dinov3_vit7b16", image_size=448,
+                                return_block=1),
+                        dict(rope_qk=2, attn_flash=2, swiglu_gate=2,
+                             ep_pool=1)),
     "probe-capi": (512, dict(model="capi_vitl14"),
                    dict(ln_qkv_gemm=24, attn_core=24, proj_residual_gemm=24,
                         ep_pool=1, **fc1_gelu(24))),

@@ -10,8 +10,12 @@ the ``nn.Linear``/``nn.Conv2d`` layouts, so the conversion is:
   * OpenCLIP's names (``conv1``, ``class_embedding``,
     ``positional_embedding``, ``ln_pre``, ``transformer.resblocks.{i}``,
     ``ln_post``, ``proj``) mapped to timm's (:func:`_remap_openclip`);
-  * CAPI's ``storage_tokens`` and DINOv2's ``register_tokens`` into
-    ``reg_token``;
+  * CAPI's and DINOv3's ``storage_tokens`` and DINOv2's ``register_tokens``
+    into ``reg_token``;
+  * DINOv3's ``mlp.w1`` and ``mlp.w2`` concatenated into ``mlp.w12``, and
+    what it holds for training alone dropped (:func:`_drop_dinov3_training`):
+    ``rope_embed.periods`` (checked against the config's), ``mask_token``,
+    ``attn.qkv.bias_mask`` and ``local_cls_norm``;
   * split q/k/v weights and biases concatenated into qkv;
   * BEiT/SimMIM's ``gamma_1``/``gamma_2`` into ``ls1.gamma``/``ls2.gamma``
     (DINOv2's ``ls1.gamma`` is already the port's name), its per-block
@@ -37,6 +41,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
+from ep_tpu_torch.ops.rope import rope_periods
 from ep_tpu_torch.utils.pos_embed import interpolate_pos_embed
 
 _DROPPED = ("head", "fc_norm", "oracle", "fc.")
@@ -127,6 +132,12 @@ def _to_port_names(sd: Dict[str, torch.Tensor], depth: int
                 parts = [sd.pop(f"{a}{n}.{leaf}", None) for n in "qkv"]
                 if all(p is not None for p in parts):
                     sd[f"{a}qkv.{leaf}"] = torch.cat(parts, 0)
+        m = tp + "mlp."
+        if m + "w12.weight" not in sd and m + "w1.weight" in sd:  # DINOv3
+            for leaf in ("weight", "bias"):
+                parts = [sd.pop(f"{m}{n}.{leaf}", None) for n in ("w1", "w2")]
+                if all(p is not None for p in parts):
+                    sd[f"{m}w12.{leaf}"] = torch.cat(parts, 0)
         for g, ls in (("gamma_1", "ls1"), ("gamma_2", "ls2")):
             if tp + g in sd:
                 sd[f"{tp}{ls}.gamma"] = sd.pop(tp + g)
@@ -136,12 +147,48 @@ def _to_port_names(sd: Dict[str, torch.Tensor], depth: int
     return sd
 
 
+def _drop_dinov3_training(sd: Dict[str, torch.Tensor], template: dict,
+                          backbone_cfg) -> Dict[str, torch.Tensor]:
+    """A DINOv3 checkpoint's entries that inference does not read and the
+    backbone (``template``, its state dict) does not hold, dropped, each for
+    its reason:
+
+    * ``rope_embed.periods``: RoPE's periods are a function of the base and
+      the head width, which the config holds (``ops/rope.py::
+      rope_tables``); a checkpoint whose periods differ from those raises,
+      since its model was trained with other angles;
+    * ``mask_token``: the masked-image objective's token, training only;
+    * ``blocks.{i}.attn.qkv.bias_mask``: ``LinearKMaskedBias``'s mask that
+      zeroes a k bias; the 7B's qkv has no bias;
+    * ``local_cls_norm.*``: the norm of the local crops' [CLS] in training
+      (``untie_global_and_local_cls_norm``); inference normalises every
+      token by ``norm``."""
+    sd = dict(sd)
+    periods = sd.pop("rope_embed.periods", None)
+    if periods is not None:
+        base = getattr(backbone_cfg, "rope_base", None)
+        dh = backbone_cfg.embed_dim // backbone_cfg.num_heads
+        want = None if base is None else rope_periods(dh, base)
+        if want is None or periods.shape != want.shape or not torch.allclose(
+                periods.float(), want, rtol=1e-6, atol=0):
+            raise ValueError(
+                f"--finetune: rope_embed.periods {tuple(periods.shape)} is not "
+                f"RoPE at base {base} and head width {dh}, which the model "
+                "computes")
+    for k in list(sd):
+        if k not in template and (k == "mask_token" or k.startswith(
+                "local_cls_norm.") or k.endswith(".attn.qkv.bias_mask")):
+            del sd[k]
+    return sd
+
+
 def torch_vit_to_backbone(sd: Dict[str, torch.Tensor], backbone: nn.Module,
                           backbone_cfg) -> Dict[str, torch.Tensor]:
     """The backbone's state dict filled from a torch checkpoint ``sd`` of any
     of the supported layouts."""
-    sd = _to_port_names(sd, backbone_cfg.depth)
     template = backbone.state_dict()
+    sd = _drop_dinov3_training(_to_port_names(sd, backbone_cfg.depth),
+                               template, backbone_cfg)
     out, missing = {}, []
     for name, tgt in template.items():
         if name not in sd:

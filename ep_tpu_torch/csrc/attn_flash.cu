@@ -30,9 +30,10 @@
 //   2.2e9 exponentials about as long on the SFU (16 a clock an SM), and the
 //   logits' operands alone would fill shared memory's 128 bytes a clock.
 // Design: the producer / consumer shape of hopper.cuh. Persistent blocks, one
-//   an SM, walk (192-row query tile, head, image) items, the query tiles of a
-//   head side by side so that its K and V come from L2. One producer thread
-//   keeps key tiles in flight on a 7-stage mbarrier ring: a 3-D tensor map
+//   an SM, walk (192-row query tile, head, image) items (128 rows at head
+//   width 128, below), the query tiles of a head side by side so that its K
+//   and V come from L2. One producer thread keeps key tiles in flight on a
+//   7-stage mbarrier ring (5 at head width 128): a 3-D tensor map
 //   (images, T, 3D) whose boxes of 64 keys are zero-filled past T inside each
 //   image, K alone in sweep 1, K and V in sweep 2; the query rows of the next
 //   item come into a second buffer while this one runs. Three consumer
@@ -61,6 +62,15 @@
 //   exponentials of tile i; three warpgroups hide the latency instead). Two
 //   blocks an SM would need more registers than setmaxnreg can move inside
 //   one block.
+// Head width 128 (DINOv3 ViT-7B/16: T=789, 32 heads): a row is 256 bytes,
+//   two boxes of 64 columns, both in the 128-byte swizzle; the logits take
+//   4 + 4 K steps and P V two N=64 products. O is then 64 floats a thread
+//   and the query rows' fragments 32 registers, 144 for the arrays alone,
+//   which three consumer warpgroups at 160 registers cannot hold. So two
+//   consumer warpgroups (128 query rows an item) take 240 registers each,
+//   the producer 24 (384 threads: 168 each at launch, 18,432 registers moved
+//   each way), and a K/V stage of 32 KB leaves room for 5 stages beside two
+//   query buffers of 32 KB.
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -70,21 +80,25 @@ namespace {
 
 using namespace hopper;
 
-constexpr int NC = 3;       // consumer warpgroups
-constexpr int THREADS = 128 * (NC + 1);  // and one producer warpgroup
 constexpr int BQ = 64;      // query rows of a consumer warpgroup
 constexpr int BN = 64;      // keys of a tile
-constexpr int STAGES = 7;   // key tiles in flight
 constexpr float LOG2E = 1.4426950408889634f;
 
-// A block's shared memory at head width DH: the ring, each stage
+// A block's shape and shared memory at head width DH: the ring, each stage
 // [K cols 0..63][V cols 0..63][K cols 64..DH)[V cols 64..DH), then two query
 // buffers, each [Q0 of each consumer][Q1 of each]. Columns 0..63 are rows of
-// 128 bytes in the 128-byte swizzle (1024-byte aligned), the 16 columns past
-// them (DH = 80) rows of 32 bytes in the 32-byte swizzle.
+// 128 bytes in the 128-byte swizzle (1024-byte aligned); the 16 columns past
+// them (DH = 80) rows of 32 bytes in the 32-byte swizzle, the 64 past them
+// (DH = 128) rows of 128 bytes in the 128-byte swizzle.
 template <int DH>
 struct Flash {
-  static constexpr int R1 = DH - 64;            // columns past 64: 0 or 16
+  static constexpr bool WIDE = DH == 128;       // a second 64-column box
+  static constexpr int NC = WIDE ? 2 : 3;       // consumer warpgroups
+  static constexpr int THREADS = 128 * (NC + 1);  // and one producer warpgroup
+  static constexpr int REGS = WIDE ? 240 : 160;   // a consumer thread's
+  static constexpr int STAGES = WIDE ? 5 : 7;   // key tiles in flight
+  static constexpr int R1 = DH - 64;            // columns past 64: 0, 16, 64
+  static constexpr int O1 = WIDE ? 32 : 8;      // their accumulators a thread
   static constexpr int K0 = BN * 128;           // bytes of a key tile, cols < 64
   static constexpr int K1 = BN * R1 * 2;        // and past 64
   static constexpr int Q0 = BQ * 128, Q1 = BQ * R1 * 2;
@@ -92,8 +106,16 @@ struct Flash {
   static constexpr int QBUF = NC * (Q0 + Q1);   // the consumers' query rows
   static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * QBUF +
                               (2 * STAGES + 4) * 8;
+  // setmaxnreg moves registers only within the block: the producer
+  // warpgroup frees what the consumers take, from the launch bound's share
+  static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+  static constexpr bool BALANCED =
+      NC * (REGS - LAUNCH_REGS) <= LAUNCH_REGS - 24;
 };
-static_assert(Flash<80>::SMEM <= MAX_SMEM, "kernel F fits a block");
+static_assert(Flash<80>::SMEM <= MAX_SMEM && Flash<80>::BALANCED,
+              "kernel F fits a block at head width 80");
+static_assert(Flash<128>::SMEM <= MAX_SMEM && Flash<128>::BALANCED,
+              "kernel F fits a block at head width 128");
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -102,13 +124,14 @@ __device__ __forceinline__ float exp2_approx(float x) {
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Flash<DH>::THREADS, 1)
 attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
                   const __grid_constant__ CUtensorMap map_q1,
                   const __grid_constant__ CUtensorMap map_kv0,
                   const __grid_constant__ CUtensorMap map_kv1,
                   bf16* __restrict__ out, int B, int T, int H, float coef) {
   using L = Flash<DH>;
+  constexpr int NC = L::NC, STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* qbase = smem + STAGES * L::STAGE;
@@ -128,7 +151,7 @@ attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
   const int tid = threadIdx.x;
   const int D = H * DH;
   const int n = (T + BN - 1) / BN;             // key tiles
-  const int nq = (T + NC * BQ - 1) / (NC * BQ);  // 192-row query tiles
+  const int nq = (T + NC * BQ - 1) / (NC * BQ);  // 192- (128-) row query tiles
   const int n_items = nq * H * B;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -148,7 +171,7 @@ attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   if (wg == NC) {
     // registers move only within the block: 128 x 104 freed here, 384 x 32
-    // taken by the consumers
+    // taken by the consumers (head width 128: 128 x 144, 256 x 72)
     setmaxnreg_dec<24>();
     if (tid == 128 * NC) {
       RingPos pos, qpos;
@@ -189,7 +212,7 @@ attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
     return;
   }
 
-  setmaxnreg_inc<160>();
+  setmaxnreg_inc<L::REGS>();
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const float c2 = coef * LOG2E;
@@ -226,14 +249,14 @@ attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
     // Thread (warp, g, t) holds rows 16*warp + g and + 8 of the warpgroup's
     // 64: the logits in s[4j], s[4j+1] and s[4j+2], s[4j+3] at keys 8j + 2t
     // and + 1 of the tile, o0 the same for head columns 8j + 2t (j < 8), o1
-    // for columns 64 + 8j + 2t (j < 2); m and l: the rows' running max times
-    // coef*log2(e) and this thread's share of the sum of exponentials.
-    float s[BN / 2], o0[32], o1[8];
+    // for columns 64 + 8j + 2t (j < R1 / 8); m and l: the rows' running max
+    // times coef*log2(e) and this thread's share of the sum of exponentials.
+    float s[BN / 2], o0[32], o1[L::O1];
     unsigned p[BN / 16][4];
 #pragma unroll
     for (int i = 0; i < 32; ++i) o0[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) o1[i] = 0.f;
+    for (int i = 0; i < L::O1; ++i) o1[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv[2];
     int held = -1;
 
@@ -241,14 +264,28 @@ attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
     // tile's N gives its wgmma a second accumulator shape, and ptxas then
     // serialises every wgmma of the kernel. The keys past T are masked
     // instead.
+    // The second box's descriptor: the 128-byte swizzle at head width 128,
+    // the 32-byte one at 80.
+    auto desc1 = [&](const unsigned char* p) {
+      if constexpr (L::WIDE)
+        return smem_desc(p);
+      else
+        return smem_desc_32(p);
+    };
     auto issue_s = [&](int stage) {
       const uint64_t dk0 = smem_desc(k0_s(stage));
-      const uint64_t dk1 = smem_desc_32(k1_s(stage));
+      const uint64_t dk1 = desc1(k1_s(stage));
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_bf16_rs<BN>(s, qf[kk], dk0 + kk * DESC_K_STEP, kk);
-      if constexpr (L::R1 > 0) wgmma_bf16_rs<BN>(s, qf[4], dk1, 1);
+      if constexpr (L::WIDE) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_bf16_rs<BN>(s, qf[4 + kk], dk1 + kk * DESC_K_STEP, 1);
+      } else if constexpr (L::R1 > 0) {
+        wgmma_bf16_rs<BN>(s, qf[4], dk1, 1);
+      }
       wgmma_commit();
     };
     // O += P V over the tile's first `cols` keys (the last tile: its keys
@@ -256,13 +293,15 @@ attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
     // further into V.
     auto issue_pv = [&](int stage, int cols) {
       const uint64_t dv0 = smem_desc(v0_s(stage));
-      const uint64_t dv1 = smem_desc_32(v1_s(stage));
+      const uint64_t dv1 = desc1(v1_s(stage));
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
         if (kk * 16 < cols) {
           wgmma_bf16_rs_tb<64>(o0, p[kk], dv0 + kk * (16 * 128 >> 4), 1);
-          if constexpr (L::R1 > 0)
+          if constexpr (L::WIDE)
+            wgmma_bf16_rs_tb<64>(o1, p[kk], dv1 + kk * (16 * 128 >> 4), 1);
+          else if constexpr (L::R1 > 0)
             wgmma_bf16_rs_tb<16>(o1, p[kk], dv1 + kk * (16 * 32 >> 4), 1);
         }
       wgmma_commit();
@@ -385,7 +424,7 @@ attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
     }
     if constexpr (L::R1 > 0) {
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
+      for (int jj = 0; jj < L::R1 / 8; ++jj) {
         if (r0 < T)
           *reinterpret_cast<__nv_bfloat162*>(orow + 64 + 8 * jj) =
               __floats2bfloat162_rn(o1[4 * jj], o1[4 * jj + 1]);
@@ -402,17 +441,19 @@ int launch(const void* qkv, void* out, int B, int T, int H, float coef,
            cudaStream_t s) {
   using L = Flash<DH>;
   // boxes of BQ query rows or BN keys, columns 0..63 (128-byte swizzle) and,
-  // at DH = 80, 64..79 (32-byte swizzle); DH = 64 reads no second box
+  // at DH = 80, 64..79 (32-byte swizzle), at DH = 128 64..127 (the first
+  // map, 64 columns on); DH = 64 reads no second box
   CUtensorMap mq[2], mkv[2];
   int rc = make_head_maps(mq, qkv, DH, B, T, 3 * H * DH, BQ);
   if (rc == 0) rc = make_head_maps(mkv, qkv, DH, B, T, 3 * H * DH, BN);
   if (rc != 0) return rc;
   cudaFuncSetAttribute(attn_flash_kernel<DH>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-  const long long items = (long long)((T + NC * BQ - 1) / (NC * BQ)) * H * B;
+  const long long items =
+      (long long)((T + L::NC * BQ - 1) / (L::NC * BQ)) * H * B;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int grid = items < sm_count() ? (int)items : sm_count();
-  attn_flash_kernel<DH><<<grid, THREADS, L::SMEM, s>>>(
+  attn_flash_kernel<DH><<<grid, L::THREADS, L::SMEM, s>>>(
       mq[0], mq[1], mkv[0], mkv[1], static_cast<bf16*>(out), B, T, H, coef);
   return (int)cudaGetLastError();
 }
@@ -420,14 +461,15 @@ int launch(const void* qkv, void* out, int B, int T, int H, float coef,
 }  // namespace
 }  // namespace ep
 
-// qkv (B, T, 3*H*Dh) bf16 -> out (B, T, H*Dh) bf16; coef = scale/temperature
-// > 0.
+// qkv (B, T, 3*H*Dh) bf16 -> out (B, T, H*Dh) bf16, Dh 64, 80 or 128;
+// coef = scale/temperature > 0.
 EP_EXPORT int ep_attn_flash(const void* qkv, void* out, int B, int T, int H,
                             int head_dim, float coef, void* stream) {
   if (T < 1 || B < 1 || H < 1 || !(coef > 0.f) ||
-      (head_dim != 64 && head_dim != 80))
+      (head_dim != 64 && head_dim != 80 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return head_dim == 64 ? ep::launch<64>(qkv, out, B, T, H, coef, s)
-                        : ep::launch<80>(qkv, out, B, T, H, coef, s);
+  if (head_dim == 64) return ep::launch<64>(qkv, out, B, T, H, coef, s);
+  if (head_dim == 80) return ep::launch<80>(qkv, out, B, T, H, coef, s);
+  return ep::launch<128>(qkv, out, B, T, H, coef, s);
 }

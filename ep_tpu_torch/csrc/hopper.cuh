@@ -704,11 +704,13 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
 }
 
 // ---- attention tiles ----------------------------------------------------------
-// Tiles of 64 rows of one head of width DH (64 or 80), as the attention
+// Tiles of 64 rows of one head of width DH (64, 80 or 128), as the attention
 // kernels stage them: columns 0..63 as rows of 128 bytes in the 128-byte
-// swizzle at s0, columns 64..DH-1 as rows of 32 bytes in the 32-byte swizzle
-// at s1 (DH = 80). Both swizzles repeat every 8 rows, so any tile that starts
-// on a multiple of 8 rows of a 1024-byte aligned array reads the same way.
+// swizzle at s0, columns 64..DH-1 at s1: as rows of 32 bytes in the 32-byte
+// swizzle (DH = 80), or as a second box of 128-byte rows in the 128-byte
+// swizzle (DH = 128, kernel F only). Both swizzles repeat every 8 rows, so
+// any tile that starts on a multiple of 8 rows of a 1024-byte aligned array
+// reads the same way.
 
 // The A fragments of rows row0 + 16*warp .. + 15 for the DH / 16 K steps of
 // a product over the head's columns: 16-byte unit u of row r lies at
@@ -723,9 +725,16 @@ __device__ __forceinline__ void load_head_rows(unsigned (&f)[DH / 16][4],
   for (int kk = 0; kk < 4; ++kk)
     ldmatrix_x4(f[kk], reinterpret_cast<const bf16*>(
                            s0 + r * 128 + (((kk * 2 + (lane >> 4)) ^ (r & 7)) << 4)));
-  if constexpr (DH > 64)
+  if constexpr (DH == 128) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ldmatrix_x4(f[4 + kk],
+                  reinterpret_cast<const bf16*>(
+                      s1 + r * 128 + (((kk * 2 + (lane >> 4)) ^ (r & 7)) << 4)));
+  } else if constexpr (DH > 64) {
     ldmatrix_x4(f[4], reinterpret_cast<const bf16*>(
                           s1 + r * 32 + (((lane >> 4) ^ ((r >> 2) & 1)) << 4)));
+  }
 }
 
 // A 64-row accumulator pair (a0: columns 0..63, a1: 64..79, in wgmma's
@@ -760,14 +769,15 @@ __device__ __forceinline__ void stage_head_rows(unsigned char* s0,
 // The maps of one head's tiles in a (depth, rows, cols) bf16 tensor: boxes of
 // box_rows x 64 columns in the 128-byte swizzle and, for DH = 80, of
 // box_rows x 16 in the 32-byte swizzle (for DH = 64 the second is a copy of
-// the first and is never used). Returns 0 or a cudaError_t.
+// the first and is never used; for DH = 128 it is a copy of the first, read
+// 64 columns further on). Returns 0 or a cudaError_t.
 inline int make_head_maps(CUtensorMap (&maps)[2], const void* ptr, int DH,
                           uint64_t depth, uint64_t rows, uint64_t cols,
                           uint32_t box_rows) {
   int rc = make_map_3d(maps, ptr, depth, rows, cols, box_rows, 64,
                        CU_TENSOR_MAP_SWIZZLE_128B);
   if (rc != 0) return rc;
-  if (DH == 64) {
+  if (DH == 64 || DH == 128) {
     maps[1] = maps[0];
     return 0;
   }

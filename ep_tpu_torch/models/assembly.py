@@ -27,7 +27,8 @@ from .mae import (MAEConfig, MaskedAutoencoderViT, mae_vit_base_patch16,
                   mae_vit_huge_patch14, mae_vit_large_patch16)
 from .vit import (VIT_CONFIGS, ViTConfig, VisionTransformer, remap_features,
                   select_features, simmim_vit_base_patch16)
-from .wrappers import capi_config, dinov2_config, openclip_vit_config
+from .wrappers import (capi_config, dinov2_config, dinov3_config,
+                       openclip_vit_config)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "none": torch.float32, "float16": torch.bfloat16}
@@ -61,6 +62,8 @@ def build_backbone_config(cfg: TrainConfig) -> Union[ViTConfig, MAEConfig]:
         return capi_config(cfg.image_size, dtype).replace(**flags)
     if name.startswith("dinov2"):
         return dinov2_config(name, cfg.image_size, dtype).replace(**flags)
+    if name.startswith("dinov3"):
+        return dinov3_config(name, cfg.image_size, dtype).replace(**flags)
     if name not in VIT_CONFIGS:
         raise ValueError(f"unknown model {name}")
     extra = {}
@@ -77,6 +80,7 @@ def oracle_config(backbone_cfg: ViTConfig) -> ViTConfig:
         init_values=None, rel_pos_bias="none", use_abs_pos_emb=True,
         qkv_bias_mode="full", class_token=True, reg_tokens=0,
         cls_from_registers=False, pre_norm=False, proj_dim=None,
+        rope_base=None,
         scan_blocks=False)  # the oracle needs its final attention
     if backbone_cfg.embed_dim >= 384:
         cfg = cfg.replace(embed_dim=768, depth=12, num_heads=12,

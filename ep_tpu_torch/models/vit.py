@@ -37,6 +37,13 @@ tanh GELU as one library product with the activation in its epilogue
 ``ops/swiglu.py::swiglu_gate`` (one kernel on the card) where no gradient
 is needed and the block is whole, the plain chain otherwise.
 
+With ``rope_base`` set (DINOv3), the blocks rotate q and k of the patch
+tokens by 2D axial RoPE (``ops/rope.py``) on the plain attention route,
+before kernel B or F or ``mha``: the kernel pass in place where no gradient
+is needed, the plain chain otherwise; the sines and cosines come from the
+live patch grid, cached per grid and device. Such a block never takes the
+supercell, which has no RoPE.
+
 Register tokens sit after the [CLS] token. With ``reg_pos_embed=True`` (the
 JAX package's layout) the position embedding has a row for each of them;
 with ``reg_pos_embed=False`` (DINOv2's hub layout, ``prepare_tokens_with_
@@ -55,7 +62,8 @@ but the port always loops over the blocks.
 Under a profiler, ``Block.attn_half`` and ``Block.mlp_half`` open the spans
 ``ep::attn_half`` and ``ep::mlp_half`` (``runtime/profiler.py::span``) on
 every route, a recomputation in the backward included; ``SwiGLUMlp`` opens
-``ep::swiglu_gate`` around its gate on either route.
+``ep::swiglu_gate`` around its gate on either route, and ``Attention``
+``ep::rope`` around RoPE.
 
 Parameter names follow timm (``patch_embed.proj``, ``blocks.{i}.attn.qkv``,
 ``blocks.{i}.ls1.gamma``, ``reg_token``, ``norm``, ``norm_pre``,
@@ -103,6 +111,7 @@ from ep_tpu_torch.ops.attn_block import attn_supercell
 from ep_tpu_torch.ops.attn_fused import attention_qkv_fused
 from ep_tpu_torch.ops.fc1_gelu import fc1_gelu, takes_gelu_epilogue
 from ep_tpu_torch.ops.mlp_int8 import mlp_int8_fused
+from ep_tpu_torch.ops.rope import rope_qk, rope_qk_ref, rope_tables
 from ep_tpu_torch.ops.swiglu import swiglu_gate, swiglu_gate_ref
 from ep_tpu_torch.parallel.mesh import (MODEL_AXIS, Mesh, current_mesh,
                                         process_count)
@@ -111,6 +120,9 @@ from ep_tpu_torch.parallel.partition import whole_tensors
 from ep_tpu_torch.poolings.common import Dense, mean_f32
 from ep_tpu_torch.runtime.profiler import span
 from ep_tpu_torch.utils.pos_embed import interpolate_pos_embed
+
+# RoPE's (sin, cos) of the live patch grid, each (patches, head width) f32
+Rope = Tuple[torch.Tensor, torch.Tensor]
 
 # Pooled-feature names that consume patch tokens only / [CLS]+patch tokens.
 ATTENTIVE_POOLINGS = [
@@ -163,6 +175,9 @@ class ViTConfig:
     # "auto", not the JAX package's "xla", so a config built directly keeps
     # the kernels; MAE's decoder and --attn_impl xla ask for "xla"
     attn_impl: str = "auto"
+    # 2D axial RoPE's base on q and k of the patch tokens (DINOv3: 100);
+    # None: no RoPE. The port's alone: the JAX package has no RoPE
+    rope_base: Optional[float] = None
 
     @property
     def grid_size(self) -> int:
@@ -204,7 +219,7 @@ class ViTConfig:
         of the JAX package's gate (``ep_tpu/models/vit.py:406-409``)."""
         return (self.kernel_attention and self.rel_pos_bias == "none"
                 and self.init_values is None and self.qkv_bias
-                and self.qkv_bias_mode == "full")
+                and self.qkv_bias_mode == "full" and self.rope_base is None)
 
     def replace(self, **kw) -> "ViTConfig":
         return dataclasses.replace(self, **kw)
@@ -224,6 +239,8 @@ def int8_mlp_inactive_reason(c: ViTConfig) -> Optional[str]:
         return "rel-pos-bias backbones take the plain attention path"
     if c.init_values is not None:
         return "LayerScale backbones take the plain attention path"
+    if c.rope_base is not None:
+        return "RoPE backbones take the plain attention path"
     if not (c.qkv_bias and c.qkv_bias_mode == "full"):
         return "qkv_bias mode is not 'full' (supercell needs fused qkv bias)"
     if not c.kernel_attention:
@@ -379,7 +396,7 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, temperature: float = 1.0,
                 rel_bias: Optional[torch.Tensor] = None,
-                return_probs: bool = False):
+                return_probs: bool = False, rope: Optional[Rope] = None):
         B, T, D = x.shape
         heads = None if self.tp is None else self.tp.heads
         H = self.num_heads if heads is None else heads.stop - heads.start
@@ -392,6 +409,11 @@ class Attention(nn.Module):
                 q_bias, v_bias = q_bias[cols], v_bias[cols]
             bias = torch.cat([q_bias, torch.zeros_like(q_bias), v_bias])
             qkv = qkv + bias.to(qkv.dtype)
+        if rope is not None:
+            # every head alike, so a head slice rotates as the whole does
+            with span("ep::rope"):
+                qkv = (rope_qk_ref(qkv, *rope, H) if qkv.requires_grad
+                       else rope_qk(qkv, *rope, H))
         if rel_bias is not None and heads is not None:
             rel_bias = rel_bias[:, heads]
         probs = None
@@ -523,7 +545,8 @@ class Block(nn.Module):
                 else contextlib.nullcontext())
 
     def attn_half(self, x: torch.Tensor, temperature: float = 1.0,
-                  rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  rel_bias: Optional[torch.Tensor] = None,
+                  rope: Optional[Rope] = None) -> torch.Tensor:
         with span("ep::attn_half"):
             if self.supercell:
                 a = self.attn
@@ -532,13 +555,13 @@ class Block(nn.Module):
                                       a.proj.weight, a.proj.bias,
                                       self.num_heads, self.scale, temperature,
                                       self.eps)
-            return self._attn_plain(x, temperature, rel_bias, False)[0]
+            return self._attn_plain(x, temperature, rel_bias, False, rope)[0]
 
-    def _attn_plain(self, x, temperature, rel_bias, return_probs):
+    def _attn_plain(self, x, temperature, rel_bias, return_probs, rope=None):
         """(x + the attention branch after LayerScale, the probabilities or
         None, the branch before LayerScale)."""
         y = self.attn(layer_norm(x, self.norm1), temperature, rel_bias,
-                      return_probs)
+                      return_probs, rope)
         y, probs = y if return_probs else (y, None)
         branch = y
         if self.ls1 is not None:
@@ -562,28 +585,33 @@ class Block(nn.Module):
             return x + m
 
     def whole(self, x: torch.Tensor, temperature: float = 1.0,
-              rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.mlp_half(self.attn_half(x, temperature, rel_bias))
+              rel_bias: Optional[torch.Tensor] = None,
+              rope: Optional[Rope] = None) -> torch.Tensor:
+        return self.mlp_half(self.attn_half(x, temperature, rel_bias, rope))
 
     def capture(self, x: torch.Tensor, temperature: float = 1.0,
-                rel_bias: Optional[torch.Tensor] = None):
+                rel_bias: Optional[torch.Tensor] = None,
+                rope: Optional[Rope] = None):
         """The block on the plain route, with its attention probabilities:
         (x, probs f32 (B, H, T, T), the attention branch before LayerScale,
         where the JAX package measures its magnitude)."""
         with self._tensors():
-            x, probs, branch = self._attn_plain(x, temperature, rel_bias, True)
+            x, probs, branch = self._attn_plain(x, temperature, rel_bias, True,
+                                                rope)
             return self.mlp_half(x, int8=False), probs, branch
 
     def forward(self, x: torch.Tensor, temperature: float = 1.0,
-                rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                rel_bias: Optional[torch.Tensor] = None,
+                rope: Optional[Rope] = None) -> torch.Tensor:
         if self.remat is None or not torch.is_grad_enabled():
             with self._tensors():
-                return self.whole(x, temperature, rel_bias)
+                return self.whole(x, temperature, rel_bias, rope)
         whole_block, context_fn = self.remat
         if whole_block:
-            return checkpoint(self.whole, x, temperature, rel_bias,
+            return checkpoint(self.whole, x, temperature, rel_bias, rope,
                               use_reentrant=False, context_fn=context_fn)
-        return checkpoint(self.mlp_half, self.attn_half(x, temperature, rel_bias),
+        return checkpoint(self.mlp_half,
+                          self.attn_half(x, temperature, rel_bias, rope),
                           use_reentrant=False, context_fn=context_fn)
 
 
@@ -670,6 +698,19 @@ class VisionTransformer(nn.Module):
                      if cfg.final_norm == "ln" else None)
         self.proj = (nn.Parameter(torch.zeros(D, cfg.proj_dim))
                      if cfg.proj_dim else None)
+        self._rope = {}  # (grid_h, grid_w, device) -> (sin, cos)
+
+    def rope_tables(self, grid_h: int, grid_w: int,
+                    device: torch.device) -> Rope:
+        """RoPE's (sin, cos) for a grid_h x grid_w patch grid on ``device``,
+        built once a grid and device (``ops/rope.py::rope_tables``)."""
+        key = (grid_h, grid_w, torch.device(device))
+        if key not in self._rope:
+            c = self.cfg
+            self._rope[key] = rope_tables(grid_h, grid_w,
+                                          c.embed_dim // c.num_heads,
+                                          c.rope_base, device)
+        return self._rope[key]
 
     def keep_blocks(self, n: int) -> None:
         """Drop the blocks past the first ``n`` (and their per-block bias
@@ -695,6 +736,7 @@ class VisionTransformer(nn.Module):
         given."""
         c = self.cfg
         dt = c.dtype
+        grid = (x.shape[1] // c.patch_size, x.shape[2] // c.patch_size)
         x = self.patch_embed(x, dt)
         B, N, D = x.shape
         prefix, regs = [], None
@@ -723,6 +765,13 @@ class VisionTransformer(nn.Module):
 
         ss = shuffle_subsets
         n_pre = c.num_prefix_tokens
+        rope = None
+        if c.rope_base is not None:
+            if ss > 1:
+                raise ValueError("shuffle_subsets > 1 with RoPE: the subsets "
+                                 "lose the patch grid that RoPE's angles "
+                                 "follow")
+            rope = self.rope_tables(*grid, x.device)
         if ss > 1:
             assert N % ss == 0, f"{N=} not divisible by {ss=}"
             assert return_features in ("cls", "pos", "gap")
@@ -759,7 +808,8 @@ class VisionTransformer(nn.Module):
                     if c.rel_pos_bias == "per_block" else rel_bias)
             if capture_stats or (needs_final_attn and i == last_block):
                 x_in = x
-                x, final_probs, branch = blk.capture(x, attn_temperature, bias)
+                x, final_probs, branch = blk.capture(x, attn_temperature, bias,
+                                                     rope)
                 if capture_stats:
                     # ||x|| and ||attention branch|| (models_vit.py:147-150)
                     stats.append(attn_stats_from_probs(final_probs))
@@ -767,7 +817,7 @@ class VisionTransformer(nn.Module):
                         [torch.linalg.vector_norm(t.float(), dim=2)
                          for t in (x_in, branch)])[:, :, None])
             else:
-                x = blk(x, attn_temperature, bias)
+                x = blk(x, attn_temperature, bias, rope)
         ret = self._finish(x, B, N, ss, return_features, final_probs,
                            return_final_attn)
         if not capture_stats:

@@ -1,4 +1,5 @@
-"""Backbone configs of the hub-style families (DINOv2, CAPI, OpenCLIP).
+"""Backbone configs of the hub-style families (DINOv2, DINOv3, CAPI,
+OpenCLIP).
 
 Counterpart of ``ep_tpu/models/wrappers.py``, with the same numbers: each
 family is a ``ViTConfig`` of the one Vision Transformer, whose feature modes
@@ -11,6 +12,11 @@ in ``convert/torch_vit.py``.
     SwiGLU hidden width is DINOv2's (:func:`swiglu_hidden`: 4096 at D=1536,
     where the JAX package keeps 4 * D), and a ``_reg`` tower's position
     embedding has no rows for its registers (``reg_pos_embed=False``).
+  * DINOv3 (the port's alone; the JAX package has no DINOv3): no absolute
+    position embedding, 2D axial RoPE on q and k of the patch tokens
+    (``rope_base``), 4 storage tokens as registers after [CLS], no qkv bias,
+    LayerScale, a SwiGLU FFN at the hub's ``swiglu64`` width, LayerNorm eps
+    1e-5 and a final LayerNorm (:func:`dinov3_config`).
   * CAPI: no [CLS]; ``cls`` is the register mean (``cls_from_registers``).
   * OpenCLIP: ln_pre, ln_post over all tokens, and the visual projection on
     the cls path only (``proj_dim``).
@@ -48,6 +54,27 @@ def dinov2_config(name: str, image_size: int = 224,
         reg_tokens=reg, reg_pos_embed=False,
         mlp_type="swiglu" if swiglu else "gelu", dtype=dtype,
     )
+
+
+def dinov3_config(name: str, image_size: int = 224,
+                  dtype: torch.dtype = torch.bfloat16) -> ViTConfig:
+    """DINOv3 ViT-7B/16, the hub's ``dinov3_vit7b16``
+    (``dinov3/hub/backbones.py``): D=4096, depth 40, 32 heads of 128, patch
+    16, RoPE base 100 (``pos_embed_rope_base``), no qkv bias, LayerScale
+    1e-5, 4 storage tokens, no absolute position embedding, LayerNorm eps
+    1e-5 (``layernormbf16``) and a final LayerNorm. Its ``swiglu64`` FFN at
+    ``ffn_ratio`` 3 is ``int(3 * 4096 * 2 / 3)`` = 8192 wide, rounded up to
+    a multiple of 64, carried as ``mlp_ratio`` 2 so that ``int(embed_dim *
+    mlp_ratio)`` reads it."""
+    if name != "dinov3_vit7b16":
+        raise ValueError(f"unknown DINOv3 model {name} (dinov3_vit7b16)")
+    d = 4096
+    hidden = (int(d * 3 * 2 / 3) + 63) // 64 * 64
+    return ViTConfig(
+        img_size=image_size, patch_size=16, embed_dim=d, depth=40,
+        num_heads=32, mlp_ratio=hidden / d, qkv_bias=False, init_values=1e-5,
+        final_norm="ln", norm_eps=1e-5, reg_tokens=4, use_abs_pos_emb=False,
+        mlp_type="swiglu", rope_base=100.0, dtype=dtype)
 
 
 def capi_config(image_size: int = 224,

@@ -8,7 +8,8 @@ or, beyond the sequence length B holds in registers, kernel F
 by TMA and write it at its column slice by TMA store: no head-split transpose
 and no (B,H,T,T) tensor in device memory. On CPU tensors they are
 :func:`attention_qkv_fused_ref` and :func:`attention_qkv_fused_bwd_ref`.
-Head widths 64 and 80 (ViT-H) are built.
+Head widths 64 and 80 (ViT-H) are built for all three; F also takes 128
+(DINOv3 ViT-7B/16), which B and E are not built for.
 
 B and E are ``wgmma`` designs on the wrappers of ``csrc/hopper.cuh``, with
 persistent blocks of two consumer warpgroups and one TMA producer. B keeps a
@@ -22,10 +23,10 @@ on the H100; what each measured is in ``PERF.md``.
 :func:`attn_route` is the routing of ``attn_fused_pallas.py::_fwd_impl``, by
 shape: the TPU's memory estimates and its XLA fallback past them do not carry
 over, since F takes any T. :func:`bwd_route` routes the backward the same
-way: kernel E up to :data:`BWD_MAX_T`, and past it
-:func:`attention_qkv_fused_bwd_long`, plain torch tiled over query rows, as
-the JAX package leaves that case to XLA (``_bwd_xla``). Kernel E's own entry
-refuses what it cannot hold.
+way: kernel E up to :data:`BWD_MAX_T` at the head widths it is built for,
+and past it, or at any other width, :func:`attention_qkv_fused_bwd_long`,
+plain torch tiled over query rows, as the JAX package leaves that case to
+XLA (``_bwd_xla``). Kernel E's own entry refuses what it cannot hold.
 """
 from __future__ import annotations
 
@@ -37,9 +38,11 @@ import torch
 from . import LAUNCHES, MAX_SMEM, check, use_kernel
 from ._build import call, query, stream_ptr
 from .attention import mm_f32
+from .flash_attn import HEAD_DIMS as FLASH_HEAD_DIMS
 from .flash_attn import attn_flash
 
 CORE_MAX_T = 272  # csrc/attn_core.cu: a tile's rows of logits sit in registers
+CORE_HEAD_DIMS = (64, 80)  # the head widths csrc/attn_core.cu is built for
 # csrc/attn_core_bwd.cu stages q, k, v and dO of one head in shared memory
 BWD_MAX_T = {64: 384, 80: 320}
 BWD_TILE = 128  # query rows a step of attention_qkv_fused_bwd_long
@@ -62,12 +65,14 @@ def attn_route(T: int, head_dim: int, num_heads: int,
     """Which kernel takes a (B, T, 3*H*Dh) qkv tensor: ``"core"`` (kernel B)
     or ``"flash"`` (kernel F).
 
-    F takes the sequences past kernel B's limit. ``variant="rowtile"``
+    F takes the sequences past kernel B's limit, and every sequence at a
+    head width F is built for and B is not (128). ``variant="rowtile"``
     (``EP_TPU_ATTN_VARIANT=rowtile`` in the JAX package, an A/B knob) sends
     the short sequences to F too, but only where the JAX package's head-group
     route applies, a head width that does not divide 128 with the heads a
     multiple of 8 (ViT-H); elsewhere it is ignored, as there."""
-    if T > CORE_MAX_T:
+    if T > CORE_MAX_T or (head_dim in FLASH_HEAD_DIMS
+                          and head_dim not in CORE_HEAD_DIMS):
         return "flash"
     if variant == "rowtile" and 128 % head_dim != 0 and num_heads % 8 == 0:
         return "flash"
@@ -129,12 +134,12 @@ def attention_qkv_fused_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
 
 def bwd_route(T: int, head_dim: int) -> str:
     """Which backward takes a (B, T, 3*H*Dh) qkv tensor: ``"core"`` (kernel
-    E, or its plain version on the CPU) up to :data:`BWD_MAX_T`, else
-    ``"long"`` (:func:`attention_qkv_fused_bwd_long`). By shape alone, on
-    every device; a head width E is not built for takes E's route up to the
-    longest limit, where E raises on the card."""
-    return "core" if T <= BWD_MAX_T.get(head_dim, max(BWD_MAX_T.values())) \
-        else "long"
+    E, or its plain version on the CPU) up to :data:`BWD_MAX_T` at the head
+    widths E is built for, else ``"long"``
+    (:func:`attention_qkv_fused_bwd_long`): past that limit, and at every T
+    for a head width E is not built for (DINOv3's 128). By shape alone, on
+    every device."""
+    return "core" if T <= BWD_MAX_T.get(head_dim, 0) else "long"
 
 
 def attention_backward(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,

@@ -5,7 +5,7 @@ its time beside its bound, its plain version and the library.
     python3 scripts/torch_hopper_gemm_check.py [--no-time]
                                [--only gemm cell fc1 fc2 half flash core bwd
                                        pool lnq proj ln1 swiglu fc1_gelu lars
-                                       backbone]
+                                       rope backbone]
                                [--root DIR]
 
 Builds ep_tpu_torch/csrc and prints ptxas' lines for the wgmma kernels
@@ -16,7 +16,8 @@ tests/test_torch_cuda.py's; chip_smoke.py runs these checks too): kernels A
 forward and gradients (A, B, C, E, LN1's gradient); the int8 fc1 (codes and
 scales equal bit for bit), fc2 (equal bit for bit in its tier's bias order)
 and the whole int8 half in the tier ops/mlp_int8.py::plan gives it; the
-attention kernels F (attn_flash), B (attn_core) and E (attn_core_bwd,
+attention kernels F (attn_flash; at head width 128 too), B (attn_core) and
+E (attn_core_bwd,
 twice, equal bit for bit) and the tiled backward past E's limit; kernel D
 (ep_pool) and the int8 ln_quant, twice, equal bit for bit; kernel G
 (ep_pool_proj), D and G also at 128 queries;
@@ -24,7 +25,9 @@ LN1's gradient (ln1_apply, ln1_bwd) at fine-tuning's ViT-B/16 and ViT-H/14
 shapes; SwiGLU's gate at DINOv2-g/14's probe shape; fc1 with its GELU in
 cuBLASLt's epilogue (fc1_gelu_epilogue, a route and not a kernel) at the
 probe cells' MLP shapes, beside F.linear + F.gelu; LARS's kernel pair over
-ViT-B/16's fine-tuning leaves and the gradient norm; and the backbone
+ViT-B/16's fine-tuning leaves and the gradient norm; the RoPE pass at
+DINOv3 ViT-7B/16's 448-px shape (equal bit for bit to its plain chain),
+beside the chain; and the backbone
 family's shapes (B at T=261 and 272, D at DINOv2-L's and DINOv2-g's). Each
 is timed beside its bound (benchmark/peaks.py's bound_s, at the
 H100's int8 rate for the int8 products and its f32 rate for elementwise
@@ -69,7 +72,8 @@ ATOL = RTOL = 1e-2
 # element count and has a floor of a few elements.
 STEP, STEP_SHARE, STEP_FLOOR = 2.0 ** -7, 1e-5, 4
 GROUPS = ("gemm", "cell", "fc1", "fc2", "half", "flash", "core", "bwd", "pool",
-          "lnq", "proj", "ln1", "swiglu", "fc1_gelu", "lars", "backbone")
+          "lnq", "proj", "ln1", "swiglu", "fc1_gelu", "lars", "rope",
+          "backbone")
 # kernel B at the paths' shapes, and at the backbone family's: DINOv2-L's
 # T = 1 + 4 registers + 256 and CAPI's 16 registers + 256 (B's last key bin)
 CORE_SHAPES = ((512, 197, 12, 64), (128, 256, 16, 80), (128, 257, 16, 80))
@@ -188,7 +192,7 @@ def run(only=GROUPS, timed=True) -> bool:
                   bwd=check_bwd, pool=lambda r, t: check_pool(r, t, POOL_SHAPES),
                   lnq=check_ln_quant, proj=check_proj, ln1=check_ln1,
                   swiglu=check_swiglu, fc1_gelu=check_fc1_gelu,
-                  lars=check_lars, backbone=check_backbone)
+                  lars=check_lars, rope=check_rope, backbone=check_backbone)
     for group in GROUPS:
         if group in only:
             checks[group](rng, timed)
@@ -461,12 +465,14 @@ def check_half(rng, timed) -> None:
 def check_flash(rng, timed) -> None:
     """Kernel F against kernel B's plain version at temperature 1.5 (with the
     bound on the elements past one bf16 step), timed beside SDPA and its
-    bound at the paths' shapes (448 px's, and the row-tiled ViT-H at 224)."""
+    bound at the paths' shapes (448 px's, the row-tiled ViT-H at 224, and
+    DINOv3 ViT-7B/16's head width 128 at 448 px and at a short T)."""
     from ep_tpu_torch.ops.attn_fused import attention_qkv_fused_ref
     from ep_tpu_torch.ops.flash_attn import attn_flash
     print("F attn_flash")
     for b, t, h, dh in ((64, 1025, 16, 80), (64, 785, 12, 64),
-                        (128, 257, 16, 80)):
+                        (128, 257, 16, 80), (8, 789, 32, 128),
+                        (2, 201, 32, 128)):
         qkv = rand(rng, (b, t, 3 * h * dh))
         sc = dh ** -0.5
         row = close("attn_flash", (b, t, h, dh), attn_flash(qkv, h, sc, 1.5),
@@ -797,6 +803,40 @@ def check_swiglu(_, timed) -> None:
               f"ms ({by}, {bnd / tk:.0%}); the plain chain "
               f"{row['plain_ms']:.3f} ms", flush=True)
     del x12
+    torch.cuda.empty_cache()
+
+
+def check_rope(_, timed) -> None:
+    """The RoPE pass at DINOv3 ViT-7B/16's 448-px probe shape (8 images of
+    [CLS], 4 storage tokens and 784 patches, 32 heads of 128) against its
+    plain chain (equal bit for bit), twice (equal bit for bit), and timed
+    beside its bound (benchmark/rope_bytes.py's bytes) and the chain."""
+    from ep_tpu_torch.ops.rope import rope_qk, rope_qk_ref, rope_tables
+    print("rope_qk (twice, equal)")
+    b, prefix, grid, h, dh = 8, 5, 28, 32, 128
+    sin, cos = rope_tables(grid, grid, dh, 100.0, "cuda")
+    qkv = rand(np.random.default_rng(26), (b, prefix + grid * grid,
+                                           3 * h * dh), 2.0)
+    want = rope_qk_ref(qkv, sin, cos, h)
+    got = rope_qk(qkv.clone(), sin, cos, h)
+    row = check("rope_qk", (b, prefix + grid * grid, h, dh),
+                bool(torch.equal(got, want)) and bool(torch.equal(
+                    got, rope_qk(qkv.clone(), sin, cos, h))),
+                "equal bit for bit to the chain, repeat equal",
+                max_abs_err=float((got.float() - want.float()).abs().max()))
+    del got, want
+    if timed:
+        work = qkv.clone()
+        tk = time_ms(lambda: rope_qk(work, sin, cos, h))  # rotates in place
+        moved = 2 * 2 * b * grid * grid * 2 * h * dh + nbytes(sin, cos)
+        bnd, by = bound_ms(0, moved)
+        row.update(ms=tk, bound_ms=bnd, plain_ms=time_ms(
+            lambda: rope_qk_ref(qkv, sin, cos, h), 3))
+        print(f"  time: rope_qk ({b}, {prefix}+{grid * grid}, {h}x{dh}) "
+              f"{tk:.4f} ms, bound {bnd:.4f} ms ({by}, {bnd / tk:.0%}); the "
+              f"plain chain {row['plain_ms']:.3f} ms", flush=True)
+        del work
+    del qkv
     torch.cuda.empty_cache()
 
 

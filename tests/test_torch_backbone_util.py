@@ -50,7 +50,7 @@ DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TINY = dict(img_size=IMG, patch_size=PATCH, embed_dim=D, depth=DEPTH,
             num_heads=HEADS)
-PORT_ONLY = ("reg_pos_embed",)  # the port's config fields flax's lacks
+PORT_ONLY = ("reg_pos_embed", "rope_base")  # the port's config fields flax's lacks
 
 
 def flax_cfg(dtype="float32", **kw) -> FlaxViTConfig:

@@ -82,15 +82,20 @@ def test_attn_core(dev, B, T, H, Dh):
     (1, 2049, 1, 64), (3, 70, 2, 64), (2, 130, 8, 80)] + [
         (2, t, 2, dh) for dh in (64, 80)
         for t in (1, 63, 65, 129, 257, 785, 1025)] + [
-    (9, 70, 16, 80), (12, 33, 12, 64)])
+    (9, 70, 16, 80), (12, 33, 12, 64)] + [
+    (8, 789, 32, 128), (2, 201, 32, 128)] + [
+        (2, t, 2, 128) for t in (1, 63, 65, 128, 129, 130, 257, 789)] + [
+    (9, 70, 16, 128)])
 def test_attn_flash(dev, B, T, H, Dh):
     """Kernel F at the slice's shapes (T=1025 and 785 at 448 px, T=257 for the
-    row-tiled variant), at the edges of its tiles at both head widths (a
-    single key; one key tile narrowed to 16, 32 or 64 columns; a query tile
-    whose second warpgroup has no row or one row) and with more (image, head)
-    pairs than the card has SMs, so that its persistent blocks take several
-    items, against the plain version that kernel B is held to, with the
-    bound on the elements past one bf16 step."""
+    row-tiled variant; DINOv3 ViT-7B/16's (8, 789, 32x128) at 448 px and a
+    short (2, 201, 32x128)), at the edges of its tiles at every head width
+    (a single key; one key tile narrowed to 16, 32 or 64 columns; a query
+    tile whose second warpgroup has no row or one row; at width 128 tiles of
+    128 query rows over two warpgroups) and with more (image, head) pairs
+    than the card has SMs, so that its persistent blocks take several items,
+    against the plain version that kernel B is held to, with the bound on
+    the elements past one bf16 step."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.attn_fused import attention_qkv_fused_ref
     from ep_tpu_torch.ops.flash_attn import attn_flash
@@ -105,13 +110,14 @@ def test_attn_flash(dev, B, T, H, Dh):
     (272, 2, 80, None, "attn_core"), (273, 2, 80, None, "attn_flash"),
     (273, 2, 64, None, "attn_flash"), (1025, 2, 64, None, "attn_flash"),
     (4100, 1, 80, None, "attn_flash"), (257, 16, 80, "rowtile", "attn_flash"),
-    (197, 12, 64, "rowtile", "attn_core"), (257, 16, 80, "env", "attn_flash")])
+    (197, 12, 64, "rowtile", "attn_core"), (257, 16, 80, "env", "attn_flash"),
+    (201, 4, 128, None, "attn_flash"), (21, 2, 128, None, "attn_flash")])
 def test_attention_core_takes_b_or_f_for_every_t(dev, monkeypatch, T, H, Dh,
                                                  variant, kernel):
     """On a CUDA tensor ``attention_core`` raises for no T at head widths 64
     and 80: kernel B up to its limit, kernel F beyond, and F at the short
     ViT-H shape with the row-tiled variant (given, or read from the
-    environment)."""
+    environment); at head width 128 F at every T."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.attn_fused import (attention_core,
                                              attention_qkv_fused_ref)
@@ -124,6 +130,83 @@ def test_attention_core_takes_b_or_f_for_every_t(dev, monkeypatch, T, H, Dh,
     assert dict(LAUNCHES) == _counts(**{kernel: 1})
     torch.testing.assert_close(
         out, attention_qkv_fused_ref(qkv, H, Dh ** -0.5, 1.0), **TOL)
+
+
+@pytest.mark.parametrize("B, N, prefix, H, Dh", [
+    (8, 784, 5, 32, 128), (3, 16, 5, 2, 64), (2, 16, 1, 3, 16), (1, 9, 0, 1, 32),
+    (5, 1, 2, 4, 128)])
+def test_rope_qk(dev, B, N, prefix, H, Dh):
+    """The RoPE pass in place against its plain chain, bit for bit (both
+    round x * cos and x' * sin in f32, then their sum, then once to bf16),
+    at DINOv3 ViT-7B/16's 448-px shape (784 patches after [CLS] and 4
+    storage tokens, 32 heads of 128), small ragged ones, no prefix and a
+    single patch; the prefix rows and v untouched; twice, bit for bit."""
+    import math
+
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.rope import rope_qk, rope_qk_ref, rope_tables
+    side = math.isqrt(N)
+    grid = (side, N // side)
+    sin, cos = rope_tables(*grid, Dh, 100.0, dev)
+    qkv = _rand((B, prefix + N, 3 * H * Dh), dev, 2.0, seed=90)
+    want = rope_qk_ref(qkv, sin, cos, H)
+    reset_launches()
+    got = rope_qk(qkv.clone(), sin, cos, H)
+    assert dict(LAUNCHES) == _counts(rope_qk=1)
+    assert torch.equal(got, want)
+    assert torch.equal(rope_qk(qkv.clone(), sin, cos, H), got)
+    assert torch.equal(got[:, :prefix], qkv[:, :prefix])
+    assert torch.equal(got[..., 2 * H * Dh:], qkv[..., 2 * H * Dh:])
+    x = qkv.clone()
+    assert rope_qk(x, sin, cos, H).data_ptr() == x.data_ptr()  # in place
+
+
+def test_rope_qk_refuses_what_it_cannot_take(dev):
+    from ep_tpu_torch.ops.rope import rope_qk, rope_tables
+    sin, cos = rope_tables(2, 2, 24, 100.0, dev)
+    with pytest.raises(NotImplementedError, match="Dh % 16"):
+        rope_qk(_rand((1, 5, 3 * 24), dev), sin, cos, 1)
+    sin, cos = rope_tables(2, 2, 32, 100.0, dev)
+    with pytest.raises(TypeError):
+        rope_qk(_rand((1, 5, 3 * 32), dev, dtype=torch.float32), sin, cos, 1)
+
+
+def test_dinov3_blocks_on_the_card(dev):
+    """A 2-block DINOv3 at head width 128 and 448 px (T=789): every block
+    takes RoPE's kernel, F and the SwiGLU gate without a gradient, and its
+    logits agree with the CPU's plain versions from the same weights; with a
+    gradient RoPE is the chain and the backward the tiled one."""
+    from ep_tpu_torch.configs import TrainConfig
+    from ep_tpu_torch.models.assembly import (build_backbone_config,
+                                              init_probe_model)
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.train.state import cast_frozen, freeze
+    cfg = TrainConfig(model="dinov3_vit7b16", cls_features="ep",
+                      ep_queries=32, nb_classes=10, image_size=448,
+                      amp="bfloat16")
+    bcfg = build_backbone_config(cfg).replace(embed_dim=512, depth=2,
+                                              num_heads=4)
+    x = _rand((2, 448, 448, 3), dev, seed=91)
+    outs = {}
+    for where in ("cpu", dev):
+        model = init_probe_model(cfg, 0, bcfg, device=where)
+        freeze(model, False)
+        cast_frozen(model, torch.bfloat16)
+        model.eval()
+        reset_launches()
+        with torch.no_grad():
+            outs[str(where)] = model(x.to(where)).float().cpu()
+    assert dict(LAUNCHES) == _counts(rope_qk=2, attn_flash=2, swiglu_gate=2,
+                                     ep_pool=1)
+    ref = outs["cpu"]
+    torch.testing.assert_close(outs[str(dev)], ref, rtol=0.05,
+                               atol=0.05 * float(ref.abs().max()))
+    ft = init_probe_model(cfg.replace(finetuning=True), 0, bcfg, device=dev)
+    reset_launches()
+    ft(x).float().sum().backward()
+    assert LAUNCHES["rope_qk"] == 0 and LAUNCHES["attn_flash"] == 2
+    assert LAUNCHES["attn_bwd_long"] == 2
+    assert ft.backbone.blocks[0].attn.qkv.weight.grad is not None
 
 
 def test_flash_attention_on_split_heads(dev):

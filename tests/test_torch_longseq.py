@@ -191,6 +191,9 @@ def test_rowtile_route_matches_jax(dtype, T):
     (CORE_MAX_T, 80, 16, None, "core"),
     (CORE_MAX_T + 1, 64, 12, None, "flash"),
     (4097, 64, 12, None, "flash"),  # no T falls back
+    # head width 128 (DINOv3): F at every T, B is not built for it
+    (789, 128, 32, None, "flash"), (201, 128, 32, None, "flash"),
+    (5, 128, 1, "rowtile", "flash"),
 ])
 def test_attn_route(T, Dh, H, variant, route):
     assert attn_route(T, Dh, H, variant) == route
@@ -251,8 +254,12 @@ def test_attention_bwd_long_matches_bwd_xla(dtype, T, Dh, temperature):
 
 @pytest.mark.parametrize("T, Dh, route", [
     (384, 64, "core"), (385, 64, "long"), (320, 80, "core"), (321, 80, "long"),
-    (1025, 80, "long"), (5, 32, "core"), (385, 32, "long")])
+    (1025, 80, "long"), (5, 32, "long"), (385, 32, "long"), (5, 128, "long"),
+    (789, 128, "long")])
 def test_bwd_route(T, Dh, route):
+    """Kernel E up to its limit at the head widths it is built for (64,
+    80); every other width takes the tiled backward at every T, where E
+    would raise on the card."""
     assert bwd_route(T, Dh) == route
 
 
