@@ -214,7 +214,10 @@ Every launch check also counts fc1_gelu_epilogue (ops/fc1_gelu.py: fc1
 with its GELU in cuBLASLt's epilogue, a route and not a kernel) once for
 each bf16 GELU MLP run without a gradient: frozen encoders, extraction and
 evaluation forwards, captured blocks, MAE's decoder; never in fine-tuning,
-the int8 half, QuickGELU, SwiGLU or a block cut over a model axis.
+the int8 half, QuickGELU, SwiGLU or a block cut over a model axis. Each
+also counts ls_residual (ops/layerscale.py: LayerScale and the residual as
+one pass) twice for each bf16 LayerScale block run without a gradient
+(DINOv2, DINOv3, SimMIM; cut blocks included); never in fine-tuning.
 
 The zoo's per-head table (train step ms and img/s, head-only step ms, img/s
 and device busy ms) follows its phase. Before the last line come the whole
@@ -377,6 +380,13 @@ def fc1_gelu(blocks: int) -> dict:
     """The launches of ``blocks`` bf16 GELU MLPs run without a gradient on
     the card: fc1 with its GELU in cuBLASLt's epilogue (ops/fc1_gelu.py)."""
     return dict(fc1_gelu_epilogue=blocks)
+
+
+def ls_closings(blocks: int) -> dict:
+    """The launches of ``blocks`` bf16 LayerScale blocks run without a
+    gradient on the card: LayerScale and the residual as one pass
+    (ops/layerscale.py), twice a block."""
+    return dict(ls_residual=2 * blocks)
 
 
 def train(kind: str, B: int, steps: int, card: str):
@@ -1880,7 +1890,7 @@ def ddp_gloo_2(card: str, paths: dict, train_loss) -> dict:
 # runs A, B, C and fc1's GELU epilogue as one process does.
 TP_RUNS = {
     "a": (dict(model="dinov2_vitg14"), 16, 3,
-          dict(ep_pool=1, lars_norms=1, lars_apply=1)),
+          dict(ep_pool=1, lars_norms=1, lars_apply=1, **ls_closings(40))),
     "b": (dict(model="vit_base_patch16", attn_impl="pallas"), 128, 2,
           dict(ln_qkv_gemm=12, attn_core=12, proj_residual_gemm=12,
                ep_pool=1, lars_norms=1, lars_apply=1, **fc1_gelu(12))),
@@ -2142,20 +2152,22 @@ def grain_phase(card: str, paths: dict) -> dict:
 _DINOV2_L = dict(model="dinov2_vitl14_reg")
 BACKBONE_CONFIGS = {
     "probe-dinov2-l": (512, _DINOV2_L, dict(attn_core=24, ep_pool=1,
-                                            **fc1_gelu(24))),
+                                            **fc1_gelu(24), **ls_closings(24))),
     "probe-dinov2-g": (64, dict(model="dinov2_vitg14_reg"),
-                       dict(attn_core=40, swiglu_gate=40, ep_pool=1)),
+                       dict(attn_core=40, swiglu_gate=40, ep_pool=1,
+                            **ls_closings(40))),
     "probe-dinov3-7b": (8, dict(model="dinov3_vit7b16", image_size=448,
                                 return_block=1),
                         dict(rope_qk=2, attn_flash=2, swiglu_gate=2,
-                             ep_pool=1)),
+                             ep_pool=1, **ls_closings(2))),
     "probe-capi": (512, dict(model="capi_vitl14"),
                    dict(ln_qkv_gemm=24, attn_core=24, proj_residual_gemm=24,
                         ep_pool=1, **fc1_gelu(24))),
     "probe-clip-b": (512, dict(model="ViT-B-16", openclip=True,
                                cls_features="cls"),
                      dict(ln_qkv_gemm=12, attn_core=12, proj_residual_gemm=12)),
-    "probe-simmim": (512, dict(simmim=True), dict(ep_pool=1, **fc1_gelu(12))),
+    "probe-simmim": (512, dict(simmim=True), dict(ep_pool=1, **fc1_gelu(12),
+                                                  **ls_closings(12))),
     "probe-mae-l": (512, dict(model="mae_vit_large_patch16"),
                     dict(ln_qkv_gemm=24, attn_core=24, proj_residual_gemm=24,
                          ep_pool=1, **fc1_gelu(24))),
@@ -2343,7 +2355,7 @@ def driver_backbones(card: str, paths: dict) -> list[dict]:
             f"dinov2_vitb14_reg, EP-32, batch 128, the fake dataset, on {card}")
         res = run("driver-dinov2", tmp / "dinov2", model="dinov2_vitb14_reg")
         expect("driver-dinov2", per_epoch, DRIVER_STEPS, attn_core=12,
-               ep_pool=1, **fc1_gelu(12))
+               ep_pool=1, **fc1_gelu(12), **ls_closings(12))
         if not math.isfinite(res["loss"]):
             raise RuntimeError(f"driver-dinov2: {res}")
         log(f"  one epoch: {res}")
@@ -2362,7 +2374,7 @@ def driver_backbones(card: str, paths: dict) -> list[dict]:
         run("driver-dinov2-finetune", tmp / "dinov2-ft", model="dinov2_vitb14_reg",
             finetune=str(pth), eval=True)
         expect("driver-dinov2-finetune", DRIVER_EVAL_BATCHES, attn_core=12,
-               ep_pool=1, **fc1_gelu(12))
+               ep_pool=1, **fc1_gelu(12), **ls_closings(12))
         cast_frozen(source, torch.bfloat16)
         with torch.no_grad():
             got, ref = built[0].eval()(images), source.eval()(images)

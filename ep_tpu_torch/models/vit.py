@@ -35,7 +35,10 @@ card that needs no gradient and is not cut computes fc1, its bias and the
 tanh GELU as one library product with the activation in its epilogue
 (``ops/fc1_gelu.py``). SwiGLU's gate is
 ``ops/swiglu.py::swiglu_gate`` (one kernel on the card) where no gradient
-is needed and the block is whole, the plain chain otherwise.
+is needed and the block is whole, the plain chain otherwise. In a
+LayerScale block, LayerScale and the residual that close each half are one
+pass (``ops/layerscale.py``) on bf16 card tensors that need no gradient,
+bit for bit the chain that every other call runs.
 
 With ``rope_base`` set (DINOv3), the blocks rotate q and k of the patch
 tokens by 2D axial RoPE (``ops/rope.py``) on the plain attention route,
@@ -110,6 +113,8 @@ from ep_tpu_torch.ops.attention import (attn_stats_from_probs, mha, mm_f32,
 from ep_tpu_torch.ops.attn_block import attn_supercell
 from ep_tpu_torch.ops.attn_fused import attention_qkv_fused
 from ep_tpu_torch.ops.fc1_gelu import fc1_gelu, takes_gelu_epilogue
+from ep_tpu_torch.ops.layerscale import (ls_residual, ls_residual_ref,
+                                         takes_ls_kernel)
 from ep_tpu_torch.ops.mlp_int8 import mlp_int8_fused
 from ep_tpu_torch.ops.rope import rope_qk, rope_qk_ref, rope_tables
 from ep_tpu_torch.ops.swiglu import swiglu_gate, swiglu_gate_ref
@@ -437,14 +442,20 @@ class Attention(nn.Module):
 
 
 class LayerScale(nn.Module):
-    """``x * gamma`` in x's dtype (``ep_tpu/models/vit.py::LayerScale``)."""
+    """The residual closing a block's half: ``x + y * gamma``, the product in
+    y's dtype (``ep_tpu/models/vit.py::LayerScale`` on the branch y, then the
+    add). One pass of ``ops/layerscale.py``'s kernel where
+    ``takes_ls_kernel`` says (bf16 on the card, no gradient needed), bit for
+    bit the chain, which every other call runs."""
 
     def __init__(self, dim: int, init_values: float):
         super().__init__()
         self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.gamma.to(x.dtype)
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        if takes_ls_kernel(x, y, self.gamma):
+            return ls_residual(x, y, self.gamma)
+        return ls_residual_ref(x, y, self.gamma)
 
 
 class Mlp(nn.Module):
@@ -563,10 +574,9 @@ class Block(nn.Module):
         y = self.attn(layer_norm(x, self.norm1), temperature, rel_bias,
                       return_probs, rope)
         y, probs = y if return_probs else (y, None)
-        branch = y
         if self.ls1 is not None:
-            y = self.ls1(y)
-        return x + y, probs, branch
+            return self.ls1(x, y), probs, y
+        return x + y, probs, y
 
     def mlp_half(self, x: torch.Tensor, int8: bool = True) -> torch.Tensor:
         """LN2, the MLP, LayerScale and the residual; the int8 half where the
@@ -581,7 +591,7 @@ class Block(nn.Module):
                                       n2.bias, self.eps)
             m = self.mlp(layer_norm(x, n2))
             if self.ls2 is not None:
-                m = self.ls2(m)
+                return self.ls2(x, m)
             return x + m
 
     def whole(self, x: torch.Tensor, temperature: float = 1.0,

@@ -40,6 +40,7 @@ LAUNCHES: dict[str, int] = {
     "lars_norms": 0,
     "lars_apply": 0,
     "rope_qk": 0,
+    "ls_residual": 0,
     # not a kernel: the plain-torch attention backward past kernel E's limit
     # (ops/attn_fused.py::attention_backward), counted on the card to show
     # which backward a path took

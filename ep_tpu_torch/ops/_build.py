@@ -59,6 +59,7 @@ SIGNATURES = {
     "ep_lars_norms": [_P, _P, _P, _P, _I, _I, _P],
     "ep_lars_apply": [_P, _P, _P, _P, _I, _I, _F, _P],
     "ep_rope_qk": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ep_ls_residual": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -5,7 +5,7 @@ its time beside its bound, its plain version and the library.
     python3 scripts/torch_hopper_gemm_check.py [--no-time]
                                [--only gemm cell fc1 fc2 half flash core bwd
                                        pool lnq proj ln1 swiglu fc1_gelu lars
-                                       rope backbone]
+                                       rope ls backbone]
                                [--root DIR]
 
 Builds ep_tpu_torch/csrc and prints ptxas' lines for the wgmma kernels
@@ -27,7 +27,9 @@ cuBLASLt's epilogue (fc1_gelu_epilogue, a route and not a kernel) at the
 probe cells' MLP shapes, beside F.linear + F.gelu; LARS's kernel pair over
 ViT-B/16's fine-tuning leaves and the gradient norm; the RoPE pass at
 DINOv3 ViT-7B/16's 448-px shape (equal bit for bit to its plain chain),
-beside the chain; and the backbone
+beside the chain; LayerScale and the residual as one pass at the DINOv2-g
+and DINOv3 probe cells' shapes (equal bit for bit to the chain), beside the
+chain; and the backbone
 family's shapes (B at T=261 and 272, D at DINOv2-L's and DINOv2-g's). Each
 is timed beside its bound (benchmark/peaks.py's bound_s, at the
 H100's int8 rate for the int8 products and its f32 rate for elementwise
@@ -72,7 +74,7 @@ ATOL = RTOL = 1e-2
 # element count and has a floor of a few elements.
 STEP, STEP_SHARE, STEP_FLOOR = 2.0 ** -7, 1e-5, 4
 GROUPS = ("gemm", "cell", "fc1", "fc2", "half", "flash", "core", "bwd", "pool",
-          "lnq", "proj", "ln1", "swiglu", "fc1_gelu", "lars", "rope",
+          "lnq", "proj", "ln1", "swiglu", "fc1_gelu", "lars", "rope", "ls",
           "backbone")
 # kernel B at the paths' shapes, and at the backbone family's: DINOv2-L's
 # T = 1 + 4 registers + 256 and CAPI's 16 registers + 256 (B's last key bin)
@@ -126,6 +128,30 @@ def time_ms(fn, iters=10):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def graph_ms(fn, iters=20, replays=5):
+    """Device ms a call of ``fn``, its ``iters`` calls captured in one CUDA
+    graph and replayed: for a kernel shorter than its launch's host time,
+    which time_ms would measure instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (iters * replays)
 
 
 def steps_past(out, ref) -> tuple[int, int]:
@@ -192,7 +218,8 @@ def run(only=GROUPS, timed=True) -> bool:
                   bwd=check_bwd, pool=lambda r, t: check_pool(r, t, POOL_SHAPES),
                   lnq=check_ln_quant, proj=check_proj, ln1=check_ln1,
                   swiglu=check_swiglu, fc1_gelu=check_fc1_gelu,
-                  lars=check_lars, rope=check_rope, backbone=check_backbone)
+                  lars=check_lars, rope=check_rope, ls=check_ls,
+                  backbone=check_backbone)
     for group in GROUPS:
         if group in only:
             checks[group](rng, timed)
@@ -837,6 +864,43 @@ def check_rope(_, timed) -> None:
               f"plain chain {row['plain_ms']:.3f} ms", flush=True)
         del work
     del qkv
+    torch.cuda.empty_cache()
+
+
+# LayerScale's closings (rows, D): DINOv2-g/14 at batch 128 (261 tokens) and
+# DINOv3 ViT-7B/16 at 448 px and batch 8 (789 tokens)
+LS_SHAPES = ((128 * 261, 1536), (8 * 789, 4096))
+
+
+def check_ls(_, timed) -> None:
+    """LayerScale and the residual as one pass (ops/layerscale.py) at the
+    LayerScale probe cells' shapes, gamma stored in bf16 as a frozen encoder
+    holds it, against the chain (equal bit for bit), twice (equal bit for
+    bit), and timed beside its bound (x and y read, out written, bf16) and
+    the chain, both from CUDA graphs (a call's host time is longer than the
+    kernel's)."""
+    from ep_tpu_torch.ops.layerscale import ls_residual, ls_residual_ref
+    print("ls_residual (twice, equal)")
+    for m, d in LS_SHAPES:
+        r = np.random.default_rng(28)
+        x, y = rand(r, (m, d), 4.0), rand(r, (m, d), 4.0)
+        gamma = (1.0 + rand(r, (d,), 0.05, torch.float32)).bfloat16()
+        got = ls_residual(x, y, gamma)
+        want = ls_residual_ref(x, y, gamma)
+        row = check("ls_residual", (m, d), bool(torch.equal(got, want)) and bool(
+            torch.equal(got, ls_residual(x, y, gamma))),
+            "equal bit for bit to the chain, repeat equal",
+            max_abs_err=float((got.float() - want.float()).abs().max()))
+        del got, want
+        if timed:
+            tk = graph_ms(lambda: ls_residual(x, y, gamma))
+            bnd, by = bound_ms(0, 3 * nbytes(x))
+            row.update(ms=tk, bound_ms=bnd, plain_ms=graph_ms(
+                lambda: ls_residual_ref(x, y, gamma)))
+            print(f"  time: ls_residual ({m}, {d}) {tk:.4f} ms, bound "
+                  f"{bnd:.4f} ms ({by}, {bnd / tk:.0%}); the chain "
+                  f"{row['plain_ms']:.4f} ms", flush=True)
+        del x, y
     torch.cuda.empty_cache()
 
 

@@ -173,9 +173,10 @@ def test_rope_qk_refuses_what_it_cannot_take(dev):
 
 def test_dinov3_blocks_on_the_card(dev):
     """A 2-block DINOv3 at head width 128 and 448 px (T=789): every block
-    takes RoPE's kernel, F and the SwiGLU gate without a gradient, and its
-    logits agree with the CPU's plain versions from the same weights; with a
-    gradient RoPE is the chain and the backward the tiled one."""
+    takes RoPE's kernel, F, the SwiGLU gate and the LayerScale closing of
+    both halves without a gradient, and its logits agree with the CPU's
+    plain versions from the same weights; with a gradient RoPE and the
+    closings are the chains and the backward the tiled one."""
     from ep_tpu_torch.configs import TrainConfig
     from ep_tpu_torch.models.assembly import (build_backbone_config,
                                               init_probe_model)
@@ -197,7 +198,7 @@ def test_dinov3_blocks_on_the_card(dev):
         with torch.no_grad():
             outs[str(where)] = model(x.to(where)).float().cpu()
     assert dict(LAUNCHES) == _counts(rope_qk=2, attn_flash=2, swiglu_gate=2,
-                                     ep_pool=1)
+                                     ls_residual=4, ep_pool=1)
     ref = outs["cpu"]
     torch.testing.assert_close(outs[str(dev)], ref, rtol=0.05,
                                atol=0.05 * float(ref.abs().max()))
@@ -205,7 +206,7 @@ def test_dinov3_blocks_on_the_card(dev):
     reset_launches()
     ft(x).float().sum().backward()
     assert LAUNCHES["rope_qk"] == 0 and LAUNCHES["attn_flash"] == 2
-    assert LAUNCHES["attn_bwd_long"] == 2
+    assert LAUNCHES["attn_bwd_long"] == 2 and LAUNCHES["ls_residual"] == 0
     assert ft.backbone.blocks[0].attn.qkv.weight.grad is not None
 
 
@@ -412,6 +413,84 @@ def test_swiglu_mlp_takes_the_kernel_without_a_gradient(dev):
     assert dict(LAUNCHES) == _counts(swiglu_gate=1)
     mlp(x).float().sum().backward()
     assert LAUNCHES["swiglu_gate"] == 1 and mlp.w12.weight.grad is not None
+
+
+@pytest.mark.parametrize("shape, gamma_dtype", [
+    ((128 * 261, 1536), torch.bfloat16), ((8 * 789, 4096), torch.bfloat16),
+    ((128 * 261, 1536), torch.float32), ((8 * 789, 4096), torch.float32),
+    ((1000, 1536), torch.bfloat16), ((3, 1536), torch.float32),
+    ((13, 8), torch.bfloat16), ((5, 1032), torch.float32),
+    ((77, 2056), torch.bfloat16), ((9, 4088), torch.float32),
+    ((2, 5, 4096), torch.bfloat16)])
+def test_ls_residual(dev, shape, gamma_dtype):
+    """LayerScale and the residual as one pass against the chain, bit for
+    bit: at DINOv2-g/14's (128 images of 261 tokens, D=1536) and DINOv3
+    ViT-7B/16's (8 of 789, D=4096) probe shapes with the stored bf16 gamma
+    and an f32 one (rounded in the kernel), at ragged row counts, one vector
+    a row (several rows a block), rows with idle threads (D=1032, 2056,
+    4088) and 3-d input; twice, bit for bit; one launch; y left as it
+    was."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.layerscale import ls_residual, ls_residual_ref
+    x = _rand(shape, dev, 4.0, seed=83)
+    y = _rand(shape, dev, 4.0, seed=84)
+    gamma = (1.0 + _rand(shape[-1:], dev, 0.05, torch.float32, seed=85)).to(
+        gamma_dtype)
+    y0 = y.clone()
+    reset_launches()
+    got = ls_residual(x, y, gamma)
+    assert dict(LAUNCHES) == _counts(ls_residual=1)
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, ls_residual_ref(x, y, gamma))
+    assert torch.equal(got, ls_residual(x, y, gamma))
+    assert torch.equal(y, y0)
+
+
+def test_ls_residual_refuses_what_it_cannot_take(dev):
+    from ep_tpu_torch.ops.layerscale import ls_residual
+    g = torch.ones(16, device=dev)
+    with pytest.raises(NotImplementedError, match="D % 8"):
+        ls_residual(_rand((4, 12), dev), _rand((4, 12), dev), g[:12])
+    with pytest.raises(TypeError):
+        ls_residual(_rand((4, 16), dev, dtype=torch.float32),
+                    _rand((4, 16), dev), g)
+    with pytest.raises(ValueError, match="contiguous"):
+        ls_residual(_rand((16, 16), dev), _rand((16, 16), dev).t(), g)
+
+
+def test_layerscale_block_takes_the_kernel_only_without_a_gradient(
+        dev, monkeypatch):
+    """A bf16 DINOv2-style block (LayerScale, SwiGLU) on the card under
+    ``no_grad`` closes both halves with the kernel, bit for bit the chain;
+    with an input that needs a gradient it keeps the chain, and the input's
+    and the gammas' gradients are the chain's bit for bit."""
+    import ep_tpu_torch.models.vit as pvit
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    torch.manual_seed(0)
+    cfg = pvit.ViTConfig(embed_dim=128, depth=1, num_heads=2, init_values=1.0,
+                         mlp_type="swiglu", dtype=torch.bfloat16)
+    blk = pvit.Block(cfg).to(dev)
+    with torch.no_grad():
+        blk.ls1.gamma.normal_(1.0, 0.05)
+        blk.ls2.gamma.normal_(1.0, 0.05)
+    x = _rand((2, 261, 128), dev, seed=86)
+    outs, grads = [], []
+    for route in ("as chosen", "chain"):
+        if route == "chain":
+            monkeypatch.setattr(pvit, "takes_ls_kernel", lambda *a: False)
+        reset_launches()
+        with torch.no_grad():
+            outs.append(blk(x))
+        assert LAUNCHES["ls_residual"] == (2 if route == "as chosen" else 0)
+        blk.zero_grad()
+        xg = x.clone().requires_grad_(True)
+        reset_launches()
+        blk(xg).float().sum().backward()
+        assert LAUNCHES["ls_residual"] == 0
+        grads.append((xg.grad, blk.ls1.gamma.grad, blk.ls2.gamma.grad))
+    assert torch.equal(*outs)
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 def _bf16_steps(out, ref):
