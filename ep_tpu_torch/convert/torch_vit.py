@@ -10,6 +10,9 @@ the ``nn.Linear``/``nn.Conv2d`` layouts, so the conversion is:
   * OpenCLIP's names (``conv1``, ``class_embedding``,
     ``positional_embedding``, ``ln_pre``, ``transformer.resblocks.{i}``,
     ``ln_post``, ``proj``) mapped to timm's (:func:`_remap_openclip`);
+  * transformers' SigLIP vision tower (``SiglipVisionModel``, or a whole
+    ``SiglipModel``'s ``vision_model.``) mapped to timm's
+    (:func:`_remap_siglip`), its MAP head dropped;
   * CAPI's and DINOv3's ``storage_tokens`` and DINOv2's ``register_tokens``
     into ``reg_token``;
   * DINOv3's ``mlp.w1`` and ``mlp.w2`` concatenated into ``mlp.w12``, and
@@ -112,12 +115,56 @@ def _remap_openclip(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _remap_siglip(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """transformers' ``SiglipVisionTransformer`` keys -> timm's: the patch
+    embedding's ``Conv2d``, the position embedding's (patches, D) table as
+    (1, patches, D), ``self_attn.{q,k,v}_proj`` as split q/k/v (concatenated
+    into ``attn.qkv`` below), ``out_proj``, ``layer_norm1/2``, ``mlp.fc1/2``
+    and ``post_layernorm``. A whole ``SiglipModel``'s text tower and its
+    ``logit_scale`` and ``logit_bias`` are not the vision tower's."""
+    if any(k.startswith("vision_model.") for k in sd):
+        sd = {k[len("vision_model."):]: v for k, v in sd.items()
+              if k.startswith("vision_model.")}
+    top = {"embeddings.patch_embedding.weight": "patch_embed.proj.weight",
+           "embeddings.patch_embedding.bias": "patch_embed.proj.bias",
+           "post_layernorm.weight": "norm.weight",
+           "post_layernorm.bias": "norm.bias"}
+    block = {"layer_norm1": "norm1", "layer_norm2": "norm2",
+             "self_attn.q_proj": "attn.q", "self_attn.k_proj": "attn.k",
+             "self_attn.v_proj": "attn.v", "self_attn.out_proj": "attn.proj",
+             "mlp.fc1": "mlp.fc1", "mlp.fc2": "mlp.fc2"}
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("head."):
+            # the MAP head (probe, attention, layernorm, mlp): the model's own
+            # attentive pool over the patch tokens, which the probe head
+            # replaces; the tower's output is post_layernorm's
+            continue
+        if k == "embeddings.position_ids":  # a buffer of older checkpoints
+            continue
+        if k == "embeddings.position_embedding.weight":
+            out["pos_embed"] = v[None]
+        elif k in top:
+            out[top[k]] = v
+        elif k.startswith(("encoder.layers.", "layers.")):
+            # "layers." where the file's "encoder." prefix was stripped
+            _, i, *mod, leaf = k.removeprefix("encoder.").split(".")
+            mod = ".".join(mod)
+            out[f"blocks.{i}.{block[mod]}.{leaf}" if mod in block else k] = v
+        else:
+            out[k] = v
+    return out
+
+
 def _to_port_names(sd: Dict[str, torch.Tensor], depth: int
                    ) -> Dict[str, torch.Tensor]:
     """Every supported layout's names -> the port's (timm's)."""
     if any(k.startswith("transformer.resblocks.") or k == "class_embedding"
            for k in sd):
         sd = _remap_openclip(sd)
+    if any(k.startswith(("vision_model.", "embeddings.patch_embedding."))
+           for k in sd):
+        sd = _remap_siglip(sd)
     sd = dict(sd)
     for name in ("storage_tokens", "register_tokens"):  # CAPI, DINOv2
         if name in sd:

@@ -71,6 +71,20 @@
 //   the producer 24 (384 threads: 168 each at launch, 18,432 registers moved
 //   each way), and a K/V stage of 32 KB leaves room for 5 stages beside two
 //   query buffers of 32 KB.
+// Head width 72 (SigLIP2 SO400M/14: T=729, 16 heads; 144 bytes a row, not a
+//   multiple of wgmma's 16-column K step) keeps width 80's layout: every tile
+//   is the same two boxes, columns 0..63 and a 16-column box from column 64
+//   on, so the second box also holds the row's next 8 columns (the next
+//   head's, k's or v's first, or, past the last v head, TMA's zero fill). The
+//   query fragment's columns 72..79 are zeroed in registers once they are
+//   read: the logits' fifth K step then adds q * 0 for those columns, exact
+//   zeros whatever finite values the key box holds there. A non-finite value
+//   in a neighbouring column (an Inf or NaN in another head's k or v of the
+//   same token) would make that product NaN, and with it this head's logits;
+//   such a row gives a non-finite output in its own head already. P V's
+//   N=16 product computes columns 64..79 and only the first 8 are stored.
+//   The kernel thus spends 80/72 of the minimum tensor work on the last K
+//   step and on the second P V product.
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -85,11 +99,11 @@ constexpr int BN = 64;      // keys of a tile
 constexpr float LOG2E = 1.4426950408889634f;
 
 // A block's shape and shared memory at head width DH: the ring, each stage
-// [K cols 0..63][V cols 0..63][K cols 64..DH)[V cols 64..DH), then two query
+// [K cols 0..63][V cols 0..63][K cols 64..][V cols 64..], then two query
 // buffers, each [Q0 of each consumer][Q1 of each]. Columns 0..63 are rows of
 // 128 bytes in the 128-byte swizzle (1024-byte aligned); the 16 columns past
-// them (DH = 80) rows of 32 bytes in the 32-byte swizzle, the 64 past them
-// (DH = 128) rows of 128 bytes in the 128-byte swizzle.
+// them (DH = 72 and 80) rows of 32 bytes in the 32-byte swizzle, the 64 past
+// them (DH = 128) rows of 128 bytes in the 128-byte swizzle.
 template <int DH>
 struct Flash {
   static constexpr bool WIDE = DH == 128;       // a second 64-column box
@@ -97,11 +111,12 @@ struct Flash {
   static constexpr int THREADS = 128 * (NC + 1);  // and one producer warpgroup
   static constexpr int REGS = WIDE ? 240 : 160;   // a consumer thread's
   static constexpr int STAGES = WIDE ? 5 : 7;   // key tiles in flight
-  static constexpr int R1 = DH - 64;            // columns past 64: 0, 16, 64
+  static constexpr int R1 = DH - 64;            // columns past 64: 0, 8, 16, 64
+  static constexpr int W1 = WIDE ? 64 : (R1 > 0 ? 16 : 0);  // their box's
   static constexpr int O1 = WIDE ? 32 : 8;      // their accumulators a thread
   static constexpr int K0 = BN * 128;           // bytes of a key tile, cols < 64
-  static constexpr int K1 = BN * R1 * 2;        // and past 64
-  static constexpr int Q0 = BQ * 128, Q1 = BQ * R1 * 2;
+  static constexpr int K1 = BN * W1 * 2;        // and past 64
+  static constexpr int Q0 = BQ * 128, Q1 = BQ * W1 * 2;
   static constexpr int STAGE = 2 * (K0 + K1);   // K and V
   static constexpr int QBUF = NC * (Q0 + Q1);   // the consumers' query rows
   static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * QBUF +
@@ -112,6 +127,8 @@ struct Flash {
   static constexpr bool BALANCED =
       NC * (REGS - LAUNCH_REGS) <= LAUNCH_REGS - 24;
 };
+static_assert(Flash<72>::SMEM <= MAX_SMEM && Flash<72>::BALANCED,
+              "kernel F fits a block at head width 72");
 static_assert(Flash<80>::SMEM <= MAX_SMEM && Flash<80>::BALANCED,
               "kernel F fits a block at head width 80");
 static_assert(Flash<128>::SMEM <= MAX_SMEM && Flash<128>::BALANCED,
@@ -184,7 +201,7 @@ attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
         for (int w = 0; w < groups; ++w) {
           tma_load_3d(q0_s(qpos.stage, w), &map_q0, q_full + qpos.stage,
                       h * DH, q0 + w * BQ, b);
-          if constexpr (L::R1 > 0)
+          if constexpr (L::W1 > 0)
             tma_load_3d(q1_s(qpos.stage, w), &map_q1, q_full + qpos.stage,
                         h * DH + 64, q0 + w * BQ, b);
         }
@@ -197,11 +214,11 @@ attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
           mbar_wait(empty + pos.stage, pos.phase ^ 1);
           mbar_expect_tx(bar, (with_v ? 2 : 1) * (L::K0 + L::K1));
           tma_load_3d(k0_s(pos.stage), &map_kv0, bar, D + h * DH, k0, b);
-          if constexpr (L::R1 > 0)
+          if constexpr (L::W1 > 0)
             tma_load_3d(k1_s(pos.stage), &map_kv1, bar, D + h * DH + 64, k0, b);
           if (with_v) {
             tma_load_3d(v0_s(pos.stage), &map_kv0, bar, 2 * D + h * DH, k0, b);
-            if constexpr (L::R1 > 0)
+            if constexpr (L::W1 > 0)
               tma_load_3d(v1_s(pos.stage), &map_kv1, bar, 2 * D + h * DH + 64,
                           k0, b);
           }
@@ -240,16 +257,23 @@ attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
     // fragments of the logits' 4 (+ 1) K steps: wgmma with A from shared
     // memory reads 4 KB a 64-column K step, the whole 128 bytes a clock of
     // shared memory at the tensor cores' rate.
-    unsigned qf[DH / 16][4];
+    unsigned qf[(DH + 15) / 16][4];
     load_head_rows<DH>(qf, q0_s(qpos.stage, wg), q1_s(qpos.stage, wg), 0, warp,
                        lane);
+    if constexpr (L::R1 == 8) {
+      // head width 72: the fifth K step's columns 8..15 (the head's 72..79,
+      // the row's next columns) are fragment registers 2 and 3
+      qf[4][2] = 0u;
+      qf[4][3] = 0u;
+    }
     release(q_empty + qpos.stage);
     qpos.advance(2);
 
     // Thread (warp, g, t) holds rows 16*warp + g and + 8 of the warpgroup's
     // 64: the logits in s[4j], s[4j+1] and s[4j+2], s[4j+3] at keys 8j + 2t
     // and + 1 of the tile, o0 the same for head columns 8j + 2t (j < 8), o1
-    // for columns 64 + 8j + 2t (j < R1 / 8); m and l: the rows' running max
+    // for columns 64 + 8j + 2t (j < W1 / 8; those with j < R1 / 8 are the
+    // head's and are stored); m and l: the rows' running max
     // times coef*log2(e) and this thread's share of the sum of exponentials.
     float s[BN / 2], o0[32], o1[L::O1];
     unsigned p[BN / 16][4];
@@ -265,7 +289,7 @@ attn_flash_kernel(const __grid_constant__ CUtensorMap map_q0,
     // serialises every wgmma of the kernel. The keys past T are masked
     // instead.
     // The second box's descriptor: the 128-byte swizzle at head width 128,
-    // the 32-byte one at 80.
+    // the 32-byte one at 72 and 80.
     auto desc1 = [&](const unsigned char* p) {
       if constexpr (L::WIDE)
         return smem_desc(p);
@@ -441,8 +465,8 @@ int launch(const void* qkv, void* out, int B, int T, int H, float coef,
            cudaStream_t s) {
   using L = Flash<DH>;
   // boxes of BQ query rows or BN keys, columns 0..63 (128-byte swizzle) and,
-  // at DH = 80, 64..79 (32-byte swizzle), at DH = 128 64..127 (the first
-  // map, 64 columns on); DH = 64 reads no second box
+  // at DH = 72 and 80, 64..79 (32-byte swizzle), at DH = 128 64..127 (the
+  // first map, 64 columns on); DH = 64 reads no second box
   CUtensorMap mq[2], mkv[2];
   int rc = make_head_maps(mq, qkv, DH, B, T, 3 * H * DH, BQ);
   if (rc == 0) rc = make_head_maps(mkv, qkv, DH, B, T, 3 * H * DH, BN);
@@ -461,15 +485,16 @@ int launch(const void* qkv, void* out, int B, int T, int H, float coef,
 }  // namespace
 }  // namespace ep
 
-// qkv (B, T, 3*H*Dh) bf16 -> out (B, T, H*Dh) bf16, Dh 64, 80 or 128;
+// qkv (B, T, 3*H*Dh) bf16 -> out (B, T, H*Dh) bf16, Dh 64, 72, 80 or 128;
 // coef = scale/temperature > 0.
 EP_EXPORT int ep_attn_flash(const void* qkv, void* out, int B, int T, int H,
                             int head_dim, float coef, void* stream) {
   if (T < 1 || B < 1 || H < 1 || !(coef > 0.f) ||
-      (head_dim != 64 && head_dim != 80 && head_dim != 128))
+      (head_dim != 64 && head_dim != 72 && head_dim != 80 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return ep::launch<64>(qkv, out, B, T, H, coef, s);
+  if (head_dim == 72) return ep::launch<72>(qkv, out, B, T, H, coef, s);
   if (head_dim == 80) return ep::launch<80>(qkv, out, B, T, H, coef, s);
   return ep::launch<128>(qkv, out, B, T, H, coef, s);
 }

@@ -704,19 +704,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
 }
 
 // ---- attention tiles ----------------------------------------------------------
-// Tiles of 64 rows of one head of width DH (64, 80 or 128), as the attention
-// kernels stage them: columns 0..63 as rows of 128 bytes in the 128-byte
-// swizzle at s0, columns 64..DH-1 at s1: as rows of 32 bytes in the 32-byte
-// swizzle (DH = 80), or as a second box of 128-byte rows in the 128-byte
-// swizzle (DH = 128, kernel F only). Both swizzles repeat every 8 rows, so
-// any tile that starts on a multiple of 8 rows of a 1024-byte aligned array
-// reads the same way.
+// Tiles of 64 rows of one head of width DH (64, 72, 80 or 128), as the
+// attention kernels stage them: columns 0..63 as rows of 128 bytes in the
+// 128-byte swizzle at s0, columns 64..79 at s1 as rows of 32 bytes in the
+// 32-byte swizzle (DH = 80; at DH = 72, kernel F only, the box is 16 columns
+// wide too and its last 8 are the next columns of the row), or as a second
+// box of 128-byte rows in the 128-byte swizzle (DH = 128, kernel F only).
+// Both swizzles repeat every 8 rows, so any tile that starts on a multiple of
+// 8 rows of a 1024-byte aligned array reads the same way.
 
-// The A fragments of rows row0 + 16*warp .. + 15 for the DH / 16 K steps of
-// a product over the head's columns: 16-byte unit u of row r lies at
+// The A fragments of rows row0 + 16*warp .. + 15 for the ceil(DH / 16) K
+// steps of a product over the head's columns: 16-byte unit u of row r lies at
 // u ^ (r % 8) in a 128-byte row, at u ^ (r / 4 % 2) in a 32-byte row.
 template <int DH>
-__device__ __forceinline__ void load_head_rows(unsigned (&f)[DH / 16][4],
+__device__ __forceinline__ void load_head_rows(unsigned (&f)[(DH + 15) / 16][4],
                                                const unsigned char* s0,
                                                const unsigned char* s1,
                                                int row0, int warp, int lane) {
@@ -767,7 +768,7 @@ __device__ __forceinline__ void stage_head_rows(unsigned char* s0,
 }
 
 // The maps of one head's tiles in a (depth, rows, cols) bf16 tensor: boxes of
-// box_rows x 64 columns in the 128-byte swizzle and, for DH = 80, of
+// box_rows x 64 columns in the 128-byte swizzle and, for DH = 72 and 80, of
 // box_rows x 16 in the 32-byte swizzle (for DH = 64 the second is a copy of
 // the first and is never used; for DH = 128 it is a copy of the first, read
 // 64 columns further on). Returns 0 or a cudaError_t.
@@ -781,7 +782,7 @@ inline int make_head_maps(CUtensorMap (&maps)[2], const void* ptr, int DH,
     maps[1] = maps[0];
     return 0;
   }
-  return make_map_3d(maps + 1, ptr, depth, rows, cols, box_rows, DH - 64,
+  return make_map_3d(maps + 1, ptr, depth, rows, cols, box_rows, 16,
                      CU_TENSOR_MAP_SWIZZLE_32B);
 }
 

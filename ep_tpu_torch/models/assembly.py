@@ -28,7 +28,7 @@ from .mae import (MAEConfig, MaskedAutoencoderViT, mae_vit_base_patch16,
 from .vit import (VIT_CONFIGS, ViTConfig, VisionTransformer, remap_features,
                   select_features, simmim_vit_base_patch16)
 from .wrappers import (capi_config, dinov2_config, dinov3_config,
-                       openclip_vit_config)
+                       openclip_vit_config, siglip2_config)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "none": torch.float32, "float16": torch.bfloat16}
@@ -64,12 +64,30 @@ def build_backbone_config(cfg: TrainConfig) -> Union[ViTConfig, MAEConfig]:
         return dinov2_config(name, cfg.image_size, dtype).replace(**flags)
     if name.startswith("dinov3"):
         return dinov3_config(name, cfg.image_size, dtype).replace(**flags)
+    if name.startswith("siglip2"):
+        _check_siglip2_features(cfg.cls_features)
+        return siglip2_config(name, cfg.image_size, dtype).replace(**flags)
     if name not in VIT_CONFIGS:
         raise ValueError(f"unknown model {name}")
     extra = {}
     if "huge" in name:
         extra["class_token"] = not cfg.no_cls_token
     return VIT_CONFIGS[name](**extra).replace(**kw)
+
+
+def _check_siglip2_features(cls_features: str) -> None:
+    """SigLIP2's tower has neither [CLS] nor registers, so the feature modes
+    that read a class token (``cls``, the ``_all`` poolings, ``ca*``,
+    ``attn-*``) would read ``_finish``'s zero vector, or the first patch's
+    attention as the class token's: refused, for this family only, so that
+    the MAE-H tower without [CLS] keeps the JAX package's behaviour."""
+    mode = remap_features(cls_features)
+    if mode in ("cls", "both") or mode.startswith(("ca", "attn")):
+        raise ValueError(
+            f"--cls_features {cls_features}: SigLIP2 has no [CLS] token, and "
+            "its MAP head (the model's own attentive pool) is not ported; "
+            "probe its patch tokens with ep (or another attentive pooling), "
+            "or with pos, their mean (the gap mode)")
 
 
 def oracle_config(backbone_cfg: ViTConfig) -> ViTConfig:

@@ -168,7 +168,9 @@ class ViTConfig:
     init_values: Optional[float] = None  # LayerScale
     final_norm: str = "none"  # none | ln
     norm_eps: float = 1e-6
-    mlp_type: str = "gelu"  # gelu | swiglu | quick_gelu (OpenAI CLIP)
+    # gelu (erf in f32, tanh in bf16) | gelu_tanh (tanh at every precision:
+    # SigLIP) | swiglu | quick_gelu (OpenAI CLIP)
+    mlp_type: str = "gelu"
     pre_norm: bool = False  # OpenCLIP ln_pre
     proj_dim: Optional[int] = None  # OpenCLIP's cls projection
     dtype: torch.dtype = torch.bfloat16  # compute dtype; parameters are f32
@@ -357,7 +359,10 @@ class RelPosBias(nn.Module):
 
 class PatchEmbed(nn.Module):
     """Conv2d(kernel = stride = patch) computed as reshape plus one matmul,
-    which is exact when the stride equals the kernel."""
+    which is exact when the stride equals the kernel. An image side that is
+    not a multiple of the patch is cropped to its first floor(side / patch)
+    patches, the pixels a "valid" convolution reads (SigLIP at 384 px with
+    patch 14: 27 patches a side, the last 6 rows and columns dropped)."""
 
     def __init__(self, patch_size: int, in_chans: int, dim: int):
         super().__init__()
@@ -367,6 +372,8 @@ class PatchEmbed(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         B, H, W, C = x.shape  # NHWC
         p = self.patch_size
+        if H % p or W % p:
+            x = x[:, :H // p * p, :W // p * p]
         x = x.to(dtype).reshape(B, H // p, p, W // p, p, C)
         x = x.permute(0, 1, 3, 5, 2, 4).reshape(B, (H // p) * (W // p), C * p * p)
         w = self.proj.weight.to(dtype).reshape(self.proj.out_channels, -1)
@@ -467,8 +474,11 @@ class Mlp(nn.Module):
         self.act = act
         self.tp = None  # cut by hidden units: fc2 is row-parallel
         # exact (erf) GELU when computing in f32, tanh-approximate in bf16, as
-        # the JAX package does (its tanh error is far below bf16's step)
-        self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
+        # the JAX package does (its tanh error is far below bf16's step);
+        # "gelu_tanh" is the tanh GELU at every precision, a model's own
+        # activation (SigLIP's gelu_pytorch_tanh)
+        self.approximate = ("tanh" if act == "gelu_tanh"
+                            or dtype == torch.bfloat16 else "none")
 
     def forward(self, x):
         fc1 = self.fc1

@@ -1,5 +1,5 @@
 """Backbone configs of the hub-style families (DINOv2, DINOv3, CAPI,
-OpenCLIP).
+OpenCLIP, SigLIP2).
 
 Counterpart of ``ep_tpu/models/wrappers.py``, with the same numbers: each
 family is a ``ViTConfig`` of the one Vision Transformer, whose feature modes
@@ -20,6 +20,11 @@ in ``convert/torch_vit.py``.
   * CAPI: no [CLS]; ``cls`` is the register mean (``cls_from_registers``).
   * OpenCLIP: ln_pre, ln_post over all tokens, and the visual projection on
     the cls path only (``proj_dim``).
+  * SigLIP2 (the port's alone): no [CLS] and no registers, a learned
+    position embedding of one row a patch, the tanh GELU at every precision,
+    LayerNorm eps 1e-6 and ``post_layernorm`` over every token
+    (:func:`siglip2_config`). Its MAP head (the model's own attentive pool)
+    is not ported: the probe head pools the patch tokens.
 """
 from __future__ import annotations
 
@@ -102,3 +107,24 @@ def openclip_vit_config(name: str, image_size: int = 224,
                      norm_eps=1e-5, pre_norm=True, proj_dim=proj,
                      mlp_type="quick_gelu" if pretrain == "openai" else "gelu",
                      dtype=dtype)
+
+
+def siglip2_config(name: str, image_size: int = 384,
+                   dtype: torch.dtype = torch.bfloat16) -> ViTConfig:
+    """SigLIP2 SO400M/14's vision tower (google/siglip2-so400m-patch14-384,
+    transformers' ``SiglipVisionTransformer``): D=1152, depth 27, 16 heads
+    of 72, an MLP of hidden 4304 with ``gelu_pytorch_tanh``, biases on every
+    product, LayerNorm eps 1e-6, no [CLS], a learned position embedding with
+    a row for each of the image's patches, and a final LayerNorm
+    (``post_layernorm``). The patch embedding is a valid convolution: at 384
+    px, 27 patches a side, T=729. The hidden width is carried as
+    ``mlp_ratio`` 4304 / 1152, which ``int(embed_dim * mlp_ratio)`` reads
+    back as 4304."""
+    if name != "siglip2_so400m_patch14":
+        raise ValueError(f"unknown SigLIP2 model {name} "
+                         "(siglip2_so400m_patch14)")
+    d = 1152
+    return ViTConfig(
+        img_size=image_size, patch_size=14, embed_dim=d, depth=27,
+        num_heads=16, mlp_ratio=4304 / d, class_token=False, final_norm="ln",
+        norm_eps=1e-6, mlp_type="gelu_tanh", dtype=dtype)

@@ -8,8 +8,9 @@ or, beyond the sequence length B holds in registers, kernel F
 by TMA and write it at its column slice by TMA store: no head-split transpose
 and no (B,H,T,T) tensor in device memory. On CPU tensors they are
 :func:`attention_qkv_fused_ref` and :func:`attention_qkv_fused_bwd_ref`.
-Head widths 64 and 80 (ViT-H) are built for all three; F also takes 128
-(DINOv3 ViT-7B/16), which B and E are not built for.
+Head widths 64 and 80 (ViT-H) are built for all three; F also takes 72
+(SigLIP2 SO400M/14) and 128 (DINOv3 ViT-7B/16), which B and E are not built
+for.
 
 B and E are ``wgmma`` designs on the wrappers of ``csrc/hopper.cuh``, with
 persistent blocks of two consumer warpgroups and one TMA producer. B keeps a
@@ -66,7 +67,7 @@ def attn_route(T: int, head_dim: int, num_heads: int,
     or ``"flash"`` (kernel F).
 
     F takes the sequences past kernel B's limit, and every sequence at a
-    head width F is built for and B is not (128). ``variant="rowtile"``
+    head width F is built for and B is not (72, 128). ``variant="rowtile"``
     (``EP_TPU_ATTN_VARIANT=rowtile`` in the JAX package, an A/B knob) sends
     the short sequences to F too, but only where the JAX package's head-group
     route applies, a head width that does not divide 128 with the heads a

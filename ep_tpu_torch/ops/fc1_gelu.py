@@ -21,11 +21,12 @@ from . import LAUNCHES
 def takes_gelu_epilogue(device: torch.device, dtype: torch.dtype, act: str,
                         cut: bool, needs_grad: bool) -> bool:
     """Whether fc1 and its activation go to the epilogue: on the card, in
-    bf16 (the tanh GELU, as the JAX package computes it there), for GELU
-    (not QuickGELU), in a block not cut over a model axis, and where no
-    gradient is needed."""
+    bf16, for GELU (the tanh GELU, as the JAX package computes it there) or
+    the tanh GELU at every precision (``"gelu_tanh"``, SigLIP's), not
+    QuickGELU, in a block not cut over a model axis, and where no gradient
+    is needed."""
     return (device.type == "cuda" and dtype == torch.bfloat16
-            and act == "gelu" and not cut and not needs_grad)
+            and act in ("gelu", "gelu_tanh") and not cut and not needs_grad)
 
 
 def fc1_gelu(x: torch.Tensor, weight: torch.Tensor,

@@ -6,8 +6,9 @@ kernel (``attn_fused_pallas.py::_fwd_head_group_rowtile``). On CUDA tensors
 both are kernel F (``csrc/attn_flash.cu``): persistent blocks over (192-row
 query tile, head, image), K and V streamed by TMA through an mbarrier ring to
 three ``wgmma`` warpgroups (at head width 128, DINOv3's, 128-row tiles and
-two warpgroups), two sweeps over the keys so that the softmax is
-normalised before PV as in the TPU kernels. No (T, T) tensor in device or
+two warpgroups; at head width 72, SigLIP2's, width 80's tiles with the
+query's 8 rest columns zeroed), two sweeps over the keys so that the softmax
+is normalised before PV as in the TPU kernels. No (T, T) tensor in device or
 shared memory, and no head-split copies: the kernel reads the natural-layout
 (B, T, 3D) qkv tensor, as kernel B does.
 
@@ -26,16 +27,16 @@ import torch
 from . import LAUNCHES, check, use_kernel
 from ._build import call, stream_ptr
 
-HEAD_DIMS = (64, 80, 128)  # head widths csrc/attn_flash.cu is built for
+HEAD_DIMS = (64, 72, 80, 128)  # head widths csrc/attn_flash.cu is built for
 
 
 def flash_head_dim(shape: tuple, num_heads: int, scale: float,
                    temperature: float = 1.0) -> int:
     """The head width kernel F runs a (B, T, 3*H*Dh) qkv tensor at; raises
     for what it does not take: a last dimension that is not 3*H*Dh, an empty
-    batch or sequence, a head width other than 64, 80 or 128, or a non-positive
-    scale/temperature (the kernel takes each row's max of the logits before
-    scaling). Every T >= 1 is taken."""
+    batch or sequence, a head width other than 64, 72, 80 or 128, or a
+    non-positive scale/temperature (the kernel takes each row's max of the
+    logits before scaling). Every T >= 1 is taken."""
     B, T, C = shape
     if num_heads < 1 or C % (3 * num_heads):
         raise ValueError(f"attn_flash: last dimension {C} is not 3 x "

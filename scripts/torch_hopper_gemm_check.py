@@ -16,10 +16,10 @@ tests/test_torch_cuda.py's; chip_smoke.py runs these checks too): kernels A
 forward and gradients (A, B, C, E, LN1's gradient); the int8 fc1 (codes and
 scales equal bit for bit), fc2 (equal bit for bit in its tier's bias order)
 and the whole int8 half in the tier ops/mlp_int8.py::plan gives it; the
-attention kernels F (attn_flash; at head width 128 too), B (attn_core) and
-E (attn_core_bwd,
-twice, equal bit for bit) and the tiled backward past E's limit; kernel D
-(ep_pool) and the int8 ln_quant, twice, equal bit for bit; kernel G
+attention kernels F (attn_flash; at head widths 72 and 128 too), B
+(attn_core) and E (attn_core_bwd, twice, equal bit for bit) and the tiled
+backward past E's limit; kernel D (ep_pool) and the int8 ln_quant, twice,
+equal bit for bit; kernel G
 (ep_pool_proj), D and G also at 128 queries;
 LN1's gradient (ln1_apply, ln1_bwd) at fine-tuning's ViT-B/16 and ViT-H/14
 shapes; SwiGLU's gate at DINOv2-g/14's probe shape; fc1 with its GELU in
@@ -492,14 +492,15 @@ def check_half(rng, timed) -> None:
 def check_flash(rng, timed) -> None:
     """Kernel F against kernel B's plain version at temperature 1.5 (with the
     bound on the elements past one bf16 step), timed beside SDPA and its
-    bound at the paths' shapes (448 px's, the row-tiled ViT-H at 224, and
-    DINOv3 ViT-7B/16's head width 128 at 448 px and at a short T)."""
+    bound at the paths' shapes (448 px's, the row-tiled ViT-H at 224,
+    DINOv3 ViT-7B/16's head width 128 at 448 px and at a short T, and
+    SigLIP2 SO400M/14's head width 72 at 384 px)."""
     from ep_tpu_torch.ops.attn_fused import attention_qkv_fused_ref
     from ep_tpu_torch.ops.flash_attn import attn_flash
     print("F attn_flash")
     for b, t, h, dh in ((64, 1025, 16, 80), (64, 785, 12, 64),
                         (128, 257, 16, 80), (8, 789, 32, 128),
-                        (2, 201, 32, 128)):
+                        (2, 201, 32, 128), (128, 729, 16, 72)):
         qkv = rand(rng, (b, t, 3 * h * dh))
         sc = dh ** -0.5
         row = close("attn_flash", (b, t, h, dh), attn_flash(qkv, h, sc, 1.5),

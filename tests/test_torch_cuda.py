@@ -106,18 +106,48 @@ def test_attn_flash(dev, B, T, H, Dh):
     _close_in_steps(out, attention_qkv_fused_ref(qkv, H, Dh ** -0.5, 1.5))
 
 
+@pytest.mark.parametrize("T", [1, 16, 63, 64, 65, 256, 729, 1025])
+def test_attn_flash_at_head_width_72(dev, T):
+    """Kernel F at SigLIP2's head width 72, 3 images of 16 heads, against the
+    plain version head by head. F reads each head through width 80's boxes,
+    so the 8 columns past a head (the next head's first 8, k's or v's first
+    8 past the last head, the row's end past the last v head) come in with
+    it; here q's and k's of every odd head are large (16 times the rest),
+    so that a rest column left in the logits (a query fragment not zeroed)
+    would move the even heads far past the bound; a rest column stored
+    into the output would overwrite the next head's first 8. Only q's and
+    k's are scaled: scaled v columns would scale the odd heads' rounding of
+    their probabilities past the bound too. Two calls equal bit for bit."""
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    from ep_tpu_torch.ops.attn_fused import attention_qkv_fused_ref
+    from ep_tpu_torch.ops.flash_attn import attn_flash
+    B, H, Dh = 3, 16, 72
+    qkv = _rand((B, T, 3, H, Dh), dev, seed=73)
+    qkv[:, :, :2, 1::2, :8] *= 16
+    qkv = qkv.reshape(B, T, 3 * H * Dh)
+    reset_launches()
+    out = attn_flash(qkv, H, Dh ** -0.5, 1.5)
+    assert dict(LAUNCHES) == _counts(attn_flash=1)
+    assert torch.equal(out, attn_flash(qkv, H, Dh ** -0.5, 1.5))
+    ref = attention_qkv_fused_ref(qkv, H, Dh ** -0.5, 1.5)
+    for h in range(H):
+        cols = slice(h * Dh, (h + 1) * Dh)
+        _close_in_steps(out[..., cols], ref[..., cols])
+
+
 @pytest.mark.parametrize("T, H, Dh, variant, kernel", [
     (272, 2, 80, None, "attn_core"), (273, 2, 80, None, "attn_flash"),
     (273, 2, 64, None, "attn_flash"), (1025, 2, 64, None, "attn_flash"),
     (4100, 1, 80, None, "attn_flash"), (257, 16, 80, "rowtile", "attn_flash"),
     (197, 12, 64, "rowtile", "attn_core"), (257, 16, 80, "env", "attn_flash"),
-    (201, 4, 128, None, "attn_flash"), (21, 2, 128, None, "attn_flash")])
+    (201, 4, 128, None, "attn_flash"), (21, 2, 128, None, "attn_flash"),
+    (256, 16, 72, None, "attn_flash"), (729, 16, 72, None, "attn_flash")])
 def test_attention_core_takes_b_or_f_for_every_t(dev, monkeypatch, T, H, Dh,
                                                  variant, kernel):
     """On a CUDA tensor ``attention_core`` raises for no T at head widths 64
     and 80: kernel B up to its limit, kernel F beyond, and F at the short
     ViT-H shape with the row-tiled variant (given, or read from the
-    environment); at head width 128 F at every T."""
+    environment); at head widths 72 and 128 F at every T."""
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.attn_fused import (attention_core,
                                              attention_qkv_fused_ref)
@@ -210,6 +240,38 @@ def test_dinov3_blocks_on_the_card(dev):
     assert ft.backbone.blocks[0].attn.qkv.weight.grad is not None
 
 
+def test_siglip2_probe_step_launches(dev):
+    """One probe step of the benchmark's SigLIP2 SO400M/14 cell, at its
+    published widths and 384 px, batch 4, as ``benchmark.run`` drives it:
+    every block takes A, F at head width 72 and C, and fc1's GELU epilogue;
+    D pools the 729 patch tokens once; LARS is one pair of launches; no B,
+    E, SwiGLU gate, RoPE or LayerScale pass. The loss is finite."""
+    import json
+    from pathlib import Path
+
+    from benchmark.program import Program
+    from benchmark.weights import draw_batches, draw_weights
+    from ep_tpu_torch.ops import LAUNCHES, reset_launches
+    root = Path(__file__).resolve().parent.parent / "benchmark"
+    cfg = json.loads((root / "configs" / "siglip2-so400m14-ep32.json")
+                     .read_text())
+    t = {**json.loads((root / "traffic" / "probe-b128-384px.json")
+                      .read_text()), "batch": 4}
+    W = draw_weights(cfg, 384, 5, dev, frozen_encoder=True)
+    images, labels = draw_batches(cfg, t, 5, dev)
+    prog = Program(cfg, t, W, dev)
+    del W
+    first = cfg["optimizer"]["schedule"]["start_step"]
+    prog.step(first, images[0], labels[0])  # LARS's state is made here
+    reset_launches()
+    loss = prog.step(first + 1, images[1], labels[1])["loss"]
+    assert dict(LAUNCHES) == _counts(ln_qkv_gemm=27, attn_flash=27,
+                                     proj_residual_gemm=27,
+                                     fc1_gelu_epilogue=27, ep_pool=1,
+                                     lars_norms=1, lars_apply=1)
+    assert bool(torch.isfinite(loss))
+
+
 def test_flash_attention_on_split_heads(dev):
     """The JAX module's public function: pre-split (B,H,T,Dh) tensors are
     packed into the natural layout and go through kernel F; the backward is
@@ -280,9 +342,10 @@ def test_supercell_and_its_gemms(dev, B, T, D):
     (1, 5, 768), (3, 197, 768), (1, 100, 1024), (3, 257, 1024), (1, 64, 1280),
     (2, 257, 1280), (1, 1025, 1280), (2, 37, 64), (1, 128, 768),
     (8, 197, 768), (3, 197, 1024), (8, 197, 1024), (3, 257, 1280),
-    (3, 1025, 1280)])
+    (3, 1025, 1280), (1, 5, 1152), (3, 729, 1152), (128, 729, 1152)])
 def test_gemm_kernels_at_every_width_and_ragged_m(dev, B, T, D):
-    """Kernels A and C alone at the three model widths (and K = 64), with
+    """Kernels A and C alone at the model widths (768, 1024, 1152 for SigLIP2
+    with A's N = 3456, 1280; and K = 64), with
     M = B*T smaller than one 128-row panel, equal to one, and ragged past
     several: TMA zero-fills the rows it reads past M and drops the rows it
     would store there."""
@@ -504,20 +567,23 @@ def _bf16_steps(out, ref):
     return (out - ref).abs() / step
 
 
-@pytest.mark.parametrize("rows, D", [(2 * 197, 768), (257, 1280), (5, 768)],
-                         ids=["vit-b", "vit-h", "ragged"])
-def test_fc1_gelu_epilogue_against_the_old_route(dev, rows, D):
-    """``Mlp`` under ``no_grad`` at ViT-B's and ViT-H's MLP widths: one
-    epilogue call, and both its hidden tensor and its output (after fc2) no
-    further from an f32 reference than the old route's (``F.linear``, then
-    ``F.gelu(approximate="tanh")``) plus one bf16 step. The epilogue rounds
-    the activation once, the old route twice; the share of hidden elements
-    equal bit for bit is printed."""
+@pytest.mark.parametrize("rows, D, hidden, act", [
+    (2 * 197, 768, 3072, "gelu"), (257, 1280, 5120, "gelu"),
+    (5, 768, 3072, "gelu"), (729, 1152, 4304, "gelu_tanh")],
+    ids=["vit-b", "vit-h", "ragged", "siglip2"])
+def test_fc1_gelu_epilogue_against_the_old_route(dev, rows, D, hidden, act):
+    """``Mlp`` under ``no_grad`` at ViT-B's, ViT-H's and SigLIP2's MLP widths
+    (SigLIP2: hidden 4304, so fc2's K is no multiple of 64, with its tanh
+    GELU at every precision): one epilogue call, and both its hidden tensor
+    and its output (after fc2) no further from an f32 reference than the old
+    route's (``F.linear``, then ``F.gelu(approximate="tanh")``) plus one
+    bf16 step. The epilogue rounds the activation once, the old route twice;
+    the share of hidden elements equal bit for bit is printed."""
     from ep_tpu_torch.models.vit import Mlp
     from ep_tpu_torch.ops import LAUNCHES, reset_launches
     from ep_tpu_torch.ops.fc1_gelu import fc1_gelu
     torch.manual_seed(D)
-    mlp = Mlp(D, 4 * D, torch.bfloat16).to(dev).requires_grad_(False)
+    mlp = Mlp(D, hidden, torch.bfloat16, act).to(dev).requires_grad_(False)
     x = _rand((1, rows, D), dev, seed=D)
     w1, b1 = mlp.fc1.weight.bfloat16(), mlp.fc1.bias.bfloat16()
     reset_launches()
@@ -538,7 +604,7 @@ def test_fc1_gelu_epilogue_against_the_old_route(dev, rows, D):
         old_err = float(_bf16_steps(old, ref).max())
         assert new_err <= old_err + 1, (new_err, old_err)
     same = float((h == h_old).float().mean())
-    print(f"fc1_gelu ({rows}, {D} -> {4 * D}): {same:.4f} of the hidden equal "
+    print(f"fc1_gelu ({rows}, {D} -> {hidden}): {same:.4f} of the hidden equal "
           "bit for bit to the old route's")
 
 
@@ -738,7 +804,8 @@ def test_supercell_gradients(dev, B, T, D, H):
 
 @pytest.mark.parametrize("B, N, C, Q", [
     (4, 196, 768, 32), (3, 37, 128, 4), (2, 256, 1280, 32),
-    (2, 1024, 1280, 32)])  # ViT-H/14 at 448 px: a cluster of 16 blocks an image
+    (2, 1024, 1280, 32),  # ViT-H/14 at 448 px: a cluster of 16 blocks an image
+    (128, 729, 1152, 32)])  # SigLIP2 SO400M/14 at 384 px, the cell's batch
 def test_ep_pool_forward_and_grad(dev, B, N, C, Q):
     from ep_tpu_torch.ops.pool_attn import ep_pool_attend, ep_pool_attend_ref
     q = _rand((Q, C), dev, C ** -0.5, seed=8)
@@ -763,11 +830,12 @@ def test_ep_pool_forward_and_grad(dev, B, N, C, Q):
 # count the paths give it (EP-4 on a 128-wide model, EP-32 at ViT-B, ViT-L
 # and ViT-H), on the patch tokens past one prefix token ([CLS]); then
 # ep_all's 197 tokens with no prefix, DINOv2-L's 256 past [CLS] and 4
-# registers, and DINOv2-g's width (cq 48).
+# registers, DINOv2-g's width (cq 48) and SigLIP2's 729 with no prefix (cq
+# 36).
 POOL_EDGES = [(2, n, c, q, 1) for n in (1, 37, 63, 64, 65, 196, 256, 1024)
               for c, q in ((128, 4), (768, 32), (1024, 32), (1280, 32))] + [
                   (2, 197, 768, 32, 0), (2, 256, 1024, 32, 5),
-                  (2, 256, 1536, 32, 1)]
+                  (2, 256, 1536, 32, 1), (2, 729, 1152, 32, 0)]
 
 
 @pytest.mark.parametrize("B, N, C, Q, prefix", POOL_EDGES)

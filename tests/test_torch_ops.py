@@ -324,12 +324,14 @@ def test_gemm_kernels_refuse_other_widths(N, K, ln, what):
 @pytest.mark.parametrize("B, T, H, Dh", [
     (1, 1, 1, 64), (2, 63, 2, 80), (1, 65, 12, 64), (1, 129, 16, 80),
     (1, 257, 16, 80), (64, 785, 12, 64), (64, 1025, 16, 80), (1, 4097, 1, 64),
-    (8, 789, 32, 128), (2, 201, 32, 128), (1, 1, 1, 128)])
+    (8, 789, 32, 128), (2, 201, 32, 128), (1, 1, 1, 128),
+    (128, 729, 16, 72), (1, 1, 1, 72), (3, 65, 2, 72)])
 def test_flash_takes_every_t_at_both_head_widths(B, T, H, Dh):
     """What kernel F's wrapper accepts after its redesign: every T >= 1 (the
     last key tile narrows to 16, 32 or 64 columns, query rows come in 64-row
-    units) at head widths 64 and 80, the widths of its two-box tiles, and
-    128 (DINOv3's: two 64-column boxes)."""
+    units) at head widths 64 and 80, the widths of its two-box tiles, 72
+    (SigLIP2's: width 80's boxes, the rest columns zeroed) and 128 (DINOv3's:
+    two 64-column boxes)."""
     from ep_tpu_torch.ops.flash_attn import flash_head_dim
     assert flash_head_dim((B, T, 3 * H * Dh), H, Dh ** -0.5, 1.5) == Dh
 
